@@ -25,9 +25,9 @@ code != 0, no final ``ok`` line) if any phase fails:
 7. prints one JSON line with every kernel's numbers, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
-``--block-sweep`` also times the kernel at every compiled searches-per-block
-choice; ``--profile`` prints the device time by kernel and the device's idle
-share over a few main-path moves. Exits non-zero when CUDA is unavailable.
+``--profile`` also prints the device time by kernel, the device kernels
+launched per move and the device's idle share over a few main-path moves.
+Exits non-zero when CUDA is unavailable.
 """
 
 from __future__ import annotations
@@ -117,7 +117,19 @@ def root_gap(visits_a, visits_b, q_a, q_b) -> str:
     return f"kernel {a} plain {b}; top-two root Q gap kernel {gaps[0]:.3g} plain {gaps[1]:.3g}"
 
 
-def check_whole_search(device, sweep: bool) -> dict:
+def search_flops(h: int, nb: int, a: int, k: int, searches: int, sims: int) -> float:
+    """FLOP the searches need: each simulation expands through one transition,
+    a fuse layer, a tower, a head layer and a second tower (2 (1 + 2 nb) + 2
+    dense h x h layers), plus that transition's heads. The cheaper heads are
+    counted (reward, value and action logits after g -> f: h (a + 2) against
+    q and chance logits after phi -> psi: h (k + 1)), so this is a lower bound
+    whichever mix of parents the run expands."""
+    layers = 2 * (1 + 2 * nb) + 2
+    per_sim = 2.0 * (layers * h * h + h * min(a + 2, k + 1))
+    return per_sim * searches * sims
+
+
+def check_whole_search(device) -> dict:
     config, cfg, network, packed, roots = full_width_inputs(device)
     h, nb, s = config.hidden_size, config.num_residual_blocks, cfg.num_simulations
     visits, qvals, value = sk.whole_search(*roots, packed, cfg)
@@ -146,8 +158,7 @@ def check_whole_search(device, sweep: bool) -> dict:
 
     ms = cuda_ms(lambda: sk.whole_search(*roots, packed, cfg), reps=5)
     plain_ms = cuda_ms(lambda: sk.whole_search_reference(*roots, packed, cfg), reps=3, warmup=0)
-    n_layers = 4 * (1 + 2 * nb) + 4
-    flops = 2.0 * n_layers * h * h * BATCH * s
+    flops = search_flops(h, nb, cfg.num_actions, max(cfg.num_actions, cfg.codebook_size), BATCH, s)
     weight_bytes = sum(t.numel() * t.element_size() for t in packed[:7])
     io_bytes = sum(t.numel() * 4 for t in roots) + 3 * visits.numel() * 4
     card = sku(torch.cuda.get_device_name(0))
@@ -156,12 +167,8 @@ def check_whole_search(device, sweep: bool) -> dict:
     print(
         f"whole_search: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {max(op_ms, byte_ms):.3f} ms "
         f"({flops:.3g} FLOP at {FP32_TFLOPS[card]} TFLOP/s FP32 ({card}); {weight_bytes + io_bytes} B), "
-        f"B={BATCH} S={s} H={h} NB={nb} block_searches={sk.BLOCK_G}"
+        f"B={BATCH} S={s} H={h} NB={nb}"
     )
-    if sweep:
-        for g in (2, 4, 8, 16):
-            t = cuda_ms(lambda: sk.whole_search(*roots, packed, cfg, block_searches=g), reps=3)
-            print(f"whole_search sweep: block_searches={g} blocks={-(-BATCH // g)} {t:.3f} ms")
     return {
         "name": "whole_search",
         "route": "cuda",
@@ -211,15 +218,16 @@ def profile_moves(device, moves: int = 5) -> None:
     ]  # device kernels only: CPU-side ops also report the time of the kernels they launch
     events.sort(key=lambda e: -e.self_device_time_total)
     busy_us = sum(e.self_device_time_total for e in events)
+    calls = sum(e.count for e in events)
     print(f"profile: {moves} moves, wall {wall_us / 1e3:.2f} ms, device busy {busy_us / 1e3:.2f} ms "
-          f"(summed kernel time), idle share {max(0.0, 1 - busy_us / wall_us):.3f}")
+          f"(summed kernel time), idle share {max(0.0, 1 - busy_us / wall_us):.3f}, "
+          f"{calls / moves:.1f} device kernels per move")
     for e in events[:12]:
         print(f"profile:   {e.self_device_time_total / 1e3 / moves:9.3f} ms/move  {e.count // moves:5d} calls/move  {e.key[:90]}")
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--block-sweep", action="store_true", help="also time every searches-per-block choice")
     parser.add_argument("--profile", action="store_true", help="also profile a few main-path moves")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -238,7 +246,7 @@ def main() -> None:
     seconds = _build.build_all(verbose=True)
     print(json.dumps({"kernels_built": list(seconds), "build_s": round(time.perf_counter() - t0, 3)}))
 
-    kernels = {"whole_search": check_whole_search(device, args.block_sweep)}
+    kernels = {"whole_search": check_whole_search(device)}
     check_small_evaluation(device)
 
     # ---- main path: greedy evaluation at the full preset on the card
@@ -260,7 +268,8 @@ def main() -> None:
     print(
         f"main path: {BATCH} games, mean reward {stats['mean_reward']:.1f}, mean length {stats['mean_length']:.1f}, "
         f"{moves_played} moves in {wall:.2f} s: {total_moves / wall:.1f} game-moves/s, "
-        f"{1e3 * wall / max(moves_played, 1):.2f} ms per move ({kernels['whole_search']['ms']:.2f} ms of it kernel)"
+        f"{1e3 * wall / max(moves_played, 1):.2f} ms per move "
+        f"(the kernel alone at B={BATCH}: {kernels['whole_search']['ms']:.2f} ms, timed above)"
     )
     for name, count in launches.items():
         kernels[name]["launches"] = count

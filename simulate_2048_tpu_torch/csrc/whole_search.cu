@@ -10,22 +10,22 @@
 // node and edge statistics. Root h/f, the prior softmax, noise and legality
 // masking stay outside, in PyTorch, as they do around the TPU kernel.
 //
-// What bounds it on an H100: the expansion's 4 * (1 + 2 NB) + 4 dense H x H
-// layers per simulation (88 at the full preset, 11.5 MFLOP per search and
-// simulation) in float32 without tensor cores, i.e. the 67 TFLOP/s FP32
-// rate, and behind it the rate at which each block can stream the 23 MB
-// weight pack from L2. 100 dependent simulations leave no parallelism but
-// the batch.
+// What bounds it on an H100: the dense H x H layers of the expansion in
+// float32 without tensor cores, i.e. the 67 TFLOP/s FP32 rate. A simulation
+// needs one transition, 2 (1 + 2 NB) + 2 layers (44 at the full preset,
+// 5.8 MFLOP per search and simulation); this kernel computes both, as the
+// TPU kernel does, so it does twice that work. Behind the FMA rate stands
+// the rate at which each block can stream the 23 MB weight pack from L2.
+// 100 dependent simulations leave no parallelism but the batch.
 //
 // Design. The TPU version keeps 128 searches' tree tables and all weights in
 // VMEM and reads rows by one-hot mask sums (no gather on the TPU). Neither
 // fits 227 KB of shared memory, so here:
-// - one thread block owns G searches (template parameter: 2, 4, 8 or 16)
-//   and loops over all simulations; blocks never communicate. Each block
-//   streams the whole weight pack from L2 once per simulation whatever G
-//   is, so small G buys blocks (SMs) at the price of L2 traffic: at B=256
-//   on an H100, G=2 (128 blocks) measured fastest, then 4, 8, 16
-//   (`python chip_smoke.py --block-sweep`);
+// - one thread block owns G = 2 searches and loops over all simulations;
+//   blocks never communicate. Each block streams the whole weight pack
+//   from L2 once per simulation whatever G is, so small G buys blocks (SMs)
+//   at the price of L2 traffic: at B=256 on an H100, G=2 (128 blocks)
+//   measured fastest, then 4, 8, 16 (PERF.md);
 // - tree tables live in global memory (allocated by the wrapper) and are
 //   read and written with plain indexed loads and stores: one warp per
 //   search in traversal (lane k = child slot k, warp reductions for the
@@ -35,7 +35,7 @@
 //   is a hand-written FP32 FMA product in which 2H threads each own one
 //   output row and one half of the input range, read the (in, out) weight
 //   matrix coalesced from global memory (shared across blocks through L2),
-//   and read the activations as broadcast float4s (float2s at G=2);
+//   and read the activations as broadcast float2s;
 // - LayerNorm uses eps 1e-6 and the two-pass variance, argmax breaks ties
 //   at the first index, and the arithmetic that selects edges uses
 //   correctly rounded intrinsics (no FMA contraction), so that it matches
@@ -50,6 +50,7 @@ namespace {
 constexpr float kNegInf = -1e9f;
 constexpr int kUnvisited = -1;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kSearchesPerBlock = 2;  // G
 
 struct Args {
   const float* root_h;  // (B, H)
@@ -196,6 +197,7 @@ __device__ void dense(const Args& a, int layer, int iv, const float* in, float* 
   const int len = H / 2;
   const int i0 = half * len;
   const float* __restrict__ w = a.hh + ((size_t)layer * H + i0) * H + o;
+  static_assert(G % 2 == 0, "activations are read as float2s");
   float acc[G];
 #pragma unroll
   for (int g = 0; g < G; ++g) acc[g] = 0.f;
@@ -213,24 +215,12 @@ __device__ void dense(const Args& a, int layer, int iv, const float* in, float* 
     }
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
-      if constexpr (G % 4 == 0) {
-        const float4* x4 = reinterpret_cast<const float4*>(in + (i0 + i + u) * G);
+      const float2* x2 = reinterpret_cast<const float2*>(in + (i0 + i + u) * G);
 #pragma unroll
-        for (int q = 0; q < G / 4; ++q) {
-          const float4 xv = x4[q];
-          acc[4 * q + 0] = fmaf(wr[u], xv.x, acc[4 * q + 0]);
-          acc[4 * q + 1] = fmaf(wr[u], xv.y, acc[4 * q + 1]);
-          acc[4 * q + 2] = fmaf(wr[u], xv.z, acc[4 * q + 2]);
-          acc[4 * q + 3] = fmaf(wr[u], xv.w, acc[4 * q + 3]);
-        }
-      } else {
-        const float2* x2 = reinterpret_cast<const float2*>(in + (i0 + i + u) * G);
-#pragma unroll
-        for (int q = 0; q < G / 2; ++q) {
-          const float2 xv = x2[q];
-          acc[2 * q + 0] = fmaf(wr[u], xv.x, acc[2 * q + 0]);
-          acc[2 * q + 1] = fmaf(wr[u], xv.y, acc[2 * q + 1]);
-        }
+      for (int q = 0; q < G / 2; ++q) {
+        const float2 xv = x2[q];
+        acc[2 * q + 0] = fmaf(wr[u], xv.x, acc[2 * q + 0]);
+        acc[2 * q + 1] = fmaf(wr[u], xv.y, acc[2 * q + 1]);
       }
     }
   }
@@ -558,7 +548,7 @@ int whole_search_launch(const float* root_h, const float* root_p, const float* r
                         const float* scal, const float* scal_b, float* visits, float* qvals, float* rootv,
                         void* workspace, int B, int H, int NB, int S, int K, int A, int P, float pb_c_init,
                         float pb_c_base, float discount, float temperature, int has_eps, float eps,
-                        float four_eps, float two_eps, int block_searches, void* stream) {
+                        float four_eps, float two_eps, void* stream) {
   if (B < 1 || H < 32 || H % 32 != 0 || 2 * H > 512 || K < 1 || K > 32 || A < 1 || A > K || S < 1 || P < 1 ||
       P > S + 1 || NB < 0) {
     return (int)cudaErrorInvalidValue;
@@ -608,19 +598,7 @@ int whole_search_launch(const float* root_h, const float* root_p, const float* r
   a.eps = eps;
   a.four_eps = four_eps;
   a.two_eps = two_eps;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (block_searches) {
-    case 2:
-      return launch<2>(a, st);
-    case 4:
-      return launch<4>(a, st);
-    case 8:
-      return launch<8>(a, st);
-    case 16:
-      return launch<16>(a, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return launch<kSearchesPerBlock>(a, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -13,7 +13,8 @@ H100 and how the design answers that.
   the packed tensors as the kernel computes them (two-pass LayerNorm).
 - :func:`whole_search` is the wrapper: on CPU tensors it runs the plain
   version, on CUDA tensors it launches the kernel or raises. It counts its
-  launches in ``LAUNCHES["whole_search"]``.
+  launches in ``LAUNCHES["whole_search"]``. A :class:`SearchWorkspace`
+  keeps its set-up across the calls of one evaluation.
 - :func:`run_search_kernel` is the drop-in for ``batched_run_mcts``: root
   h/f, priors, noise and legality masking in PyTorch, then one
   :func:`whole_search`.
@@ -38,9 +39,6 @@ from simulate_2048_tpu_torch.search.mcts import (
     search_tree,
 )
 
-# Searches per thread block (2, 4, 8 and 16 are compiled): 2 gives B/2 blocks,
-# the fastest at B=256 on an H100 (PERF.md).
-BLOCK_G = 2
 LAUNCHES = {"whole_search": 0}
 
 
@@ -56,11 +54,6 @@ class PackedSearchParams(NamedTuple):
     scal_b: torch.Tensor  # (1, 8)
     cat: torch.Tensor  # (H, 8) categorical heads (zeros: scalar heads only)
     cat_b: torch.Tensor  # (8, 1)
-
-
-def in_scope(cfg: SearchConfig) -> bool:
-    """Whether the kernel covers this search (any batch size does)."""
-    return cfg.chance_selection == "argmax" and cfg.root_selection == "puct" and cfg.pw_c is None
 
 
 def _tower_arrays(tw, num_blocks: int) -> tuple[list, list]:
@@ -242,17 +235,34 @@ def _check_inputs(root_h, root_p, root_v, packed: PackedSearchParams, cfg: Searc
         raise ValueError(f"the kernel takes 32 <= H <= 256 with H % 32 == 0 and K <= 32 (got H={h}, K={k})")
 
 
+class SearchWorkspace:
+    """What the kernel reuses across the calls made with one pack (one
+    evaluation): the bias / LayerNorm vectors in its (n_vec, H) layout and
+    the device buffer of tree tables, grown on demand. Calls that share a
+    workspace must run on one stream."""
+
+    def __init__(self, packed: PackedSearchParams):
+        self.vecs = packed.vecs.t().contiguous()  # coalesced reads in the kernel
+        self.tables: torch.Tensor | None = None
+
+    def table_buffer(self, nbytes: int, device: torch.device) -> torch.Tensor:
+        if self.tables is None or self.tables.numel() < nbytes or self.tables.device != device:
+            self.tables = torch.empty(nbytes, dtype=torch.uint8, device=device)
+        return self.tables
+
+
 def whole_search(
     root_h: torch.Tensor,
     root_p: torch.Tensor,
     root_v: torch.Tensor,
     packed: PackedSearchParams,
     cfg: SearchConfig,
-    block_searches: int = BLOCK_G,
+    workspace: SearchWorkspace | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """All simulations of B searches: the CUDA kernel on CUDA tensors, the
     plain version on CPU tensors. Same arguments and results as
-    :func:`whole_search_reference`."""
+    :func:`whole_search_reference`; ``workspace`` (made from ``packed``)
+    saves its set-up when the same pack serves many calls."""
     check_supported(cfg)
     if root_h.device.type == "cpu":
         return whole_search_reference(root_h, root_p, root_v, packed, cfg)
@@ -266,21 +276,21 @@ def whole_search(
     max_depth = cfg.max_depth if cfg.max_depth is not None else s + 1
     p = min(max_depth, s + 1)
     dev = root_h.device
+    workspace = workspace or SearchWorkspace(packed)
     with torch.cuda.device(dev):
-        workspace = torch.empty(lib.whole_search_workspace_bytes(b, h, k, s, p), dtype=torch.uint8, device=dev)
+        tables = workspace.table_buffer(lib.whole_search_workspace_bytes(b, h, k, s, p), dev)
         visits = torch.empty(b, cfg.num_actions, dtype=torch.float32, device=dev)
         qvals = torch.empty_like(visits)
         rootv = torch.empty(b, dtype=torch.float32, device=dev)
         eps = cfg.value_transform_epsilon
         f32 = lambda x: float(np.float32(x))  # noqa: E731 — the float32 value the JAX package's constants take
-        vecs_t = packed.vecs.t().contiguous()  # (n_vec, H): coalesced bias / LayerNorm reads
-        weights = (packed.hh, vecs_t, packed.win, packed.wide, packed.wide_b, packed.scal, packed.scal_b)
+        weights = (packed.hh, workspace.vecs, packed.win, packed.wide, packed.wide_b, packed.scal, packed.scal_b)
         err = lib.whole_search_launch(
-            *(t.data_ptr() for t in (root_h, root_p, root_v, *weights, visits, qvals, rootv, workspace)),
+            *(t.data_ptr() for t in (root_h, root_p, root_v, *weights, visits, qvals, rootv, tables)),
             b, h, _num_blocks(packed), s, k, cfg.num_actions, p,
             f32(cfg.pb_c_init), f32(cfg.pb_c_base), f32(cfg.discount), f32(cfg.prior_temperature),
             int(eps is not None), f32(eps or 0.0), f32(4 * (eps or 0.0)), f32(2 * (eps or 0.0)),
-            block_searches, torch.cuda.current_stream(dev).cuda_stream,
+            torch.cuda.current_stream(dev).cuda_stream,
         )  # fmt: skip
     if err != 0:
         raise RuntimeError(f"whole_search kernel launch failed: {lib.whole_search_error_string(err).decode()}")
@@ -296,7 +306,7 @@ def _load() -> ctypes.CDLL:
         lib.whole_search_workspace_bytes.restype = ctypes.c_size_t
         lib.whole_search_error_string.argtypes = [i32]
         lib.whole_search_error_string.restype = ctypes.c_char_p
-        lib.whole_search_launch.argtypes = [ptr] * 14 + [i32] * 7 + [f32] * 4 + [i32] + [f32] * 3 + [i32, ptr]
+        lib.whole_search_launch.argtypes = [ptr] * 14 + [i32] * 7 + [f32] * 4 + [i32] + [f32] * 3 + [ptr]
         lib.whole_search_launch.restype = i32
         lib._argtypes_set = True
     return lib
@@ -310,14 +320,15 @@ def run_search_kernel(
     invalid_actions: torch.Tensor | None = None,
     noise: torch.Tensor | None = None,
     packed: PackedSearchParams | None = None,
+    workspace: SearchWorkspace | None = None,
 ) -> PolicyOutput:
     """Batched search through :func:`whole_search` (drop-in for
-    ``batched_run_mcts`` in the kernel's scope). ``packed`` can be built once
-    per weight version with :func:`pack_search_params`."""
-    if not in_scope(config):
-        raise ValueError("the whole-search kernel covers PUCT root / argmax chance / no widening only")
+    ``batched_run_mcts``). ``packed`` can be built once per weight version
+    with :func:`pack_search_params`, and ``workspace`` once per pack."""
     if packed is None:
         packed = pack_search_params(network, network.num_blocks, max(config.num_actions, config.codebook_size))
     hidden, probs, root_value = root_inputs(network, observations, config, invalid_actions, noise)
-    visits, qvalues, value = whole_search(hidden.contiguous(), probs.contiguous(), root_value.contiguous(), packed, config)
+    visits, qvalues, value = whole_search(
+        hidden.contiguous(), probs.contiguous(), root_value.contiguous(), packed, config, workspace
+    )
     return policy_output(visits, qvalues, value)

@@ -63,11 +63,12 @@ def search_config_from(config: TrainConfig, eval_mode: bool = False) -> SearchCo
     )
 
 
-def _use_kernel(config: TrainConfig, cfg: SearchConfig, device: torch.device) -> bool:
+def _use_kernel(config: TrainConfig, device: torch.device) -> bool:
     """The JAX package's backend dispatch, read for the port: "pallas" takes
     the kernel wrapper (the kernel on CUDA, its plain version on the CPU),
-    "auto" the kernel on CUDA only; out-of-scope searches use the plain search."""
-    if config.search_backend == "xla" or not search_kernel.in_scope(cfg):
+    "auto" the kernel on CUDA only. Both searches raise for the variants
+    that are not ported yet (``search.mcts.check_supported``)."""
+    if config.search_backend == "xla":
         return False
     return config.search_backend == "pallas" or device.type == "cuda"
 
@@ -85,8 +86,8 @@ def _evaluate_rollout(network, run_seed: int, config: TrainConfig, num_games: in
     cfg = search_config_from(config, eval_mode=True)._replace(dirichlet_fraction=0.0)
     state = envlib.reset_batch(run_seed, num_games, device)
 
-    packed = None
-    if _use_kernel(config, cfg, device):
+    packed = workspace = None
+    if _use_kernel(config, device):
         # Packed once per call (one weight version), outside the move loop.
         packed = search_kernel.pack_search_params(
             network,
@@ -96,6 +97,7 @@ def _evaluate_rollout(network, run_seed: int, config: TrainConfig, num_games: in
             value_bins=config.value_bins,
             reward_bins=config.reward_bins,
         )
+        workspace = search_kernel.SearchWorkspace(packed)
 
     ent_sum = torch.zeros((), dtype=torch.float32, device=device)
     val_sum = torch.zeros((), dtype=torch.float32, device=device)
@@ -109,7 +111,7 @@ def _evaluate_rollout(network, run_seed: int, config: TrainConfig, num_games: in
         active = ~state.done
 
         if packed is not None:
-            out = search_kernel.run_search_kernel(network, obs, cfg, ~legal, packed=packed)
+            out = search_kernel.run_search_kernel(network, obs, cfg, ~legal, packed=packed, workspace=workspace)
         else:
             out = batched_run_mcts(network, obs, cfg, ~legal)
         zeros = torch.zeros_like(out.action_weights)

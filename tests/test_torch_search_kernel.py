@@ -102,5 +102,5 @@ def test_reference_matches_plain_search(nets, overrides):
 def test_wrapper_checks_scope(nets):
     _, tnet = nets
     obs, _ = make_inputs(4, seed=0)
-    with pytest.raises(ValueError, match="whole-search kernel"):
+    with pytest.raises(NotImplementedError, match="widening"):
         sk.run_search_kernel(tnet, torch.from_numpy(obs), SearchConfig(**{**CFG, "pw_c": 1.0}))
