@@ -5,7 +5,8 @@ dicts of numpy arrays (``jax.tree.map(np.asarray, params)``; a plain mapping
 of the six network names works too) and returns a :class:`MuZeroNetwork`
 that computes the same functions. Flax stores Dense kernels ``(in, out)``
 and LayerNorm ``scale``; the port stores ``nn.Linear`` weights ``(out, in)``
-and ``weight``. Every parameter of the port is written exactly once, and a
+and ``weight``; a categorical head's ``(H, bins)`` kernel crosses the same
+way. Every parameter of the port is written exactly once, and a
 shape mismatch raises.
 """
 
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 
 from simulate_2048_tpu_torch.models.blocks import LayerNorm, TowerWithHead
-from simulate_2048_tpu_torch.models.network import MuZeroNetwork
+from simulate_2048_tpu_torch.models.network import architecture_from_config
 from simulate_2048_tpu_torch.training.config import TrainConfig
 
 NETWORK_NAMES = (
@@ -65,19 +66,9 @@ def _unwrap(tree: Any, name: str) -> Mapping:
     return p["params"] if "params" in p else p
 
 
-def params_from_flax(tree: Any, config: TrainConfig) -> MuZeroNetwork:
+def params_from_flax(tree: Any, config: TrainConfig):
     """Flax ``NetworkParams`` (numpy leaves) → a CPU :class:`MuZeroNetwork` for ``config``."""
-    net = MuZeroNetwork(
-        observation_dim=config.observation_dim,
-        action_size=config.action_size,
-        codebook_size=config.codebook_size,
-        hidden_size=config.hidden_size,
-        num_blocks=config.num_residual_blocks,
-        compute_dtype=torch.bfloat16 if config.use_bfloat16 else torch.float32,
-        observation_onehot=config.observation_onehot,
-        value_bins=config.value_bins,
-        reward_bins=config.reward_bins,
-    )
+    net = architecture_from_config(config)
     p = {name: _unwrap(tree, name) for name in NETWORK_NAMES}
     w: set[int] = set()
     with torch.no_grad():

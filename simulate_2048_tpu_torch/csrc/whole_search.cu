@@ -1,9 +1,11 @@
 // Whole stochastic MuZero search, one CUDA kernel for Hopper (sm_90a).
 //
 // Replaces the JAX package's Pallas TPU kernel `ops/pallas_search.py`
-// (`_make_kernel`, launched by `_run_packed`), variant (a): float32 weights
-// packed by `pack_search_params`, scalar value/reward heads, weights resident
-// (no streaming). It runs every simulation of B independent searches:
+// (`_make_kernel`, launched by `_run_packed`), variants (a) and (b): float32
+// weights packed by `pack_search_params`, weights resident (no streaming),
+// value/Q/reward heads either scalar (a column of `scal`) or categorical
+// (an (H, bins) block of `cat`, reduced in the kernel to its h-space
+// expectation, `cat_expect` in the TPU kernel). It runs every simulation of B independent searches:
 // traversal (PUCT at decision nodes, p/(1+N) at chance nodes, lockstep to
 // the depth cap), expansion through both transitions (phi -> psi and
 // g -> f: dense layers and pre-LayerNorm residual towers), and the backup of
@@ -36,6 +38,11 @@
 //   output row and one half of the input range, read the (in, out) weight
 //   matrix coalesced from global memory (shared across blocks through L2),
 //   and read the activations as broadcast float2s;
+// - a categorical head's logits are a (bins, G) tile in shared memory: the
+//   block's threads split bins x input ranges, a second pass adds the partial
+//   sums and the bias, and one warp per search takes the max, exponentials,
+//   the two sums and one division (expf and a correctly rounded division,
+//   as the plain version computes them);
 // - LayerNorm uses eps 1e-6 and the two-pass variance, argmax breaks ties
 //   at the first index, and the arithmetic that selects edges uses
 //   correctly rounded intrinsics (no FMA contraction), so that it matches
@@ -63,6 +70,8 @@ struct Args {
   const float* wide_b;  // (K, 2)
   const float* scal;    // (H, 8) scalar heads: f value, psi q, g reward
   const float* scal_b;  // (1, 8)
+  const float* cat;     // (H, CB) categorical heads: f value at 0, psi q at VB, g reward at 2 VB
+  const float* cat_b;   // (CB, 1)
   float* visits;        // out (B, A)
   float* qvals;         // out (B, A)
   float* rootv;         // out (B,)
@@ -80,6 +89,8 @@ struct Args {
   int* path_edges;      // (B, P)
   float* vbuf;          // (B, P + 1)
   int B, H, NB, S, K, A, P, n_vec;
+  int CB, value_bins, reward_bins;  // bins == 1: that head is scalar
+  float value_step, reward_step;    // support_max / (bins - 1): atom i = i * step
   float pb_c_init, pb_c_base, discount, temperature;
   int has_eps;
   float eps, four_eps, two_eps;
@@ -300,6 +311,67 @@ __device__ void head_scalar(const Args& a, int c, const float* x, float* out) {
   __syncthreads();
 }
 
+// out[g] = untransform(sum_k softmax(cat[:, off:off+bins]^T x[:, g] + cat_b)[k] * k * step).
+// `psum` holds max(blockDim, bins) * G floats and `lg` bins * G floats.
+template <int G>
+__device__ void head_categorical(const Args& a, int off, int bins, float step, const float* x, float* out,
+                                 float* psum, float* lg) {
+  const int H = a.H, T = blockDim.x;
+  const int nparts = bins >= T ? 1 : T / bins;  // input ranges summed by separate threads
+  const int chunk = (H + nparts - 1) / nparts;
+  for (int e = threadIdx.x; e < nparts * bins; e += T) {
+    const int k = e % bins, part = e / bins;
+    const int i0 = part * chunk, i1 = min(H, i0 + chunk);
+    const float* __restrict__ w = a.cat + off + k;
+    float acc[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) acc[g] = 0.f;
+    for (int i = i0; i < i1; ++i) {
+      const float wv = __ldg(w + (size_t)i * a.CB);
+#pragma unroll
+      for (int g = 0; g < G; ++g) acc[g] = fmaf(wv, x[i * G + g], acc[g]);
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) psum[(size_t)e * G + g] = acc[g];
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < bins * G; e += T) {
+    const int k = e / G, g = e % G;
+    float s = 0.f;
+    for (int part = 0; part < nparts; ++part) s += psum[(size_t)(part * bins + k) * G + g];
+    lg[e] = s + a.cat_b[off + k];
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  for (int g = threadIdx.x >> 5; g < G; g += T >> 5) {
+    float m = -INFINITY;
+    for (int k = lane; k < bins; k += 32) m = fmaxf(m, lg[k * G + g]);
+    m = warp_max(m);
+    float num = 0.f, den = 0.f;
+    for (int k = lane; k < bins; k += 32) {
+      const float ev = expf(__fsub_rn(lg[k * G + g], m));
+      den = __fadd_rn(den, ev);
+      num = __fadd_rn(num, __fmul_rn(ev, __fmul_rn((float)k, step)));
+    }
+    num = warp_sum(num);
+    den = warp_sum(den);
+    if (lane == 0) out[g] = untransform(a, __fdiv_rn(num, den));
+  }
+  __syncthreads();
+}
+
+// The value (c = 0), Q (c = 1) or reward (c = 2) head, scalar or categorical.
+template <int G>
+__device__ void head_value(const Args& a, int c, const float* x, float* out, float* psum, float* lg) {
+  const int bins = c == 2 ? a.reward_bins : a.value_bins;
+  if (bins == 1) {
+    head_scalar<G>(a, c, x, out);
+    return;
+  }
+  const int off = a.value_bins > 1 ? c * a.value_bins : 0;
+  head_categorical<G>(a, off, bins, c == 2 ? a.reward_step : a.value_step, x, out, psum, lg);
+}
+
 // logits (K, G) = wide[j]^T x + wide_b[:, j].
 template <int G>
 __device__ void head_logits(const Args& a, int j, const float* x, float* logits) {
@@ -313,9 +385,19 @@ __device__ void head_logits(const Args& a, int j, const float* x, float* logits)
   __syncthreads();
 }
 
+// Floats of shared memory the categorical heads take beside the rest: partial
+// sums for max(threads, bins) x G and the (bins, G) logits of one head.
+inline int cat_scratch_floats(int H, int G, int value_bins, int reward_bins) {
+  const int bins = (value_bins > reward_bins ? value_bins : reward_bins);
+  if (bins <= 1) return 0;
+  const int threads = 2 * H;
+  return ((threads > bins ? threads : bins) + bins) * G;
+}
+
 template <int G>
-size_t smem_bytes(int H, int K) {
-  return (size_t)(7 * H * G + 2 * K * G + 3 * G) * sizeof(float) + (size_t)7 * G * sizeof(int);
+size_t smem_bytes(int H, int K, int value_bins, int reward_bins) {
+  return (size_t)(7 * H * G + 2 * K * G + 3 * G + cat_scratch_floats(H, G, value_bins, reward_bins)) * sizeof(float) +
+         (size_t)7 * G * sizeof(int);
 }
 
 template <int G>
@@ -335,7 +417,11 @@ __global__ void __launch_bounds__(512) whole_search_kernel(Args a) {
   float* s_q = la + K * G;
   float* s_r = s_q + G;
   float* s_v = s_r + G;
-  int* s_parent = reinterpret_cast<int*>(s_v + G);
+  float* psum = s_v + G;  // categorical heads: partial sums, then the (bins, G) logits
+  const int cat_bins = max(a.value_bins, a.reward_bins);
+  const int cat_floats = cat_bins > 1 ? (max((int)blockDim.x, cat_bins) + cat_bins) * G : 0;
+  float* lgt = psum + (cat_floats - cat_bins * G);
+  int* s_parent = reinterpret_cast<int*>(s_v + G + cat_floats);
   int* s_edge = s_parent + G;
   int* s_exist = s_edge + G;
   int* s_depth = s_exist + G;
@@ -438,16 +524,16 @@ __global__ void __launch_bounds__(512) whole_search_kernel(Args a) {
     tower<G>(a, PHI_HH, PHI_V, u, x, t, u, part);
     dense<G>(a, PHI_HEAD_HH, PHI_HEAD_V, x, after, part, nullptr, nullptr, false);
     tower<G>(a, PSI_HH, PSI_V, after, x, t, u, part);
-    head_scalar<G>(a, 1, x, s_q);
+    head_value<G>(a, 1, x, s_q, psum, lgt);
     head_logits<G>(a, 1, x, lc);
 
     // g then f (chance parent -> decision child)
     dense<G>(a, G_FUSE_HH, G_FUSE_V, pe, u, part, a.win + (size_t)K * H, s_crow, false);
     tower<G>(a, G_HH, G_V, u, x, t, u, part);
     dense<G>(a, G_HEAD_HH, G_HEAD_V, x, hnew, part, nullptr, nullptr, false);
-    head_scalar<G>(a, 2, x, s_r);
+    head_value<G>(a, 2, x, s_r, psum, lgt);
     tower<G>(a, F_HH, F_V, hnew, x, t, u, part);
-    head_scalar<G>(a, 0, x, s_v);
+    head_value<G>(a, 0, x, s_v, psum, lgt);
     head_logits<G>(a, 0, x, la);
 
     // ---- install the new node at row new_index (unreachable when the
@@ -524,7 +610,7 @@ __global__ void __launch_bounds__(512) whole_search_kernel(Args a) {
 
 template <int G>
 int launch(const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes<G>(a.H, a.K);
+  const size_t smem = smem_bytes<G>(a.H, a.K, a.value_bins, a.reward_bins);
   cudaError_t err = cudaFuncSetAttribute(whole_search_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   whole_search_kernel<G><<<(a.B + G - 1) / G, 2 * a.H, smem, stream>>>(a);
@@ -545,12 +631,14 @@ const char* whole_search_error_string(int code) { return cudaGetErrorString((cud
 // cudaErrorInvalidValue for shapes the kernel does not take.
 int whole_search_launch(const float* root_h, const float* root_p, const float* root_v, const float* hh,
                         const float* vecs, const float* win, const float* wide, const float* wide_b,
-                        const float* scal, const float* scal_b, float* visits, float* qvals, float* rootv,
-                        void* workspace, int B, int H, int NB, int S, int K, int A, int P, float pb_c_init,
-                        float pb_c_base, float discount, float temperature, int has_eps, float eps,
-                        float four_eps, float two_eps, void* stream) {
+                        const float* scal, const float* scal_b, const float* cat, const float* cat_b,
+                        float* visits, float* qvals, float* rootv, void* workspace, int B, int H, int NB, int S,
+                        int K, int A, int P, int CB, int value_bins, int reward_bins, float pb_c_init,
+                        float pb_c_base, float discount, float temperature, float value_step, float reward_step,
+                        int has_eps, float eps, float four_eps, float two_eps, void* stream) {
   if (B < 1 || H < 32 || H % 32 != 0 || 2 * H > 512 || K < 1 || K > 32 || A < 1 || A > K || S < 1 || P < 1 ||
-      P > S + 1 || NB < 0) {
+      P > S + 1 || NB < 0 || value_bins < 1 || value_bins > 512 || reward_bins < 1 || reward_bins > 512 ||
+      CB < (value_bins > 1 ? 2 * value_bins : 0) + (reward_bins > 1 ? reward_bins : 0)) {
     return (int)cudaErrorInvalidValue;
   }
   const Layout L = make_layout(B, H, K, S, P);
@@ -566,6 +654,8 @@ int whole_search_launch(const float* root_h, const float* root_p, const float* r
   a.wide_b = wide_b;
   a.scal = scal;
   a.scal_b = scal_b;
+  a.cat = cat;
+  a.cat_b = cat_b;
   a.visits = visits;
   a.qvals = qvals;
   a.rootv = rootv;
@@ -590,6 +680,11 @@ int whole_search_launch(const float* root_h, const float* root_p, const float* r
   a.A = A;
   a.P = P;
   a.n_vec = 4 * (3 + 6 * NB) + 4;
+  a.CB = CB;
+  a.value_bins = value_bins;
+  a.reward_bins = reward_bins;
+  a.value_step = value_step;
+  a.reward_step = reward_step;
   a.pb_c_init = pb_c_init;
   a.pb_c_base = pb_c_base;
   a.discount = discount;

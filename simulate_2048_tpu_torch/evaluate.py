@@ -3,8 +3,9 @@
 Port of ``simulate_2048_tpu.evaluate``: greedy full-length games
 (``eval_max_moves``) under the calibrated eval search, printing what the JAX
 CLI prints. Runs on the GPU unless ``--device cpu`` is given, and raises when
-no GPU is present. Weights are fresh, drawn from ``--seed``; loading a
-checkpoint is not ported yet.
+no GPU is present. With ``--checkpoint-dir`` the weights and the config come
+from a checkpoint written by ``simulate_2048_tpu_torch.train``; without it
+the weights are fresh, drawn from ``--seed``.
 """
 
 from __future__ import annotations
@@ -18,8 +19,12 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--mode", choices=["tiny", "small", "full"], default="small", help="config preset")
     parser.add_argument("--games", type=int, default=10)
     parser.add_argument(
-        "--checkpoint-dir", default=None, help="not yet ported: the port evaluates fresh weights only"
+        "--checkpoint-dir",
+        default=None,
+        help="evaluate the latest checkpoint in this directory with its recorded config "
+        "(--mode is then ignored; --set still applies); fresh weights when not given",
     )
+    parser.add_argument("--step", type=int, default=None, help="checkpoint step (default: the latest)")
     parser.add_argument(
         "--seed",
         type=int,
@@ -37,8 +42,8 @@ def main(argv: list[str] | None = None) -> None:
     )
     parser.add_argument("--device", default="cuda", help="torch device (default cuda; 'cpu' to run on the CPU)")
     args = parser.parse_args(argv)
-    if args.checkpoint_dir:
-        parser.error("--checkpoint-dir is not yet ported: checkpoints arrive with the training slice")
+
+    import os
 
     import torch
 
@@ -49,6 +54,19 @@ def main(argv: list[str] | None = None) -> None:
 
     device = resolve_device(args.device)
     config = {"tiny": tiny_config, "small": small_config, "full": default_config}[args.mode]()
+    manager = None
+    if args.checkpoint_dir:
+        from simulate_2048_tpu_torch.training.checkpoint import CheckpointManager, load_train_config
+
+        if not os.path.isdir(args.checkpoint_dir):
+            parser.error(f"--checkpoint-dir {args.checkpoint_dir}: no such directory")
+        manager = CheckpointManager(args.checkpoint_dir)
+        step = manager.latest_step() if args.step is None else args.step
+        if step not in manager.all_steps():
+            parser.error(f"--checkpoint-dir {args.checkpoint_dir}: no checkpoint (steps found: {manager.all_steps()})")
+        recorded = load_train_config(args.checkpoint_dir)
+        if recorded is not None:
+            config = recorded
     if args.overrides:
         try:
             config = apply_overrides(config, args.overrides)
@@ -57,6 +75,12 @@ def main(argv: list[str] | None = None) -> None:
         print(f"config overrides: {args.overrides}")
 
     network = network_from_config(config, torch.Generator().manual_seed(args.seed), device)
+    if manager is not None:
+        from simulate_2048_tpu_torch.training.learner import TrainState, create_optimizer
+
+        state = TrainState(network, create_optimizer(config).init(list(network.parameters())))
+        manager.restore(state, step)
+        print(f"loaded checkpoint step {state.step} from {manager.directory}")
     stats = evaluate_games(
         network, torch.Generator().manual_seed(args.seed + 1), config, num_games=args.games, include_per_game=True
     )

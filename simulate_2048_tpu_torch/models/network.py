@@ -37,6 +37,8 @@ class MuZeroNetwork(nn.Module):
         observation_onehot: bool = False,
         value_bins: int = 1,
         reward_bins: int = 1,
+        value_support_max: float = 320.0,
+        reward_support_max: float = 100.0,
     ):
         super().__init__()
         self.observation_dim = observation_dim
@@ -47,12 +49,14 @@ class MuZeroNetwork(nn.Module):
         self.compute_dtype = compute_dtype
         self.value_bins = value_bins
         self.reward_bins = reward_bins
+        self.value_support_max = value_support_max
+        self.reward_support_max = reward_support_max
         h, nb, cd = hidden_size, num_blocks, compute_dtype
         self.representation = Representation(observation_dim, h, nb, cd, observation_onehot)
-        self.prediction = Prediction(action_size, h, nb, cd, value_bins)
+        self.prediction = Prediction(action_size, h, nb, cd, value_bins, value_support_max)
         self.afterstate_dynamics = AfterstateDynamics(h, action_size, nb, cd)
-        self.afterstate_prediction = AfterstatePrediction(codebook_size, h, nb, cd, value_bins)
-        self.dynamics = Dynamics(h, codebook_size, nb, cd, reward_bins)
+        self.afterstate_prediction = AfterstatePrediction(codebook_size, h, nb, cd, value_bins, value_support_max)
+        self.dynamics = Dynamics(h, codebook_size, nb, cd, reward_bins, reward_support_max)
         self.encoder = Encoder(observation_dim, codebook_size, h, nb, cd, observation_onehot)
 
     def init_weights(self, generator: torch.Generator) -> "MuZeroNetwork":
@@ -63,15 +67,9 @@ class MuZeroNetwork(nn.Module):
         return self
 
 
-def network_from_config(
-    config: TrainConfig, generator: torch.Generator | None = None, device: torch.device | str = "cpu"
-) -> MuZeroNetwork:
-    """Build the network a ``TrainConfig`` describes, with weights from
-    ``generator`` (a fresh ``torch.Generator`` seeded with ``config.seed``
-    when None), on ``device``."""
-    if generator is None:
-        generator = torch.Generator().manual_seed(config.seed)
-    network = MuZeroNetwork(
+def architecture_from_config(config: TrainConfig) -> MuZeroNetwork:
+    """The network a ``TrainConfig`` describes, on the CPU, weights unset."""
+    return MuZeroNetwork(
         observation_dim=config.observation_dim,
         action_size=config.action_size,
         codebook_size=config.codebook_size,
@@ -81,5 +79,17 @@ def network_from_config(
         observation_onehot=config.observation_onehot,
         value_bins=config.value_bins,
         reward_bins=config.reward_bins,
+        value_support_max=config.value_support_max,
+        reward_support_max=config.reward_support_max,
     )
-    return network.init_weights(generator).to(device)
+
+
+def network_from_config(
+    config: TrainConfig, generator: torch.Generator | None = None, device: torch.device | str = "cpu"
+) -> MuZeroNetwork:
+    """Build the network a ``TrainConfig`` describes, with weights from
+    ``generator`` (a fresh ``torch.Generator`` seeded with ``config.seed``
+    when None), on ``device``."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(config.seed)
+    return architecture_from_config(config).init_weights(generator).to(device)

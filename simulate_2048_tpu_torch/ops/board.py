@@ -1,7 +1,7 @@
 """Batched 2048 board ops on exponent boards, in PyTorch.
 
-Port of the subset of the JAX package's ``ops/board.py`` that the environment
-uses. Boards are int32 ``(..., 4, 4)`` exponents (0 = empty, ``e`` = tile
+Port of the subset of the JAX package's ``ops/board.py`` that the
+environment, self-play and the losses use. Boards are int32 ``(..., 4, 4)`` exponents (0 = empty, ``e`` = tile
 ``2**e``); every op is branchless elementwise tensor code over the batch.
 Spawn bits are int64 tensors holding uint32 values (see ``ops/rng.py``).
 Results are bit-identical to the JAX package (``tests/test_torch_rng_board_env.py``).
@@ -91,6 +91,11 @@ def apply_action(board_exp: torch.Tensor, action: torch.Tensor) -> tuple[torch.T
         new_board = torch.where(sel[..., None, None], _unoriented(slid, a), new_board)
         score = torch.where(sel, row_scores.sum(-1, dtype=torch.int32), score)
     return new_board, score
+
+
+def latent_state(board_exp: torch.Tensor, action: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Alias of :func:`apply_action` (the afterstate of ``action``)."""
+    return apply_action(board_exp, action)
 
 
 def legal_actions_mask(board_exp: torch.Tensor) -> torch.Tensor:
@@ -188,3 +193,50 @@ def create_initial_board(game_seed: torch.Tensor) -> torch.Tensor:
 def encode_observation(board_exp: torch.Tensor) -> torch.Tensor:
     """Flattened float observation in [0, 1]: exponent / 16."""
     return (board_exp.to(torch.float32) / float(MAX_EXPONENT)).flatten(-2)
+
+
+def afterstate_outcomes(board_exp: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every spawn outcome of an afterstate with its probability.
+
+    Returns (boards ``(..., 32, 4, 4)``, probs ``(..., 32)``); slot
+    ``2·cell + is_four`` holds the board with that tile placed and probability
+    0.9/n (a 2) or 0.1/n (a 4) over the n empty cells, 0 for occupied cells
+    (whose slot carries the unchanged board). A full board yields the input
+    with probability 1 at slot 0.
+    """
+    lead = board_exp.shape[:-2]
+    flat = board_exp.flatten(-2)
+    empty = flat == 0
+    num_empty = empty.sum(-1, dtype=torch.int32)
+
+    eye = torch.eye(16, dtype=board_exp.dtype, device=board_exp.device) * empty[..., None, :].to(board_exp.dtype)
+    boards = torch.stack([flat[..., None, :] + eye, flat[..., None, :] + eye * 2], dim=-2)  # (..., 16, 2, 16)
+    boards = boards.reshape(*lead, 32, 4, 4)
+
+    p_cell = empty.to(torch.float32) / torch.clamp_min(num_empty, 1)[..., None].to(torch.float32)
+    probs = torch.stack([p_cell * 0.9, p_cell * 0.1], dim=-1).reshape(*lead, 32)
+
+    full = (num_empty == 0)[..., None]
+    slot0 = torch.zeros_like(probs)
+    slot0[..., 0] = 1.0
+    probs = torch.where(full, slot0, probs)
+    boards = torch.where(full[..., None, None], board_exp[..., None, :, :], boards)
+    return boards, probs
+
+
+def sample_action(
+    generator: torch.Generator | None, temperature: float, policy: torch.Tensor, legal_mask: torch.Tensor
+) -> torch.Tensor:
+    """Sample an action from ``policy`` restricted to legal moves: mask,
+    renormalise (uniform over legal moves when nothing is left), temperature
+    softmax in log space; argmax when ``temperature < 0.01``. The draw comes
+    from ``generator`` (made on the policy's device)."""
+    legal = legal_mask.to(torch.float32)
+    masked = torch.where(legal_mask, policy, torch.zeros_like(policy))
+    total = masked.sum(-1, keepdim=True)
+    uniform = legal / torch.clamp_min(legal.sum(-1, keepdim=True), 1.0)
+    masked = torch.where(total < 1e-8, uniform, masked / torch.clamp_min(total, 1e-30))
+    if temperature < 0.01:
+        return masked.argmax(-1)
+    probs = torch.softmax(torch.log(masked + 1e-8) / temperature, dim=-1)
+    return torch.multinomial(probs.reshape(-1, probs.shape[-1]), 1, generator=generator).reshape(probs.shape[:-1])

@@ -1,19 +1,21 @@
 """Whole-search MCTS kernel (CUDA) with its packing, plain version and wrapper.
 
 Counterpart of the JAX package's ``ops/pallas_search.py`` (the Pallas TPU
-kernel ``_make_kernel`` / ``_run_packed`` and ``run_mcts_pallas``), variant
-(a): float32 weights, scalar heads, all weights resident. The kernel itself
-is ``csrc/whole_search.cu``; its header comment says what bounds it on an
+kernel ``_make_kernel`` / ``_run_packed`` and ``run_mcts_pallas``), variants
+(a) and (b): float32 weights, all weights resident, scalar or categorical
+value/Q/reward heads. The kernel itself is ``csrc/whole_search.cu``; its header comment says what bounds it on an
 H100 and how the design answers that.
 
 - :func:`pack_search_params` stacks the f/φ/ψ/g weights in exactly the JAX
   package's layout, so the two packs compare element by element.
 - :func:`whole_search_reference` is the kernel's plain PyTorch version: the
   same search (``search.mcts.search_tree``) with transitions computed from
-  the packed tensors as the kernel computes them (two-pass LayerNorm).
+  the packed tensors as the kernel computes them (two-pass LayerNorm; a
+  categorical head as max, exponentials, two sums and one division).
 - :func:`whole_search` is the wrapper: on CPU tensors it runs the plain
   version, on CUDA tensors it launches the kernel or raises. It counts its
-  launches in ``LAUNCHES["whole_search"]``. A :class:`SearchWorkspace`
+  launches in ``LAUNCHES`` (``"whole_search"`` with scalar heads,
+  ``"whole_search_categorical"`` with a categorical head). A :class:`SearchWorkspace`
   keeps its set-up across the calls of one evaluation.
 - :func:`run_search_kernel` is the drop-in for ``batched_run_mcts``: root
   h/f, priors, noise and legality masking in PyTorch, then one
@@ -39,7 +41,8 @@ from simulate_2048_tpu_torch.search.mcts import (
     search_tree,
 )
 
-LAUNCHES = {"whole_search": 0}
+# Kernel launches by head variant: scalar heads, or at least one categorical head.
+LAUNCHES = {"whole_search": 0, "whole_search_categorical": 0}
 
 
 class PackedSearchParams(NamedTuple):
@@ -52,8 +55,21 @@ class PackedSearchParams(NamedTuple):
     wide_b: torch.Tensor  # (K, 2)
     scal: torch.Tensor  # (H, 8) scalar heads [f value, ψ q, g reward]
     scal_b: torch.Tensor  # (1, 8)
-    cat: torch.Tensor  # (H, 8) categorical heads (zeros: scalar heads only)
-    cat_b: torch.Tensor  # (8, 1)
+    cat: torch.Tensor  # (H, CB) categorical heads at :func:`cat_layout` offsets (zeros: scalar heads only)
+    cat_b: torch.Tensor  # (CB, 1)
+
+
+MAX_BINS = 512  # categorical heads the kernel takes: 2 <= bins <= MAX_BINS (1 = scalar head)
+
+
+def cat_layout(value_bins: int, reward_bins: int) -> tuple[int, int, int, int]:
+    """``(v_off, q_off, r_off, cb)``: column offsets of the f-value, ψ-q and
+    g-reward segments in the ``(H, CB)`` categorical pack, and its width CB
+    (a multiple of 8, at least 8). A head with ``bins == 1`` has no segment."""
+    v_off, q_off = 0, value_bins if value_bins > 1 else 0
+    r_off = 2 * value_bins if value_bins > 1 else 0
+    cols = r_off + (reward_bins if reward_bins > 1 else 0)
+    return v_off, q_off, r_off, max(8, -(-cols // 8) * 8)
 
 
 def _tower_arrays(tw, num_blocks: int) -> tuple[list, list]:
@@ -82,14 +98,20 @@ def pack_search_params(
     reward_bins: int = 1,
 ) -> PackedSearchParams:
     """Stack the f/φ/ψ/g weights of ``network`` for the kernel, in the JAX
-    package's layout and order. Only float32 resident packs with scalar
-    heads are ported; the rest raises ``NotImplementedError``."""
+    package's layout and order. ``value_bins``/``reward_bins`` are the head
+    shapes of ``network``: a head with ``bins == 1`` packs its weight column
+    into ``scal``, a categorical head its ``(H, bins)`` matrix into ``cat``
+    (and its ``scal`` column stays zero). Only float32 resident packs are
+    ported; the rest raises ``NotImplementedError``."""
     if weight_dtype != torch.float32:
         raise NotImplementedError("bfloat16 weight packs are not ported yet")
     if stream_chunk is not None:
         raise NotImplementedError("weight streaming (stream_chunk) is not ported yet")
-    if value_bins != 1 or reward_bins != 1:
-        raise NotImplementedError("categorical heads in the search kernel are not ported yet")
+    if (network.value_bins, network.reward_bins) != (value_bins, reward_bins):
+        raise ValueError(
+            f"value_bins/reward_bins {value_bins}/{reward_bins} do not match the network's "
+            f"{network.value_bins}/{network.reward_bins}"
+        )
     f, phi = network.prediction, network.afterstate_dynamics
     psi, g = network.afterstate_prediction, network.dynamics
 
@@ -131,9 +153,17 @@ def pack_search_params(
 
     scal = torch.zeros(h, 8, **kw)
     scal_b = torch.zeros(1, 8, **kw)
-    for col, head in enumerate((f.value, psi.q_value, g.reward)):
-        scal[:, col] = head.weight[0]
-        scal_b[0, col] = head.bias[0]
+    heads = ((f.value, value_bins), (psi.q_value, value_bins), (g.reward, reward_bins))
+    offsets = cat_layout(value_bins, reward_bins)
+    cat = torch.zeros(h, offsets[3], **kw)
+    cat_b = torch.zeros(offsets[3], 1, **kw)
+    for col, ((head, bins), off) in enumerate(zip(heads, offsets)):
+        if bins == 1:
+            scal[:, col] = head.weight[0]
+            scal_b[0, col] = head.bias[0]
+        else:
+            cat[:, off : off + bins] = head.weight.t()
+            cat_b[off : off + bins, 0] = head.bias
 
     return PackedSearchParams(
         hh=torch.stack([x.to(torch.float32) for x in hh]).contiguous(),
@@ -143,8 +173,8 @@ def pack_search_params(
         wide_b=wide_b.t().contiguous(),
         scal=scal,
         scal_b=scal_b,
-        cat=torch.zeros(h, 8, **kw),
-        cat_b=torch.zeros(8, 1, **kw),
+        cat=cat,
+        cat_b=cat_b,
     )
 
 
@@ -181,8 +211,21 @@ def packed_transitions(packed: PackedSearchParams, cfg: SearchConfig, num_blocks
             ihh, iv = ihh + 2, iv + 6
         return torch.relu(layer_norm(x, iv))
 
-    def scalar_head(x, col):
-        return x @ packed.scal[:, col] + packed.scal_b[0, col]
+    offsets = cat_layout(cfg.value_bins, cfg.reward_bins)
+
+    def value_head(x, col):
+        """Head ``col`` (0 f value, 1 ψ q, 2 g reward) as an h-space scalar."""
+        bins, support_max = (
+            (cfg.reward_bins, cfg.reward_support_max) if col == 2 else (cfg.value_bins, cfg.value_support_max)
+        )
+        if bins == 1:
+            return x @ packed.scal[:, col] + packed.scal_b[0, col]
+        off = offsets[col]
+        logits = x @ packed.cat[:, off : off + bins] + packed.cat_b[off : off + bins, 0]
+        e = torch.exp(logits - logits.amax(-1, keepdim=True))
+        step = torch.full((), support_max / (bins - 1), dtype=torch.float32, device=x.device)
+        atoms = torch.arange(bins, dtype=torch.float32, device=x.device) * step
+        return (e * atoms).sum(-1) / e.sum(-1)
 
     def transitions(parent_embedding: torch.Tensor, edge: torch.Tensor) -> Transitions:
         fuse_a = dense(parent_embedding, phi_fuse_hh, phi_fuse_v) + packed.win[0][edge.clamp(max=a - 1)]
@@ -197,11 +240,11 @@ def packed_transitions(packed: PackedSearchParams, cfg: SearchConfig, num_blocks
         action_logits = z @ packed.wide[0][:, :a] + packed.wide_b[:a, 0]
         return Transitions(
             afterstate=afterstate,
-            q_value=scalar_head(y, 1),
+            q_value=value_head(y, 1),
             chance_logits=chance_logits,
             hidden=hidden,
-            reward=scalar_head(x, 2),
-            value=scalar_head(z, 0),
+            reward=value_head(x, 2),
+            value=value_head(z, 0),
             action_logits=action_logits,
         )
 
@@ -233,6 +276,14 @@ def _check_inputs(root_h, root_p, root_v, packed: PackedSearchParams, cfg: Searc
             raise ValueError("whole_search takes contiguous float32 tensors on one device")
     if h % 32 or not 32 <= h <= 256 or k > 32:
         raise ValueError(f"the kernel takes 32 <= H <= 256 with H % 32 == 0 and K <= 32 (got H={h}, K={k})")
+    if not (1 <= cfg.value_bins <= MAX_BINS and 1 <= cfg.reward_bins <= MAX_BINS):
+        raise ValueError(
+            f"the kernel takes scalar heads (bins = 1) or 2 <= bins <= {MAX_BINS} "
+            f"(got value_bins={cfg.value_bins}, reward_bins={cfg.reward_bins})"
+        )
+    cb = cat_layout(cfg.value_bins, cfg.reward_bins)[3]
+    if packed.cat.shape != (h, cb) or packed.cat_b.shape != (cb, 1):
+        raise ValueError("the categorical pack does not match the search config's value_bins / reward_bins")
 
 
 class SearchWorkspace:
@@ -284,17 +335,19 @@ def whole_search(
         rootv = torch.empty(b, dtype=torch.float32, device=dev)
         eps = cfg.value_transform_epsilon
         f32 = lambda x: float(np.float32(x))  # noqa: E731 — the float32 value the JAX package's constants take
-        weights = (packed.hh, workspace.vecs, packed.win, packed.wide, packed.wide_b, packed.scal, packed.scal_b)
+        weights = (packed.hh, workspace.vecs, *packed[2:])
+        vb, rb = cfg.value_bins, cfg.reward_bins
         err = lib.whole_search_launch(
             *(t.data_ptr() for t in (root_h, root_p, root_v, *weights, visits, qvals, rootv, tables)),
-            b, h, _num_blocks(packed), s, k, cfg.num_actions, p,
+            b, h, _num_blocks(packed), s, k, cfg.num_actions, p, packed.cat.shape[1], vb, rb,
             f32(cfg.pb_c_init), f32(cfg.pb_c_base), f32(cfg.discount), f32(cfg.prior_temperature),
+            f32(cfg.value_support_max / max(vb - 1, 1)), f32(cfg.reward_support_max / max(rb - 1, 1)),
             int(eps is not None), f32(eps or 0.0), f32(4 * (eps or 0.0)), f32(2 * (eps or 0.0)),
             torch.cuda.current_stream(dev).cuda_stream,
         )  # fmt: skip
     if err != 0:
         raise RuntimeError(f"whole_search kernel launch failed: {lib.whole_search_error_string(err).decode()}")
-    LAUNCHES["whole_search"] += 1
+    LAUNCHES["whole_search_categorical" if vb > 1 or rb > 1 else "whole_search"] += 1
     return visits, qvals, rootv
 
 
@@ -306,7 +359,7 @@ def _load() -> ctypes.CDLL:
         lib.whole_search_workspace_bytes.restype = ctypes.c_size_t
         lib.whole_search_error_string.argtypes = [i32]
         lib.whole_search_error_string.restype = ctypes.c_char_p
-        lib.whole_search_launch.argtypes = [ptr] * 14 + [i32] * 7 + [f32] * 4 + [i32] + [f32] * 3 + [ptr]
+        lib.whole_search_launch.argtypes = [ptr] * 16 + [i32] * 10 + [f32] * 6 + [i32] + [f32] * 3 + [ptr]
         lib.whole_search_launch.restype = i32
         lib._argtypes_set = True
     return lib
@@ -326,7 +379,13 @@ def run_search_kernel(
     ``batched_run_mcts``). ``packed`` can be built once per weight version
     with :func:`pack_search_params`, and ``workspace`` once per pack."""
     if packed is None:
-        packed = pack_search_params(network, network.num_blocks, max(config.num_actions, config.codebook_size))
+        packed = pack_search_params(
+            network,
+            network.num_blocks,
+            max(config.num_actions, config.codebook_size),
+            value_bins=config.value_bins,
+            reward_bins=config.reward_bins,
+        )
     hidden, probs, root_value = root_inputs(network, observations, config, invalid_actions, noise)
     visits, qvalues, value = whole_search(
         hidden.contiguous(), probs.contiguous(), root_value.contiguous(), packed, config, workspace

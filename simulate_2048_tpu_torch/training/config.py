@@ -239,9 +239,8 @@ class TrainConfig:
     # heavy-tailed returns (scalar value loss at init ≈ 750). The supports
     # are h-space upper bounds: 320 ≈ raw return 64k, 100 ≈ raw one-move
     # reward 8k; targets beyond clip to the last atom. The scalar-facing
-    # search/eval API is unchanged (expectation inside the apply fns), and
-    # categorical heads (> 1) are not ported yet: the port's networks raise
-    # NotImplementedError for them.
+    # search/eval API is unchanged (the networks' ``forward`` returns the
+    # expectation; the whole-search kernel reduces the heads itself).
     value_bins: int = 1
     reward_bins: int = 1
     value_support_max: float = 320.0

@@ -1,18 +1,28 @@
-"""Greedy evaluation games, in PyTorch (the evaluation subset of the JAX
-package's ``training/self_play.py``: ``search_config_from``,
-``_evaluate_rollout`` and ``evaluate_games``).
+"""Self-play and greedy evaluation games, in PyTorch (port of the JAX
+package's ``training/self_play.py``).
 
-One loop iteration is one greedy move of every game: observation and legal
-mask, one batched search, the argmax action over visit weights, encoder code
-usage, and the environment step. The loop ends when every game is done or
-after ``eval_max_moves`` moves. The search runs on the whole-search kernel
+One loop iteration is one move of every game: observation and legal mask,
+one batched search, the action (sampled from the visit weights at the
+scheduled temperature, or their argmax), and the environment step.
+:func:`play_segment` records a trajectory segment of ``max_trajectory_length``
+moves from wherever the games are; games carry over between calls and
+finished lanes restart at the segment boundary. :func:`_evaluate_rollout`
+plays greedy games to their end (or ``eval_max_moves``) and keeps summary
+statistics only. The search runs on the whole-search kernel
 (``ops/search_kernel.py``) or on the plain search (``search/mcts.py``),
-dispatched as in the JAX package (see ``TrainConfig.search_backend``).
+dispatched as in the JAX package (see ``TrainConfig.search_backend``); the
+weights are packed once per call, outside the move loop.
+
+Every draw (root Dirichlet noise, action sampling, run seeds) comes from the
+``torch.Generator`` passed in, which lives on the device the games run on.
+The streams are not ``jax.random``'s: the same seed gives other games than
+the JAX package. ``play_segment`` also takes the noise and the sampling
+uniforms as tensors, so both packages can be fed the same numbers.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -20,9 +30,27 @@ import torch
 from simulate_2048_tpu_torch.env import env as envlib
 from simulate_2048_tpu_torch.ops import board as ops
 from simulate_2048_tpu_torch.ops import search_kernel
-from simulate_2048_tpu_torch.search.mcts import SearchConfig, batched_run_mcts
-from simulate_2048_tpu_torch.search.policy import get_policy_target
+from simulate_2048_tpu_torch.ops.value_transform import scale_value
+from simulate_2048_tpu_torch.search.mcts import PolicyOutput, SearchConfig, batched_run_mcts
+from simulate_2048_tpu_torch.search.policy import get_policy_target, sample_from_visits
 from simulate_2048_tpu_torch.training.config import TrainConfig
+from simulate_2048_tpu_torch.training.replay import Trajectory
+
+
+class GenStats(NamedTuple):
+    """Collection diagnostics of one self-play segment, as sums and counts on
+    the device (finish with :func:`finish_gen_stats`)."""
+
+    completed: torch.Tensor  # games finished inside this segment
+    completed_score_sum: torch.Tensor  # their full-game scores
+    completed_length_sum: torch.Tensor  # their full-game lengths (moves)
+    active_positions: torch.Tensor  # stored (non-padding) positions in the segment
+    policy_entropy_sum: torch.Tensor  # entropy of stored policy targets
+    search_value_sum: torch.Tensor  # raw-space root values ν
+    # Per-lane ν at the segment's first position: the (1−λ) bootstrap piece
+    # when the previous truncated segment's targets are backfilled
+    # (``replay.backfill_returns``).
+    first_search_value: torch.Tensor  # (B,)
 
 
 def search_config_from(config: TrainConfig, eval_mode: bool = False) -> SearchConfig:
@@ -73,6 +101,265 @@ def _use_kernel(config: TrainConfig, device: torch.device) -> bool:
     return config.search_backend == "pallas" or device.type == "cuda"
 
 
+SearchFn = Callable[[torch.Tensor, torch.Tensor, "torch.Tensor | None"], PolicyOutput]
+
+
+def _make_search(network, config: TrainConfig, cfg: SearchConfig, device: torch.device) -> SearchFn:
+    """``search(observations, invalid_actions, noise)`` for one weight version:
+    the whole-search kernel with the weights packed here, once, or the plain
+    search."""
+    if not _use_kernel(config, device):
+        return lambda obs, invalid, noise=None: batched_run_mcts(network, obs, cfg, invalid, noise)
+    packed = search_kernel.pack_search_params(
+        network,
+        config.num_residual_blocks,
+        max(config.action_size, config.codebook_size),
+        torch.bfloat16 if config.search_weight_dtype == "bfloat16" else torch.float32,
+        value_bins=config.value_bins,
+        reward_bins=config.reward_bins,
+    )
+    workspace = search_kernel.SearchWorkspace(packed)
+    return lambda obs, invalid, noise=None: search_kernel.run_search_kernel(
+        network, obs, cfg, invalid, noise, packed=packed, workspace=workspace
+    )
+
+
+def _draw_seed(generator: torch.Generator) -> int:
+    """A run seed in [0, 2^30) from ``generator`` (on whichever device it lives)."""
+    return int(torch.randint(0, 1 << 30, (), generator=generator, device=generator.device))
+
+
+@torch.no_grad()
+def play_segment(
+    network,
+    env_state: envlib.GameState,
+    generator: torch.Generator | None,
+    temperature: float,
+    config: TrainConfig,
+    num_games: int,
+    greedy: bool = False,
+    num_steps: int | None = None,
+    noise: torch.Tensor | None = None,
+    uniform: torch.Tensor | None = None,
+) -> tuple[envlib.GameState, Trajectory, GenStats]:
+    """Play one trajectory segment from wherever the games currently are.
+
+    Games carry over between calls through ``env_state``; a game that ends
+    inside the segment is flagged ``terminated`` and its lane restarts
+    (deterministically reseeded) at the segment boundary, while unfinished
+    games continue in the next segment.
+
+    - Policy targets are stored at temperature 1.0 while actions are sampled
+      at the scheduled ``temperature`` (argmax past
+      ``config.temperature_move_cutoff`` moves of a game).
+    - ``greedy=True`` takes the evaluation search settings, disables the
+      root noise and plays argmax actions: nothing is drawn.
+    - ``noise`` (T, B, A) and ``uniform`` (T, B) replace the Dirichlet root
+      noise and the action-sampling uniforms drawn from ``generator``.
+
+    Returns ``(next_env_state, trajectory, gen_stats)``; the trajectory's
+    ``total_reward`` is the reward earned within this segment.
+    """
+    t_max = num_steps or config.max_trajectory_length
+    cfg = search_config_from(config, eval_mode=greedy)
+    if greedy:
+        cfg = cfg._replace(dirichlet_fraction=0.0)
+    device = env_state.board.device
+    search = _make_search(network, config, cfg, device)
+    a = config.action_size
+    alpha = torch.full((num_games, a), cfg.dirichlet_alpha, dtype=torch.float32, device=device)
+
+    state = env_state
+    initial_total = state.total_reward
+    boards = torch.zeros(num_games, t_max + 1, 16, dtype=torch.int8, device=device)
+    actions_bt = torch.zeros(num_games, t_max, dtype=torch.int8, device=device)
+    rewards_bt = torch.zeros(num_games, t_max, dtype=torch.float32, device=device)
+    policies_bt = torch.zeros(num_games, t_max, a, dtype=torch.float32, device=device)
+    values_bt = torch.zeros(num_games, t_max, dtype=torch.float32, device=device)
+    active_bt = torch.zeros(num_games, t_max, dtype=torch.bool, device=device)
+
+    for t in range(t_max):
+        obs = envlib.get_observation(state)
+        legal = envlib.get_legal_actions(state)
+        active = ~state.done
+
+        # Root legality masking: simulations never visit illegal root actions.
+        step_noise = None
+        if cfg.dirichlet_fraction > 0.0:
+            step_noise = noise[t] if noise is not None else torch._sample_dirichlet(alpha, generator)
+        out = search(obs, ~legal, step_noise)
+        policy_target = get_policy_target(out, legal, 1.0)
+
+        if greedy:
+            actions = torch.where(legal, out.action_weights, torch.zeros_like(out.action_weights)).argmax(-1)
+        else:
+            temps = torch.full((num_games,), float(temperature), dtype=torch.float32, device=device)
+            if config.temperature_move_cutoff is not None:
+                temps = torch.where(state.step_count < config.temperature_move_cutoff, temps, torch.zeros_like(temps))
+            actions = sample_from_visits(out, legal, temps, generator, None if uniform is None else uniform[t])
+
+        new_state, reward, _, _ = envlib.step(state, actions)
+        boards[:, t] = state.board.flatten(-2).to(torch.int8)
+        actions_bt[:, t] = actions.to(torch.int8) * active.to(torch.int8)
+        rewards_bt[:, t] = reward * active
+        policies_bt[:, t] = policy_target * active[:, None]
+        values_bt[:, t] = out.search_value * active
+        active_bt[:, t] = active
+        state = new_state
+
+    final_state = state
+    boards[:, t_max] = final_state.board.flatten(-2).to(torch.int8)
+    lengths = active_bt.sum(-1, dtype=torch.int32)
+    priorities = collection_priorities(rewards_bt, values_bt, lengths, config, final_state.done)
+
+    traj = Trajectory(
+        boards=boards,
+        actions=actions_bt,
+        rewards=rewards_bt,
+        policies=policies_bt,
+        values=values_bt,
+        priorities=priorities,
+        length=lengths,
+        terminated=final_state.done,
+        total_reward=final_state.total_reward - initial_total,
+        max_tile=ops.max_tile(boards[:, -1].reshape(num_games, 4, 4).to(torch.int32)),
+    )
+
+    # Collection diagnostics, before dead lanes are reseeded (every lane is
+    # active at segment entry, so done-at-end means the game finished here).
+    entropy = -(policies_bt * torch.log(torch.clamp_min(policies_bt, 1e-12))).sum(-1)
+    done = final_state.done
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    stats = GenStats(
+        completed=done.sum(dtype=torch.int32),
+        completed_score_sum=torch.where(done, final_state.total_reward, zero).sum(),
+        completed_length_sum=torch.where(done, final_state.step_count, torch.zeros_like(final_state.step_count)).sum(),
+        active_positions=lengths.sum(),
+        policy_entropy_sum=(entropy * active_bt).sum(),
+        search_value_sum=values_bt.sum(),
+        first_search_value=values_bt[:, 0],
+    )
+    return envlib.reset_done(final_state), traj, stats
+
+
+def play_games(
+    network,
+    generator: torch.Generator,
+    temperature: float,
+    config: TrainConfig,
+    num_games: int,
+    greedy: bool = False,
+    num_steps: int | None = None,
+) -> Trajectory:
+    """Play ``num_games`` fresh episodes in lockstep (one segment from reset),
+    on the network's device; the run seed comes from ``generator``."""
+    device = next(network.parameters()).device
+    state = envlib.reset_batch(_draw_seed(generator), num_games, device)
+    _, traj, _ = play_segment(network, state, generator, temperature, config, num_games, greedy, num_steps)
+    return traj
+
+
+def generate_games(
+    network,
+    generator: torch.Generator,
+    config: TrainConfig,
+    training_step: int,
+    num_games: int | None = None,
+    env_state: envlib.GameState | None = None,
+):
+    """Self-play generation entry point.
+
+    With ``env_state`` given, plays one segment continuing those games and
+    returns ``(next_env_state, trajectory, gen_stats)``; without it, plays
+    fresh episodes and returns just the trajectory. With
+    ``config.value_target_mode == "td_lambda"`` the stored value targets are
+    TD(λ) n-step returns instead of raw search values
+    (:func:`compute_n_step_returns`).
+    """
+    temperature = float(config.get_temperature(training_step))
+    n = num_games or config.num_parallel_games
+    if env_state is not None:
+        next_state, traj, stats = play_segment(network, env_state, generator, temperature, config, n, False)
+    else:
+        traj = play_games(network, generator, temperature, config, n, False)
+    if config.value_target_mode == "td_lambda":
+        returns = compute_n_step_returns(traj.rewards, traj.values, traj.length, config, traj.terminated)
+        traj = traj._replace(values=returns)
+    return (next_state, traj, stats) if env_state is not None else traj
+
+
+def finish_gen_stats(stats: GenStats, traj: Trajectory) -> dict[str, float]:
+    """Collection diagnostics → loggable means (one small host transfer).
+    ``traj`` is the trajectory :func:`generate_games` returned alongside
+    ``stats``: its ``values`` hold the final stored targets."""
+    n_pos = max(int(stats.active_positions), 1)
+    n_done = max(int(stats.completed), 1)
+    return {
+        "gen/completed_games": int(stats.completed),
+        "gen/completed_score": float(stats.completed_score_sum) / n_done,
+        "gen/completed_length": float(stats.completed_length_sum) / n_done,
+        "gen/positions": int(stats.active_positions),
+        "gen/policy_entropy": float(stats.policy_entropy_sum) / n_pos,
+        "gen/search_value": float(stats.search_value_sum) / n_pos,
+        "gen/value_target": float(traj.values.to(torch.float32).sum()) / n_pos,
+        "gen/priority": float(traj.priorities.to(torch.float32).sum()) / n_pos,
+    }
+
+
+def collection_priorities(
+    rewards: torch.Tensor, values: torch.Tensor, lengths: torch.Tensor, config: TrainConfig, terminated: torch.Tensor
+) -> torch.Tensor:
+    """Per-position priorities at collection time: p_t = |h(ν_t) − h(z_t)|
+    between the stored search value and the TD(λ) return, in h-scaled space
+    like the learner's refresh rule (``learner.train_step``)."""
+    returns = compute_n_step_returns(rewards, values, lengths, config, terminated)
+    return torch.abs(scale_value(values, config.value_epsilon) - scale_value(returns, config.value_epsilon))
+
+
+def compute_n_step_returns(
+    rewards: torch.Tensor,
+    values: torch.Tensor,
+    lengths: torch.Tensor,
+    config: TrainConfig,
+    terminated: torch.Tensor | None = None,
+    tail_value: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """TD(λ) value targets over a trajectory batch ``(B, T)``: the backward
+    recursion G_t = r_t + γ[(1−λ) v_{t+1} + λ G_{t+1}], truncated at the
+    episode's end.
+
+    ``terminated`` (per episode) selects the boundary: True, the game ended,
+    so the last step's target is r_last; False, the segment ended mid-game,
+    so the target at the last stored position is forced to its own search
+    value ν_last and the recursion proceeds backward from there. With
+    ``tail_value`` (B,), a value estimate of the board after the last stored
+    position, the truncated boundary target is r_last + γ·tail_value instead.
+    """
+    gamma, lam = config.discount, config.td_lambda
+    t_max = rewards.shape[-1]
+    steps = torch.arange(t_max, device=rewards.device)
+    in_ep = steps[None, :] < lengths[:, None]
+    term = terminated if terminated is not None else torch.ones_like(lengths, dtype=torch.bool)
+    last = torch.clamp_min(lengths - 1, 0).to(torch.int64)
+    last_value = values.gather(-1, last[:, None])[:, 0]
+    if tail_value is not None:
+        last_value = rewards.gather(-1, last[:, None])[:, 0] + gamma * tail_value
+    force = (steps[None, :] + 1 == lengths[:, None]) & ~term[:, None]
+
+    v_next = torch.cat([values[:, 1:], torch.zeros_like(values[:, :1])], dim=-1)
+    v_next = torch.where(steps[None, :] + 1 < lengths[:, None], v_next, torch.zeros_like(v_next))
+
+    out = torch.zeros_like(rewards)
+    g = torch.zeros_like(rewards[:, 0])
+    zero = torch.zeros_like(g)
+    for t in reversed(range(t_max)):
+        g = rewards[:, t] + gamma * ((1 - lam) * v_next[:, t] + lam * g)
+        g = torch.where(force[:, t], last_value, g)
+        g = torch.where(in_ep[:, t], g, zero)
+        out[:, t] = g
+    return out
+
+
 @torch.no_grad()
 def _evaluate_rollout(network, run_seed: int, config: TrainConfig, num_games: int, device: torch.device | str):
     """Greedy full-game rollouts with streaming stats.
@@ -85,19 +372,7 @@ def _evaluate_rollout(network, run_seed: int, config: TrainConfig, num_games: in
     device = torch.device(device)
     cfg = search_config_from(config, eval_mode=True)._replace(dirichlet_fraction=0.0)
     state = envlib.reset_batch(run_seed, num_games, device)
-
-    packed = workspace = None
-    if _use_kernel(config, device):
-        # Packed once per call (one weight version), outside the move loop.
-        packed = search_kernel.pack_search_params(
-            network,
-            config.num_residual_blocks,
-            max(config.action_size, config.codebook_size),
-            torch.bfloat16 if config.search_weight_dtype == "bfloat16" else torch.float32,
-            value_bins=config.value_bins,
-            reward_bins=config.reward_bins,
-        )
-        workspace = search_kernel.SearchWorkspace(packed)
+    search = _make_search(network, config, cfg, device)
 
     ent_sum = torch.zeros((), dtype=torch.float32, device=device)
     val_sum = torch.zeros((), dtype=torch.float32, device=device)
@@ -110,10 +385,7 @@ def _evaluate_rollout(network, run_seed: int, config: TrainConfig, num_games: in
         legal = envlib.get_legal_actions(state)
         active = ~state.done
 
-        if packed is not None:
-            out = search_kernel.run_search_kernel(network, obs, cfg, ~legal, packed=packed, workspace=workspace)
-        else:
-            out = batched_run_mcts(network, obs, cfg, ~legal)
+        out = search(obs, ~legal, None)
         zeros = torch.zeros_like(out.action_weights)
         actions = torch.where(legal, out.action_weights, zeros).argmax(-1)
 
@@ -145,7 +417,7 @@ def evaluate_games(
     """
     n = num_games or config.eval_games
     device = next(network.parameters()).device
-    run_seed = int(torch.randint(0, 1 << 30, (), generator=generator))
+    run_seed = _draw_seed(generator)
     state, ent_sum, val_sum, n_active, codes_used = _evaluate_rollout(network, run_seed, config, n, device)
 
     rewards = state.total_reward.cpu().numpy()

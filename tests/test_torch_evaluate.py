@@ -88,12 +88,15 @@ def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, imports with JAX made unimportable."""
     code = (
         "import sys, pkgutil, importlib\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'simulate_2048_tpu'):\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'chex', 'simulate_2048_tpu'):\n"
         "    sys.modules[name] = None\n"
         "import simulate_2048_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "names = {m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')}\n"
+        "assert {pkg.__name__ + '.' + n for n in ('train', 'training.trainer', 'training.losses', 'training.replay',"
+        " 'training.learner', 'training.checkpoint', 'ops.distributional', 'utils.metrics')} <= names, names\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
@@ -103,7 +106,8 @@ def test_port_imports_no_jax():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
                 root = words[1].split(".")[0]
-                assert root not in ("jax", "jaxlib", "flax", "simulate_2048_tpu"), f"{path}: {line}"
+                banned = ("jax", "jaxlib", "flax", "optax", "orbax", "chex", "simulate_2048_tpu")
+                assert root not in banned, f"{path}: {line}"
 
 
 def test_gpu_entry_points_raise_without_gpu():

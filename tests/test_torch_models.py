@@ -103,7 +103,72 @@ def test_convert_rejects_shape_mismatch():
 
 
 def test_categorical_heads_not_ported():
+    """Categorical heads are ported (the name dates from when they raised):
+    a fresh network has zero head weights and a bias of 0 on atom 0 and -14
+    elsewhere, as the JAX package initialises them, so its expectation is
+    about 0; scalar heads keep a LeCun-normal weight."""
     from simulate_2048_tpu_torch.models.network import network_from_config
 
-    with pytest.raises(NotImplementedError):
-        network_from_config(replace(TrainConfig(), hidden_size=HIDDEN, num_residual_blocks=1, value_bins=21))
+    cfg = replace(TrainConfig(), hidden_size=HIDDEN, num_residual_blocks=1, value_bins=21, reward_bins=1)
+    tnet = network_from_config(cfg, torch.Generator().manual_seed(0))
+    jnet = create_network(jax.random.PRNGKey(0), hidden_size=HIDDEN, num_blocks=1, value_bins=21)
+    for head, jtree in ((tnet.prediction.value, jnet.params.prediction), (tnet.afterstate_prediction.q_value,
+                                                                            jnet.params.afterstate_prediction)):
+        name = "value" if head is tnet.prediction.value else "q_value"
+        np.testing.assert_array_equal(head.weight.detach().numpy().T, np.asarray(jtree["params"][name]["kernel"]))
+        np.testing.assert_array_equal(head.bias.detach().numpy(), np.asarray(jtree["params"][name]["bias"]))
+    assert tnet.dynamics.reward.weight.shape == (1, HIDDEN)
+    assert float(tnet.dynamics.reward.weight.detach().abs().max()) > 0
+    hidden = np.random.RandomState(1).randn(4, HIDDEN).astype(np.float32)
+    with torch.no_grad():
+        _, value = tnet.prediction(torch.from_numpy(hidden))
+    _, jvalue = jnet.apply_fns.prediction(jnet.params.prediction, hidden)
+    assert value.shape == (4,) and float(value.abs().max()) < 1e-2  # 20 atoms at e^-14 of the mass each
+    np.testing.assert_allclose(value.numpy(), np.asarray(jvalue), rtol=1e-5)
+
+
+def perturbed_categorical(value_bins: int, reward_bins: int):
+    cfg = replace(TrainConfig(), hidden_size=HIDDEN, num_residual_blocks=BLOCKS, value_bins=value_bins,
+                  reward_bins=reward_bins, value_support_max=300.0, reward_support_max=90.0)
+    jnet = create_network(jax.random.PRNGKey(3), hidden_size=HIDDEN, num_blocks=BLOCKS, value_bins=value_bins,
+                          reward_bins=reward_bins, value_support_max=300.0, reward_support_max=90.0)
+    params = jax.tree.map(np.array, jax.device_get(jnet.params))
+    rs = np.random.RandomState(5)
+    for tree, name in ((params.prediction, "value"), (params.afterstate_prediction, "q_value"),
+                       (params.dynamics, "reward")):
+        kernel = tree["params"][name]["kernel"]
+        tree["params"][name]["kernel"] = kernel + 0.3 * rs.standard_normal(kernel.shape).astype(np.float32)
+    jnet = jnet._replace(params=params)
+    return jnet, params_from_flax(params, cfg)
+
+
+@pytest.mark.parametrize("bins", [(16, 8), (16, 1), (1, 8)], ids=["categorical", "value_only", "reward_only"])
+def test_categorical_networks_match_flax(bins):
+    """Scalar-facing forwards (the support expectation) and the raw-logit
+    forwards the losses use, rtol/atol 1e-5 (expectations: rtol 1e-5 of a
+    value up to the support's maximum)."""
+    jnet, tnet = perturbed_categorical(*bins)
+    jax_out, torch_out = outputs(jnet, tnet)
+    for name, j in jax_out.items():
+        for jj, tt in zip(flat(j), flat(torch_out[name])):
+            assert tuple(tt.shape) == tuple(jj.shape), name
+            np.testing.assert_allclose(tt.float().numpy(), np.asarray(jj, np.float32), rtol=1e-5, atol=1e-5,
+                                       err_msg=name)
+    _, hidden, _, chance = inputs()
+    p, f = jnet.params, jnet.apply_fns
+    t = torch.from_numpy
+    pairs = []
+    with torch.no_grad():
+        if bins[0] > 1:
+            pairs.append((f.prediction_logits(p.prediction, hidden), tnet.prediction.logits(t(hidden))))
+            pairs.append((f.afterstate_prediction_logits(p.afterstate_prediction, hidden),
+                          tnet.afterstate_prediction.logits(t(hidden))))
+        else:
+            assert f.prediction_logits is None
+            assert torch.equal(tnet.prediction.logits(t(hidden))[1], tnet.prediction(t(hidden))[1])
+        if bins[1] > 1:
+            pairs.append((f.dynamics_logits(p.dynamics, hidden, chance), tnet.dynamics.logits(t(hidden), t(chance))))
+    for j, tt in pairs:
+        for jj, ttt in zip(j, tt):
+            assert tuple(ttt.shape) == tuple(jj.shape)
+            np.testing.assert_allclose(ttt.numpy(), np.asarray(jj), rtol=1e-5, atol=1e-5)

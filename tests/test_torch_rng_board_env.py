@@ -1,6 +1,7 @@
 """PyTorch port vs the JAX package: spawn RNG, board ops and environment,
 bit-exact on identical inputs made from a numpy seed."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -126,3 +127,28 @@ class TestEnv:
             same(getattr(ts, field), getattr(js, field))
         same(tenv.get_observation(ts), jenv.get_observation(js))
         assert bool(ts.done.any()), "the rollout should finish some games"
+
+
+def test_afterstate_helpers_match_jax():
+    """``latent_state`` (the afterstate), ``afterstate_outcomes`` (every spawn
+    with its probability, slot 2·cell + is_four) and greedy ``sample_action``: exact."""
+    rs = np.random.RandomState(8)
+    boards = rs.randint(0, 4, size=(12, 4, 4)).astype(np.int32) * (rs.rand(12, 4, 4) < 0.6)
+    boards[0] = np.arange(1, 17).reshape(4, 4)  # a full board: the input at slot 0 with probability 1
+    actions = rs.randint(0, 4, size=12).astype(np.int32)
+    t = torch.from_numpy
+    ref_after = jb.latent_state(jnp.asarray(boards), jnp.asarray(actions))
+    for got, ref in zip(tb.latent_state(t(boards), t(actions)), ref_after):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    got_boards, got_probs = tb.afterstate_outcomes(t(boards))
+    ref_boards, ref_probs = jb.afterstate_outcomes(jnp.asarray(boards))
+    np.testing.assert_array_equal(got_boards.numpy(), np.asarray(ref_boards))
+    np.testing.assert_allclose(got_probs.numpy(), np.asarray(ref_probs), rtol=1e-6)
+    policy = rs.dirichlet([1.0] * 4, size=12).astype(np.float32)
+    policy[3] = 0.0  # nothing left after masking: uniform over the legal moves
+    legal = rs.rand(12, 4) < 0.7
+    legal[legal.sum(-1) == 0, 0] = True
+    ref = jb.sample_action(jax.random.PRNGKey(0), 0.0, jnp.asarray(policy), jnp.asarray(legal))
+    np.testing.assert_array_equal(tb.sample_action(None, 0.0, t(policy), t(legal)).numpy(), np.asarray(ref))
+    drawn = tb.sample_action(torch.Generator().manual_seed(0), 1.0, t(policy), t(legal))
+    assert legal[np.arange(12), drawn.numpy()].all(), "only legal actions are drawn"

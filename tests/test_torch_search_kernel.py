@@ -25,6 +25,7 @@ import torch
 from simulate_2048_tpu.models.network import create_network
 from simulate_2048_tpu.ops import pallas_search as jps
 from simulate_2048_tpu.search.mcts import SearchConfig as JaxSearchConfig
+from simulate_2048_tpu.search.mcts import batched_run_mcts as jax_batched_run_mcts
 from simulate_2048_tpu_torch.convert import params_from_flax
 from simulate_2048_tpu_torch.ops import search_kernel as sk
 from simulate_2048_tpu_torch.search.mcts import SearchConfig, batched_run_mcts
@@ -61,10 +62,100 @@ def test_pack_matches_jax_elementwise(nets):
         np.testing.assert_array_equal(g.numpy(), np.asarray(r), err_msg=name)
 
 
-@pytest.mark.parametrize("kwargs", [dict(weight_dtype=torch.bfloat16), dict(stream_chunk=4), dict(value_bins=21)])
+@pytest.mark.parametrize(
+    "kwargs", [dict(weight_dtype=torch.bfloat16), dict(stream_chunk=4), dict(weight_dtype=torch.float16)]
+)
 def test_pack_unported_variants_raise(nets, kwargs):
     with pytest.raises(NotImplementedError):
         sk.pack_search_params(nets[1], BLOCKS, 32, **kwargs)
+
+
+def test_pack_checks_head_shapes(nets):
+    """The bins passed must be the network's own (they decide which pack a head goes to)."""
+    with pytest.raises(ValueError, match="do not match"):
+        sk.pack_search_params(nets[1], BLOCKS, 32, value_bins=21)
+
+
+# ---- categorical heads (variant (b) of the kernel): value, Q and reward heads
+# as (H, bins) matrices reduced to h-space expectations inside the search.
+
+CAT_BINS = [(16, 8), (16, 1)]  # both categorical; value categorical with a scalar reward head
+
+
+def cat_nets(value_bins: int, reward_bins: int):
+    """Networks with categorical heads, their zero-initialised head kernels
+    perturbed (0.05 * normal, numpy-seeded): with zero kernels every node
+    gets the same expectation, min-max Q divides float noise by its 1e-8
+    floor and the argmax compares rounding, not search semantics."""
+    jnet = create_network(jax.random.PRNGKey(2), hidden_size=HIDDEN, num_blocks=BLOCKS, value_bins=value_bins,
+                          reward_bins=reward_bins)
+    params = jax.tree.map(np.array, jax.device_get(jnet.params))
+    rs = np.random.RandomState(99)
+    for tree, name in ((params.prediction, "value"), (params.afterstate_prediction, "q_value"),
+                       (params.dynamics, "reward")):
+        kernel = tree["params"][name]["kernel"]
+        if kernel.shape[-1] > 1:
+            tree["params"][name]["kernel"] = kernel + 0.05 * rs.standard_normal(kernel.shape).astype(np.float32)
+    jnet = jnet._replace(params=params)
+    cfg = replace(TrainConfig(), hidden_size=HIDDEN, num_residual_blocks=BLOCKS, value_bins=value_bins,
+                  reward_bins=reward_bins)
+    return jnet, params_from_flax(params, cfg)
+
+
+@pytest.mark.parametrize("bins", CAT_BINS, ids=["categorical", "mixed"])
+def test_categorical_pack_matches_jax_elementwise(bins):
+    jnet, tnet = cat_nets(*bins)
+    ref = jps.pack_search_params(jnet.params, BLOCKS, 32, value_bins=bins[0], reward_bins=bins[1])
+    got = sk.pack_search_params(tnet, BLOCKS, 32, value_bins=bins[0], reward_bins=bins[1])
+    assert sk.cat_layout(*bins) == jps._cat_layout(*bins)
+    for name, r, g in zip(sk.PackedSearchParams._fields, ref, got):
+        assert tuple(g.shape) == tuple(r.shape), name
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r), err_msg=name)
+    assert float(got.cat.abs().max()) > 0
+    scalar_columns = [c for c, b in enumerate((bins[0], bins[0], bins[1])) if b > 1]
+    assert float(got.scal[:, scalar_columns].abs().max()) == 0, "a categorical head leaves its scal column zero"
+
+
+@pytest.mark.parametrize("bins", CAT_BINS, ids=["categorical", "mixed"])
+def test_categorical_search_matches_jax(bins):
+    """Visit counts identical to the JAX kernel (interpret mode) and to the JAX
+    plain search, from the port's plain kernel version and the port's plain
+    search; root Q and value within rtol 1e-3 / atol 2e-4. The absolute
+    tolerance is one step of h⁻¹ in float32 near 0: with ε = 0.001,
+    (√(1 + 4ε(|x| + 1 + ε)) − 1) / 2ε resolves 2⁻²³ / 2ε ≈ 6e-5 and is then
+    squared, so raw values near 0.004 (which these fresh heads give) move in
+    steps of 1.19e-4 and one rounding inside a head shows as one such step."""
+    jnet, tnet = cat_nets(*bins)
+    cfg = {**CFG, "value_bins": bins[0], "reward_bins": bins[1]}
+    obs, _ = make_inputs(jps.BLOCK_G, seed=12)
+    keys = jax.random.split(jax.random.PRNGKey(2), jps.BLOCK_G)
+    jcfg, jobs = JaxSearchConfig(**cfg), jnp.asarray(obs)
+    refs = [
+        jps.run_mcts_pallas(jnet.params, jnet.apply_fns, jobs, keys, jcfg, num_blocks=BLOCKS, interpret=True),
+        jax_batched_run_mcts(jnet.params, jnet.apply_fns, jobs, keys, jcfg),
+    ]
+    outs = [
+        sk.run_search_kernel(tnet, torch.from_numpy(obs), SearchConfig(**cfg)),
+        batched_run_mcts(tnet, torch.from_numpy(obs), SearchConfig(**cfg)),
+    ]
+    for ref in refs:
+        for out in outs:
+            np.testing.assert_array_equal(out.visit_counts.numpy(), np.asarray(ref.visit_counts))
+            np.testing.assert_allclose(out.qvalues.numpy(), np.asarray(ref.qvalues), rtol=1e-3, atol=2e-4)
+            np.testing.assert_allclose(out.search_value.numpy(), np.asarray(ref.search_value), rtol=1e-3, atol=2e-4)
+
+
+def test_wrapper_checks_bins(nets):
+    """The CUDA path's input check states the supported bins and rejects a pack of another layout."""
+    jnet, tnet = cat_nets(16, 8)
+    packed = sk.pack_search_params(tnet, BLOCKS, 32, value_bins=16, reward_bins=8)
+    roots = (torch.zeros(4, HIDDEN), torch.zeros(4, 32), torch.zeros(4))
+    ok = SearchConfig(**{**CFG, "value_bins": 16, "reward_bins": 8})
+    sk._check_inputs(*roots, packed, ok)
+    with pytest.raises(ValueError, match="bins"):
+        sk._check_inputs(*roots, packed, ok._replace(value_bins=sk.MAX_BINS + 1))
+    with pytest.raises(ValueError, match="categorical pack"):
+        sk._check_inputs(*roots, packed, ok._replace(reward_bins=1))
 
 
 @pytest.mark.parametrize("overrides", [dict(), dict(num_simulations=10, max_depth=3, prior_temperature=4.0)])
