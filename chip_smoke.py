@@ -7,37 +7,50 @@ code != 0, no final ``ok`` line) if any phase fails:
 2. builds every CUDA kernel from the sources in the checkout (one ``nvcc``
    per source, started together) and prints the build seconds;
 3. holds each kernel against its plain PyTorch version at the shapes the
-   main paths give it: the whole-search kernel at the full preset (H=256,
-   10 residual blocks, 100 simulations, depth cap 32) on B=256 searches
-   with seeded random weights, once with scalar heads (the evaluation path)
-   and once with categorical heads of 256 value and 128 reward bins (the
-   training path). Visit counts must be identical in at least
-   99% of the searches (each differing search is printed with its root
-   visits and the Q gap of its two most visited actions) and total S in
-   every search; root Q and value agree within
-   rtol 1e-4 / atol 1e-3 on the matching searches (float32 sums taken in
-   another order);
+   main paths give it: the random-rollout kernel at 65,536 boards x 128
+   steps (all four outputs equal, and games must have ended so that the
+   reset branch ran), and the whole-search kernel at the full preset (H=256,
+   10 residual blocks, 100 simulations, depth cap 32) with seeded random
+   weights: with scalar heads on B=256 searches a launch (the evaluation
+   path), and with categorical heads of 256 value and 128 reward bins at
+   every launch size of the training path: 256 (self-play and the inline
+   evaluation), 128 (deep evaluation), 1,024 and 512 (the batches of a
+   search-mode reanalyze pass). At each size visit counts must be identical
+   in at least 99% of the searches (each differing search is printed with
+   its root visits and the Q gap of its two most visited actions) and total
+   S in every search; root Q and value agree within rtol 1e-4 / atol 1e-3 on
+   the matching searches (float32 sums taken in another order);
 4. times each kernel (CUDA events after warm-up, median of 5) beside its
-   plain version and its bound;
-5. checks greedy evaluation and a greedy self-play segment with categorical
-   heads on a small config on the card: the kernel backend against the
-   plain search backend, game for game;
-6. drives the evaluation path, ``evaluate_games`` at ``default_config()`` on
+   plain version and its bound: the FP32 operations a search needs, and
+   the integer operations a rollout's definition forces (beside it, what the
+   rollout kernel's source spends, as its share of the INT32 issue rate);
+5. checks greedy evaluation, a greedy self-play segment with categorical
+   heads and a search-mode reanalyze of that segment on a small config on
+   the card: the kernel backend against the plain search backend, game for
+   game and position for position;
+6. drives the rollout path, ``simulate_2048_tpu_torch.bench`` on the card
+   (65,536 boards x 128 steps, a warm-up and five repetitions: six kernel
+   launches), and prints its JSON line;
+7. drives the evaluation path, ``evaluate_games`` at ``default_config()`` on
    256 games with ``eval_max_moves`` capped, with the launch counts set to 0
    just before; the kernel must have launched once per move played;
-7. drives the training path, ``train_muzero`` at ``default_config()`` with
-   the categorical heads and learning settings of the repo's training
-   recipe (depth cut: short segments, a small buffer, a dozen learner
-   steps, one checkpoint written and read back, one inline evaluation),
-   again with the launch counts set to 0 just before: one kernel launch per
-   self-play move and evaluation move, finite loss terms, changed
-   parameters, and a checkpoint equal to the saved state;
-8. prints one JSON line with every kernel's numbers, then
+8. drives the training path, ``train_muzero`` at ``default_config()`` with
+   the categorical heads, learning settings, search-mode reanalyze and deep
+   evaluation of the repo's training recipe (depth cut: short segments, a
+   small buffer, a dozen learner steps, one reanalyze pass of 64 episodes,
+   one checkpoint written and read back, one inline evaluation and one deep
+   evaluation of 128 games), again with the launch counts set to 0 just
+   before: one kernel launch per self-play, evaluation and deep-evaluation
+   move and per batch of reanalyze searches, finite loss terms, changed
+   parameters, a checkpoint equal to the saved state, the champion in
+   ``best/``, and reanalysed policy targets that sum to 1;
+9. prints one JSON line with every kernel's numbers, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--profile`` also prints the device time by kernel, the device kernels
 launched and the device's idle share over a few evaluation moves, self-play
-moves and learner steps at full width.
+moves and learner steps, one reanalyze pass and one ``bench`` repetition at
+full width, and the whole-search kernel's rate at 256 to 2,048 searches a launch.
 Exits non-zero when CUDA is unavailable.
 """
 
@@ -46,6 +59,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -54,13 +68,18 @@ import time
 
 import torch
 
+from simulate_2048_tpu_torch import bench
 from simulate_2048_tpu_torch.env import env as envlib
 from simulate_2048_tpu_torch.models.network import network_from_config
 from simulate_2048_tpu_torch.ops import _build
+from simulate_2048_tpu_torch.ops import rng as tfrng
+from simulate_2048_tpu_torch.ops import rollout_kernel as rk
 from simulate_2048_tpu_torch.ops import search_kernel as sk
 from simulate_2048_tpu_torch.search.mcts import root_inputs
 from simulate_2048_tpu_torch.training.checkpoint import CheckpointManager
 from simulate_2048_tpu_torch.training.config import default_config, tiny_config
+from simulate_2048_tpu_torch.training import reanalyze
+from simulate_2048_tpu_torch.training import replay as replay_lib
 from simulate_2048_tpu_torch.training.learner import TrainState, create_optimizer
 from simulate_2048_tpu_torch.training.self_play import (
     _evaluate_rollout,
@@ -73,10 +92,47 @@ from simulate_2048_tpu_torch.training.trainer import train_muzero
 SEED = 2048
 BATCH = 256
 MAIN_PATH_MAX_MOVES = 100  # evaluation path: moves per game
+# Rollout path: the benchmark's own size.
+ROLLOUT_BOARDS, ROLLOUT_STEPS = 65_536, 128
 # Training path, depth cut (widths, games, batch and unroll are the preset's):
 TRAIN_SEGMENT_MOVES = 24  # max_trajectory_length
 TRAIN_STEPS = 12  # the first has learning rate 0 (warm-up starts there)
-TRAIN_EVAL_MOVES = 8
+TRAIN_EVAL_MOVES = 8  # eval_max_moves, of the inline and of the deep evaluation
+REANALYZE_EPISODES = 64  # the training recipe's; one pass, before step TRAIN_STEPS // 2 (the recipe: every 500)
+DEEP_EVAL_GAMES = 128  # the training recipe's; one deep evaluation, after the last step (the recipe: every 25,000)
+# Launch sizes of the categorical whole-search kernel on the training path.
+TRAIN_SEARCH_BATCHES = (reanalyze.SEARCH_BATCH, REANALYZE_EPISODES * TRAIN_SEGMENT_MOVES % reanalyze.SEARCH_BATCH,
+                        BATCH, DEEP_EVAL_GAMES)  # fmt: skip
+# The bound of the rollout: the least 32-bit integer work that the rollout's
+# definition forces on any implementation. Only the Threefry calls are fixed
+# by it; the move, spawn and end test are counted for the leanest scheme known
+# (a board of 4-bit cells in two words, a table of slid rows), a table read as
+# one operation. A Threefry-2x32 of 20 rounds on a key held in registers with
+# its injection constants: 2 adds to key the counter, 20 x (add, rotate, xor),
+# 5 injections of 2 adds = 72; 69 where only word 0 is used (the last round's
+# rotate and xor and one add fall away).
+# Every step: the action's Threefry 69 and its mask 1; the move 16 (4 rows x
+# extract, look up, insert, and add the row's score); moved 2; loop 1.
+# A step that moved the board: the spawn's Threefry 72; empty cells 8 (2 words
+# x zero-cell mask 3 + population count 1); rank 1 (multiply-high); 2-or-4
+# choice 2; placing on the rank-th empty cell 3; end-of-game test 2 (only a
+# move can end a game); spawn counter 1. The reward is a float add, not counted.
+# A reset: the reseed's Threefry 69, two spawns of 72 + 8 + 1 + 2 + 3, episode
+# and spawn counters 2. The largest tile can wait for a reset or the end.
+ROLLOUT_MIN_OPS = {"step": 89, "moved": 89, "reset": 243}
+# What csrc/random_rollout.cu spends, one per C operator of its source: not a
+# bound, but the work whose rate says how well the kernel issues.
+# A Threefry-2x32 is 79 (2 for the third key word, 2 to add the key, 20 rounds
+# of add / rotate / xor, 5 key injections of 3 adds).
+# Every step: the action's Threefry and its mask 80; orient 22 and orient back
+# 22 (8 byte permutes to transpose, 4 to mirror, 8 selects, 2 bit tests); the
+# slide 112 (4 rows of 4 cells: extract 2, two compares, place or merge 3);
+# moved 8; per-byte maximum 4; end-of-game test 49; loop 2.
+# A step that moved the board: the spawn's Threefry 79, the spawn 147 (count
+# the empty cells 16, rank and tile 3, 16 cells of 8), reward and counter 3.
+# A reset: the reseed's Threefry 79, two spawns of 79 + 147, bookkeeping 5.
+ROLLOUT_SOURCE_OPS = {"step": 299, "moved": 229, "reset": 536}
+INT32_LANES_PER_SM = 64  # Hopper: 4 partitions of 16 INT32 lanes
 # FP32 (non-tensor-core) peak by SKU, NVIDIA data sheets (dense, at the full power limit).
 FP32_TFLOPS = {"H100 SXM": 67.0, "H100 NVL": 60.0, "H100 PCIe": 51.0, "H200": 67.0}
 HBM_TBPS = {"H100 SXM": 3.35, "H100 NVL": 3.9, "H100 PCIe": 2.0, "H200": 4.8}
@@ -109,8 +165,8 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
-def full_width_inputs(device, value_bins: int = 1, reward_bins: int = 1):
-    """Seeded full-preset network and B=256 roots. Scalar heads are scaled so
+def full_width_inputs(device, value_bins: int = 1, reward_bins: int = 1, batch: int = BATCH):
+    """Seeded full-preset network and ``batch`` roots. Scalar heads are scaled so
     that values spread; categorical heads (zero weights when fresh, so every
     node would get the same expectation and the search would compare float
     noise) get 0.05 * normal weights."""
@@ -125,8 +181,8 @@ def full_width_inputs(device, value_bins: int = 1, reward_bins: int = 1):
                 head.weight.mul_(20.0)
                 head.bias.add_(torch.randn(head.bias.shape, generator=gen).to(device))
     # Roots: mid-game boards from seeded random play.
-    state = envlib.reset_batch(SEED, BATCH, device)
-    moves = torch.randint(0, 4, (40, BATCH), generator=gen).to(device)
+    state = envlib.reset_batch(SEED, batch, device)
+    moves = torch.randint(0, 4, (40, batch), generator=gen).to(device)
     for t in range(moves.shape[0]):
         state, _, _, _ = envlib.step(state, moves[t])
     obs = envlib.get_observation(state)
@@ -166,34 +222,50 @@ def search_flops(h: int, nb: int, a: int, k: int, searches: int, sims: int, vb: 
     return per_sim * searches * sims
 
 
-def check_whole_search(device, name: str = "whole_search", value_bins: int = 1, reward_bins: int = 1) -> dict:
-    """Kernel vs plain version at the full preset, then their times and the bound."""
-    config, cfg, network, packed, roots = full_width_inputs(device, value_bins, reward_bins)
+def check_whole_search(
+    device, name: str = "whole_search", value_bins: int = 1, reward_bins: int = 1, batches: tuple[int, ...] = (BATCH,)
+) -> dict:
+    """Kernel vs plain version at the full preset, at every launch size in
+    ``batches`` (searches are independent: the plain version runs once, on the
+    most roots, and a launch of b searches takes the first b); then the times
+    at ``BATCH`` searches, the size most launches have, and the bound."""
+    config, cfg, network, packed, roots = full_width_inputs(device, value_bins, reward_bins, max(batches))
     h, nb, s = config.hidden_size, config.num_residual_blocks, cfg.num_simulations
-    visits, qvals, value = sk.whole_search(*roots, packed, cfg)
-    torch.cuda.synchronize()
-    ref_visits, ref_q, ref_value = sk.whole_search_reference(*roots, packed, cfg)
+    reference = sk.whole_search_reference(*roots, packed, cfg)
     torch.cuda.synchronize()
 
-    if not (visits.sum(-1) == s).all():
-        fail(f"{name}: visit totals {visits.sum(-1).unique().tolist()} != {s}")
-    if not (torch.isfinite(qvals).all() and torch.isfinite(value).all()):
-        fail(f"{name}: non-finite Q or value")
-    differ = (visits != ref_visits).any(-1)
-    n_diff = int(differ.sum())
-    for i in differ.nonzero().flatten().tolist():
-        print(f"  search {i} differs: {root_gap(visits[i].int(), ref_visits[i].int(), qvals[i], ref_q[i])}")
-    print(f"{name}: {BATCH - n_diff}/{BATCH} searches with identical visit counts")
-    if n_diff > BATCH // 100:
-        fail(f"{name}: {n_diff} searches differ from the plain version (limit {BATCH // 100})")
-    same = ~differ
-    q_ok = torch.allclose(qvals[same], ref_q[same], rtol=1e-4, atol=1e-3)
-    v_ok = torch.allclose(value[same], ref_value[same], rtol=1e-4, atol=1e-3)
-    max_err = max(float((qvals[same] - ref_q[same]).abs().max()), float((value[same] - ref_value[same]).abs().max()))
-    print(f"{name}: max |kernel - plain| over Q and root value = {max_err:.3g}")
-    if not (q_ok and v_ok):
-        fail(f"{name}: Q / root value outside rtol 1e-4, atol 1e-3")
+    max_err = 0.0
+    for b in batches:
+        part = tuple(r[:b].contiguous() for r in roots)
+        visits, qvals, value = sk.whole_search(*part, packed, cfg)
+        torch.cuda.synchronize()
+        ref_visits, ref_q, ref_value = (r[:b] for r in reference)
+        if not (visits.sum(-1) == s).all():
+            fail(f"{name}: visit totals {visits.sum(-1).unique().tolist()} != {s} at {b} searches a launch")
+        if not (torch.isfinite(qvals).all() and torch.isfinite(value).all()):
+            fail(f"{name}: non-finite Q or value at {b} searches a launch")
+        differ = (visits != ref_visits).any(-1)
+        n_diff = int(differ.sum())
+        for i in differ.nonzero().flatten().tolist():
+            print(f"  search {i} differs: {root_gap(visits[i].int(), ref_visits[i].int(), qvals[i], ref_q[i])}")
+        same = ~differ
+        err = max(float((qvals[same] - ref_q[same]).abs().max()), float((value[same] - ref_value[same]).abs().max()))
+        max_err = max(max_err, err)
+        print(
+            f"{name}: {b} searches a launch: {b - n_diff}/{b} with identical visit counts, "
+            f"max |kernel - plain| over Q and root value = {err:.3g}"
+        )
+        if n_diff > b // 100:
+            fail(f"{name}: {n_diff} of {b} searches differ from the plain version (limit {b // 100})")
+        q_ok = torch.allclose(qvals[same], ref_q[same], rtol=1e-4, atol=1e-3)
+        v_ok = torch.allclose(value[same], ref_value[same], rtol=1e-4, atol=1e-3)
+        if not (q_ok and v_ok):
+            fail(f"{name}: Q / root value outside rtol 1e-4, atol 1e-3 at {b} searches a launch")
+        if b != BATCH:
+            ms = cuda_ms(lambda: sk.whole_search(*part, packed, cfg), reps=3)
+            print(f"{name}: {b} searches a launch: kernel {ms:.3f} ms, {b / ms * 1e3:.0f} searches/s")
 
+    roots = tuple(r[:BATCH].contiguous() for r in roots)
     ms = cuda_ms(lambda: sk.whole_search(*roots, packed, cfg), reps=5)
     plain_ms = cuda_ms(lambda: sk.whole_search_reference(*roots, packed, cfg), reps=3, warmup=0)
     flops = search_flops(
@@ -201,7 +273,7 @@ def check_whole_search(device, name: str = "whole_search", value_bins: int = 1, 
     )
     read_once = packed if value_bins > 1 or reward_bins > 1 else packed[:7]  # the cat pack only when a head uses it
     weight_bytes = sum(t.numel() * t.element_size() for t in read_once)
-    io_bytes = sum(t.numel() * 4 for t in roots) + 3 * visits.numel() * 4
+    io_bytes = sum(t.numel() * 4 for t in roots) + (2 * cfg.num_actions + 1) * BATCH * 4
     card = sku(torch.cuda.get_device_name(0))
     op_ms = flops / (FP32_TFLOPS[card] * 1e12) * 1e3
     byte_ms = (weight_bytes + io_bytes) / (HBM_TBPS[card] * 1e12) * 1e3
@@ -223,6 +295,104 @@ def check_whole_search(device, name: str = "whole_search", value_bins: int = 1, 
         "bound_by": "operations" if op_ms >= byte_ms else "bytes",
         "library_ms": None,
     }
+
+
+def max_sm_clock_hz() -> float:
+    """The card's highest SM clock as ``nvidia-smi`` reports it (``clocks.max.sm``)."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"], capture_output=True, text=True
+    )
+    if smi.returncode != 0:
+        fail(f"nvidia-smi could not read clocks.max.sm: {smi.stderr.strip()}")
+    return float(smi.stdout.strip().splitlines()[0]) * 1e6
+
+
+def rollout_seeds(device) -> torch.Tensor:
+    index = torch.arange(ROLLOUT_BOARDS, dtype=torch.int64, device=device)
+    return tfrng.derive_game_seeds(SEED, index, torch.zeros_like(index))
+
+
+def check_random_rollout(device) -> dict:
+    """The rollout kernel vs its plain version at the benchmark's size, then their times and the bound."""
+    seeds = rollout_seeds(device)
+    out = rk.rollout_kernel(seeds, ROLLOUT_STEPS)
+    torch.cuda.synchronize()
+    ref, moved = rk.random_rollout_reference_counted(seeds, ROLLOUT_STEPS)
+    torch.cuda.synchronize()
+    max_err = 0.0
+    for name, got, want in zip(("boards", "episodes", "reward_sum", "max_tile"), out, ref):
+        if got.shape != want.shape or got.dtype != want.dtype:
+            fail(f"random_rollout: {name} is {got.dtype} {tuple(got.shape)}, not {want.dtype} {tuple(want.shape)}")
+        max_err = max(max_err, float((got.double() - want.double()).abs().max()))
+        if not torch.equal(got, want):
+            n_diff = int((got != want).sum())
+            fail(f"random_rollout: {name} differs from the plain version on {n_diff} of {got.numel()} entries")
+    episodes = int(out[1].sum())
+    print(
+        f"random_rollout: boards, episodes, reward sums and max tiles equal to the plain version on {ROLLOUT_BOARDS} "
+        f"boards x {ROLLOUT_STEPS} steps; {episodes} games ended, mean reward sum {float(out[2].mean()):.1f}, "
+        f"largest tile {int(out[3].max())}"
+    )
+    if episodes == 0:
+        fail("random_rollout: no game ended, so the reset branch was not compared")
+
+    ms = cuda_ms(lambda: rk.rollout_kernel(seeds, ROLLOUT_STEPS), reps=5)
+    plain_ms = cuda_ms(lambda: rk.random_rollout_reference(seeds, ROLLOUT_STEPS), reps=3, warmup=0)
+    steps = ROLLOUT_BOARDS * ROLLOUT_STEPS
+    work = {"step": steps, "moved": moved, "reset": episodes}  # what this run's data asked of each branch
+    ops = sum(ROLLOUT_MIN_OPS[k] * n for k, n in work.items())
+    source_ops = sum(ROLLOUT_SOURCE_OPS[k] * n for k, n in work.items())
+    sms, clock = torch.cuda.get_device_properties(0).multi_processor_count, max_sm_clock_hz()
+    int_rate = sms * INT32_LANES_PER_SM * clock
+    op_ms = ops / int_rate * 1e3
+    io_bytes = seeds.numel() * seeds.element_size() + sum(t.numel() * t.element_size() for t in out)
+    byte_ms = io_bytes / (HBM_TBPS[sku(torch.cuda.get_device_name(0))] * 1e12) * 1e3
+    bound_ms = max(op_ms, byte_ms)
+    print(
+        f"random_rollout: kernel {ms:.4f} ms ({steps / ms * 1e3:.4g} env-steps/s), plain {plain_ms:.1f} ms, "
+        f"bound {bound_ms:.4f} ms (the kernel takes {ms / bound_ms:.2f}x that): {ops / steps:.1f} integer operations "
+        f"per step that the rollout's definition forces ({moved / steps:.3f} of the steps moved a board, {episodes} "
+        f"resets) over {sms} SMs x {INT32_LANES_PER_SM} INT32 lanes x {clock / 1e6:.0f} MHz (nvidia-smi "
+        f"clocks.max.sm) = {int_rate:.4g} op/s; {io_bytes} B take {byte_ms:.5f} ms"
+    )
+    source_ms = source_ops / int_rate * 1e3
+    print(
+        f"random_rollout: its source spends {source_ops / steps:.1f} operations per step, {source_ms:.4f} ms at that "
+        f"rate: the kernel issues them at {source_ms / ms:.2f} of the INT32 rate (no bound: three-input instructions "
+        f"do some pairs in one)"
+    )
+    return {
+        "name": "random_rollout",
+        "route": "cuda",
+        "source": "simulate_2048_tpu_torch/csrc/random_rollout.cu",
+        "replaces": "simulate_2048_tpu/ops/pallas_rollout.py:188",
+        "max_abs_err": max_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+        "library_ms": None,  # no PyTorch call plays 2048
+    }
+
+
+def drive_rollout_path() -> int:
+    """The rollout path through its entry point, ``bench.main``, on the card. Returns the run's kernel launches."""
+    rk.LAUNCHES["random_rollout"] = 0
+    result = bench.main([])
+    launches = rk.LAUNCHES["random_rollout"]
+    if launches != 1 + result["reps"] or "vs_baseline" in result:
+        fail(f"rollout path: {launches} kernel launches for a warm-up and {result['reps']} repetitions")
+    size = (result["num_envs"], result["num_steps"])
+    if result["backend"] != "cuda_rollout" or size != (ROLLOUT_BOARDS, ROLLOUT_STEPS):
+        fail(f"rollout path: bench ran {result['backend']} at {result['num_envs']} x {result['num_steps']}")
+    if not (0 < result["value"] < float("inf") and 0 < result["kernel_ms"] < 1e3 * min(result["times_s"])):
+        fail(f"rollout path: env-steps/s is {result['value']}, the kernel's ms {result['kernel_ms']}")
+    print(
+        f"rollout path: {result['value']:.4g} env-steps/s, best of {result['reps']} repetitions "
+        f"({1e3 * min(result['times_s']):.3f} ms: seeds, one kernel launch and the fetch of the episode count; "
+        f"the kernel alone {result['kernel_ms']:.4f} ms)"
+    )
+    return launches
 
 
 def check_small_evaluation(device) -> None:
@@ -250,10 +420,14 @@ def perturb_categorical_heads(network, generator: torch.Generator) -> None:
 
 
 def check_small_training(device) -> None:
-    """A greedy self-play segment with categorical heads on a small config:
-    kernel backend vs plain search backend, game for game."""
+    """A greedy self-play segment with categorical heads on a small config,
+    then a search-mode reanalyze of it: kernel backend vs plain search
+    backend, game for game and position for position."""
     games, moves = 32, 30
-    config = dataclasses.replace(tiny_config(), num_simulations=16, value_bins=16, reward_bins=8)
+    config = dataclasses.replace(
+        tiny_config(), num_simulations=16, value_bins=16, reward_bins=8, max_trajectory_length=moves,
+        replay_buffer_size=games, reanalyze_mode="search", value_target_mode="td_lambda", td_lambda=1.0,
+    )  # fmt: skip
     gen = torch.Generator().manual_seed(SEED)
     network = network_from_config(config, gen, device)
     perturb_categorical_heads(network, gen)
@@ -280,6 +454,33 @@ def check_small_training(device) -> None:
     if not torch.allclose(k.values[same], p.values[same], rtol=1e-4, atol=1e-3):
         fail("small training segment: stored search values outside rtol 1e-4, atol 1e-3")
 
+    # Reanalyze the kernel backend's segment under both backends, with the same root noise.
+    alpha = torch.full((games * moves, config.action_size), config.dirichlet_alpha)
+    noise = torch._sample_dirichlet(alpha, gen).to(device)
+    slots = torch.arange(games, device=device)
+    buffers = {}
+    for backend in ("pallas", "xla"):
+        cfg = dataclasses.replace(config, search_backend=backend)
+        buffer = replay_lib.add_trajectories(replay_lib.init_buffer(cfg, device), k)
+        buffers[backend] = reanalyze.reanalyze_slots(buffer, network, slots, cfg, noise=noise)
+    kb, pb = buffers["pallas"], buffers["xla"]
+    in_ep = torch.arange(moves, device=device)[None] < kb.length[:, None]
+    same = (kb.policies == pb.policies).all(-1) & in_ep
+    n_pos = int(in_ep.sum())
+    print(
+        f"small reanalyze (the segment above, search mode, {n_pos} positions): {int(same.sum())}/{n_pos} policy "
+        f"targets identical; max |value target difference| "
+        f"{float((kb.values.float() - pb.values.float()).abs().max()):.3g} (bfloat16 in the buffer)"
+    )
+    if int(same.sum()) < n_pos - n_pos // 100:
+        fail("small reanalyze: kernel and plain search backends disagree on more than 1% of the policy targets")
+    if not torch.equal(kb.policies[~in_ep], pb.policies[~in_ep]) or kb.policies[~in_ep].any():
+        fail("small reanalyze: policy targets outside the episodes are not zero")
+    # One differing search moves its game's earlier returns too: compare the games whose searches all agree.
+    whole = (same | ~in_ep).all(-1)
+    if not torch.allclose(kb.values[whole].float(), pb.values[whole].float(), rtol=2.0**-7, atol=1e-3):
+        fail("small reanalyze: value targets differ by more than one bfloat16 step")
+
 
 def training_config():
     """The paper preset's widths with the categorical heads and learning
@@ -302,6 +503,11 @@ def training_config():
         eval_interval=TRAIN_STEPS,
         eval_games=BATCH,
         eval_max_moves=TRAIN_EVAL_MOVES,
+        reanalyze_mode="search",
+        reanalyze_episodes=REANALYZE_EPISODES,
+        reanalyze_interval=TRAIN_STEPS // 2,
+        deep_eval_interval=TRAIN_STEPS,
+        deep_eval_games=DEEP_EVAL_GAMES,
     )
 
 
@@ -323,6 +529,9 @@ def drive_training(device) -> dict[str, int]:
         restored = TrainState(fresh, create_optimizer(config).init(list(fresh.parameters())))
         if CheckpointManager(ckpt_dir).restore(restored) is None:
             fail("training path: no checkpoint was written")
+        best_steps = CheckpointManager(os.path.join(ckpt_dir, "best")).all_steps()
+        with open(os.path.join(ckpt_dir, "deep_eval_best.json")) as f:
+            champion = json.load(f)
     trained = trainer.state
     same = all(torch.equal(a, b) for a, b in zip(restored.params, trained.params))
     for name in ("mu", "nu"):
@@ -344,11 +553,36 @@ def drive_training(device) -> dict[str, int]:
     if changed < len(trained.params) // 2:
         fail(f"training path: only {changed} of {len(trained.params)} parameter tensors changed")
 
+    passes = [r for r in history if "reanalyze/seconds" in r]
+    deeps = [r for r in history if "deep_eval/mean_reward" in r]
+    pass_steps, deep_steps = [r["step"] for r in passes], [r["step"] for r in deeps]
+    if pass_steps != [TRAIN_STEPS // 2] or deep_steps != [TRAIN_STEPS]:
+        fail(f"training path: reanalyze passes at steps {pass_steps}, deep evaluations at steps {deep_steps}")
+    if best_steps != [TRAIN_STEPS] or set(champion) != {"step", "mean_reward", "sem_reward", "games", "max_tile"}:
+        fail(f"training path: best/ holds steps {best_steps}, deep_eval_best.json {champion}")
+    if champion["games"] != DEEP_EVAL_GAMES or champion["mean_reward"] != deeps[0]["deep_eval/mean_reward"]:
+        fail(f"training path: deep_eval_best.json {champion} is not the deep evaluation's result")
+
+    # The reanalysed rows: the pass started at row 0 of a buffer that has not wrapped.
+    buffer = trainer.buffer
+    added = int(buffer.episodes_added)
+    if trainer._reanalyze_cursor != REANALYZE_EPISODES or added > buffer.length.shape[0]:
+        fail(f"training path: reanalyze cursor at {trainer._reanalyze_cursor}, {added} episodes added")
+    rows = slice(0, REANALYZE_EPISODES)
+    in_ep = torch.arange(TRAIN_SEGMENT_MOVES, device=device)[None] < buffer.length[rows, None]
+    policy_sums = buffer.policies[rows].float().sum(-1)
+    if not (torch.isfinite(buffer.values[rows].float()).all() and torch.isfinite(policy_sums).all()):
+        fail("training path: a reanalysed value or policy target is not finite")
+    if not torch.allclose(policy_sums, in_ep.float(), atol=2e-3):  # float16 probabilities
+        fail("training path: reanalysed policy targets do not sum to 1 inside the episodes and 0 outside")
+
     self_play_moves = len(gens) * TRAIN_SEGMENT_MOVES
-    if launches["whole_search_categorical"] != self_play_moves + TRAIN_EVAL_MOVES or launches["whole_search"] != 0:
+    reanalyze_launches = len(passes) * reanalyze.search_batches(REANALYZE_EPISODES * TRAIN_SEGMENT_MOVES)
+    expected = self_play_moves + 2 * TRAIN_EVAL_MOVES + reanalyze_launches
+    if launches["whole_search_categorical"] != expected or launches["whole_search"] != 0:
         fail(
-            f"training path: launches {launches} for {self_play_moves} self-play moves "
-            f"and {TRAIN_EVAL_MOVES} evaluation moves"
+            f"training path: launches {launches} for {self_play_moves} self-play moves, {TRAIN_EVAL_MOVES} evaluation "
+            f"moves, {TRAIN_EVAL_MOVES} deep-evaluation moves and {reanalyze_launches} batches of reanalyze searches"
         )
     gen_s = sum(r["gen/seconds"] for r in gens)
     positions = sum(r["gen/positions"] for r in gens)
@@ -365,6 +599,14 @@ def drive_training(device) -> dict[str, int]:
         f"training path: {len(steps)} learner steps (batch {config.batch_size}, unroll {config.num_unroll_steps}): "
         f"median {step_ms:.2f} ms per step, {1e3 / step_ms:.2f} steps/s; whole run {wall:.1f} s; "
         f"{changed}/{len(trained.params)} parameter tensors changed; checkpoint round trip exact"
+    )
+    searches = REANALYZE_EPISODES * TRAIN_SEGMENT_MOVES
+    print(
+        f"training path: one search-mode reanalyze pass of {REANALYZE_EPISODES} episodes x {TRAIN_SEGMENT_MOVES} "
+        f"moves = {searches} searches in {reanalyze_launches} launches: {passes[0]['reanalyze/seconds']:.3f} s "
+        f"({searches / passes[0]['reanalyze/seconds']:.0f} searches/s); one deep evaluation of {DEEP_EVAL_GAMES} "
+        f"games x {TRAIN_EVAL_MOVES} moves: {deeps[0]['deep_eval/seconds']:.3f} s, mean reward "
+        f"{deeps[0]['deep_eval/mean_reward']:.1f}, champion saved in best/ at step {best_steps[0]}"
     )
     print("training path: total loss by step: " + " ".join(f"{r['total_loss']:.4f}" for r in steps))
     print(
@@ -396,7 +638,8 @@ def profile_device(label: str, fn, units: int, unit: str) -> None:
     events.sort(key=lambda e: -e.self_device_time_total)
     busy_us = sum(e.self_device_time_total for e in events)
     calls = sum(e.count for e in events)
-    print(f"profile {label}: {units} {unit}s, wall {wall_us / 1e3:.2f} ms, device busy {busy_us / 1e3:.2f} ms "
+    plural = unit + ("es" if unit.endswith("s") else "s")
+    print(f"profile {label}: {units} {plural}, wall {wall_us / 1e3:.2f} ms, device busy {busy_us / 1e3:.2f} ms "
           f"(summed kernel time), idle share {max(0.0, 1 - busy_us / wall_us):.3f}, "
           f"{calls / units:.1f} device kernels per {unit}")
     for e in events[:12]:
@@ -425,6 +668,23 @@ def profile_paths(device, moves: int = 5, steps: int = 3) -> None:
     )
     profile_device("learner", lambda: [trainer.optimize_step() for _ in range(steps)], steps, "step")
 
+    def one_pass():
+        reanalyze.reanalyze_pass(trainer.buffer, trainer.network, 0, train_config, gen)
+
+    profile_device("reanalyze", one_pass, 1, "pass")
+
+    profile_device(
+        "rollout", lambda: bench.gpu_repetition(SEED, ROLLOUT_BOARDS, ROLLOUT_STEPS, device), 1, "repetition"
+    )
+
+    # The whole-search kernel's rate against the searches in one launch (reanalyze.SEARCH_BATCH is one of them).
+    _, cfg, _, packed, roots = full_width_inputs(device, 256, 128)
+    for copies in (1, 2, 4, 8):
+        many = tuple(r.repeat(copies, *[1] * (r.dim() - 1)).contiguous() for r in roots)
+        ms = cuda_ms(lambda: sk.whole_search(*many, packed, cfg), reps=3)
+        n = copies * BATCH
+        print(f"profile search batch: {n} searches per launch {ms:.2f} ms, {n / ms * 1e3:.0f} searches/s")
+
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -448,10 +708,16 @@ def main() -> None:
 
     kernels = {
         "whole_search": check_whole_search(device),
-        "whole_search_categorical": check_whole_search(device, "whole_search_categorical", 256, 128),
+        "whole_search_categorical": check_whole_search(
+            device, "whole_search_categorical", 256, 128, TRAIN_SEARCH_BATCHES
+        ),
+        "random_rollout": check_random_rollout(device),
     }
     check_small_evaluation(device)
     check_small_training(device)
+
+    # ---- rollout path: the benchmark's entry point on the card
+    kernels["random_rollout"]["launches"] = drive_rollout_path()
 
     # ---- evaluation path: greedy evaluation at the full preset on the card
     config = dataclasses.replace(default_config(), eval_max_moves=MAIN_PATH_MAX_MOVES)
@@ -483,7 +749,7 @@ def main() -> None:
     if not torch.isfinite(rewards).all() or max(lengths) > MAIN_PATH_MAX_MOVES or len(lengths) != BATCH:
         fail("evaluation path: non-finite rewards or game lengths beyond the cap")
 
-    # ---- training path: self-play, replay, learner, checkpoint, evaluation at full width
+    # ---- training path: self-play, replay, learner, reanalyze, checkpoint, evaluation, deep evaluation at full width
     kernels["whole_search_categorical"]["launches"] = drive_training(device)["whole_search_categorical"]
 
     if args.profile:

@@ -82,6 +82,17 @@ def step(state: GameState, action: torch.Tensor) -> tuple[GameState, torch.Tenso
     return new_state, reward, done, info
 
 
+def step_auto_reset(
+    state: GameState, action: torch.Tensor
+) -> tuple[GameState, torch.Tensor, torch.Tensor, dict[str, Any]]:
+    """:func:`step`, then every game that ended is replaced by a fresh one
+    (:func:`reset_done`), so that no lane of a lockstep batch idles. ``done``
+    is the flag before the reset (it marks the trajectory boundary), and
+    ``info`` describes the board before the reset."""
+    new_state, reward, done, info = step(state, action)
+    return reset_done(new_state), reward, done, info
+
+
 def reset_done(state: GameState) -> GameState:
     """Replace finished games with fresh episodes; active games untouched.
 

@@ -225,18 +225,27 @@ def afterstate_outcomes(board_exp: torch.Tensor) -> tuple[torch.Tensor, torch.Te
 
 
 def sample_action(
-    generator: torch.Generator | None, temperature: float, policy: torch.Tensor, legal_mask: torch.Tensor
+    generator: torch.Generator | None,
+    temperature: float,
+    policy: torch.Tensor,
+    legal_mask: torch.Tensor,
+    uniform: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Sample an action from ``policy`` restricted to legal moves: mask,
     renormalise (uniform over legal moves when nothing is left), temperature
     softmax in log space; argmax when ``temperature < 0.01``. The draw comes
-    from ``generator`` (made on the policy's device)."""
+    from ``generator`` (made on the policy's device), or inverts the
+    cumulative distribution at ``uniform`` (one number in [0, 1) per board)
+    when that is given."""
     legal = legal_mask.to(torch.float32)
     masked = torch.where(legal_mask, policy, torch.zeros_like(policy))
     total = masked.sum(-1, keepdim=True)
-    uniform = legal / torch.clamp_min(legal.sum(-1, keepdim=True), 1.0)
-    masked = torch.where(total < 1e-8, uniform, masked / torch.clamp_min(total, 1e-30))
+    any_legal = legal / torch.clamp_min(legal.sum(-1, keepdim=True), 1.0)
+    masked = torch.where(total < 1e-8, any_legal, masked / torch.clamp_min(total, 1e-30))
     if temperature < 0.01:
         return masked.argmax(-1)
     probs = torch.softmax(torch.log(masked + 1e-8) / temperature, dim=-1)
+    if uniform is not None:
+        cdf = probs.cumsum(-1)
+        return (uniform[..., None] * cdf[..., -1:] >= cdf).sum(-1).clamp_max(probs.shape[-1] - 1)
     return torch.multinomial(probs.reshape(-1, probs.shape[-1]), 1, generator=generator).reshape(probs.shape[:-1])

@@ -4,14 +4,17 @@ eval) orchestration, in PyTorch (port of the JAX package's
 
 Replay lives on the device; self-play generation plays one segment per call
 through the whole-search kernel; priorities are refreshed after every step
-from the learner's TD errors. Not ported yet, and raising
-``NotImplementedError`` where a config asks for them: the reanalyze pass
-(``reanalyze_interval``), deep evaluation (``deep_eval_interval``) and the
-data-parallel mesh.
+from the learner's TD errors; the periodic reanalyze pass
+(``reanalyze_interval``) refreshes stored targets and deep evaluation
+(``deep_eval_interval``) selects the champion checkpoint in
+``<checkpoint_dir>/best``. Not ported yet, and raising
+``NotImplementedError``: the data-parallel mesh.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Any
@@ -32,6 +35,7 @@ from simulate_2048_tpu_torch.training.learner import (
     train_superstep,
 )
 from simulate_2048_tpu_torch.training.losses import LossOutput
+from simulate_2048_tpu_torch.training.reanalyze import reanalyze_pass
 from simulate_2048_tpu_torch.training.self_play import _draw_seed, evaluate_games, finish_gen_stats, generate_games
 from simulate_2048_tpu_torch.utils.metrics import MetricsLogger
 
@@ -65,12 +69,8 @@ def ingest_segment(buffer, prev, traj, first_search_value, config):
     return buffer, (slots, ~traj.terminated, seq)
 
 
-def check_ported(config: TrainConfig) -> None:
-    """Raise for the training options this port does not have yet."""
-    if config.reanalyze_interval is not None:
-        raise NotImplementedError("the reanalyze pass (reanalyze_interval) is not yet ported")
-    if config.deep_eval_interval is not None:
-        raise NotImplementedError("deep evaluation (deep_eval_interval) is not yet ported")
+# Salt of the deep-evaluation games' seed: they depend on the run's seed alone.
+DEEP_EVAL_SALT = 0xD2EE
 
 
 @dataclass
@@ -94,9 +94,8 @@ class Trainer:
     def __post_init__(self):
         if self.mesh is not None:
             raise NotImplementedError("data-parallel training over a mesh is not yet ported")
-        check_ported(self.config)
         self.device = resolve_device(self.device)
-        seed = self.seed if self.seed is not None else self.config.seed
+        seed = self._seed()
         # Weights are drawn on the CPU and moved; every other draw (run seeds,
         # root noise, action and replay sampling) comes from the device's generator.
         self._weight_generator = torch.Generator().manual_seed(seed)
@@ -106,6 +105,15 @@ class Trainer:
         self.metrics = MetricsLogger(self.log_dir)
         # Previous generation's buffer rows (cross_segment_backfill bookkeeping).
         self._prev: tuple | None = None
+        # Round-robin position of the reanalyze pass over the buffer (training/reanalyze.py).
+        self._reanalyze_cursor = 0
+        # Best deep evaluation so far, (mean_reward, step): champion
+        # checkpoints are selected by deep evaluation, not by the inline curve.
+        self._best_deep_eval: tuple[float, int] | None = None
+        self._best_ckpt: CheckpointManager | None = None
+
+    def _seed(self) -> int:
+        return self.seed if self.seed is not None else self.config.seed
 
     def initialize(self) -> None:
         """Create state + buffer; resume from the latest checkpoint if there is one."""
@@ -143,6 +151,15 @@ class Trainer:
             # experience they point at was restored alongside them.
             if buffer_restored and runtime["prev"] is not None:
                 self._prev = tuple(runtime["prev"])
+            # The cursor indexes into the buffer too. Checkpoints written
+            # before these keys existed lack them.
+            if buffer_restored:
+                self._reanalyze_cursor = int(runtime.get("reanalyze_cursor", 0))
+            # Champion selection: without it a resume would forget the best
+            # deep evaluation, and the first one after it would overwrite
+            # best/ even with a lower score.
+            if runtime.get("has_best_deep_eval", False):
+                self._best_deep_eval = (float(runtime["best_deep_eval_mean"]), int(runtime["best_deep_eval_step"]))
 
     def _require_initialized(self) -> None:
         if self.state is None:
@@ -150,13 +167,19 @@ class Trainer:
 
     def _runtime_payload(self) -> dict:
         """Small trainer-loop state persisted with each checkpoint: the
-        carried self-play games, the pending cross-segment-backfill rows and
-        the generator's state. Without it a resume would restart all games in
-        flight and drop the pending re-grounding."""
+        carried self-play games, the pending cross-segment-backfill rows, the
+        generator's state, the reanalyze cursor and the best deep evaluation.
+        Without it a resume would restart all games in flight, drop the
+        pending re-grounding and forget the champion."""
+        best = self._best_deep_eval
         return {
             "gen_state": self.gen_state._asdict(),
             "prev": self._prev,
             "generator_state": self._generator.get_state(),
+            "reanalyze_cursor": self._reanalyze_cursor,
+            "has_best_deep_eval": best is not None,
+            "best_deep_eval_mean": best[0] if best else 0.0,
+            "best_deep_eval_step": best[1] if best else 0,
         }
 
     def _save_checkpoint(self) -> None:
@@ -199,11 +222,13 @@ class Trainer:
 
     def fused_chunk(self, *extra_intervals: int) -> int | None:
         """Chunk size (one log interval) when every host-hook interval is a
-        multiple of it, else None: generation, checkpoint and evaluation must
-        land on chunk boundaries, otherwise the loop goes step by step."""
+        multiple of it, else None: generation, checkpoint, evaluation,
+        reanalyze and deep evaluation must land on chunk boundaries, otherwise
+        the loop goes step by step."""
         cfg = self.config
         chunk = max(cfg.log_interval, 1)
         host_intervals = [cfg.checkpoint_interval, cfg.eval_interval, *extra_intervals]
+        host_intervals += [i for i in (cfg.reanalyze_interval, cfg.deep_eval_interval) if i is not None]
         return chunk if all(i % chunk == 0 for i in host_intervals) else None
 
     def optimize_chunk(self, chunk: int) -> LossOutput:
@@ -221,14 +246,32 @@ class Trainer:
         self.buffer = replay_lib.update_priorities(self.buffer, indices, priorities)
         return loss_output
 
+    def reanalyze_if_due(self, step: int) -> None:
+        """Run the periodic reanalyze pass when ``step`` lands on it."""
+        cfg = self.config
+        if cfg.reanalyze_interval is None or step % cfg.reanalyze_interval != 0 or step == 0:
+            return
+        t0 = time.perf_counter()
+        self.buffer, self._reanalyze_cursor = reanalyze_pass(
+            self.buffer, self.network, self._reanalyze_cursor, cfg, self._generator
+        )
+        # The pass is still queued on the device when reanalyze_pass returns: wait, so that the seconds are its own.
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.metrics.log({"step": step, "reanalyze/seconds": time.perf_counter() - t0})
+
     def run_host_hooks(self, step: int, verbose: bool = True) -> None:
-        """Periodic inline evaluation and checkpoint (the checkpoint last)."""
+        """Periodic inline evaluation, deep evaluation and checkpoint. The
+        checkpoint comes last, so that one written at a deep evaluation's
+        step carries that evaluation's champion in its runtime payload."""
         cfg = self.config
         if step % cfg.eval_interval == 0:
             stats = self.evaluate()
             self.metrics.log({"step": step, **{f"eval/{k}": v for k, v in stats.items()}})
             if verbose:
                 print(f"eval @ {step}: reward {stats['mean_reward']:.1f} max tile {stats['max_tile']}")
+        if cfg.deep_eval_interval is not None and step % cfg.deep_eval_interval == 0:
+            self.deep_evaluate(step, verbose=verbose)
         if self._ckpt is not None and step % cfg.checkpoint_interval == 0:
             self._save_checkpoint()
 
@@ -245,6 +288,8 @@ class Trainer:
             frozen = cfg.freeze_data_after is not None and step >= cfg.freeze_data_after
             if step % cfg.generation_interval == 0 and not frozen:
                 self._generate(step)
+
+            self.reanalyze_if_due(step)
 
             if fused and end_step - step >= chunk:
                 loss_output = self.optimize_chunk(chunk)
@@ -275,7 +320,47 @@ class Trainer:
         return evaluate_games(self.network, self._generator, self.config, num_games)
 
     def deep_evaluate(self, step: int, verbose: bool = True) -> dict[str, Any]:
-        raise NotImplementedError("deep evaluation is not yet ported")
+        """``deep_eval_games`` greedy games at a decision point, logged under
+        ``deep_eval/``. When the mean beats the best so far, the state is
+        saved into ``<checkpoint_dir>/best`` and recorded in
+        ``deep_eval_best.json``.
+
+        The games are the same at every call: their run seed comes from a
+        generator seeded from (the run's seed, a fixed salt) anew each time,
+        not from the trainer's generator. So the deep evaluations of a run
+        and of its resumes compare weights, not draws of games, and running
+        them changes nothing in the self-play that follows. The inline
+        :meth:`evaluate` keeps fresh seeds.
+        """
+        cfg = self.config
+        t0 = time.perf_counter()
+        games = torch.Generator().manual_seed((self._seed() << 16) ^ DEEP_EVAL_SALT)
+        stats = evaluate_games(self.network, games, cfg, cfg.deep_eval_games)
+        seconds = time.perf_counter() - t0
+        record = {f"deep_eval/{k}": v for k, v in stats.items()}
+        self.metrics.log({"step": step, **record, "deep_eval/seconds": seconds})
+        if verbose:
+            print(
+                f"deep eval @ {step} (n={cfg.deep_eval_games}): reward {stats['mean_reward']:.1f} "
+                f"± sem {stats['sem_reward']:.1f}, max tile {stats['max_tile']}",
+                flush=True,
+            )
+        if self._ckpt is not None and (self._best_deep_eval is None or stats["mean_reward"] > self._best_deep_eval[0]):
+            self._best_deep_eval = (stats["mean_reward"], step)
+            if self._best_ckpt is None:
+                self._best_ckpt = CheckpointManager(os.path.join(self._ckpt.directory, "best"), max_to_keep=1)
+                self._best_ckpt.save_config(cfg)
+            self._best_ckpt.save(self.state, step=step)
+            best = {
+                "step": step,
+                "mean_reward": stats["mean_reward"],
+                "sem_reward": stats["sem_reward"],
+                "games": cfg.deep_eval_games,
+                "max_tile": stats["max_tile"],
+            }
+            with open(os.path.join(self._ckpt.directory, "deep_eval_best.json"), "w") as f:
+                json.dump(best, f, indent=1)
+        return stats
 
     def get_metrics_history(self) -> list[dict[str, Any]]:
         return self.metrics.history

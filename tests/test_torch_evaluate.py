@@ -96,7 +96,8 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "names = {m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')}\n"
         "assert {pkg.__name__ + '.' + n for n in ('train', 'training.trainer', 'training.losses', 'training.replay',"
-        " 'training.learner', 'training.checkpoint', 'ops.distributional', 'utils.metrics')} <= names, names\n"
+        " 'training.learner', 'training.checkpoint', 'ops.distributional', 'utils.metrics', 'ops.rollout',"
+        " 'ops.rollout_kernel', 'bench', 'training.reanalyze')} <= names, names\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
@@ -139,3 +140,22 @@ def test_evaluate_cli_on_cpu(capsys):
     assert "games: 2" in out and "mean reward:" in out and "reached 2048: 0/2" in out
     with pytest.raises(SystemExit):
         evaluate.main(["--checkpoint-dir", "somewhere", "--device", "cpu"])
+
+
+def test_evaluate_cli_loads_the_champion_checkpoint(tmp_path, capsys):
+    """``--checkpoint-dir <dir>/best``: the checkpoint a deep evaluation selected, with its config sidecar."""
+    from simulate_2048_tpu_torch import evaluate
+    from simulate_2048_tpu_torch.training.trainer import Trainer
+
+    config = dataclasses.replace(
+        tconfig.tiny_config(), hidden_size=16, num_residual_blocks=1, num_simulations=3, eval_max_moves=5,
+        deep_eval_games=2, num_parallel_games=2, value_bins=16, reward_bins=8,
+    )  # fmt: skip
+    trainer = Trainer(config, checkpoint_dir=str(tmp_path), seed=5, device="cpu")
+    trainer.initialize()
+    stats = trainer.deep_evaluate(7, verbose=False)
+    capsys.readouterr()
+    evaluate.main(["--checkpoint-dir", str(tmp_path / "best"), "--device", "cpu", "--games", "2"])
+    out = capsys.readouterr().out
+    assert f"loaded checkpoint step 7 from {tmp_path / 'best'}" in out and "games: 2" in out
+    assert stats["mean_reward"] >= 0 and (tmp_path / "deep_eval_best.json").exists()

@@ -202,13 +202,13 @@ def test_checkpoint_round_trip_is_exact(tmp_path):
 @pytest.mark.parametrize(
     "overrides,match",
     [
-        (dict(reanalyze_interval=10), "reanalyze"),
-        (dict(deep_eval_interval=10), "deep evaluation"),
         (dict(root_selection="gumbel"), "Gumbel"),
         (dict(chance_selection="sample"), "sampled chance"),
         (dict(pw_c=1.0), "widening"),
         (dict(search_weight_dtype="bfloat16", search_backend="pallas"), "bfloat16"),
     ],
+    # The ids these cases had while reanalyze_interval and deep_eval_interval were cases 0 and 1 of this list.
+    ids=["overrides2-Gumbel", "overrides3-sampled chance", "overrides4-widening", "overrides5-bfloat16"],
 )
 def test_unported_options_raise(overrides, match):
     config = dataclasses.replace(tiny_config(), hidden_size=32, num_parallel_games=2, num_simulations=2,
@@ -217,6 +217,101 @@ def test_unported_options_raise(overrides, match):
         trainer = ttrainer.Trainer(config, device="cpu")
         trainer.initialize()
         trainer.fill_buffer(verbose=False)
+
+
+RECIPE = dict(hidden_size=32, value_bins=16, reward_bins=8, num_parallel_games=4, max_trajectory_length=8,
+              min_buffer_size=8, batch_size=4, replay_buffer_size=16, num_simulations=3, checkpoint_buffer=True,
+              warmup_steps=1, value_target_mode="td_lambda", td_lambda=1.0, cross_segment_backfill=True,
+              generation_interval=4, log_interval=2, checkpoint_interval=4, eval_interval=100, eval_games=2,
+              eval_max_moves=6, reanalyze_interval=2, reanalyze_episodes=3, reanalyze_mode="search",
+              deep_eval_interval=4, deep_eval_games=3)  # fmt: skip
+
+
+def recipe_trainer(tmp_path=None, seed=3, **overrides):
+    config = dataclasses.replace(tiny_config(), **{**RECIPE, **overrides})
+    directory = None if tmp_path is None else str(tmp_path)
+    trainer = ttrainer.Trainer(config, checkpoint_dir=directory, seed=seed, device="cpu")
+    trainer.initialize()
+    return trainer
+
+
+@pytest.mark.parametrize("mode", ["search", "value"])
+def test_reanalyze_and_deep_eval_run_at_their_due_steps(tmp_path, mode):
+    """Eight steps of the recipe's loop: a reanalyze pass before steps 2, 4 and
+    6 (never before step 0), a deep evaluation after steps 4 and 8, the
+    champion in best/, and a resume that restores the cursor and the best mean."""
+    trainer = recipe_trainer(tmp_path, reanalyze_mode=mode)
+    assert trainer.fused_chunk(trainer.config.generation_interval) == 2
+    trainer.fill_buffer(verbose=False)
+    trainer.train(8, verbose=False)
+    history = trainer.get_metrics_history()
+    assert [r["step"] for r in history if "reanalyze/seconds" in r] == [2, 4, 6]
+    deep = [r for r in history if "deep_eval/mean_reward" in r]
+    assert [r["step"] for r in deep] == [4, 8] and all(r["deep_eval/seconds"] > 0 for r in deep)
+    assert trainer._reanalyze_cursor == (3 * 3) % int(trainer.buffer.size)  # three passes of three rows, wrapped
+    in_ep = torch.arange(8)[None] < trainer.buffer.length[:, None]
+    sums = trainer.buffer.policies.float().sum(-1)
+    np.testing.assert_allclose(sums.numpy(), in_ep.float().numpy(), atol=2e-3)
+
+    best_mean, best_step = trainer._best_deep_eval
+    assert best_mean == max(r["deep_eval/mean_reward"] for r in deep)
+    best = CheckpointManager(str(tmp_path / "best"))
+    assert best.all_steps() == [best_step] and load_train_config(str(tmp_path / "best")) == trainer.config
+    record = json.load(open(tmp_path / "deep_eval_best.json"))
+    assert set(record) == {"step", "mean_reward", "sem_reward", "games", "max_tile"}
+    assert record["step"] == best_step and record["mean_reward"] == best_mean and record["games"] == 3
+    assert CheckpointManager(str(tmp_path)).all_steps() == [4, 8]  # best/ is no step of the run's own
+
+    resumed = recipe_trainer(tmp_path, seed=99, reanalyze_mode=mode)
+    assert resumed.state.step == 8 and resumed._reanalyze_cursor == trainer._reanalyze_cursor
+    assert resumed._best_deep_eval == (best_mean, best_step)
+    resumed._best_deep_eval = (1e9, 1)  # a champion no evaluation beats: best/ stays as it is
+    resumed.deep_evaluate(9, verbose=False)
+    assert CheckpointManager(str(tmp_path / "best")).all_steps() == [best_step]
+    assert json.load(open(tmp_path / "deep_eval_best.json")) == record
+
+
+def test_deep_evaluations_play_the_same_games_and_draw_nothing(tmp_path):
+    """Equal weights, equal games: two deep evaluations agree in every
+    statistic, whatever the trainer drew in between, and a run with deep
+    evaluation generates the self-play a run without it generates."""
+    trainer = recipe_trainer(tmp_path, reanalyze_interval=None)
+    state = trainer._generator.get_state()
+    first = trainer.deep_evaluate(0, verbose=False)
+    assert torch.equal(trainer._generator.get_state(), state)
+    inline = trainer.evaluate(3)  # draws its run seed from the trainer's generator
+    assert not torch.equal(trainer._generator.get_state(), state)
+    second = trainer.deep_evaluate(0, verbose=False)
+    assert first == second
+    assert inline["mean_length"] > 0
+    other_seed = recipe_trainer(seed=4, reanalyze_interval=None).deep_evaluate(0, verbose=False)
+    assert other_seed != first  # the games follow the run's seed
+
+    runs = []
+    for interval in (4, None):
+        run = recipe_trainer(reanalyze_interval=None, deep_eval_interval=interval)
+        run.fill_buffer(verbose=False)
+        run.train(8, verbose=False)
+        runs.append(run)
+    with_deep, without = runs
+    assert any("deep_eval/mean_reward" in r for r in with_deep.get_metrics_history())
+    assert not any("deep_eval/mean_reward" in r for r in without.get_metrics_history())
+    assert with_deep._best_deep_eval is None  # no checkpoint directory: nothing to select into
+    for name, a, b in zip(with_deep.buffer._fields, with_deep.buffer, without.buffer):
+        assert torch.equal(a, b), name
+    for a, b in zip(with_deep.state.params, without.state.params):
+        assert torch.equal(a, b)
+
+
+def test_host_intervals_off_the_log_interval_go_step_by_step():
+    trainer = recipe_trainer(reanalyze_interval=3)
+    assert trainer.fused_chunk(trainer.config.generation_interval) is None
+    trainer = recipe_trainer(deep_eval_interval=5)
+    assert trainer.fused_chunk(trainer.config.generation_interval) is None
+    trainer = recipe_trainer(reanalyze_interval=None, deep_eval_interval=None)
+    assert trainer.fused_chunk(trainer.config.generation_interval) == 2
+    trainer.reanalyze_if_due(4)  # no interval, no pass
+    assert trainer._reanalyze_cursor == 0
 
 
 def test_training_entry_points_need_a_gpu_or_ask_for_cpu():
