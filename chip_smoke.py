@@ -5,7 +5,8 @@ code != 0, no final ``ok`` line) if any phase fails:
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds every CUDA kernel from the sources in the checkout (one ``nvcc``
-   per source, started together) and prints the build seconds;
+   per library, started together: the whole-search source builds one library
+   per weight variant) and prints the build seconds;
 3. holds each kernel against its plain PyTorch version at the shapes the
    main paths give it: the random-rollout kernel at 65,536 boards x 128
    steps (all four outputs equal, and games must have ended so that the
@@ -19,11 +20,19 @@ code != 0, no final ``ok`` line) if any phase fails:
    in at least 99% of the searches (each differing search is printed with
    its root visits and the Q gap of its two most visited actions) and total
    S in every search; root Q and value agree within rtol 1e-4 / atol 1e-3 on
-   the matching searches (float32 sums taken in another order);
-4. times each kernel (CUDA events after warm-up, median of 5) beside its
-   plain version and its bound: the FP32 operations a search needs, and
-   the integer operations a rollout's definition forces (beside it, what the
-   rollout kernel's source spends, as its share of the INT32 issue rate);
+   the matching searches (float32 sums taken in another order). Then the
+   bfloat16 kernel at the paper preset with 256/128 bins at 256 and 1,024
+   searches a launch, and the streamed kernel at hidden 512 (bfloat16, chunk
+   8, and float32) at 256: at least 99% of the searches agree (bfloat16:
+   identical visits, Q and value within rtol 1e-3 / atol 1e-2); and the
+   streamed kernel against the resident one at H=256, chunks 2 and 8, both
+   types: bit for bit;
+4. times each kernel (CUDA events after warm-up, median of 5; 3 for the
+   new variants) beside its plain version and its bound: the FP32 operations
+   a search needs (at the bf16 tensor-core rate for a bfloat16 pack, with
+   the bytes the kernel re-reads per call beside it), and the integer
+   operations a rollout's definition forces (beside it, what the rollout
+   kernel's source spends, as its share of the INT32 issue rate);
 5. checks greedy evaluation, a greedy self-play segment with categorical
    heads and a search-mode reanalyze of that segment on a small config on
    the card: the kernel backend against the plain search backend, game for
@@ -44,7 +53,13 @@ code != 0, no final ``ok`` line) if any phase fails:
    move and per batch of reanalyze searches, finite loss terms, changed
    parameters, a checkpoint equal to the saved state, the champion in
    ``best/``, and reanalysed policy targets that sum to 1;
-9. prints one JSON line with every kernel's numbers, then
+9. drives the wide path, ``train_muzero`` at the full-capacity probe's
+   recipe (bfloat16 search packs) with hidden 512, which the kernel runs
+   with streamed weights: two 8-move segments, three learner steps, one
+   reanalyze pass, one evaluation and one deep evaluation of 8 moves, with
+   the launch counts set to 0 just before: one streamed bfloat16 launch per
+   move and per batch of reanalyze searches, finite loss terms;
+10. prints one JSON line with every kernel's numbers, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--profile`` also prints the device time by kernel, the device kernels
@@ -100,6 +115,10 @@ TRAIN_STEPS = 12  # the first has learning rate 0 (warm-up starts there)
 TRAIN_EVAL_MOVES = 8  # eval_max_moves, of the inline and of the deep evaluation
 REANALYZE_EPISODES = 64  # the training recipe's; one pass, before step TRAIN_STEPS // 2 (the recipe: every 500)
 DEEP_EVAL_GAMES = 128  # the training recipe's; one deep evaluation, after the last step (the recipe: every 25,000)
+# Wide path: the full-capacity probe's recipe at hidden 512 (bfloat16 search packs, streamed), depth cut further.
+WIDE_HIDDEN = 512
+WIDE_SEGMENT_MOVES = 8  # two segments: one fills the buffer, the loop's step 0 plays the other
+WIDE_STEPS = 3  # one reanalyze pass before step WIDE_STEPS - 1; evaluation and deep evaluation after the last
 # Launch sizes of the categorical whole-search kernel on the training path.
 TRAIN_SEARCH_BATCHES = (reanalyze.SEARCH_BATCH, REANALYZE_EPISODES * TRAIN_SEGMENT_MOVES % reanalyze.SEARCH_BATCH,
                         BATCH, DEEP_EVAL_GAMES)  # fmt: skip
@@ -133,8 +152,10 @@ ROLLOUT_MIN_OPS = {"step": 89, "moved": 89, "reset": 243}
 # A reset: the reseed's Threefry 79, two spawns of 79 + 147, bookkeeping 5.
 ROLLOUT_SOURCE_OPS = {"step": 299, "moved": 229, "reset": 536}
 INT32_LANES_PER_SM = 64  # Hopper: 4 partitions of 16 INT32 lanes
-# FP32 (non-tensor-core) peak by SKU, NVIDIA data sheets (dense, at the full power limit).
+# FP32 (non-tensor-core) and dense bf16 tensor-core peaks by SKU, NVIDIA data sheets (at the full power limit).
 FP32_TFLOPS = {"H100 SXM": 67.0, "H100 NVL": 60.0, "H100 PCIe": 51.0, "H200": 67.0}
+BF16_TFLOPS = {"H100 SXM": 989.0, "H100 NVL": 835.0, "H100 PCIe": 756.0, "H200": 989.0}
+SEARCHES_PER_BLOCK = 2  # G in csrc/whole_search.cu
 HBM_TBPS = {"H100 SXM": 3.35, "H100 NVL": 3.9, "H100 PCIe": 2.0, "H200": 4.8}
 
 
@@ -150,27 +171,34 @@ def sku(name: str) -> str:
     return "H100 SXM"
 
 
+def timed_once(fn):
+    """``fn()``'s result and its CUDA-event time in ms."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     """Median of ``reps`` CUDA-event timings of ``fn()`` after ``warmup`` calls."""
     for _ in range(warmup):
         fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return statistics.median(timed_once(fn)[1] for _ in range(reps))
 
 
-def full_width_inputs(device, value_bins: int = 1, reward_bins: int = 1, batch: int = BATCH):
-    """Seeded full-preset network and ``batch`` roots. Scalar heads are scaled so
-    that values spread; categorical heads (zero weights when fresh, so every
-    node would get the same expectation and the search would compare float
-    noise) get 0.05 * normal weights."""
+def full_width_inputs(
+    device, value_bins: int = 1, reward_bins: int = 1, batch: int = BATCH, hidden: int | None = None
+):
+    """Seeded full-preset network (``hidden`` wide, default the preset's) and
+    ``batch`` roots. Scalar heads are scaled so that values spread;
+    categorical heads (zero weights when fresh, so every node would get the
+    same expectation and the search would compare float noise) get
+    0.05 * normal weights. Returns the network's float32 resident pack."""
     config = dataclasses.replace(default_config(), value_bins=value_bins, reward_bins=reward_bins)
+    if hidden is not None:
+        config = dataclasses.replace(config, hidden_size=hidden)
     gen = torch.Generator().manual_seed(SEED)
     network = network_from_config(config, gen, device)
     with torch.no_grad():
@@ -190,15 +218,22 @@ def full_width_inputs(device, value_bins: int = 1, reward_bins: int = 1, batch: 
     invalid[invalid.all(-1)] = False
     cfg = search_config_from(config, eval_mode=True)._replace(dirichlet_fraction=0.0)
     with torch.no_grad():
-        hidden, probs, value = root_inputs(network, obs, cfg, invalid)
-    packed = sk.pack_search_params(
+        hidden_state, probs, value = root_inputs(network, obs, cfg, invalid)
+    packed = pack(network, config)
+    return config, cfg, network, packed, (hidden_state.contiguous(), probs.contiguous(), value.contiguous())
+
+
+def pack(network, config, weight_dtype: torch.dtype = torch.float32, stream_chunk: int | None = None):
+    """``network``'s search pack for ``config``'s tower depth and heads."""
+    return sk.pack_search_params(
         network,
         config.num_residual_blocks,
         max(config.action_size, config.codebook_size),
-        value_bins=value_bins,
-        reward_bins=reward_bins,
+        weight_dtype,
+        stream_chunk,
+        value_bins=config.value_bins,
+        reward_bins=config.reward_bins,
     )
-    return config, cfg, network, packed, (hidden.contiguous(), probs.contiguous(), value.contiguous())
 
 
 def root_gap(visits_a, visits_b, q_a, q_b) -> str:
@@ -223,16 +258,34 @@ def search_flops(h: int, nb: int, a: int, k: int, searches: int, sims: int, vb: 
 
 
 def check_whole_search(
-    device, name: str = "whole_search", value_bins: int = 1, reward_bins: int = 1, batches: tuple[int, ...] = (BATCH,)
+    device,
+    name: str = "whole_search",
+    value_bins: int = 1,
+    reward_bins: int = 1,
+    batches: tuple[int, ...] = (BATCH,),
+    hidden: int | None = None,
+    weight_dtype: torch.dtype = torch.float32,
+    stream_chunk: int | None = None,
 ) -> dict:
-    """Kernel vs plain version at the full preset, at every launch size in
-    ``batches`` (searches are independent: the plain version runs once, on the
-    most roots, and a launch of b searches takes the first b); then the times
-    at ``BATCH`` searches, the size most launches have, and the bound."""
-    config, cfg, network, packed, roots = full_width_inputs(device, value_bins, reward_bins, max(batches))
+    """Kernel vs plain version at the full preset (``hidden`` wide, default
+    the preset's; the pack in ``weight_dtype``, resident or streamed), at
+    every launch size in ``batches`` (searches are independent: the plain
+    version runs once, on the most roots, and a launch of b searches takes the
+    first b); then the times and the bound: float32 packs at ``BATCH``
+    searches, the size most launches have, a new variant at the largest size
+    compared, whose plain run the comparison times. Float32: visit counts
+    identical in >= 99% of the searches and every such search's root Q and
+    value within rtol 1e-4 / atol 1e-3. Bfloat16 (the rule of
+    ``tests/test_torch_search_variants.py``): >= 99% of the searches agree,
+    identical visits and Q and value within rtol 1e-3 / atol 1e-2."""
+    config, cfg, network, packed, roots = full_width_inputs(device, value_bins, reward_bins, max(batches), hidden)
+    bf16 = weight_dtype == torch.bfloat16
+    if bf16 or stream_chunk:
+        packed = pack(network, config, weight_dtype, stream_chunk)
+    rtol, atol = (1e-3, 1e-2) if bf16 else (1e-4, 1e-3)
     h, nb, s = config.hidden_size, config.num_residual_blocks, cfg.num_simulations
-    reference = sk.whole_search_reference(*roots, packed, cfg)
-    torch.cuda.synchronize()
+    reference, reference_ms = timed_once(lambda: sk.whole_search_reference(*roots, packed, cfg))
+    timed = max(batches) if bf16 or stream_chunk else BATCH  # searches a launch in the times
 
     max_err = 0.0
     for b in batches:
@@ -245,6 +298,9 @@ def check_whole_search(
         if not (torch.isfinite(qvals).all() and torch.isfinite(value).all()):
             fail(f"{name}: non-finite Q or value at {b} searches a launch")
         differ = (visits != ref_visits).any(-1)
+        if bf16:
+            close = torch.isclose(qvals, ref_q, rtol=rtol, atol=atol).all(-1)
+            differ |= ~(close & torch.isclose(value, ref_value, rtol=rtol, atol=atol))
         n_diff = int(differ.sum())
         for i in differ.nonzero().flatten().tolist():
             print(f"  search {i} differs: {root_gap(visits[i].int(), ref_visits[i].int(), qvals[i], ref_q[i])}")
@@ -252,42 +308,61 @@ def check_whole_search(
         err = max(float((qvals[same] - ref_q[same]).abs().max()), float((value[same] - ref_value[same]).abs().max()))
         max_err = max(max_err, err)
         print(
-            f"{name}: {b} searches a launch: {b - n_diff}/{b} with identical visit counts, "
+            f"{name}: {b} searches a launch: {b - n_diff}/{b} {'agree' if bf16 else 'with identical visit counts'}, "
             f"max |kernel - plain| over Q and root value = {err:.3g}"
         )
         if n_diff > b // 100:
             fail(f"{name}: {n_diff} of {b} searches differ from the plain version (limit {b // 100})")
-        q_ok = torch.allclose(qvals[same], ref_q[same], rtol=1e-4, atol=1e-3)
-        v_ok = torch.allclose(value[same], ref_value[same], rtol=1e-4, atol=1e-3)
+        q_ok = torch.allclose(qvals[same], ref_q[same], rtol=rtol, atol=atol)
+        v_ok = torch.allclose(value[same], ref_value[same], rtol=rtol, atol=atol)
         if not (q_ok and v_ok):
-            fail(f"{name}: Q / root value outside rtol 1e-4, atol 1e-3 at {b} searches a launch")
-        if b != BATCH:
+            fail(f"{name}: Q / root value outside rtol {rtol}, atol {atol} at {b} searches a launch")
+        if b != timed:
             ms = cuda_ms(lambda: sk.whole_search(*part, packed, cfg), reps=3)
             print(f"{name}: {b} searches a launch: kernel {ms:.3f} ms, {b / ms * 1e3:.0f} searches/s")
 
-    roots = tuple(r[:BATCH].contiguous() for r in roots)
-    ms = cuda_ms(lambda: sk.whole_search(*roots, packed, cfg), reps=5)
-    plain_ms = cuda_ms(lambda: sk.whole_search_reference(*roots, packed, cfg), reps=3, warmup=0)
+    roots = tuple(r[:timed].contiguous() for r in roots)
+    ms = cuda_ms(lambda: sk.whole_search(*roots, packed, cfg), reps=5 if timed == BATCH else 3)
+    if timed == max(batches):
+        plain_ms = reference_ms
+    else:
+        plain_ms = timed_once(lambda: sk.whole_search_reference(*roots, packed, cfg))[1]
     flops = search_flops(
-        h, nb, cfg.num_actions, max(cfg.num_actions, cfg.codebook_size), BATCH, s, value_bins, reward_bins
+        h, nb, cfg.num_actions, max(cfg.num_actions, cfg.codebook_size), timed, s, value_bins, reward_bins
     )
-    read_once = packed if value_bins > 1 or reward_bins > 1 else packed[:7]  # the cat pack only when a head uses it
-    weight_bytes = sum(t.numel() * t.element_size() for t in read_once)
-    io_bytes = sum(t.numel() * 4 for t in roots) + (2 * cfg.num_actions + 1) * BATCH * 4
+    pack_parts = dict(zip(sk.PackedSearchParams._fields, packed.tensors))
+    if value_bins == reward_bins == 1:
+        del pack_parts["cat"], pack_parts["cat_b"]  # the cat pack only when a head uses it
+    weight_bytes = sum(t.numel() * t.element_size() for t in pack_parts.values())
+    io_bytes = sum(t.numel() * 4 for t in roots) + (2 * cfg.num_actions + 1) * timed * 4
     card = sku(torch.cuda.get_device_name(0))
-    op_ms = flops / (FP32_TFLOPS[card] * 1e12) * 1e3
+    # bfloat16 products with float32 sums are what the tensor cores compute: their rate bounds a bfloat16 pack.
+    rate, unit = (BF16_TFLOPS[card], "bf16 tensor") if bf16 else (FP32_TFLOPS[card], "FP32")
+    op_ms = flops / (rate * 1e12) * 1e3
     byte_ms = (weight_bytes + io_bytes) / (HBM_TBPS[card] * 1e12) * 1e3
+    layout = f"streamed, chunk {stream_chunk}" if stream_chunk else "resident"
     print(
         f"{name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {max(op_ms, byte_ms):.3f} ms "
-        f"({flops:.3g} FLOP at {FP32_TFLOPS[card]} TFLOP/s FP32 ({card}); {weight_bytes + io_bytes} B), "
-        f"B={BATCH} S={s} H={h} NB={nb} value_bins={value_bins} reward_bins={reward_bins}"
+        f"({flops:.3g} FLOP at {rate} TFLOP/s {unit} ({card}); {weight_bytes + io_bytes} B), "
+        f"B={timed} S={s} H={h} NB={nb} value_bins={value_bins} reward_bins={reward_bins} "
+        f"weights {str(weight_dtype).removeprefix('torch.')} {layout}"
     )
+    blocks = -(-timed // SEARCHES_PER_BLOCK)
+    reread = blocks * s * weight_bytes
+    print(
+        f"{name}: the kernel re-reads the pack once per block and simulation: {blocks} blocks "
+        f"(G={SEARCHES_PER_BLOCK}) x {s} x {weight_bytes / 1e6:.1f} MB = {reread / 1e9:.1f} GB a call, "
+        f"{reread / (HBM_TBPS[card] * 1e9):.1f} ms at the HBM rate if none of it came from the 50 MB L2"
+    )
+    replaces = "249" if value_bins == reward_bins == 1 else "414"
+    replaces = "350" if stream_chunk else ("337" if bf16 else replaces)
     return {
         "name": name,
         "route": "cuda",
         "source": "simulate_2048_tpu_torch/csrc/whole_search.cu",
-        # the TPU kernel's body; its categorical-head reduction (cat_expect) for the categorical variant
-        "replaces": "simulate_2048_tpu/ops/pallas_search.py:" + ("249" if value_bins == reward_bins == 1 else "414"),
+        # the TPU kernel's body; its categorical-head reduction (cat_expect) for the categorical variant; its
+        # bf16 dense (weights and cast activations) for bf16 packs; its double-buffered chunk DMAs when streamed
+        "replaces": "simulate_2048_tpu/ops/pallas_search.py:" + replaces,
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -295,6 +370,23 @@ def check_whole_search(
         "bound_by": "operations" if op_ms >= byte_ms else "bytes",
         "library_ms": None,
     }
+
+
+def check_streamed_equals_resident(device) -> None:
+    """At the paper preset (H=256, 256/128 bins) the streamed kernel must give
+    the resident kernel's searches bit for bit, in float32 and bfloat16:
+    every thread sums the same products in the same order."""
+    config, cfg, network, _, roots = full_width_inputs(device, 256, 128)
+    for dtype in (torch.float32, torch.bfloat16):
+        resident = sk.whole_search(*roots, pack(network, config, dtype), cfg)
+        for chunk in (2, 8):
+            streamed = sk.whole_search(*roots, pack(network, config, dtype, chunk), cfg)
+            torch.cuda.synchronize()
+            for label, got, want in zip(("visits", "Q", "root value"), streamed, resident):
+                if not torch.equal(got, want):
+                    n = int((got != want).sum())
+                    fail(f"streamed (chunk {chunk}) vs resident, {dtype}: {label} differ in {n} entries")
+        print(f"streamed vs resident kernel, H=256, {dtype}, chunks 2 and 8: visits, Q and root value bit-identical")
 
 
 def max_sm_clock_hz() -> float:
@@ -511,6 +603,96 @@ def training_config():
     )
 
 
+def wide_config():
+    """``scripts/run_full_capacity_probe.sh``'s recipe (the training recipe
+    above, bfloat16 search packs, its evaluation calibration) at hidden 512,
+    which the search kernel runs with streamed weights; depth cut to a smoke
+    test: two 8-move segments, three learner steps."""
+    return dataclasses.replace(
+        training_config(),
+        hidden_size=WIDE_HIDDEN,
+        search_weight_dtype="bfloat16",
+        eval_prior_temperature=4.0,
+        eval_pb_c_init=0.5,
+        lr_decay_steps=300_000,
+        max_trajectory_length=WIDE_SEGMENT_MOVES,
+        min_buffer_size=BATCH,
+        replay_buffer_size=4 * BATCH,
+        generation_interval=WIDE_STEPS,
+        checkpoint_interval=WIDE_STEPS,
+        eval_interval=WIDE_STEPS,
+        reanalyze_interval=WIDE_STEPS - 1,
+        deep_eval_interval=WIDE_STEPS,
+    )
+
+
+def drive_wide_training(device) -> dict[str, int]:
+    """The wide path through ``train_muzero``: every search on the streamed
+    bfloat16 kernel. Returns the kernel launch counts of the run."""
+    config = wide_config()
+    if sk.search_plan(search_config_from(config), WIDE_HIDDEN, torch.bfloat16) == 0:
+        fail("wide path: the search plan keeps hidden-512 weights resident")
+    for name in sk.LAUNCHES:
+        sk.LAUNCHES[name] = 0
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer = train_muzero(config, checkpoint_dir=ckpt_dir, num_steps=WIDE_STEPS, seed=SEED, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(sk.LAUNCHES)
+        best_steps = CheckpointManager(os.path.join(ckpt_dir, "best")).all_steps()
+
+    history = trainer.get_metrics_history()
+    gens = [r for r in history if "gen/positions" in r]
+    steps = [r for r in history if "total_loss" in r]
+    evals = [r for r in history if "eval/mean_reward" in r]
+    passes = [r for r in history if "reanalyze/seconds" in r]
+    deeps = [r for r in history if "deep_eval/mean_reward" in r]
+    if len(gens) != 2 or len(steps) != WIDE_STEPS or len(evals) != 1:
+        fail(f"wide path: {len(gens)} segments, {len(steps)} logged steps, {len(evals)} evaluations")
+    if [r["step"] for r in passes] != [WIDE_STEPS - 1] or [r["step"] for r in deeps] != [WIDE_STEPS]:
+        fail(f"wide path: reanalyze passes {passes}, deep evaluations {deeps}")
+    if best_steps != [WIDE_STEPS]:
+        fail(f"wide path: best/ holds steps {best_steps}")
+    loss_terms = [k for k in steps[0] if k.endswith("_loss") or k == "codebook_entropy"]
+    if not all(torch.isfinite(torch.tensor([r[k] for k in loss_terms])).all() for r in steps):
+        fail("wide path: a loss term is not finite")
+    if not all(torch.isfinite(torch.tensor(r["gen/search_value"])) for r in gens):
+        fail("wide path: a self-play search value is not finite")
+
+    self_play_moves = len(gens) * WIDE_SEGMENT_MOVES
+    searches = REANALYZE_EPISODES * WIDE_SEGMENT_MOVES
+    reanalyze_launches = reanalyze.search_batches(searches)
+    expected = self_play_moves + 2 * TRAIN_EVAL_MOVES + reanalyze_launches
+    wide = ("whole_search_streamed", "whole_search_bf16", "whole_search_categorical")
+    if any(launches[k] != expected for k in wide) or launches["whole_search"] != 0:
+        fail(
+            f"wide path: launches {launches} for {self_play_moves} self-play moves, {TRAIN_EVAL_MOVES} evaluation "
+            f"moves, {TRAIN_EVAL_MOVES} deep-evaluation moves and {reanalyze_launches} batches of reanalyze searches"
+        )
+    gen_s = sum(r["gen/seconds"] for r in gens)
+    positions = sum(r["gen/positions"] for r in gens)
+    gen_steps = {r["step"] + 1 for r in gens}
+    pure = [r["steps_per_s"] for r in steps if r["step"] not in gen_steps] or [r["steps_per_s"] for r in steps]
+    step_ms = statistics.median(1e3 / x for x in pure)
+    print(
+        f"wide path (H={WIDE_HIDDEN}, NB={config.num_residual_blocks}, bf16 search packs streamed): {len(gens)} "
+        f"segments of {WIDE_SEGMENT_MOVES} moves x {BATCH} games in {gen_s:.2f} s: {positions / gen_s:.1f} "
+        f"game-moves/s, {1e3 * gen_s / self_play_moves:.2f} ms per move; {len(steps)} learner steps, median "
+        f"{step_ms:.2f} ms per step; whole run {wall:.1f} s"
+    )
+    print(
+        f"wide path: one search-mode reanalyze pass of {REANALYZE_EPISODES} episodes x {WIDE_SEGMENT_MOVES} moves = "
+        f"{searches} searches in {reanalyze_launches} launch(es): {passes[0]['reanalyze/seconds']:.3f} s; one "
+        f"evaluation of {BATCH} games and one deep evaluation of {DEEP_EVAL_GAMES} games x {TRAIN_EVAL_MOVES} moves: "
+        f"{deeps[0]['deep_eval/seconds']:.3f} s for the deep one; launches {launches} = {self_play_moves} self-play "
+        f"+ {2 * TRAIN_EVAL_MOVES} evaluation moves + {reanalyze_launches} reanalyze batch(es)"
+    )
+    print("wide path: last step " + " ".join(f"{k}={steps[-1][k]:.4f}" for k in loss_terms))
+    return launches
+
+
 def drive_training(device) -> dict[str, int]:
     """The training path at full width through ``train_muzero``. Returns the kernel launch counts of the run."""
     config = training_config()
@@ -712,7 +894,16 @@ def main() -> None:
             device, "whole_search_categorical", 256, 128, TRAIN_SEARCH_BATCHES
         ),
         "random_rollout": check_random_rollout(device),
+        "whole_search_bf16": check_whole_search(
+            device, "whole_search_bf16", 256, 128, (BATCH, reanalyze.SEARCH_BATCH), weight_dtype=torch.bfloat16
+        ),
+        "whole_search_streamed": check_whole_search(
+            device, "whole_search_streamed", 256, 128, hidden=WIDE_HIDDEN, weight_dtype=torch.bfloat16,
+            stream_chunk=sk.STREAM_CHUNK,
+        ),  # fmt: skip
     }
+    check_whole_search(device, "whole_search_streamed_f32", 256, 128, hidden=WIDE_HIDDEN, stream_chunk=sk.STREAM_CHUNK)
+    check_streamed_equals_resident(device)
     check_small_evaluation(device)
     check_small_training(device)
 
@@ -751,6 +942,11 @@ def main() -> None:
 
     # ---- training path: self-play, replay, learner, reanalyze, checkpoint, evaluation, deep evaluation at full width
     kernels["whole_search_categorical"]["launches"] = drive_training(device)["whole_search_categorical"]
+
+    # ---- wide path: the full-capacity probe's recipe at hidden 512, bfloat16 search packs streamed
+    wide = drive_wide_training(device)
+    for name in ("whole_search_bf16", "whole_search_streamed"):
+        kernels[name]["launches"] = wide[name]
 
     if args.profile:
         profile_paths(device)

@@ -1,24 +1,30 @@
 // Whole stochastic MuZero search, one CUDA kernel for Hopper (sm_90a).
 //
 // Replaces the JAX package's Pallas TPU kernel `ops/pallas_search.py`
-// (`_make_kernel`, launched by `_run_packed`), variants (a) and (b): float32
-// weights packed by `pack_search_params`, weights resident (no streaming),
-// value/Q/reward heads either scalar (a column of `scal`) or categorical
-// (an (H, bins) block of `cat`, reduced in the kernel to its h-space
-// expectation, `cat_expect` in the TPU kernel). It runs every simulation of B independent searches:
-// traversal (PUCT at decision nodes, p/(1+N) at chance nodes, lockstep to
-// the depth cap), expansion through both transitions (phi -> psi and
-// g -> f: dense layers and pre-LayerNorm residual towers), and the backup of
-// node and edge statistics. Root h/f, the prior softmax, noise and legality
-// masking stay outside, in PyTorch, as they do around the TPU kernel.
+// (`_make_kernel`, launched by `_run_packed`) in all four of its variants:
+// value/Q/reward heads either (a) scalar (a column of `scal`) or (b)
+// categorical (an (H, bins) block of `cat`, reduced in the kernel to its
+// h-space expectation, `cat_expect` in the TPU kernel); weights packed by
+// `pack_search_params` in (c) float32 or bfloat16; and the `hh` layers either
+// resident (read from L2 where they are used) or (d) streamed through shared
+// memory in call order (`stream_chunk`). It runs every simulation of B
+// independent searches: traversal (PUCT at decision nodes, p/(1+N) at chance
+// nodes, lockstep to the depth cap), expansion through both transitions
+// (phi -> psi and g -> f: dense layers and pre-LayerNorm residual towers),
+// and the backup of node and edge statistics. Root h/f, the prior softmax,
+// noise and legality masking stay outside, in PyTorch, as they do around the
+// TPU kernel.
 //
-// What bounds it on an H100: the dense H x H layers of the expansion in
-// float32 without tensor cores, i.e. the 67 TFLOP/s FP32 rate. A simulation
-// needs one transition, 2 (1 + 2 NB) + 2 layers (44 at the full preset,
-// 5.8 MFLOP per search and simulation); this kernel computes both, as the
-// TPU kernel does, so it does twice that work. Behind the FMA rate stands
-// the rate at which each block can stream the 23 MB weight pack from L2.
-// 100 dependent simulations leave no parallelism but the batch.
+// What bounds it on an H100: the dense H x H layers of the expansion. A
+// simulation needs one transition, 2 (1 + 2 NB) + 2 layers (44 at NB=10,
+// 5.8 MFLOP per search and simulation at H=256, 23 at H=512); this kernel
+// computes both, as the TPU kernel does, so it does twice that work. In
+// float32 without tensor cores that is the 67 TFLOP/s FP32 rate; a bfloat16
+// pack does the same products that the tensor cores take at 989 TFLOP/s, but
+// this kernel still runs them as FP32 FMAs. Behind the FMA rate stands the
+// weight traffic: each block reads the whole pack once per simulation (23 MB
+// at H=256 in float32; 92 MB at H=512, 46 MB in bfloat16, more than or about
+// the 50 MB L2). 100 dependent simulations leave no parallelism but the batch.
 //
 // Design. The TPU version keeps 128 searches' tree tables and all weights in
 // VMEM and reads rows by one-hot mask sums (no gather on the TPU). Neither
@@ -34,23 +40,52 @@
 //   min-max bounds and a first-index argmax), one thread per search in the
 //   backup;
 // - activations are (H, G) float32 tiles in shared memory; each dense layer
-//   is a hand-written FP32 FMA product in which 2H threads each own one
-//   output row and one half of the input range, read the (in, out) weight
-//   matrix coalesced from global memory (shared across blocks through L2),
-//   and read the activations as broadcast float2s;
+//   is a hand-written FP32 product (FMAs for a float32 pack) in which 2H
+//   threads each own one output row and one half of the input range and
+//   read the activations as broadcast float2s. The resident kernel (H <= 256, 512 threads) reads the
+//   (in, out) weight matrix coalesced from global memory (shared across
+//   blocks through L2). The streamed kernel (H <= 512, 1,024 threads) brings
+//   each layer into shared memory in 64 KB tiles of rows (T rows of each
+//   input half) with `cp.async`, double-buffered: the tile after the current
+//   one, in the next layer when this one ends, is in flight while the block
+//   computes, and the first tile of an expansion while it traverses, as the
+//   TPU kernel's chunk DMAs are. Every thread sums its rows in the same order
+//   in both kernels, so the two give bit-identical searches;
+// - a bfloat16 pack stores hh / win / wide / cat and the node embeddings in
+//   bfloat16; every dense and head product rounds its input activation to
+//   bfloat16 (`__float2bfloat16_rn`) and sums products of the widened values
+//   in float32, as the TPU kernel's `x.astype(w.dtype)` and f32 accumulation
+//   do. The scalar heads and every bias and LayerNorm vector stay float32.
+//   A dense layer's products are then exact, and it sums them as a balanced
+//   tree (RowSum), which the plain version repeats to the bit: with
+//   bfloat16 roundings in every layer, any other order would turn some of
+//   them the other way, and the searches apart;
 // - a categorical head's logits are a (bins, G) tile in shared memory: the
 //   block's threads split bins x input ranges, a second pass adds the partial
 //   sums and the bias, and one warp per search takes the max, exponentials,
 //   the two sums and one division (expf and a correctly rounded division,
 //   as the plain version computes them);
 // - LayerNorm uses eps 1e-6 and the two-pass variance, argmax breaks ties
-//   at the first index, and the arithmetic that selects edges uses
-//   correctly rounded intrinsics (no FMA contraction), so that it matches
-//   the plain PyTorch version operation for operation.
+//   at the first index, and the arithmetic that selects edges (and, beside
+//   a bfloat16 pack, LayerNorm) uses correctly rounded intrinsics (no FMA
+//   contraction), so that it matches the plain PyTorch version operation
+//   for operation.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+
+#include <type_traits>
+
+// Each library holds one variant (ops/_build.py builds the four in parallel):
+// the weights' type, and resident or streamed hh.
+#ifndef WHOLE_SEARCH_BF16
+#define WHOLE_SEARCH_BF16 0
+#endif
+#ifndef WHOLE_SEARCH_STREAMED
+#define WHOLE_SEARCH_STREAMED 0
+#endif
 
 namespace {
 
@@ -58,24 +93,27 @@ constexpr float kNegInf = -1e9f;
 constexpr int kUnvisited = -1;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kSearchesPerBlock = 2;  // G
+using Weight = std::conditional_t<WHOLE_SEARCH_BF16, __nv_bfloat16, float>;
+constexpr bool kStreamed = WHOLE_SEARCH_STREAMED;
+constexpr int kTileBytes = 64 * 1024;  // one streamed tile: T rows of both input halves
 
 struct Args {
   const float* root_h;  // (B, H)
   const float* root_p;  // (B, K) noised, masked, zero-padded priors
   const float* root_v;  // (B,) raw-space root values
-  const float* hh;      // (n_hh, H, H) [layer][in][out]
+  const void* hh;       // (n_hh, H, H) [layer][in][out], W; streamed: in call order
   const float* vecs;    // (n_vec, H) bias / LayerNorm vectors (the pack's (H, n_vec), transposed)
-  const float* win;     // (2, K, H) action / chance input rows
-  const float* wide;    // (2, H, K) policy / chance logit heads
+  const void* win;      // (2, K, H) action / chance input rows, W
+  const void* wide;     // (2, H, K) policy / chance logit heads, W
   const float* wide_b;  // (K, 2)
   const float* scal;    // (H, 8) scalar heads: f value, psi q, g reward
   const float* scal_b;  // (1, 8)
-  const float* cat;     // (H, CB) categorical heads: f value at 0, psi q at VB, g reward at 2 VB
+  const void* cat;      // (H, CB) categorical heads: f value at 0, psi q at VB, g reward at 2 VB, W
   const float* cat_b;   // (CB, 1)
   float* visits;        // out (B, A)
   float* qvals;         // out (B, A)
   float* rootv;         // out (B,)
-  float* emb;           // (B, N, H)
+  void* emb;            // (B, N, H), W
   float* prior;         // (B, N, K)
   int* cidx;            // (B, N, K)
   float* cvis;          // (B, N, K)
@@ -94,13 +132,15 @@ struct Args {
   float pb_c_init, pb_c_base, discount, temperature;
   int has_eps;
   float eps, four_eps, two_eps;
+  int tile_rows;    // streamed: T, rows of each input half in one tile
+  int tile_floats;  // streamed: the two tile buffers at the start of shared memory, in floats
 };
 
 struct Layout {
   size_t emb, prior, cidx, cvis, cval, nvis, nval, nrew, ndis, ndec, path_nodes, path_edges, vbuf, words;
 };
 
-Layout make_layout(size_t B, size_t H, size_t K, size_t S, size_t P) {
+Layout make_layout(size_t B, size_t H, size_t K, size_t S, size_t P, size_t emb_bytes) {
   const size_t N = S + 1;
   Layout L{};
   size_t off = 0;
@@ -109,7 +149,7 @@ Layout make_layout(size_t B, size_t H, size_t K, size_t S, size_t P) {
     off += (words + 63) / 64 * 64;  // 256-byte aligned tables
     return at;
   };
-  L.emb = take(B * N * H);
+  L.emb = take((B * N * H * emb_bytes + 3) / 4);
   L.prior = take(B * N * K);
   L.cidx = take(B * N * K);
   L.cvis = take(B * N * K);
@@ -152,6 +192,123 @@ __device__ __forceinline__ void warp_argmax(float& v, int& idx) {
     }
   }
 }
+
+// Weights of type W (float or __nv_bfloat16) as float; a product's input
+// activation as the weights' type rounds it (bfloat16: round to nearest even).
+template <typename W>
+__device__ __forceinline__ float to_f(W v) {
+  if constexpr (sizeof(W) == 2) return __bfloat162float(v);
+  else return v;
+}
+template <typename W>
+__device__ __forceinline__ float load_w(const W* p) {
+  if constexpr (sizeof(W) == 2) return __bfloat162float(*p);
+  else return __ldg(p);
+}
+template <typename W>
+__device__ __forceinline__ float act(float x) {
+  if constexpr (sizeof(W) == 2) return __bfloat162float(__float2bfloat16_rn(x));
+  return x;
+}
+template <typename W>
+__device__ __forceinline__ W from_f(float x) {
+  if constexpr (sizeof(W) == 2) return __float2bfloat16_rn(x);
+  else return x;
+}
+
+// The streamed kernel's cursor over one expansion's weights: tile q holds
+// rows [t T, t T + T) and [H/2 + t T, H/2 + t T + T) of call-order layer
+// q / tpl (t = q % tpl), in buffer q % 2. Every thread keeps its own copy;
+// all threads step it together.
+template <typename W>
+struct Stream {
+  W* buf;     // 2 buffers of (2, T, H): [half][row][out]
+  int T;      // rows of each input half in a tile
+  int tpl;    // tiles per layer: H / 2 / T
+  int total;  // tiles of the real layers of one expansion
+  int q;      // the next tile to compute
+
+  // Every thread issues its share of tile q's 16-byte copies into buffer q % 2, as one group.
+  __device__ void issue(const Args& a, int tile) const {
+    const int H = a.H;
+    const W* src = static_cast<const W*>(a.hh) + ((size_t)(tile / tpl) * H + (size_t)(tile % tpl) * T) * H;
+    W* dst = buf + (size_t)(tile & 1) * 2 * T * H;
+    const int pieces = T * H * (int)sizeof(W) / 16;  // per input half
+    for (int e = threadIdx.x; e < 2 * pieces; e += blockDim.x) {
+      const int half = e / pieces, piece = e % pieces;
+      const char* from = reinterpret_cast<const char*>(src + (size_t)half * (H / 2) * H) + (size_t)piece * 16;
+      char* to = reinterpret_cast<char*>(dst + (size_t)half * T * H) + (size_t)piece * 16;
+      const unsigned shared = static_cast<unsigned>(__cvta_generic_to_shared(to));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(shared), "l"(from));
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+
+  // Waits for this thread's copies (the block's need a __syncthreads after).
+  __device__ void wait() const { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+};
+
+// acc[g] += w * x[g] over one input row (x: G activations, read as float2s).
+template <int G, typename W>
+__device__ __forceinline__ void fma_row(float (&acc)[G], float w, const float* x) {
+  const float2* x2 = reinterpret_cast<const float2*>(x);
+#pragma unroll
+  for (int q = 0; q < G / 2; ++q) {
+    const float2 xv = x2[q];
+    acc[2 * q + 0] = fmaf(w, act<W>(xv.x), acc[2 * q + 0]);
+    acc[2 * q + 1] = fmaf(w, act<W>(xv.y), acc[2 * q + 1]);
+  }
+}
+
+constexpr int kTreeLevels = 6;  // 8-row blocks of one input half: at most 2^5 (H = 512)
+
+// How a thread sums the products of its input half, 8 rows at a time.
+// Float32 weights: one FMA chain, row after row. Bfloat16 weights: each
+// product is exact in float32, and the sum is a balanced tree over
+// consecutive pairs (within each 8-row block, then block with block through
+// a binary counter of partial sums), which the plain version repeats with
+// whole-tensor adds, so the two agree to the bit.
+template <int G, typename W>
+struct RowSum {
+  float acc[G];                 // float32: the chain; bfloat16: the last partial stored (the total, at the end)
+  float level[kTreeLevels][G];  // bfloat16: partial sums of 2^k blocks
+  int blocks = 0;
+
+  __device__ __forceinline__ RowSum() {
+#pragma unroll
+    for (int g = 0; g < G; ++g) acc[g] = 0.f;
+  }
+
+  // Rows u = 0..7: weight w[u], activations x + u * G.
+  __device__ __forceinline__ void add8(const float (&w)[8], const float* x) {
+    if constexpr (sizeof(W) == 4) {
+#pragma unroll
+      for (int u = 0; u < 8; ++u) fma_row<G, W>(acc, w[u], x + u * G);
+    } else {
+      float v[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float p[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) p[u] = __fmul_rn(w[u], act<W>(x[u * G + g]));
+        v[g] = __fadd_rn(__fadd_rn(__fadd_rn(p[0], p[1]), __fadd_rn(p[2], p[3])),
+                         __fadd_rn(__fadd_rn(p[4], p[5]), __fadd_rn(p[6], p[7])));
+      }
+#pragma unroll
+      for (int k = 0; k < kTreeLevels; ++k) {
+        if (blocks & (1 << k)) {
+#pragma unroll
+          for (int g = 0; g < G; ++g) v[g] = __fadd_rn(level[k][g], v[g]);
+        } else {
+#pragma unroll
+          for (int g = 0; g < G; ++g) level[k][g] = acc[g] = v[g];
+          break;
+        }
+      }
+      ++blocks;
+    }
+  }
+};
 
 // h^-1 (ops/value_transform.py), operation for operation.
 __device__ __forceinline__ float untransform(const Args& a, float x) {
@@ -198,54 +355,63 @@ __device__ void pick(const Args& a, int b, int node, int lane, int& edge, int& n
 }
 
 // out (H, G) = W[layer]^T in + vec[iv] (+ rows[row_idx[g]] | + out).
-// 2H threads (at most 512): thread t owns output row t % H and input half t / H.
-template <int G>
-__device__ void dense(const Args& a, int layer, int iv, const float* in, float* out, float* part,
-                      const float* rows, const int* row_idx, bool residual) {
+// 2H threads: thread t owns output row t % H and input half t / H, and sums
+// its half's products as RowSum does, alike in both kernels. The resident
+// kernel reads W from global memory (L2); the streamed one computes on the
+// tiles of `st`, which must stand at this layer's first tile.
+template <int G, typename W, bool kStream>
+__device__ void dense(const Args& a, Stream<W>& st, int layer, int iv, const float* in, float* out, float* part,
+                      const W* rows, const int* row_idx, bool residual) {
   const int H = a.H;
   const int o = threadIdx.x % H;
   const int half = threadIdx.x / H;
   const int len = H / 2;
   const int i0 = half * len;
-  const float* __restrict__ w = a.hh + ((size_t)layer * H + i0) * H + o;
   static_assert(G % 2 == 0, "activations are read as float2s");
-  float acc[G];
+  RowSum<G, W> sum;
+  if constexpr (kStream) {
+    for (int t = 0; t < st.tpl; ++t) {
+      st.wait();        // this thread's copies of tile st.q
+      __syncthreads();  // everyone's; and the other buffer's last readers are done
+      if (st.q + 1 < st.total) st.issue(a, st.q + 1);
+      const W* w = st.buf + (size_t)(st.q & 1) * 2 * st.T * H + (size_t)half * st.T * H + o;
+      const float* x = in + (i0 + t * st.T) * G;
+      for (int u = 0; u < st.T; u += 8) {
+        float wr[8];
 #pragma unroll
-  for (int g = 0; g < G; ++g) acc[g] = 0.f;
-  // Weights for rows i..i+7 are in registers while rows i+8..i+15 load.
-  float wn[8];
-#pragma unroll
-  for (int u = 0; u < 8; ++u) wn[u] = __ldg(w + (size_t)u * H);
-  for (int i = 0; i < len; i += 8) {
-    float wr[8];
-#pragma unroll
-    for (int u = 0; u < 8; ++u) wr[u] = wn[u];
-    if (i + 8 < len) {
-#pragma unroll
-      for (int u = 0; u < 8; ++u) wn[u] = __ldg(w + (size_t)(i + 8 + u) * H);
-    }
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      const float2* x2 = reinterpret_cast<const float2*>(in + (i0 + i + u) * G);
-#pragma unroll
-      for (int q = 0; q < G / 2; ++q) {
-        const float2 xv = x2[q];
-        acc[2 * q + 0] = fmaf(wr[u], xv.x, acc[2 * q + 0]);
-        acc[2 * q + 1] = fmaf(wr[u], xv.y, acc[2 * q + 1]);
+        for (int v = 0; v < 8; ++v) wr[v] = to_f(w[(size_t)(u + v) * H]);
+        sum.add8(wr, x + u * G);
       }
+      ++st.q;
+    }
+  } else {
+    const W* __restrict__ w = static_cast<const W*>(a.hh) + ((size_t)layer * H + i0) * H + o;
+    // Weights for rows i..i+7 are in registers while rows i+8..i+15 load.
+    float wn[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) wn[u] = load_w(w + (size_t)u * H);
+    for (int i = 0; i < len; i += 8) {
+      float wr[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) wr[u] = wn[u];
+      if (i + 8 < len) {
+#pragma unroll
+        for (int u = 0; u < 8; ++u) wn[u] = load_w(w + (size_t)(i + 8 + u) * H);
+      }
+      sum.add8(wr, in + (i0 + i) * G);
     }
   }
   if (half == 1) {
 #pragma unroll
-    for (int g = 0; g < G; ++g) part[o * G + g] = acc[g];
+    for (int g = 0; g < G; ++g) part[o * G + g] = sum.acc[g];
   }
   __syncthreads();
   if (half == 0) {
     const float bias = a.vecs[(size_t)iv * H + o];
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      float v = (acc[g] + part[o * G + g]) + bias;
-      if (rows != nullptr) v += rows[(size_t)row_idx[g] * H + o];
+      float v = (sum.acc[g] + part[o * G + g]) + bias;
+      if (rows != nullptr) v += to_f(rows[(size_t)row_idx[g] * H + o]);
       if (residual) v += out[o * G + g];
       out[o * G + g] = v;
     }
@@ -253,27 +419,65 @@ __device__ void dense(const Args& a, int layer, int iv, const float* in, float* 
   __syncthreads();
 }
 
-// out = relu(LayerNorm(in) * vec[iv] + vec[iv + 1]), one warp per column;
-// `out` may alias `in`.
+// A balanced tree over this lane's values x[(lane + 32 j) G + g], j < n =
+// H / 32 (a power of two, at most 16), zeros beyond n: with `mean`, of
+// (x - mean)^2 instead of x. The plain version sums by halving, as here.
 template <int G>
+__device__ __forceinline__ float lane_tree(const float* x, int g, int n, int lane, bool squares, float mean) {
+  float v[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    float xj = j < n ? x[(lane + 32 * j) * G + g] : 0.f;
+    if (squares && j < n) {
+      const float d = __fsub_rn(xj, mean);
+      xj = __fmul_rn(d, d);
+    }
+    v[j] = xj;
+  }
+#pragma unroll
+  for (int w = 1; w < 16; w *= 2) {
+#pragma unroll
+    for (int j = 0; j < 16; j += 2 * w) v[j] = __fadd_rn(v[j], v[j + w]);
+  }
+  return v[0];
+}
+
+// out = relu(LayerNorm(in) * vec[iv] + vec[iv + 1]), one warp per column;
+// `out` may alias `in`. Beside a bfloat16 pack (whose next layer rounds
+// these values) every operation is rounded on its own (no FMA contraction)
+// and 1 / sqrt is correctly rounded, in the order the plain version takes:
+// lane_tree, then the butterfly of warp_sum.
+template <int G, typename W>
 __device__ void layer_norm_relu(const Args& a, int iv, const float* in, float* out) {
   const int H = a.H;
   const int lane = threadIdx.x & 31;
-  const float inv_h = 1.f / (float)H;
   for (int g = threadIdx.x >> 5; g < G; g += blockDim.x >> 5) {
-    float s = 0.f;
-    for (int i = lane; i < H; i += 32) s += in[i * G + g];
-    const float mean = warp_sum(s) * inv_h;
-    float s2 = 0.f;
-    for (int i = lane; i < H; i += 32) {
-      const float d = in[i * G + g] - mean;
-      s2 += d * d;
-    }
-    const float r = rsqrtf(warp_sum(s2) * inv_h + 1e-6f);
-    for (int i = lane; i < H; i += 32) {
-      const float y = (in[i * G + g] - mean) * r;
-      const float z = y * a.vecs[(size_t)iv * H + i] + a.vecs[(size_t)(iv + 1) * H + i];
-      out[i * G + g] = fmaxf(z, 0.f);
+    if constexpr (sizeof(W) == 4) {
+      const float inv_h = 1.f / (float)H;
+      float s = 0.f;
+      for (int i = lane; i < H; i += 32) s += in[i * G + g];
+      const float mean = warp_sum(s) * inv_h;
+      float s2 = 0.f;
+      for (int i = lane; i < H; i += 32) {
+        const float d = in[i * G + g] - mean;
+        s2 += d * d;
+      }
+      const float r = rsqrtf(warp_sum(s2) * inv_h + 1e-6f);
+      for (int i = lane; i < H; i += 32) {
+        const float y = (in[i * G + g] - mean) * r;
+        const float z = y * a.vecs[(size_t)iv * H + i] + a.vecs[(size_t)(iv + 1) * H + i];
+        out[i * G + g] = fmaxf(z, 0.f);
+      }
+    } else {
+      const float inv_h = __fdiv_rn(1.f, (float)H);
+      const float mean = __fmul_rn(warp_sum(lane_tree<G>(in, g, H / 32, lane, false, 0.f)), inv_h);
+      const float var = __fmul_rn(warp_sum(lane_tree<G>(in, g, H / 32, lane, true, mean)), inv_h);
+      const float r = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, 1e-6f)));
+      for (int i = lane; i < H; i += 32) {
+        const float y = __fmul_rn(__fsub_rn(in[i * G + g], mean), r);
+        const float z = __fadd_rn(__fmul_rn(y, a.vecs[(size_t)iv * H + i]), a.vecs[(size_t)(iv + 1) * H + i]);
+        out[i * G + g] = fmaxf(z, 0.f);
+      }
     }
   }
   __syncthreads();
@@ -281,21 +485,21 @@ __device__ void layer_norm_relu(const Args& a, int iv, const float* in, float* o
 
 // TowerWithHead: dense -> NB pre-LN residual blocks -> LN -> relu; result in x.
 // `in` may alias u (it is consumed by the first layer).
-template <int G>
-__device__ void tower(const Args& a, int ihh, int iv, const float* in, float* x, float* t, float* u,
+template <int G, typename W, bool kStream>
+__device__ void tower(const Args& a, Stream<W>& st, int ihh, int iv, const float* in, float* x, float* t, float* u,
                       float* part) {
-  dense<G>(a, ihh, iv, in, x, part, nullptr, nullptr, false);
+  dense<G, W, kStream>(a, st, ihh, iv, in, x, part, nullptr, nullptr, false);
   ihh += 1;
   iv += 1;
   for (int blk = 0; blk < a.NB; ++blk) {
-    layer_norm_relu<G>(a, iv, x, t);
-    dense<G>(a, ihh, iv + 2, t, u, part, nullptr, nullptr, false);
-    layer_norm_relu<G>(a, iv + 3, u, u);
-    dense<G>(a, ihh + 1, iv + 5, u, x, part, nullptr, nullptr, true);
+    layer_norm_relu<G, W>(a, iv, x, t);
+    dense<G, W, kStream>(a, st, ihh, iv + 2, t, u, part, nullptr, nullptr, false);
+    layer_norm_relu<G, W>(a, iv + 3, u, u);
+    dense<G, W, kStream>(a, st, ihh + 1, iv + 5, u, x, part, nullptr, nullptr, true);
     ihh += 2;
     iv += 6;
   }
-  layer_norm_relu<G>(a, iv, x, x);
+  layer_norm_relu<G, W>(a, iv, x, x);
 }
 
 // out[g] = untransform(scal[:, c] . x[:, g] + scal_b[c]), one warp per column.
@@ -313,7 +517,7 @@ __device__ void head_scalar(const Args& a, int c, const float* x, float* out) {
 
 // out[g] = untransform(sum_k softmax(cat[:, off:off+bins]^T x[:, g] + cat_b)[k] * k * step).
 // `psum` holds max(blockDim, bins) * G floats and `lg` bins * G floats.
-template <int G>
+template <int G, typename W>
 __device__ void head_categorical(const Args& a, int off, int bins, float step, const float* x, float* out,
                                  float* psum, float* lg) {
   const int H = a.H, T = blockDim.x;
@@ -322,14 +526,14 @@ __device__ void head_categorical(const Args& a, int off, int bins, float step, c
   for (int e = threadIdx.x; e < nparts * bins; e += T) {
     const int k = e % bins, part = e / bins;
     const int i0 = part * chunk, i1 = min(H, i0 + chunk);
-    const float* __restrict__ w = a.cat + off + k;
+    const W* __restrict__ w = static_cast<const W*>(a.cat) + off + k;
     float acc[G];
 #pragma unroll
     for (int g = 0; g < G; ++g) acc[g] = 0.f;
     for (int i = i0; i < i1; ++i) {
-      const float wv = __ldg(w + (size_t)i * a.CB);
+      const float wv = load_w(w + (size_t)i * a.CB);
 #pragma unroll
-      for (int g = 0; g < G; ++g) acc[g] = fmaf(wv, x[i * G + g], acc[g]);
+      for (int g = 0; g < G; ++g) acc[g] = fmaf(wv, act<W>(x[i * G + g]), acc[g]);
     }
 #pragma unroll
     for (int g = 0; g < G; ++g) psum[(size_t)e * G + g] = acc[g];
@@ -360,8 +564,9 @@ __device__ void head_categorical(const Args& a, int off, int bins, float step, c
   __syncthreads();
 }
 
-// The value (c = 0), Q (c = 1) or reward (c = 2) head, scalar or categorical.
-template <int G>
+// The value (c = 0), Q (c = 1) or reward (c = 2) head, scalar (float32
+// weights and activations, whatever W is) or categorical.
+template <int G, typename W>
 __device__ void head_value(const Args& a, int c, const float* x, float* out, float* psum, float* lg) {
   const int bins = c == 2 ? a.reward_bins : a.value_bins;
   if (bins == 1) {
@@ -369,17 +574,17 @@ __device__ void head_value(const Args& a, int c, const float* x, float* out, flo
     return;
   }
   const int off = a.value_bins > 1 ? c * a.value_bins : 0;
-  head_categorical<G>(a, off, bins, c == 2 ? a.reward_step : a.value_step, x, out, psum, lg);
+  head_categorical<G, W>(a, off, bins, c == 2 ? a.reward_step : a.value_step, x, out, psum, lg);
 }
 
 // logits (K, G) = wide[j]^T x + wide_b[:, j].
-template <int G>
+template <int G, typename W>
 __device__ void head_logits(const Args& a, int j, const float* x, float* logits) {
   for (int e = threadIdx.x; e < a.K * G; e += blockDim.x) {
     const int k = e / G, g = e % G;
-    const float* w = a.wide + (size_t)j * a.H * a.K + k;
+    const W* w = static_cast<const W*>(a.wide) + (size_t)j * a.H * a.K + k;
     float s = 0.f;
-    for (int i = 0; i < a.H; ++i) s = fmaf(w[(size_t)i * a.K], x[i * G + g], s);
+    for (int i = 0; i < a.H; ++i) s = fmaf(to_f(w[(size_t)i * a.K]), act<W>(x[i * G + g]), s);
     logits[e] = s + a.wide_b[k * 2 + j];
   }
   __syncthreads();
@@ -395,17 +600,27 @@ inline int cat_scratch_floats(int H, int G, int value_bins, int reward_bins) {
 }
 
 template <int G>
-size_t smem_bytes(int H, int K, int value_bins, int reward_bins) {
-  return (size_t)(7 * H * G + 2 * K * G + 3 * G + cat_scratch_floats(H, G, value_bins, reward_bins)) * sizeof(float) +
+size_t smem_bytes(int H, int K, int value_bins, int reward_bins, int tile_floats) {
+  return (size_t)(tile_floats + 7 * H * G + 2 * K * G + 3 * G + cat_scratch_floats(H, G, value_bins, reward_bins)) *
+             sizeof(float) +
          (size_t)7 * G * sizeof(int);
 }
 
-template <int G>
-__global__ void __launch_bounds__(512) whole_search_kernel(Args a) {
+// The streamed kernel's tile: T rows of each input half, the largest power
+// of two times 16 that divides H / 2 with both halves in kTileBytes.
+inline int stream_tile_rows(int H, int wsize) {
+  int T = 16;
+  while ((H / 2) % (2 * T) == 0 && 2 * (2 * T) * H * wsize <= kTileBytes) T *= 2;
+  return T;
+}
+
+template <int G, typename W, bool kStream>
+__global__ void __launch_bounds__(kStream ? 1024 : 512) whole_search_kernel(Args a) {
   extern __shared__ __align__(16) float smem[];
   const int H = a.H, K = a.K, A = a.A, N = a.S + 1, P = a.P;
   const int HG = H * G;
-  float* pe = smem;          // parent embeddings
+  W* emb = static_cast<W*>(a.emb);
+  float* pe = smem + a.tile_floats;  // parent embeddings
   float* after = pe + HG;    // phi output (afterstate)
   float* hnew = after + HG;  // g output (next hidden state)
   float* x = hnew + HG;      // tower activations
@@ -442,6 +657,13 @@ __global__ void __launch_bounds__(512) whole_search_kernel(Args a) {
   const int G_FUSE_HH = PSI_HH + tower_hh, G_FUSE_V = PSI_V + tower_vec;
   const int G_HH = G_FUSE_HH + 1, G_V = G_FUSE_V + 1;
   const int G_HEAD_HH = G_HH + tower_hh, G_HEAD_V = G_V + tower_vec;
+  const W* win = static_cast<const W*>(a.win);
+
+  Stream<W> st{reinterpret_cast<W*>(smem), a.tile_rows, 0, 0, 0};
+  if constexpr (kStream) {
+    st.tpl = H / 2 / a.tile_rows;
+    st.total = (4 * tower_hh + 4) * st.tpl;
+  }
 
   // ---- tree init: root = node 0, a decision node
   for (int g = 0; g < G && b0 + g < a.B; ++g) {
@@ -460,12 +682,16 @@ __global__ void __launch_bounds__(512) whole_search_kernel(Args a) {
       a.ndis[nn + e] = 1.f;
       a.ndec[nn + e] = e == 0 ? 1.f : 0.f;
     }
-    for (int e = tid; e < H; e += blockDim.x) a.emb[nn * H + e] = a.root_h[(size_t)b * H + e];
+    for (int e = tid; e < H; e += blockDim.x) emb[nn * H + e] = from_f<W>(a.root_h[(size_t)b * H + e]);
   }
   __syncthreads();
 
   for (int sim = 0; sim < a.S; ++sim) {
     const int new_index = sim + 1;
+    if constexpr (kStream) {  // the expansion's first tile lands while the block traverses
+      st.q = 0;
+      st.issue(a, 0);
+    }
 
     // ---- traversal: one warp per search
     for (int g = warp; g < G; g += nwarps) {
@@ -515,32 +741,33 @@ __global__ void __launch_bounds__(512) whole_search_kernel(Args a) {
     // ---- expansion: both transition types at (parent, edge)
     for (int e = tid; e < HG; e += blockDim.x) {
       const int i = e / G, g = e % G, b = b0 + g;
-      pe[e] = b < a.B ? a.emb[((size_t)b * N + s_parent[g]) * H + i] : 0.f;
+      pe[e] = b < a.B ? to_f(emb[((size_t)b * N + s_parent[g]) * H + i]) : 0.f;
     }
     __syncthreads();
 
     // phi then psi (decision parent -> chance child)
-    dense<G>(a, PHI_FUSE_HH, PHI_FUSE_V, pe, u, part, a.win, s_arow, false);
-    tower<G>(a, PHI_HH, PHI_V, u, x, t, u, part);
-    dense<G>(a, PHI_HEAD_HH, PHI_HEAD_V, x, after, part, nullptr, nullptr, false);
-    tower<G>(a, PSI_HH, PSI_V, after, x, t, u, part);
-    head_value<G>(a, 1, x, s_q, psum, lgt);
-    head_logits<G>(a, 1, x, lc);
+    // (in call order: the streamed pack holds the layers in this order)
+    dense<G, W, kStream>(a, st, PHI_FUSE_HH, PHI_FUSE_V, pe, u, part, win, s_arow, false);
+    tower<G, W, kStream>(a, st, PHI_HH, PHI_V, u, x, t, u, part);
+    dense<G, W, kStream>(a, st, PHI_HEAD_HH, PHI_HEAD_V, x, after, part, nullptr, nullptr, false);
+    tower<G, W, kStream>(a, st, PSI_HH, PSI_V, after, x, t, u, part);
+    head_value<G, W>(a, 1, x, s_q, psum, lgt);
+    head_logits<G, W>(a, 1, x, lc);
 
     // g then f (chance parent -> decision child)
-    dense<G>(a, G_FUSE_HH, G_FUSE_V, pe, u, part, a.win + (size_t)K * H, s_crow, false);
-    tower<G>(a, G_HH, G_V, u, x, t, u, part);
-    dense<G>(a, G_HEAD_HH, G_HEAD_V, x, hnew, part, nullptr, nullptr, false);
-    head_value<G>(a, 2, x, s_r, psum, lgt);
-    tower<G>(a, F_HH, F_V, hnew, x, t, u, part);
-    head_value<G>(a, 0, x, s_v, psum, lgt);
-    head_logits<G>(a, 0, x, la);
+    dense<G, W, kStream>(a, st, G_FUSE_HH, G_FUSE_V, pe, u, part, win + (size_t)K * H, s_crow, false);
+    tower<G, W, kStream>(a, st, G_HH, G_V, u, x, t, u, part);
+    dense<G, W, kStream>(a, st, G_HEAD_HH, G_HEAD_V, x, hnew, part, nullptr, nullptr, false);
+    head_value<G, W>(a, 2, x, s_r, psum, lgt);
+    tower<G, W, kStream>(a, st, F_HH, F_V, hnew, x, t, u, part);
+    head_value<G, W>(a, 0, x, s_v, psum, lgt);
+    head_logits<G, W>(a, 0, x, la);
 
     // ---- install the new node at row new_index (unreachable when the
     // depth cap stopped on an expanded edge)
     for (int e = tid; e < HG; e += blockDim.x) {
       const int i = e / G, g = e % G, b = b0 + g;
-      if (b < a.B) a.emb[((size_t)b * N + new_index) * H + i] = s_dec[g] ? after[e] : hnew[e];
+      if (b < a.B) emb[((size_t)b * N + new_index) * H + i] = from_f<W>(s_dec[g] ? after[e] : hnew[e]);
     }
     for (int g = warp; g < G; g += nwarps) {
       const int b = b0 + g;
@@ -608,12 +835,17 @@ __global__ void __launch_bounds__(512) whole_search_kernel(Args a) {
   if (tid < G && b0 + tid < a.B) a.rootv[b0 + tid] = a.nval[(size_t)(b0 + tid) * N];
 }
 
-template <int G>
-int launch(const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes<G>(a.H, a.K, a.value_bins, a.reward_bins);
-  cudaError_t err = cudaFuncSetAttribute(whole_search_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int G, typename W, bool kStream>
+int launch(Args a, cudaStream_t stream) {
+  if (kStream) {
+    a.tile_rows = stream_tile_rows(a.H, (int)sizeof(W));
+    a.tile_floats = 2 * 2 * a.tile_rows * a.H * (int)sizeof(W) / (int)sizeof(float);
+  }
+  const size_t smem = smem_bytes<G>(a.H, a.K, a.value_bins, a.reward_bins, a.tile_floats);
+  cudaError_t err =
+      cudaFuncSetAttribute(whole_search_kernel<G, W, kStream>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  whole_search_kernel<G><<<(a.B + G - 1) / G, 2 * a.H, smem, stream>>>(a);
+  whole_search_kernel<G, W, kStream><<<(a.B + G - 1) / G, 2 * a.H, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -621,27 +853,34 @@ int launch(const Args& a, cudaStream_t stream) {
 
 extern "C" {
 
+// The tree tables' bytes (node embeddings in this library's weight type).
 size_t whole_search_workspace_bytes(int B, int H, int K, int S, int P) {
-  return make_layout(B, H, K, S, P).words * sizeof(float);
+  return make_layout(B, H, K, S, P, sizeof(Weight)).words * sizeof(float);
 }
 
 const char* whole_search_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 // Returns cudaGetLastError() after the launch (0 = launched), or
-// cudaErrorInvalidValue for shapes the kernel does not take.
-int whole_search_launch(const float* root_h, const float* root_p, const float* root_v, const float* hh,
-                        const float* vecs, const float* win, const float* wide, const float* wide_b,
-                        const float* scal, const float* scal_b, const float* cat, const float* cat_b,
+// cudaErrorInvalidValue for shapes the kernel does not take and for a
+// variant this library was not built for. hh, win, wide and cat are bfloat16
+// when weight_bf16 is 1, else float32; with streamed = 1, hh holds the
+// 4 (1 + 2 NB) + 4 layers in call order (any zero padding after them is
+// never read).
+int whole_search_launch(const float* root_h, const float* root_p, const float* root_v, const void* hh,
+                        const float* vecs, const void* win, const void* wide, const float* wide_b,
+                        const float* scal, const float* scal_b, const void* cat, const float* cat_b,
                         float* visits, float* qvals, float* rootv, void* workspace, int B, int H, int NB, int S,
-                        int K, int A, int P, int CB, int value_bins, int reward_bins, float pb_c_init,
-                        float pb_c_base, float discount, float temperature, float value_step, float reward_step,
-                        int has_eps, float eps, float four_eps, float two_eps, void* stream) {
-  if (B < 1 || H < 32 || H % 32 != 0 || 2 * H > 512 || K < 1 || K > 32 || A < 1 || A > K || S < 1 || P < 1 ||
+                        int K, int A, int P, int CB, int value_bins, int reward_bins, int weight_bf16, int streamed,
+                        float pb_c_init, float pb_c_base, float discount, float temperature, float value_step,
+                        float reward_step, int has_eps, float eps, float four_eps, float two_eps, void* stream) {
+  if (weight_bf16 != WHOLE_SEARCH_BF16 || streamed != WHOLE_SEARCH_STREAMED || B < 1 || H < 32 || H % 32 != 0 ||
+      2 * H > (kStreamed ? 1024 : 512) || K < 1 || K > 32 || A < 1 || A > K ||
+      S < 1 || P < 1 ||
       P > S + 1 || NB < 0 || value_bins < 1 || value_bins > 512 || reward_bins < 1 || reward_bins > 512 ||
       CB < (value_bins > 1 ? 2 * value_bins : 0) + (reward_bins > 1 ? reward_bins : 0)) {
     return (int)cudaErrorInvalidValue;
   }
-  const Layout L = make_layout(B, H, K, S, P);
+  const Layout L = make_layout(B, H, K, S, P, sizeof(Weight));
   float* ws = static_cast<float*>(workspace);
   Args a{};
   a.root_h = root_h;
@@ -693,7 +932,7 @@ int whole_search_launch(const float* root_h, const float* root_p, const float* r
   a.eps = eps;
   a.four_eps = four_eps;
   a.two_eps = two_eps;
-  return launch<kSearchesPerBlock>(a, static_cast<cudaStream_t>(stream));
+  return launch<kSearchesPerBlock, Weight, kStreamed>(a, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled at first
-use into ``build/kernels/<name>-<hash>.so`` at the root of the checkout (a
-directory ``.gitignore`` lists), for ``sm_90a`` (Hopper). The hash covers the
-source and the flags, so an edited source is rebuilt and an unchanged one is
-loaded from the cache. Nothing here runs when the module is imported.
+Each library is a ``csrc/<source>.cu`` with a plain C interface, compiled
+with its own defines at first use into ``build/kernels/<name>-<hash>.so`` at
+the root of the checkout (a directory ``.gitignore`` lists), for ``sm_90a``
+(Hopper). The hash covers the source and the flags, so an edited source is
+rebuilt and an unchanged one is loaded from the cache. The whole-search
+source builds one library per weight variant, so that its four kernels
+compile in parallel. Nothing here runs when the module is imported.
 """
 
 from __future__ import annotations
@@ -20,7 +22,14 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("whole_search", "random_rollout")
+# Library name -> (source in csrc/, defines).
+LIBRARIES = {
+    "whole_search": ("whole_search", ("-DWHOLE_SEARCH_BF16=0", "-DWHOLE_SEARCH_STREAMED=0")),
+    "whole_search_bf16": ("whole_search", ("-DWHOLE_SEARCH_BF16=1", "-DWHOLE_SEARCH_STREAMED=0")),
+    "whole_search_streamed": ("whole_search", ("-DWHOLE_SEARCH_BF16=0", "-DWHOLE_SEARCH_STREAMED=1")),
+    "whole_search_bf16_streamed": ("whole_search", ("-DWHOLE_SEARCH_BF16=1", "-DWHOLE_SEARCH_STREAMED=1")),
+    "random_rollout": ("random_rollout", ()),
+}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 
@@ -32,8 +41,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the built library for ``csrc/<name>.cu`` lives (source+flags hash in the name)."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """Where the built library ``name`` lives (source+flags hash in the name)."""
+    source, defines = LIBRARIES[name]
+    flags = " ".join(NVCC_FLAGS + defines).encode()
+    digest = hashlib.sha256((CSRC / f"{source}.cu").read_bytes() + flags).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
@@ -43,14 +54,16 @@ def _start(name: str, verbose: bool) -> tuple[subprocess.Popen, Path, Path] | No
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    source, defines = LIBRARIES[name]
+    verbose_flags = ["-Xptxas", "-v"] if verbose else []
+    cmd = [_nvcc(), *NVCC_FLAGS, *defines, *verbose_flags, "-o", str(tmp), str(CSRC / f"{source}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 
 
-def build_all(names: tuple[str, ...] = KERNELS, verbose: bool = False) -> dict[str, float]:
-    """Compile every named kernel that is not built yet, one ``nvcc`` per
-    source, all started together. Returns seconds per kernel (0 when cached);
+def build_all(names: tuple[str, ...] = tuple(LIBRARIES), verbose: bool = False) -> dict[str, float]:
+    """Compile every named library that is not built yet, one ``nvcc`` per
+    library, all started together. Returns seconds per library (0 when cached);
     raises with the compiler's output if a build fails. With ``verbose``,
     ptxas's register/shared-memory report is printed."""
     t0 = time.perf_counter()
@@ -73,6 +86,6 @@ def build_all(names: tuple[str, ...] = KERNELS, verbose: bool = False) -> dict[s
 
 @cache
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library ``name``, built first if needed."""
     build_all((name,))
     return ctypes.CDLL(str(library_path(name)))

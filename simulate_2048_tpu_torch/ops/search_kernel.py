@@ -1,22 +1,33 @@
 """Whole-search MCTS kernel (CUDA) with its packing, plain version and wrapper.
 
 Counterpart of the JAX package's ``ops/pallas_search.py`` (the Pallas TPU
-kernel ``_make_kernel`` / ``_run_packed`` and ``run_mcts_pallas``), variants
-(a) and (b): float32 weights, all weights resident, scalar or categorical
-value/Q/reward heads. The kernel itself is ``csrc/whole_search.cu``; its header comment says what bounds it on an
-H100 and how the design answers that.
+kernel ``_make_kernel`` / ``_run_packed``, ``pallas_search_plan`` and
+``run_mcts_pallas``), all four variants: (a) scalar and (b) categorical
+value/Q/reward heads, (c) float32 or bfloat16 weight packs, and (d) weights
+resident (read straight from L2) or streamed through shared memory. The
+kernel itself is ``csrc/whole_search.cu``; its header comment says what
+bounds it on an H100 and how the design answers that.
 
 - :func:`pack_search_params` stacks the f/φ/ψ/g weights in exactly the JAX
-  package's layout, so the two packs compare element by element.
+  package's layout, so the two packs compare element by element: bfloat16
+  ``hh`` / ``win`` / ``wide`` / ``cat`` with ``weight_dtype=torch.bfloat16``,
+  and ``hh`` in call order, zero-padded to a multiple of ``stream_chunk``,
+  for the streamed kernel.
+- :func:`search_plan` picks the layout: resident up to H=256, streamed above.
 - :func:`whole_search_reference` is the kernel's plain PyTorch version: the
   same search (``search.mcts.search_tree``) with transitions computed from
   the packed tensors as the kernel computes them (two-pass LayerNorm; a
-  categorical head as max, exponentials, two sums and one division).
+  categorical head as max, exponentials, two sums and one division; with a
+  bfloat16 pack, every product's input rounded to bfloat16, and the dense
+  layers and LayerNorms summed in the kernel's order, to the bit).
 - :func:`whole_search` is the wrapper: on CPU tensors it runs the plain
   version, on CUDA tensors it launches the kernel or raises. It counts its
-  launches in ``LAUNCHES`` (``"whole_search"`` with scalar heads,
-  ``"whole_search_categorical"`` with a categorical head). A :class:`SearchWorkspace`
-  keeps its set-up across the calls of one evaluation.
+  launches in ``LAUNCHES``: each launch adds one under its head variant
+  (``"whole_search"`` scalar heads, ``"whole_search_categorical"`` at least
+  one categorical head) and one under each weight variant it runs
+  (``"whole_search_bf16"``, ``"whole_search_streamed"``). A
+  :class:`SearchWorkspace` keeps its set-up across the calls of one
+  evaluation.
 - :func:`run_search_kernel` is the drop-in for ``batched_run_mcts``: root
   h/f, priors, noise and legality masking in PyTorch, then one
   :func:`whole_search`.
@@ -41,25 +52,40 @@ from simulate_2048_tpu_torch.search.mcts import (
     search_tree,
 )
 
-# Kernel launches by head variant: scalar heads, or at least one categorical head.
-LAUNCHES = {"whole_search": 0, "whole_search_categorical": 0}
+# Kernel launches: by head variant (scalar heads, or at least one categorical
+# head), and by weight variant (a bfloat16 pack; streamed weights).
+LAUNCHES = {"whole_search": 0, "whole_search_categorical": 0, "whole_search_bf16": 0, "whole_search_streamed": 0}
+
+RESIDENT_MAX_H = 256  # the resident kernel: 2H threads under __launch_bounds__(512)
+STREAMED_MAX_H = 512  # the streamed kernel: 2H threads under __launch_bounds__(1024)
+STREAM_CHUNK = 8  # layers per unit of zero padding in a streamed pack (JAX's largest chunk)
 
 
 class PackedSearchParams(NamedTuple):
-    """The JAX package's packed layout (``pack_search_params``), float32."""
+    """The JAX package's packed layout (``pack_search_params``) and the two
+    facts the layout does not show: the tower depth and the streaming chunk."""
 
-    hh: torch.Tensor  # (n_hh, H, H) [layer][in][out]
-    vecs: torch.Tensor  # (H, n_vec) bias / LayerNorm columns
-    win: torch.Tensor  # (2, K, H) action / chance input rows
-    wide: torch.Tensor  # (2, H, K) policy / chance logit heads
-    wide_b: torch.Tensor  # (K, 2)
-    scal: torch.Tensor  # (H, 8) scalar heads [f value, ψ q, g reward]
-    scal_b: torch.Tensor  # (1, 8)
-    cat: torch.Tensor  # (H, CB) categorical heads at :func:`cat_layout` offsets (zeros: scalar heads only)
-    cat_b: torch.Tensor  # (CB, 1)
+    hh: torch.Tensor  # (n_hh, H, H) [layer][in][out], float32 or bfloat16
+    vecs: torch.Tensor  # (H, n_vec) bias / LayerNorm columns, float32
+    win: torch.Tensor  # (2, K, H) action / chance input rows, as hh
+    wide: torch.Tensor  # (2, H, K) policy / chance logit heads, as hh
+    wide_b: torch.Tensor  # (K, 2) float32
+    scal: torch.Tensor  # (H, 8) scalar heads [f value, ψ q, g reward], float32
+    scal_b: torch.Tensor  # (1, 8) float32
+    cat: torch.Tensor  # (H, CB) categorical heads at :func:`cat_layout` offsets (zeros: scalar heads only), as hh
+    cat_b: torch.Tensor  # (CB, 1) float32
+    num_blocks: int  # residual blocks per tower (NB)
+    stream_chunk: int = 0  # 0: hh in pack order; c > 0: in call order, zero-padded to a multiple of c
+
+    @property
+    def tensors(self) -> tuple[torch.Tensor, ...]:
+        return tuple(self[:9])
 
 
 MAX_BINS = 512  # categorical heads the kernel takes: 2 <= bins <= MAX_BINS (1 = scalar head)
+# Position p holds lane int(f"{p:05b}"[::-1], 2): a butterfly over xor 16, 8,
+# 4, 2, 1 sums the lanes as halving sums them in this order.
+LANES_BIT_REVERSED = torch.tensor([int(f"{p:05b}"[::-1], 2) for p in range(32)])
 
 
 def cat_layout(value_bins: int, reward_bins: int) -> tuple[int, int, int, int]:
@@ -101,12 +127,16 @@ def pack_search_params(
     package's layout and order. ``value_bins``/``reward_bins`` are the head
     shapes of ``network``: a head with ``bins == 1`` packs its weight column
     into ``scal``, a categorical head its ``(H, bins)`` matrix into ``cat``
-    (and its ``scal`` column stays zero). Only float32 resident packs are
-    ported; the rest raises ``NotImplementedError``."""
-    if weight_dtype != torch.float32:
-        raise NotImplementedError("bfloat16 weight packs are not ported yet")
-    if stream_chunk is not None:
-        raise NotImplementedError("weight streaming (stream_chunk) is not ported yet")
+    (and its ``scal`` column stays zero). ``weight_dtype`` (float32 or
+    bfloat16; others raise ``NotImplementedError``) is the type of ``hh``,
+    ``win``, ``wide`` and ``cat``; the rest stays float32. With
+    ``stream_chunk`` the ``hh`` layers come in the order the search calls
+    them (φ fuse … g head, then the f tower) and are zero-padded to a
+    multiple of ``stream_chunk``, as the streamed kernel reads them."""
+    if weight_dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(f"{weight_dtype} weight packs are not ported (float32 and bfloat16 are)")
+    if stream_chunk is not None and stream_chunk < 1:
+        raise ValueError(f"stream_chunk must be None or >= 1, not {stream_chunk}")
     if (network.value_bins, network.reward_bins) != (value_bins, reward_bins):
         raise ValueError(
             f"value_bins/reward_bins {value_bins}/{reward_bins} do not match the network's "
@@ -165,24 +195,88 @@ def pack_search_params(
             cat[:, off : off + bins] = head.weight.t()
             cat_b[off : off + bins, 0] = head.bias
 
+    if stream_chunk is not None:
+        tower_hh = 1 + 2 * num_blocks
+        hh = hh[tower_hh:] + hh[:tower_hh]  # rotate into call order
+        hh += [torch.zeros_like(hh[0])] * (-len(hh) % stream_chunk)
+
     return PackedSearchParams(
-        hh=torch.stack([x.to(torch.float32) for x in hh]).contiguous(),
+        hh=torch.stack([x.to(weight_dtype) for x in hh]).contiguous(),
         vecs=torch.stack([x.to(torch.float32) for x in vecs]).t().contiguous(),
-        win=win,
-        wide=wide,
+        win=win.to(weight_dtype),
+        wide=wide.to(weight_dtype),
         wide_b=wide_b.t().contiguous(),
         scal=scal,
         scal_b=scal_b,
-        cat=cat,
+        cat=cat.to(weight_dtype),
         cat_b=cat_b,
+        num_blocks=num_blocks,
+        stream_chunk=stream_chunk or 0,
     )
 
 
-def packed_transitions(packed: PackedSearchParams, cfg: SearchConfig, num_blocks: int):
-    """Both transitions from the packed tensors, as the kernel computes them."""
-    hh, vecs = packed.hh, packed.vecs
+def _check_tree_width(h: int) -> None:
+    """A bfloat16 pack's dense layers sum each input half as a balanced tree: H must be a power of two."""
+    if h & (h - 1):
+        raise ValueError(f"bfloat16 search packs take a power-of-two hidden size (got H={h})")
+
+
+def search_plan(cfg: SearchConfig, hidden: int, weight_dtype: torch.dtype = torch.float32) -> int:
+    """The pack layout the CUDA kernel takes for this network and search: 0
+    (resident weights) or a ``stream_chunk`` > 0 (streamed weights). The
+    counterpart of the JAX package's ``pallas_search_plan``, decided by the
+    CUDA kernel's own limits: a block has 2H threads, one output row and one
+    input half each; the resident kernel runs under ``__launch_bounds__(512)``
+    and reads every layer from L2, the streamed one under 1,024 and stages
+    64 KB tiles of rows through shared memory. Shared memory never binds
+    below those thread limits (at H=512 with 512 bins, float32 tiles: 169 KB
+    of 227 KB), nor do the batch (any size runs) or the tower depth (the
+    tree tables and the pack live in device memory), which JAX's plan also
+    takes. The chunk only sets the pack's zero padding: the kernel streams
+    the real layers tile by tile. The kernel's other limits on H (a multiple
+    of 32, at least 32) are checked where it launches: the plain version
+    takes any H."""
+    check_supported(cfg)
+    if weight_dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(f"{weight_dtype} weight packs are not ported (float32 and bfloat16 are)")
+    if hidden > STREAMED_MAX_H:
+        raise ValueError(f"the kernel takes H <= {STREAMED_MAX_H} (got H={hidden})")
+    if weight_dtype == torch.bfloat16:
+        _check_tree_width(hidden)
+    return 0 if hidden <= RESIDENT_MAX_H else STREAM_CHUNK
+
+
+def packed_transitions(packed: PackedSearchParams, cfg: SearchConfig):
+    """Both transitions from the packed tensors, as the kernel computes them.
+
+    With a bfloat16 pack, every value that a product rounds is computed here
+    bit for bit as the kernel computes it, so that no rounding turns the
+    other way: a dense layer sums its exact products (bfloat16 times
+    bfloat16 fits float32) as the kernel's balanced tree over each input
+    half, and LayerNorm takes the kernel's lane-strided sums, butterfly and
+    correctly rounded 1 / sqrt. With a float32 pack, dense layers are plain
+    matrix products and LayerNorm takes PyTorch's reductions: their sums
+    round in another order than the kernel's, within float32 noise."""
+    vecs, num_blocks = packed.vecs, packed.num_blocks
     a, k = cfg.num_actions, max(cfg.num_actions, cfg.codebook_size)
+    h = vecs.shape[0]
     tower_hh, tower_vec = 1 + 2 * num_blocks, 3 + 6 * num_blocks
+    n_real = 4 * tower_hh + 4
+    bf16 = packed.hh.dtype == torch.bfloat16
+    if bf16:
+        _check_tree_width(h)
+    hh = packed.hh.float()
+    one = torch.ones((), dtype=torch.float32, device=vecs.device)
+    inv_h = one / torch.full((), float(h), dtype=torch.float32, device=vecs.device)
+    lanes = LANES_BIT_REVERSED.to(vecs.device)
+
+    def layer(ihh):
+        """The pack-order layer ``ihh``, wherever the pack's layout keeps it."""
+        return hh[(ihh - tower_hh) % n_real if packed.stream_chunk else ihh]
+
+    def product(x, w):
+        """x @ w with x rounded to the weights' type (bfloat16 packs), sums in float32."""
+        return (x.to(torch.bfloat16).float() if bf16 else x) @ w.float()
     phi_fuse_hh, phi_fuse_v = tower_hh, tower_vec
     phi_hh, phi_v = phi_fuse_hh + 1, phi_fuse_v + 1
     phi_head_hh, phi_head_v = phi_hh + tower_hh, phi_v + tower_vec
@@ -192,13 +286,34 @@ def packed_transitions(packed: PackedSearchParams, cfg: SearchConfig, num_blocks
     g_head_hh, g_head_v = g_hh + tower_hh, g_v + tower_vec
 
     def dense(x, ihh, iv):
-        return x @ hh[ihh] + vecs[:, iv]
+        if not bf16:
+            return x @ layer(ihh) + vecs[:, iv]
+        terms = x.to(torch.bfloat16).float()[:, :, None] * layer(ihh)[None]  # (B, in, out), exact
+        terms = terms.view(x.shape[0], 2, h // 2, h)  # the two input halves
+        while terms.shape[2] > 1:  # consecutive pairs: 8-row blocks first, then blocks pairwise
+            terms = terms[:, :, 0::2] + terms[:, :, 1::2]
+        return (terms[:, 0, 0] + terms[:, 1, 0]) + vecs[:, iv]
+
+    def warp_sum(v):
+        """(B, H) → (B, 1) as the kernel's LayerNorm sums: a balanced tree over
+        each lane's every 32nd value, then the xor butterfly over the 32 lanes
+        (a balanced tree over them in bit-reversed order)."""
+        total = v.view(v.shape[0], h // 32, 32)
+        while total.shape[1] > 1:
+            total = total[:, 0::2] + total[:, 1::2]
+        total = total[:, 0, lanes]
+        while total.shape[1] > 1:
+            total = total[:, 0::2] + total[:, 1::2]
+        return total
 
     def layer_norm(x, iv):
-        mean = x.mean(-1, keepdim=True)
-        var = torch.square(x - mean).mean(-1, keepdim=True)
-        y = (x - mean) * torch.rsqrt(var + 1e-6)
-        return y * vecs[:, iv] + vecs[:, iv + 1]
+        if not bf16:
+            mean = x.mean(-1, keepdim=True)
+            y = (x - mean) * torch.rsqrt(torch.square(x - mean).mean(-1, keepdim=True) + 1e-6)
+            return y * vecs[:, iv] + vecs[:, iv + 1]
+        d = x - warp_sum(x) * inv_h
+        r = torch.reciprocal(torch.sqrt(warp_sum(d * d) * inv_h + 1e-6))
+        return (d * r) * vecs[:, iv] + vecs[:, iv + 1]
 
     def tower(x, ihh, iv):
         x = dense(x, ihh, iv)
@@ -221,23 +336,23 @@ def packed_transitions(packed: PackedSearchParams, cfg: SearchConfig, num_blocks
         if bins == 1:
             return x @ packed.scal[:, col] + packed.scal_b[0, col]
         off = offsets[col]
-        logits = x @ packed.cat[:, off : off + bins] + packed.cat_b[off : off + bins, 0]
+        logits = product(x, packed.cat[:, off : off + bins]) + packed.cat_b[off : off + bins, 0]
         e = torch.exp(logits - logits.amax(-1, keepdim=True))
         step = torch.full((), support_max / (bins - 1), dtype=torch.float32, device=x.device)
         atoms = torch.arange(bins, dtype=torch.float32, device=x.device) * step
         return (e * atoms).sum(-1) / e.sum(-1)
 
     def transitions(parent_embedding: torch.Tensor, edge: torch.Tensor) -> Transitions:
-        fuse_a = dense(parent_embedding, phi_fuse_hh, phi_fuse_v) + packed.win[0][edge.clamp(max=a - 1)]
+        fuse_a = dense(parent_embedding, phi_fuse_hh, phi_fuse_v) + packed.win[0].float()[edge.clamp(max=a - 1)]
         afterstate = dense(tower(fuse_a, phi_hh, phi_v), phi_head_hh, phi_head_v)
         y = tower(afterstate, psi_hh, psi_v)
-        chance_logits = y @ packed.wide[1] + packed.wide_b[:, 1]
+        chance_logits = product(y, packed.wide[1]) + packed.wide_b[:, 1]
 
-        fuse_c = dense(parent_embedding, g_fuse_hh, g_fuse_v) + packed.win[1][edge.clamp(max=k - 1)]
+        fuse_c = dense(parent_embedding, g_fuse_hh, g_fuse_v) + packed.win[1].float()[edge.clamp(max=k - 1)]
         x = tower(fuse_c, g_hh, g_v)
         hidden = dense(x, g_head_hh, g_head_v)
         z = tower(hidden, 0, 0)
-        action_logits = z @ packed.wide[0][:, :a] + packed.wide_b[:a, 0]
+        action_logits = product(z, packed.wide[0][:, :a]) + packed.wide_b[:a, 0]
         return Transitions(
             afterstate=afterstate,
             q_value=value_head(y, 1),
@@ -251,17 +366,13 @@ def packed_transitions(packed: PackedSearchParams, cfg: SearchConfig, num_blocks
     return transitions
 
 
-def _num_blocks(packed: PackedSearchParams) -> int:
-    return (packed.hh.shape[0] - 8) // 8  # n_hh = 4·(1 + 2·NB) + 4
-
-
 @torch.no_grad()
 def whole_search_reference(
     root_h: torch.Tensor, root_p: torch.Tensor, root_v: torch.Tensor, packed: PackedSearchParams, cfg: SearchConfig
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel: ``root_h`` (B, H), ``root_p``
     (B, K), ``root_v`` (B,) → root visits (B, A), root Q (B, A), root value (B,)."""
-    return search_tree(root_h, root_p, root_v, cfg, packed_transitions(packed, cfg, _num_blocks(packed)))
+    return search_tree(root_h, root_p, root_v, cfg, packed_transitions(packed, cfg))
 
 
 def _check_inputs(root_h, root_p, root_v, packed: PackedSearchParams, cfg: SearchConfig) -> None:
@@ -271,11 +382,36 @@ def _check_inputs(root_h, root_p, root_v, packed: PackedSearchParams, cfg: Searc
         raise ValueError(f"root shapes {tuple(root_p.shape)}, {tuple(root_v.shape)} do not match B={b}, K={k}")
     if packed.hh.shape[1:] != (h, h) or packed.win.shape != (2, k, h):
         raise ValueError("packed weights do not match the root hidden size / child width")
-    for t in (root_h, root_p, root_v, *packed):
-        if t.device != root_h.device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError("whole_search takes contiguous float32 tensors on one device")
-    if h % 32 or not 32 <= h <= 256 or k > 32:
-        raise ValueError(f"the kernel takes 32 <= H <= 256 with H % 32 == 0 and K <= 32 (got H={h}, K={k})")
+    for t in (root_h, root_p, root_v, *packed.tensors):
+        if t.device != root_h.device or not t.is_contiguous():
+            raise ValueError("whole_search takes contiguous tensors on one device")
+    wdtype = packed.hh.dtype
+    f32_parts = (root_h, root_p, root_v, packed.vecs, packed.wide_b, packed.scal, packed.scal_b, packed.cat_b)
+    if (
+        wdtype not in (torch.float32, torch.bfloat16)
+        or any(t.dtype != wdtype for t in (packed.win, packed.wide, packed.cat))
+        or any(t.dtype != torch.float32 for t in f32_parts)
+    ):
+        raise ValueError(
+            "whole_search takes float32 roots, vectors and scalar heads, and hh / win / wide / cat all "
+            "float32 or all bfloat16"
+        )
+    if wdtype == torch.bfloat16:
+        _check_tree_width(h)
+    max_h = STREAMED_MAX_H if packed.stream_chunk else RESIDENT_MAX_H
+    if h % 32 or not 32 <= h <= max_h or k > 32:
+        raise ValueError(
+            f"the {'streamed' if packed.stream_chunk else 'resident'} kernel takes 32 <= H <= {max_h} with "
+            f"H % 32 == 0 and K <= 32 (got H={h}, K={k})"
+        )
+    n_hh = 4 * (1 + 2 * packed.num_blocks) + 4
+    if packed.stream_chunk:
+        n_hh += -n_hh % packed.stream_chunk
+    if packed.hh.shape[0] != n_hh:
+        raise ValueError(
+            f"hh holds {packed.hh.shape[0]} layers, not the {n_hh} of num_blocks={packed.num_blocks}, "
+            f"stream_chunk={packed.stream_chunk}"
+        )
     if not (1 <= cfg.value_bins <= MAX_BINS and 1 <= cfg.reward_bins <= MAX_BINS):
         raise ValueError(
             f"the kernel takes scalar heads (bins = 1) or 2 <= bins <= {MAX_BINS} "
@@ -320,7 +456,8 @@ def whole_search(
     if root_h.device.type != "cuda":
         raise ValueError(f"whole_search runs on CUDA or CPU tensors, not {root_h.device}")
     _check_inputs(root_h, root_p, root_v, packed, cfg)
-    lib = _load()
+    bf16 = packed.hh.dtype == torch.bfloat16
+    lib = _load(bf16, packed.stream_chunk > 0)
     b, h = root_h.shape
     s = cfg.num_simulations
     k = max(cfg.num_actions, cfg.codebook_size)
@@ -335,11 +472,12 @@ def whole_search(
         rootv = torch.empty(b, dtype=torch.float32, device=dev)
         eps = cfg.value_transform_epsilon
         f32 = lambda x: float(np.float32(x))  # noqa: E731 — the float32 value the JAX package's constants take
-        weights = (packed.hh, workspace.vecs, *packed[2:])
+        weights = (packed.hh, workspace.vecs, *packed.tensors[2:])
         vb, rb = cfg.value_bins, cfg.reward_bins
         err = lib.whole_search_launch(
             *(t.data_ptr() for t in (root_h, root_p, root_v, *weights, visits, qvals, rootv, tables)),
-            b, h, _num_blocks(packed), s, k, cfg.num_actions, p, packed.cat.shape[1], vb, rb,
+            b, h, packed.num_blocks, s, k, cfg.num_actions, p, packed.cat.shape[1], vb, rb,
+            int(bf16), int(packed.stream_chunk > 0),
             f32(cfg.pb_c_init), f32(cfg.pb_c_base), f32(cfg.discount), f32(cfg.prior_temperature),
             f32(cfg.value_support_max / max(vb - 1, 1)), f32(cfg.reward_support_max / max(rb - 1, 1)),
             int(eps is not None), f32(eps or 0.0), f32(4 * (eps or 0.0)), f32(2 * (eps or 0.0)),
@@ -348,18 +486,23 @@ def whole_search(
     if err != 0:
         raise RuntimeError(f"whole_search kernel launch failed: {lib.whole_search_error_string(err).decode()}")
     LAUNCHES["whole_search_categorical" if vb > 1 or rb > 1 else "whole_search"] += 1
+    if bf16:
+        LAUNCHES["whole_search_bf16"] += 1
+    if packed.stream_chunk:
+        LAUNCHES["whole_search_streamed"] += 1
     return visits, qvals, rootv
 
 
-def _load() -> ctypes.CDLL:
-    lib = _build.load("whole_search")
+def _load(bf16: bool, streamed: bool) -> ctypes.CDLL:
+    """The library of this variant (each holds one kernel)."""
+    lib = _build.load(f"whole_search{'_bf16' * bf16}{'_streamed' * streamed}")
     if not getattr(lib, "_argtypes_set", False):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.whole_search_workspace_bytes.argtypes = [i32] * 5
         lib.whole_search_workspace_bytes.restype = ctypes.c_size_t
         lib.whole_search_error_string.argtypes = [i32]
         lib.whole_search_error_string.restype = ctypes.c_char_p
-        lib.whole_search_launch.argtypes = [ptr] * 16 + [i32] * 10 + [f32] * 6 + [i32] + [f32] * 3 + [ptr]
+        lib.whole_search_launch.argtypes = [ptr] * 16 + [i32] * 12 + [f32] * 6 + [i32] + [f32] * 3 + [ptr]
         lib.whole_search_launch.restype = i32
         lib._argtypes_set = True
     return lib
@@ -377,12 +520,14 @@ def run_search_kernel(
 ) -> PolicyOutput:
     """Batched search through :func:`whole_search` (drop-in for
     ``batched_run_mcts``). ``packed`` can be built once per weight version
-    with :func:`pack_search_params`, and ``workspace`` once per pack."""
+    with :func:`pack_search_params`, and ``workspace`` once per pack;
+    without it the float32 weights are packed in :func:`search_plan`'s layout."""
     if packed is None:
         packed = pack_search_params(
             network,
             network.num_blocks,
             max(config.num_actions, config.codebook_size),
+            stream_chunk=search_plan(config, network.hidden_size) or None,
             value_bins=config.value_bins,
             reward_bins=config.reward_bins,
         )

@@ -99,8 +99,8 @@ class TrainConfig:
     # - "auto": the kernel on CUDA tensors when in scope, plain otherwise.
     # Default "xla" keeps the field identical to the JAX package's.
     search_backend: str = "xla"
-    # Weight/embedding storage dtype inside the search kernel. Only
-    # "float32" is ported; "bfloat16" packs raise NotImplementedError.
+    # Weight/embedding storage dtype inside the search kernel: "float32" or
+    # "bfloat16" (products take bfloat16 inputs and sum in float32).
     search_weight_dtype: str = "float32"
     # Search in RAW value space: networks predict in h-scaled space, so their
     # value/q/reward outputs are passed through h⁻¹ before the tree's linear
@@ -433,8 +433,8 @@ def default_config() -> TrainConfig:
     LayerNorm stats stay f32). Flip with ``--set use_bfloat16=False``.
 
     ``search_backend="auto"``: on CUDA the whole-search kernel runs every
-    search (its packed weights are float32 whatever ``use_bfloat16`` says,
-    as in the JAX package's kernel).
+    search (its packed weights are ``search_weight_dtype``, float32 unless
+    set, whatever ``use_bfloat16`` says, as in the JAX package's kernel).
     """
     return TrainConfig(use_bfloat16=True, search_backend="auto")
 

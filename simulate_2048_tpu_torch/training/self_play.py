@@ -106,15 +106,19 @@ SearchFn = Callable[[torch.Tensor, torch.Tensor, "torch.Tensor | None"], PolicyO
 
 def _make_search(network, config: TrainConfig, cfg: SearchConfig, device: torch.device) -> SearchFn:
     """``search(observations, invalid_actions, noise)`` for one weight version:
-    the whole-search kernel with the weights packed here, once, or the plain
-    search."""
+    the whole-search kernel with the weights packed here, once, in the
+    layout :func:`search_kernel.search_plan` picks (resident or streamed,
+    in ``config.search_weight_dtype``), or the plain search."""
     if not _use_kernel(config, device):
         return lambda obs, invalid, noise=None: batched_run_mcts(network, obs, cfg, invalid, noise)
+    weight_dtype = torch.bfloat16 if config.search_weight_dtype == "bfloat16" else torch.float32
+    chunk = search_kernel.search_plan(cfg, config.hidden_size, weight_dtype)
     packed = search_kernel.pack_search_params(
         network,
         config.num_residual_blocks,
         max(config.action_size, config.codebook_size),
-        torch.bfloat16 if config.search_weight_dtype == "bfloat16" else torch.float32,
+        weight_dtype,
+        chunk or None,
         value_bins=config.value_bins,
         reward_bins=config.reward_bins,
     )
