@@ -22,11 +22,12 @@ code != 0, no final ``ok`` line) if any phase fails:
    S in every search; root Q and value agree within rtol 1e-4 / atol 1e-3 on
    the matching searches (float32 sums taken in another order). Then the
    bfloat16 kernel at the paper preset with 256/128 bins at 256 and 1,024
-   searches a launch, and the streamed kernel at hidden 512 (bfloat16, chunk
-   8, and float32) at 256: at least 99% of the searches agree (bfloat16:
-   identical visits, Q and value within rtol 1e-3 / atol 1e-2); and the
-   streamed kernel against the resident one at H=256, chunks 2 and 8, both
-   types: bit for bit;
+   searches a launch, the streamed bfloat16 kernel (chunk 8) at hidden 512
+   at every launch size of the wide path (256, 512 and 128), and the
+   streamed float32 kernel there at 256: at least 99% of the searches agree
+   (bfloat16: identical visits, Q and value within rtol 1e-3 / atol 1e-2);
+   and the streamed kernel against the resident one at H=256, chunks 2 and
+   8, both types: bit for bit, with both timed at 256 and 1,024 searches;
 4. times each kernel (CUDA events after warm-up, median of 5; 3 for the
    new variants) beside its plain version and its bound: the FP32 operations
    a search needs (at the bf16 tensor-core rate for a bfloat16 pack, with
@@ -53,13 +54,18 @@ code != 0, no final ``ok`` line) if any phase fails:
    move and per batch of reanalyze searches, finite loss terms, changed
    parameters, a checkpoint equal to the saved state, the champion in
    ``best/``, and reanalysed policy targets that sum to 1;
-9. drives the wide path, ``train_muzero`` at the full-capacity probe's
-   recipe (bfloat16 search packs) with hidden 512, which the kernel runs
-   with streamed weights: two 8-move segments, three learner steps, one
-   reanalyze pass, one evaluation and one deep evaluation of 8 moves, with
-   the launch counts set to 0 just before: one streamed bfloat16 launch per
-   move and per batch of reanalyze searches, finite loss terms;
-10. prints one JSON line with every kernel's numbers, then
+9. drives the probe's evaluation path, ``evaluate_games`` at the
+   full-capacity probe's recipe (bfloat16 search packs, 256/128 bins, its
+   evaluation calibration) at its own width, H=256, whose weights the kernel
+   keeps resident: 256 games of 8 moves, with the launch counts set to 0
+   just before: one resident bfloat16 launch per move;
+10. drives the wide path, ``train_muzero`` at the same recipe with hidden
+   512, which the kernel runs with streamed weights: two 8-move segments,
+   three learner steps, one reanalyze pass, one evaluation and one deep
+   evaluation of 8 moves, with the launch counts set to 0 just before: one
+   streamed bfloat16 launch per move and per batch of reanalyze searches,
+   finite loss terms;
+11. prints one JSON line with every kernel's numbers, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--profile`` also prints the device time by kernel, the device kernels
@@ -122,6 +128,9 @@ WIDE_STEPS = 3  # one reanalyze pass before step WIDE_STEPS - 1; evaluation and 
 # Launch sizes of the categorical whole-search kernel on the training path.
 TRAIN_SEARCH_BATCHES = (reanalyze.SEARCH_BATCH, REANALYZE_EPISODES * TRAIN_SEGMENT_MOVES % reanalyze.SEARCH_BATCH,
                         BATCH, DEEP_EVAL_GAMES)  # fmt: skip
+# Launch sizes of the streamed bfloat16 kernel on the wide path: self-play and evaluation, the reanalyze pass (one
+# launch), the deep evaluation.
+WIDE_SEARCH_BATCHES = (BATCH, REANALYZE_EPISODES * WIDE_SEGMENT_MOVES, DEEP_EVAL_GAMES)
 # The bound of the rollout: the least 32-bit integer work that the rollout's
 # definition forces on any implementation. Only the Threefry calls are fixed
 # by it; the move, spawn and end test are counted for the leanest scheme known
@@ -375,10 +384,14 @@ def check_whole_search(
 def check_streamed_equals_resident(device) -> None:
     """At the paper preset (H=256, 256/128 bins) the streamed kernel must give
     the resident kernel's searches bit for bit, in float32 and bfloat16:
-    every thread sums the same products in the same order."""
-    config, cfg, network, _, roots = full_width_inputs(device, 256, 128)
+    every thread sums the same products in the same order. Then both are
+    timed at 256 and 1,024 searches a launch (self-play's size and a
+    reanalyze batch's), their calls interleaved: the resident kernel is the
+    one the plan picks up to H=256."""
+    config, cfg, network, _, roots = full_width_inputs(device, 256, 128, reanalyze.SEARCH_BATCH)
     for dtype in (torch.float32, torch.bfloat16):
-        resident = sk.whole_search(*roots, pack(network, config, dtype), cfg)
+        resident_pack = pack(network, config, dtype)
+        resident = sk.whole_search(*roots, resident_pack, cfg)
         for chunk in (2, 8):
             streamed = sk.whole_search(*roots, pack(network, config, dtype, chunk), cfg)
             torch.cuda.synchronize()
@@ -386,7 +399,21 @@ def check_streamed_equals_resident(device) -> None:
                 if not torch.equal(got, want):
                     n = int((got != want).sum())
                     fail(f"streamed (chunk {chunk}) vs resident, {dtype}: {label} differ in {n} entries")
-        print(f"streamed vs resident kernel, H=256, {dtype}, chunks 2 and 8: visits, Q and root value bit-identical")
+        h = config.hidden_size
+        print(f"streamed vs resident kernel, H={h}, {dtype}, chunks 2 and 8: visits, Q and root value bit-identical")
+        streamed_pack = pack(network, config, dtype, sk.STREAM_CHUNK)
+        for b in (BATCH, reanalyze.SEARCH_BATCH):
+            part = tuple(r[:b].contiguous() for r in roots)
+            times = {"resident": [], "streamed": []}
+            for _ in range(5):
+                for label, packed in (("resident", resident_pack), ("streamed", streamed_pack)):
+                    times[label].append(timed_once(lambda: sk.whole_search(*part, packed, cfg))[1])
+            ms = {label: statistics.median(t) for label, t in times.items()}
+            print(
+                f"streamed vs resident kernel, H={h}, {dtype}, {b} searches a launch: resident {ms['resident']:.3f} "
+                f"ms, streamed {ms['streamed']:.3f} ms (median of 5, interleaved): streamed/resident "
+                f"{ms['streamed'] / ms['resident']:.3f}"
+            )
 
 
 def max_sm_clock_hz() -> float:
@@ -626,6 +653,40 @@ def wide_config():
     )
 
 
+def drive_probe_evaluation(device) -> int:
+    """The full-capacity probe's evaluation at its own width (H=256, 10
+    blocks, 256/128 bins, bfloat16 search packs, which the kernel keeps
+    resident): ``evaluate_games`` on ``BATCH`` games of ``TRAIN_EVAL_MOVES``
+    moves. Returns the resident bfloat16 kernel's launches in that run."""
+    config = dataclasses.replace(wide_config(), hidden_size=default_config().hidden_size)
+    if sk.search_plan(search_config_from(config, eval_mode=True), config.hidden_size, torch.bfloat16) != 0:
+        fail("probe evaluation: the search plan streams hidden-256 weights")
+    gen = torch.Generator().manual_seed(SEED)
+    network = network_from_config(config, gen, device)
+    perturb_categorical_heads(network, gen)
+    for name in sk.LAUNCHES:
+        sk.LAUNCHES[name] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = evaluate_games(network, torch.Generator().manual_seed(SEED + 2), config, BATCH, include_per_game=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(sk.LAUNCHES)
+    lengths = stats["per_game_lengths"]
+    moves_played = max(lengths)
+    if launches["whole_search_bf16"] != moves_played or sum(launches.values()) != moves_played:
+        fail(f"probe evaluation: launches {launches} for {moves_played} moves")
+    rewards = torch.tensor(stats["per_game_rewards"])
+    if not torch.isfinite(rewards).all() or moves_played > TRAIN_EVAL_MOVES or len(lengths) != BATCH:
+        fail("probe evaluation: non-finite rewards or game lengths beyond the cap")
+    print(
+        f"probe evaluation path (H={config.hidden_size}, NB={config.num_residual_blocks}, bins 256/128, bf16 search "
+        f"packs resident): {BATCH} games, {moves_played} moves in {wall:.2f} s: {sum(lengths) / wall:.1f} "
+        f"game-moves/s, {1e3 * wall / moves_played:.2f} ms per move, {launches['whole_search_bf16']} launches"
+    )
+    return launches["whole_search_bf16"]
+
+
 def drive_wide_training(device) -> dict[str, int]:
     """The wide path through ``train_muzero``: every search on the streamed
     bfloat16 kernel. Returns the kernel launch counts of the run."""
@@ -665,8 +726,7 @@ def drive_wide_training(device) -> dict[str, int]:
     searches = REANALYZE_EPISODES * WIDE_SEGMENT_MOVES
     reanalyze_launches = reanalyze.search_batches(searches)
     expected = self_play_moves + 2 * TRAIN_EVAL_MOVES + reanalyze_launches
-    wide = ("whole_search_streamed", "whole_search_bf16", "whole_search_categorical")
-    if any(launches[k] != expected for k in wide) or launches["whole_search"] != 0:
+    if launches["whole_search_bf16_streamed"] != expected or sum(launches.values()) != expected:
         fail(
             f"wide path: launches {launches} for {self_play_moves} self-play moves, {TRAIN_EVAL_MOVES} evaluation "
             f"moves, {TRAIN_EVAL_MOVES} deep-evaluation moves and {reanalyze_launches} batches of reanalyze searches"
@@ -897,12 +957,12 @@ def main() -> None:
         "whole_search_bf16": check_whole_search(
             device, "whole_search_bf16", 256, 128, (BATCH, reanalyze.SEARCH_BATCH), weight_dtype=torch.bfloat16
         ),
-        "whole_search_streamed": check_whole_search(
-            device, "whole_search_streamed", 256, 128, hidden=WIDE_HIDDEN, weight_dtype=torch.bfloat16,
-            stream_chunk=sk.STREAM_CHUNK,
+        "whole_search_bf16_streamed": check_whole_search(
+            device, "whole_search_bf16_streamed", 256, 128, WIDE_SEARCH_BATCHES, WIDE_HIDDEN, torch.bfloat16,
+            sk.STREAM_CHUNK,
         ),  # fmt: skip
     }
-    check_whole_search(device, "whole_search_streamed_f32", 256, 128, hidden=WIDE_HIDDEN, stream_chunk=sk.STREAM_CHUNK)
+    check_whole_search(device, "whole_search_streamed", 256, 128, hidden=WIDE_HIDDEN, stream_chunk=sk.STREAM_CHUNK)
     check_streamed_equals_resident(device)
     check_small_evaluation(device)
     check_small_training(device)
@@ -943,10 +1003,11 @@ def main() -> None:
     # ---- training path: self-play, replay, learner, reanalyze, checkpoint, evaluation, deep evaluation at full width
     kernels["whole_search_categorical"]["launches"] = drive_training(device)["whole_search_categorical"]
 
-    # ---- wide path: the full-capacity probe's recipe at hidden 512, bfloat16 search packs streamed
-    wide = drive_wide_training(device)
-    for name in ("whole_search_bf16", "whole_search_streamed"):
-        kernels[name]["launches"] = wide[name]
+    # ---- probe evaluation path: the full-capacity probe's recipe at H=256, bfloat16 search packs resident
+    kernels["whole_search_bf16"]["launches"] = drive_probe_evaluation(device)
+
+    # ---- wide path: the same recipe at hidden 512, bfloat16 search packs streamed
+    kernels["whole_search_bf16_streamed"]["launches"] = drive_wide_training(device)["whole_search_bf16_streamed"]
 
     if args.profile:
         profile_paths(device)

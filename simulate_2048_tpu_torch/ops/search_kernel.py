@@ -22,10 +22,11 @@ bounds it on an H100 and how the design answers that.
   layers and LayerNorms summed in the kernel's order, to the bit).
 - :func:`whole_search` is the wrapper: on CPU tensors it runs the plain
   version, on CUDA tensors it launches the kernel or raises. It counts its
-  launches in ``LAUNCHES``: each launch adds one under its head variant
-  (``"whole_search"`` scalar heads, ``"whole_search_categorical"`` at least
-  one categorical head) and one under each weight variant it runs
-  (``"whole_search_bf16"``, ``"whole_search_streamed"``). A
+  launches in ``LAUNCHES``, each launch once, under the library that ran it
+  (``"whole_search_bf16"``, ``"whole_search_streamed"``,
+  ``"whole_search_bf16_streamed"``); the float32 resident library's
+  launches count by head variant (``"whole_search"`` scalar heads,
+  ``"whole_search_categorical"`` at least one categorical head). A
   :class:`SearchWorkspace` keeps its set-up across the calls of one
   evaluation.
 - :func:`run_search_kernel` is the drop-in for ``batched_run_mcts``: root
@@ -52,9 +53,15 @@ from simulate_2048_tpu_torch.search.mcts import (
     search_tree,
 )
 
-# Kernel launches: by head variant (scalar heads, or at least one categorical
-# head), and by weight variant (a bfloat16 pack; streamed weights).
-LAUNCHES = {"whole_search": 0, "whole_search_categorical": 0, "whole_search_bf16": 0, "whole_search_streamed": 0}
+# Kernel launches by library (``_build.LIBRARIES``), the float32 resident
+# one's by head variant (scalar heads, or at least one categorical head).
+LAUNCHES = {
+    "whole_search": 0,
+    "whole_search_categorical": 0,
+    "whole_search_bf16": 0,
+    "whole_search_streamed": 0,
+    "whole_search_bf16_streamed": 0,
+}
 
 RESIDENT_MAX_H = 256  # the resident kernel: 2H threads under __launch_bounds__(512)
 STREAMED_MAX_H = 512  # the streamed kernel: 2H threads under __launch_bounds__(1024)
@@ -456,8 +463,9 @@ def whole_search(
     if root_h.device.type != "cuda":
         raise ValueError(f"whole_search runs on CUDA or CPU tensors, not {root_h.device}")
     _check_inputs(root_h, root_p, root_v, packed, cfg)
-    bf16 = packed.hh.dtype == torch.bfloat16
-    lib = _load(bf16, packed.stream_chunk > 0)
+    bf16, streamed = packed.hh.dtype == torch.bfloat16, packed.stream_chunk > 0
+    library = f"whole_search{'_bf16' * bf16}{'_streamed' * streamed}"  # each library holds one kernel
+    lib = _load(library)
     b, h = root_h.shape
     s = cfg.num_simulations
     k = max(cfg.num_actions, cfg.codebook_size)
@@ -477,7 +485,7 @@ def whole_search(
         err = lib.whole_search_launch(
             *(t.data_ptr() for t in (root_h, root_p, root_v, *weights, visits, qvals, rootv, tables)),
             b, h, packed.num_blocks, s, k, cfg.num_actions, p, packed.cat.shape[1], vb, rb,
-            int(bf16), int(packed.stream_chunk > 0),
+            int(bf16), int(streamed),
             f32(cfg.pb_c_init), f32(cfg.pb_c_base), f32(cfg.discount), f32(cfg.prior_temperature),
             f32(cfg.value_support_max / max(vb - 1, 1)), f32(cfg.reward_support_max / max(rb - 1, 1)),
             int(eps is not None), f32(eps or 0.0), f32(4 * (eps or 0.0)), f32(2 * (eps or 0.0)),
@@ -485,17 +493,15 @@ def whole_search(
         )  # fmt: skip
     if err != 0:
         raise RuntimeError(f"whole_search kernel launch failed: {lib.whole_search_error_string(err).decode()}")
-    LAUNCHES["whole_search_categorical" if vb > 1 or rb > 1 else "whole_search"] += 1
-    if bf16:
-        LAUNCHES["whole_search_bf16"] += 1
-    if packed.stream_chunk:
-        LAUNCHES["whole_search_streamed"] += 1
+    if library == "whole_search" and (vb > 1 or rb > 1):
+        library = "whole_search_categorical"
+    LAUNCHES[library] += 1
     return visits, qvals, rootv
 
 
-def _load(bf16: bool, streamed: bool) -> ctypes.CDLL:
-    """The library of this variant (each holds one kernel)."""
-    lib = _build.load(f"whole_search{'_bf16' * bf16}{'_streamed' * streamed}")
+def _load(library: str) -> ctypes.CDLL:
+    """The loaded ``library``, with its functions' argument types set."""
+    lib = _build.load(library)
     if not getattr(lib, "_argtypes_set", False):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.whole_search_workspace_bytes.argtypes = [i32] * 5

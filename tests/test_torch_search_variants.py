@@ -107,20 +107,39 @@ def agreeing_searches(out, ref, rtol: float, atol: float) -> np.ndarray:
     return same & q_ok & v_ok
 
 
+def bf16_rule(out, ref) -> tuple[int, int]:
+    """The bfloat16 parity rule's two counts: searches that agree (identical
+    visits, root Q and value within rtol 1e-3 / atol 1e-2; at least 127 of
+    128 must) and searches whose root Q and value lie within 1e-4 (1 + |x|)
+    of the reference (at least 120 of 128 must)."""
+    close = np.isclose(out.qvalues.numpy(), np.asarray(ref.qvalues), rtol=1e-4, atol=1e-4).all(-1)
+    close &= np.isclose(out.search_value.numpy(), np.asarray(ref.search_value), rtol=1e-4, atol=1e-4)
+    return int(agreeing_searches(out, ref, rtol=1e-3, atol=1e-2).sum()), int(close.sum())
+
+
+def meets_bf16_rule(counts: tuple[int, int]) -> bool:
+    return counts[0] >= jps.BLOCK_G - 1 and counts[1] >= jps.BLOCK_G - jps.BLOCK_G // 16
+
+
 @pytest.mark.parametrize("heads", list(HEADS))
 def test_bf16_reference_matches_jax_interpret(heads):
     """The plain version on a bfloat16 pack against JAX's bfloat16 Pallas
-    kernel (interpret mode) on 128 searches: at least 127 agree, with
-    identical root visits and root Q and value within rtol 1e-3 / atol 1e-2.
+    kernel (interpret mode) on 128 searches, by :func:`bf16_rule`: at least
+    127 agree, with identical root visits and root Q and value within rtol
+    1e-3 / atol 1e-2, and at least 120 lie within 1e-4 (1 + |x|).
 
     Both round each product's inputs to bfloat16 and sum in float32, but in
     another order. Where two float32 sums of one activation straddle a
     bfloat16 rounding midpoint, the next layer reads values 2⁻⁸ apart, and
-    that difference travels through the towers and h⁻¹. Most Q and values
-    agree within 1e-4; a search that meets such a re-rounding moves by up to
-    a bfloat16 step of its values (2⁻⁸ ≈ 4e-3 relative, times h⁻¹'s slope
-    2(|y| + 1)), which is either a changed visit or a value outside the
-    tolerance: one search in 128 may do either."""
+    that difference travels through the towers and h⁻¹. A search that meets
+    no such re-rounding agrees to float32 noise; one that meets it moves by
+    up to a bfloat16 step of its values (2⁻⁸ ≈ 4e-3 relative, times h⁻¹'s
+    slope 2(|y| + 1)), which is either a changed visit or a value outside
+    the loose tolerance: one search in 128 may do either, and one in 16 may
+    leave the tight one. The perturbed categorical heads give small Q and
+    values, so the loose tolerance alone would pass the float32 pack's
+    search: the tight count is what tells the bfloat16 rounding apart, and
+    the float32 pack must fail the rule."""
     jnet, tnet = head_nets(heads)
     vb, rb = HEADS[heads]
     cfg = {**CFG, "value_bins": vb, "reward_bins": rb}
@@ -128,11 +147,11 @@ def test_bf16_reference_matches_jax_interpret(heads):
     ref = jax_search(jnet, obs, invalid, cfg, jnp.bfloat16)
     out = port_search(tnet, obs, invalid, cfg, torch.bfloat16)
     assert (out.visit_counts.sum(-1) == cfg["num_simulations"]).all()
-    agree = agreeing_searches(out, ref, rtol=1e-3, atol=1e-2)
-    assert agree.sum() >= jps.BLOCK_G - 1, f"{agree.sum()} of {jps.BLOCK_G} searches agree"
-    # The bfloat16 pack is a search of its own: the float32 pack's visits are not its visits everywhere.
-    f32 = port_search(tnet, obs, invalid, cfg)
-    assert not np.array_equal(f32.qvalues.numpy(), out.qvalues.numpy())
+    counts = bf16_rule(out, ref)
+    assert meets_bf16_rule(counts), f"{counts} of {jps.BLOCK_G} searches agree / lie close"
+    # A port that skipped the bfloat16 rounding (the float32 pack's search) fails the rule.
+    f32_counts = bf16_rule(port_search(tnet, obs, invalid, cfg), ref)
+    assert not meets_bf16_rule(f32_counts), f"the float32 pack's search passes: {f32_counts}"
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -155,7 +174,7 @@ def test_streamed_reference_matches_jax_streamed_interpret(dtype):
     (``stream_chunk=16``, padded; interpret mode) on the resident parity
     test's inputs (``test_categorical_search_matches_jax``): float32 as there
     (identical visits, atol 2e-4: one float32 step of h⁻¹ near 0), bfloat16
-    as :func:`test_bf16_reference_matches_jax_interpret`."""
+    by :func:`bf16_rule`."""
     jnet, tnet = head_nets("categorical")
     cfg = {**CFG, "value_bins": 16, "reward_bins": 8}
     obs, invalid = make_inputs(jps.BLOCK_G, seed=12)
@@ -167,7 +186,7 @@ def test_streamed_reference_matches_jax_streamed_interpret(dtype):
         np.testing.assert_allclose(out.qvalues.numpy(), np.asarray(ref.qvalues), rtol=1e-3, atol=2e-4)
         np.testing.assert_allclose(out.search_value.numpy(), np.asarray(ref.search_value), rtol=1e-3, atol=2e-4)
     else:
-        assert agreeing_searches(out, ref, rtol=1e-3, atol=1e-2).sum() >= jps.BLOCK_G - 1
+        assert meets_bf16_rule(bf16_rule(out, ref))
 
 
 # (search config, hidden, num_blocks, weight dtype): tests/test_pallas_search.py's
