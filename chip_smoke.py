@@ -28,12 +28,19 @@ code != 0, no final ``ok`` line) if any phase fails:
    (bfloat16: identical visits, Q and value within rtol 1e-3 / atol 1e-2);
    and the streamed kernel against the resident one at H=256, chunks 2 and
    8, both types: bit for bit, with both timed at 256 and 1,024 searches;
+   and the ring all-reduce kernel at N = 2, 4 and 8 virtual ranks on the
+   card, at the full model's flattened gradient length (35.0 MB) and at an
+   odd length (also on unaligned views), twice on one workspace: bit for
+   bit its plain version (the rotation order) and within rtol 1e-5 of
+   PyTorch's own sum;
 4. times each kernel (CUDA events after warm-up, median of 5; 3 for the
    new variants) beside its plain version and its bound: the FP32 operations
    a search needs (at the bf16 tensor-core rate for a bfloat16 pack, with
-   the bytes the kernel re-reads per call beside it), and the integer
+   the bytes the kernel re-reads per call beside it), the integer
    operations a rollout's definition forces (beside it, what the rollout
-   kernel's source spends, as its share of the INT32 issue rate);
+   kernel's source spends, as its share of the INT32 instruction rate), and the
+   bytes an all-reduce must move (the ring's own schedule beside it), with
+   the PyTorch call that computes the same sum;
 5. checks greedy evaluation, a greedy self-play segment with categorical
    heads and a search-mode reanalyze of that segment on a small config on
    the card: the kernel backend against the plain search backend, game for
@@ -65,7 +72,16 @@ code != 0, no final ``ok`` line) if any phase fails:
    evaluation of 8 moves, with the launch counts set to 0 just before: one
    streamed bfloat16 launch per move and per batch of reanalyze searches,
    finite loss terms;
-11. prints one JSON line with every kernel's numbers, then
+11. drives the data-parallel path, ``Trainer(mesh=...)`` over a virtual
+   mesh of 4 replicas of the card at the training recipe's widths (batch
+   1,024 = 4 x 256): one self-play segment, one fused data-parallel
+   superstep of 4 steps and one per-step step, with the launch counts set
+   to 0 just before: one ring launch per step, replicas bit-identical,
+   finite losses, changed parameters; then one data-parallel step from a
+   copy of the state against the single-device step on the same batch
+   (loss rtol 1e-5, priorities rtol 1e-4, the applied gradient within 2^-8
+   relative L2, each parameter within two Adam steps);
+12. prints one JSON line with every kernel's numbers, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--profile`` also prints the device time by kernel, the device kernels
@@ -78,6 +94,7 @@ Exits non-zero when CUDA is unavailable.
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import json
 import os
@@ -96,19 +113,21 @@ from simulate_2048_tpu_torch.ops import _build
 from simulate_2048_tpu_torch.ops import rng as tfrng
 from simulate_2048_tpu_torch.ops import rollout_kernel as rk
 from simulate_2048_tpu_torch.ops import search_kernel as sk
+from simulate_2048_tpu_torch.parallel import make_dp_train_step, make_mesh
+from simulate_2048_tpu_torch.parallel import ring
 from simulate_2048_tpu_torch.search.mcts import root_inputs
 from simulate_2048_tpu_torch.training.checkpoint import CheckpointManager
 from simulate_2048_tpu_torch.training.config import default_config, tiny_config
 from simulate_2048_tpu_torch.training import reanalyze
 from simulate_2048_tpu_torch.training import replay as replay_lib
-from simulate_2048_tpu_torch.training.learner import TrainState, create_optimizer
+from simulate_2048_tpu_torch.training.learner import TrainState, create_optimizer, learning_rate, train_step
 from simulate_2048_tpu_torch.training.self_play import (
     _evaluate_rollout,
     evaluate_games,
     play_segment,
     search_config_from,
 )
-from simulate_2048_tpu_torch.training.trainer import train_muzero
+from simulate_2048_tpu_torch.training.trainer import Trainer, train_muzero
 
 SEED = 2048
 BATCH = 256
@@ -165,6 +184,13 @@ INT32_LANES_PER_SM = 64  # Hopper: 4 partitions of 16 INT32 lanes
 FP32_TFLOPS = {"H100 SXM": 67.0, "H100 NVL": 60.0, "H100 PCIe": 51.0, "H200": 67.0}
 BF16_TFLOPS = {"H100 SXM": 989.0, "H100 NVL": 835.0, "H100 PCIe": 756.0, "H200": 989.0}
 SEARCHES_PER_BLOCK = 2  # G in csrc/whole_search.cu
+# Data-parallel path: a virtual mesh of DP_REPLICAS replicas on one card, one self-play segment, then one fused
+# superstep of DP_SUPERSTEP steps and one per-step step.
+DP_REPLICAS = 4
+DP_SUPERSTEP = 4
+# Ring all-reduce check: ranks, and an odd shard length beside the full model's flattened gradient.
+RING_RANKS = (2, 4, 8)
+RING_ODD_LENGTH = 1_000_003
 HBM_TBPS = {"H100 SXM": 3.35, "H100 NVL": 3.9, "H100 PCIe": 2.0, "H200": 4.8}
 
 
@@ -859,6 +885,225 @@ def drive_training(device) -> dict[str, int]:
     return launches
 
 
+def gradient_length(config) -> int:
+    """Elements of ``config``'s flattened gradient: every parameter of its networks."""
+    return sum(p.numel() for p in network_from_config(config, torch.Generator().manual_seed(SEED), "cpu").parameters())
+
+
+def check_ring_all_reduce(device) -> dict:
+    """The ring all-reduce kernel against its plain version (the rotation
+    order, bit for bit) and against PyTorch's own sum (rtol 1e-5, atol 1e-5),
+    at N = 2, 4 and 8 virtual ranks on the card, at the full model's
+    flattened gradient length and at an odd length, each launched twice on
+    the same workspace; at the odd length also on unaligned views (the
+    kernel's scalar path). Then times at the gradient length: kernel, plain
+    version and the one PyTorch call (the (N, m) stack summed over N and
+    written to N outputs), median of 5; the bound is the N shards read once
+    and the N sums written once at the HBM rate. Returns the entry of the
+    data-parallel path's shape, N = DP_REPLICAS."""
+    grad_length = gradient_length(training_config())
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    card = sku(torch.cuda.get_device_name(0))
+    hbm = HBM_TBPS[card] * 1e12
+    entry = None
+    for n in RING_RANKS:
+        for m in (grad_length, RING_ODD_LENGTH):
+            shards = [torch.randn(m, generator=gen, device=device) for _ in range(n)]
+            cases = {"aligned": shards}
+            if m == RING_ODD_LENGTH:
+                base = torch.randn(n * m + 1, generator=gen, device=device)
+                cases["unaligned"] = [base[1 + i * m : 1 + (i + 1) * m] for i in range(n)]
+            for label, xs in cases.items():
+                want = ring.ring_all_reduce_reference(xs)
+                total = torch.stack(xs).sum(0)
+                for launch in (1, 2):  # the second on the workspace the first left
+                    got = ring.ring_all_reduce_shard(xs)
+                    torch.cuda.synchronize()
+                    for rank, (a, b) in enumerate(zip(got, want)):
+                        if not torch.equal(a, b):
+                            fail(f"ring_all_reduce: N={n}, m={m} {label}, launch {launch}: rank {rank} differs from "
+                                 f"the plain version in {int((a != b).sum())} of {m} elements")  # fmt: skip
+                        if not torch.allclose(a, total, rtol=1e-5, atol=1e-5):
+                            fail(f"ring_all_reduce: N={n}, m={m} {label}: rank {rank} is not the sum (rtol 1e-5)")
+                spread = max(float((g - total).abs().max()) for g in got)
+                print(f"ring_all_reduce: N={n}, m={m:,} ({label}), {ring.LAST_CHANNELS['ring_all_reduce']} channels: "
+                      f"two launches on one workspace equal the plain version bit for bit; max |rank sum - "
+                      f"torch.sum| {spread:.3g}")  # fmt: skip
+            if m != grad_length:
+                continue
+            stacked = torch.stack(shards)
+            ms = cuda_ms(lambda: ring.ring_all_reduce_shard(shards), reps=5)
+            plain_ms = cuda_ms(lambda: ring.ring_all_reduce_reference(shards), reps=5)
+            library_ms = cuda_ms(lambda: stacked.sum(0).expand(n, m).contiguous(), reps=5)
+            nbytes = 2 * n * m * 4  # each shard read once, each sum written once
+            op_ms = (n - 1) * m / (FP32_TFLOPS[card] * 1e12) * 1e3  # the adds of one sum
+            bound_ms = max(nbytes / hbm * 1e3, op_ms)
+            schedule_bytes = (3 + 5 * (n - 1)) * n * m * 4
+            print(
+                f"ring_all_reduce: N={n}, m={m:,} ({m * 4 / 1e6:.1f} MB a shard): kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, torch (N, m).sum(0) to N outputs {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({nbytes / 1e6:.1f} MB at {HBM_TBPS[card]} TB/s, {card}); the simple ring's schedule moves "
+                f"{schedule_bytes / 1e9:.3f} GB: {schedule_bytes / hbm * 1e3:.4f} ms at that rate, "
+                f"{schedule_bytes / (ms * 1e-3) / 1e12:.3f} TB/s achieved"
+            )
+            if n == DP_REPLICAS:
+                entry = {
+                    "name": "ring_all_reduce",
+                    "route": "cuda",
+                    "source": "simulate_2048_tpu_torch/csrc/ring_all_reduce.cu",
+                    "replaces": "simulate_2048_tpu/parallel/ring.py:52",
+                    "max_abs_err": 0.0,  # bit for bit, checked above
+                    "ms": ms,
+                    "plain_ms": plain_ms,
+                    "bound_ms": bound_ms,
+                    "bound_by": "bytes" if nbytes / hbm * 1e3 >= op_ms else "operations",
+                    "library_ms": library_ms,
+                }
+    return entry
+
+
+def dp_config():
+    """The training recipe's widths on the data-parallel path; depth cut:
+    one 24-move self-play segment of 256 games fills the buffer, and no more
+    is generated (``freeze_data_after=0``); no reanalyze, evaluation or deep
+    evaluation (they run on one device, as on the training path)."""
+    return dataclasses.replace(
+        training_config(),
+        min_buffer_size=BATCH,
+        replay_buffer_size=2 * BATCH,
+        freeze_data_after=0,
+        generation_interval=DP_SUPERSTEP,
+        log_interval=DP_SUPERSTEP,
+        checkpoint_interval=1 << 20,
+        eval_interval=1 << 20,
+        reanalyze_interval=None,
+        deep_eval_interval=None,
+    )
+
+
+def replicas_identical(step) -> bool:
+    first = step.replicas[0]
+    return all(
+        r.step == first.step
+        and all(torch.equal(a, b) for a, b in zip(first.params, r.params))
+        and all(torch.equal(a, b) for k in ("mu", "nu") for a, b in zip(first.opt_state[k], r.opt_state[k]))
+        for r in step.replicas[1:]
+    )
+
+
+def drive_dp_training(device, ring_ms: float) -> int:
+    """The data-parallel path at full width on a virtual mesh of DP_REPLICAS
+    replicas of the card: ``Trainer(mesh=...)`` fills its buffer with one
+    self-play segment, runs one fused data-parallel superstep of
+    DP_SUPERSTEP steps (``train``) and one per-step data-parallel step, with
+    the launch counts set to 0 just before: one ring launch per step, one
+    search launch per self-play move. Then one data-parallel step from a
+    copy of the trained state against the single-device ``train_step`` on
+    the same batch. Returns the ring's launches in the run."""
+    config = dp_config()
+    mesh = make_mesh([device] * DP_REPLICAS)
+    for name in sk.LAUNCHES:
+        sk.LAUNCHES[name] = 0
+    ring.LAUNCHES["ring_all_reduce"] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer = Trainer(config, seed=SEED, mesh=mesh)
+    trainer.initialize()
+    trainer.fill_buffer(verbose=False)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    trainer.train(DP_SUPERSTEP, verbose=False)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    superstep_ok = replicas_identical(trainer._dp_step)
+    loss = trainer.optimize_step()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = ring.LAUNCHES["ring_all_reduce"]
+    search_launches = dict(sk.LAUNCHES)
+
+    steps = DP_SUPERSTEP + 1
+    if launches != steps or trainer.state.step != steps or trainer._dp_superstep is None:
+        fail(f"data-parallel path: {launches} ring launches and step {trainer.state.step} for {steps} steps")
+    segment_launches = search_launches["whole_search_categorical"]
+    if segment_launches != TRAIN_SEGMENT_MOVES or sum(search_launches.values()) != TRAIN_SEGMENT_MOVES:
+        fail(f"data-parallel path: search launches {search_launches} for one {TRAIN_SEGMENT_MOVES}-move segment")
+    if not (superstep_ok and replicas_identical(trainer._dp_step)):
+        fail("data-parallel path: the replicas' parameters or optimizer states differ after a step")
+    if sum(p.numel() for p in trainer.state.params) != gradient_length(training_config()):
+        fail("data-parallel path: the flattened gradient is not the length the ring was checked at")
+    history = [r for r in trainer.get_metrics_history() if "total_loss" in r]
+    loss_terms = [k for k in history[0] if k.endswith("_loss") or k == "codebook_entropy"]
+    values = [r[k] for r in history for k in loss_terms] + [float(x) for x in loss]
+    if len(history) != 1 or not torch.isfinite(torch.tensor(values)).all():
+        fail(f"data-parallel path: {len(history)} logged supersteps, or a loss term is not finite")
+    initial = network_from_config(config, torch.Generator().manual_seed(SEED), device)
+    changed = sum(not torch.equal(a, b) for a, b in zip(initial.parameters(), trainer.state.params))
+    if changed < len(trainer.state.params) // 2:
+        fail(f"data-parallel path: only {changed} of {len(trainer.state.params)} parameter tensors changed")
+    fused_ms = 1e3 * (t2 - t1) / DP_SUPERSTEP
+    step_ms = 1e3 * (t3 - t2)
+    print(
+        f"data-parallel path ({DP_REPLICAS} replicas of {torch.cuda.get_device_name(0)}, batch {config.batch_size} = "
+        f"{DP_REPLICAS} x {config.batch_size // DP_REPLICAS}, unroll {config.num_unroll_steps}, "
+        f"H={config.hidden_size}, NB={config.num_residual_blocks}, bins 256/128): one {TRAIN_SEGMENT_MOVES}-move "
+        f"segment of {BATCH} games {t1 - t0:.2f} s with set-up; fused superstep of {DP_SUPERSTEP} steps "
+        f"{fused_ms:.2f} ms per step, the per-step path {step_ms:.2f} ms; the ring kernel ({ring_ms:.4f} ms alone "
+        f"at this shape) is {ring_ms / fused_ms:.5f} of a fused step; {launches} ring launches for {steps} steps; "
+        f"replicas bit-identical; {changed}/{len(trainer.state.params)} parameter tensors changed"
+    )
+    print("data-parallel path: last step " + " ".join(f"{k}={float(getattr(loss, k)):.4f}" for k in loss._fields))
+
+    # One data-parallel step from a copy of the state against one single-device step on the same batch.
+    batch, _, weights = replay_lib.sample_batch(trainer.buffer, torch.Generator(device=device).manual_seed(SEED),
+                                                config.batch_size, config)  # fmt: skip
+    optimizer = create_optimizer(config)
+    copies = []
+    for _ in range(2):
+        net = copy.deepcopy(trainer.state.network)
+        opt_state = {"count": trainer.state.opt_state["count"],
+                     **{k: [t.clone() for t in trainer.state.opt_state[k]] for k in ("mu", "nu")}}  # fmt: skip
+        copies.append(TrainState(net, opt_state, trainer.state.step))
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    single, loss_a, prio_a = train_step(copies[0], batch, weights, config, optimizer)
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    dp_step = make_dp_train_step(copies[1].network, config, optimizer, mesh)
+    dp_state, loss_b, prio_b = dp_step(copies[1], batch, weights)
+    torch.cuda.synchronize()
+    t6 = time.perf_counter()
+    loss_err = abs(float(loss_b.total_loss) - float(loss_a.total_loss)) / abs(float(loss_a.total_loss))
+    prio_err = float(((prio_b - prio_a).abs() / prio_a.abs()).max())
+    with torch.no_grad():
+        # The clipped gradients each step applied, read back from Adam's first moment: mu' = b1 mu + (1 - b1) g.
+        b1 = optimizer.b1
+        mu0 = trainer.state.opt_state["mu"]
+        g_single = torch.cat([(m - b1 * m0).flatten() for m, m0 in zip(single.opt_state["mu"], mu0)])
+        g_dp = torch.cat([(m - b1 * m0).flatten() for m, m0 in zip(dp_state.opt_state["mu"], mu0)])
+        grad_err = float((g_dp - g_single).norm() / g_single.norm())
+        pairs = list(zip(single.params, dp_state.params))
+        within = sum(int(((b - a).abs() <= 1e-6 + 1e-4 * a.abs()).sum()) for a, b in pairs)
+        total = sum(a.numel() for a, _ in pairs)
+        # Adam moves an element by at most lr (1 - b1) / sqrt(1 - b2) in a step (Kingma & Ba, section 2.1).
+        lr = learning_rate(config, trainer.state.opt_state["count"])
+        adam_max = lr * (1 - b1) / (1 - optimizer.b2) ** 0.5
+        param_diff = max(float((b - a).abs().max()) for a, b in pairs)
+    print(
+        f"data-parallel step vs single-device train_step on one batch: total loss {float(loss_b.total_loss):.6f} vs "
+        f"{float(loss_a.total_loss):.6f} (relative {loss_err:.3g}), priorities max relative {prio_err:.3g}, applied "
+        f"gradient relative L2 difference {grad_err:.4g} (limit 2^-8 = {2.0**-8:.4g}); parameters: {within}/{total} "
+        f"({within / total:.4f}) within rtol 1e-4 / atol 1e-6, max |dp - single| {param_diff:.4g} (limit "
+        f"{2 * adam_max:.4g}: twice Adam's largest step at learning rate {lr:.4g}); single-device step "
+        f"{1e3 * (t5 - t4):.2f} ms, data-parallel step {1e3 * (t6 - t5):.2f} ms (replicas built at its first step)"
+    )
+    if loss_err > 1e-5 or prio_err > 1e-4 or grad_err > 2.0**-8 or param_diff > 2 * adam_max:
+        fail("data-parallel step: outside loss rtol 1e-5, priorities rtol 1e-4, gradient 2^-8 or two Adam steps")
+    if not replicas_identical(dp_step):
+        fail("data-parallel step: the replicas differ")
+    return launches
+
+
 def profile_device(label: str, fn, units: int, unit: str) -> None:
     """torch.profiler over ``fn()`` (which does ``units`` ``unit``s of work):
     device time by kernel and the device's idle share."""
@@ -962,6 +1207,7 @@ def main() -> None:
             sk.STREAM_CHUNK,
         ),  # fmt: skip
     }
+    kernels["ring_all_reduce"] = check_ring_all_reduce(device)
     check_whole_search(device, "whole_search_streamed", 256, 128, hidden=WIDE_HIDDEN, stream_chunk=sk.STREAM_CHUNK)
     check_streamed_equals_resident(device)
     check_small_evaluation(device)
@@ -1008,6 +1254,9 @@ def main() -> None:
 
     # ---- wide path: the same recipe at hidden 512, bfloat16 search packs streamed
     kernels["whole_search_bf16_streamed"]["launches"] = drive_wide_training(device)["whole_search_bf16_streamed"]
+
+    # ---- data-parallel path: the learner over a virtual mesh of the card, its gradients summed by the ring kernel
+    kernels["ring_all_reduce"]["launches"] = drive_dp_training(device, kernels["ring_all_reduce"]["ms"])
 
     if args.profile:
         profile_paths(device)

@@ -29,6 +29,7 @@ LIBRARIES = {
     "whole_search_streamed": ("whole_search", ("-DWHOLE_SEARCH_BF16=0", "-DWHOLE_SEARCH_STREAMED=1")),
     "whole_search_bf16_streamed": ("whole_search", ("-DWHOLE_SEARCH_BF16=1", "-DWHOLE_SEARCH_STREAMED=1")),
     "random_rollout": ("random_rollout", ()),
+    "ring_all_reduce": ("ring_all_reduce", ()),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -3,7 +3,9 @@
 Port of ``simulate_2048_tpu.train``: initialise (resuming from
 ``--checkpoint-dir`` when it holds a checkpoint), fill the replay buffer by
 self-play, train, and evaluate. Runs on the GPU unless ``--device cpu`` is
-given, and raises when no GPU is present.
+given, and raises when no GPU is present. ``--data-parallel`` runs the
+learner data-parallel over every visible CUDA device when there is more than
+one (``parallel/``), and on the one device otherwise.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ def main(argv: list[str] | None = None):
     parser.add_argument("--log-dir", default=None)
     parser.add_argument("--seed", type=int, default=None)
     parser.add_argument("--no-eval", action="store_true")
-    parser.add_argument("--data-parallel", action="store_true", help="not yet ported")
+    parser.add_argument("--data-parallel", action="store_true", help="shard the learner over all visible GPUs")
     parser.add_argument(
         "--set",
         dest="overrides",
@@ -31,8 +33,8 @@ def main(argv: list[str] | None = None):
     )
     parser.add_argument("--device", default="cuda", help="torch device (default cuda; 'cpu' to run on the CPU)")
     args = parser.parse_args(argv)
-    if args.data_parallel:
-        raise NotImplementedError("--data-parallel is not yet ported")
+
+    import torch
 
     from simulate_2048_tpu_torch.device import resolve_device
     from simulate_2048_tpu_torch.training.config import apply_overrides, default_config, small_config, tiny_config
@@ -48,7 +50,17 @@ def main(argv: list[str] | None = None):
         print(f"config overrides: {args.overrides}")
     print(f"mode={args.mode} device={device}")
 
-    trainer = Trainer(config, checkpoint_dir=args.checkpoint_dir, log_dir=args.log_dir, seed=args.seed, device=device)
+    mesh = None
+    if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
+        from simulate_2048_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh()
+        device = None  # the trainer runs on the mesh's first device
+        print(f"data-parallel over {mesh.size} devices")
+
+    trainer = Trainer(
+        config, checkpoint_dir=args.checkpoint_dir, log_dir=args.log_dir, seed=args.seed, mesh=mesh, device=device
+    )
     trainer.initialize()
     trainer.fill_buffer()
     trainer.train(args.steps)

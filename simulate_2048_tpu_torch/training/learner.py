@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
+from typing import Callable
 
 import numpy as np
 import torch
@@ -129,6 +130,32 @@ def create_train_state(
     return state, network
 
 
+def encoder_noise(config: TrainConfig, step: int, batch_shape: tuple[int, ...], device) -> torch.Tensor | None:
+    """The Gumbel noise of the encoder's code choice at learner step ``step``
+    for a batch of (B, K) windows, from a generator seeded with
+    ``(config.seed, step)``; None when the config draws none."""
+    if config.encoder_noise_scale <= 0.0 or config.chance_target_mode != "encoder":
+        return None
+    gen = torch.Generator(device=device).manual_seed((config.seed << 32) + step)
+    u = torch.rand((*batch_shape, config.codebook_size), generator=gen, device=device).clamp_min(1e-20)
+    return -torch.log(-torch.log(u))
+
+
+def parameter_gradients(total: torch.Tensor, params: list[torch.Tensor]) -> list[torch.Tensor]:
+    """d total / d params, zeros for a parameter that ``total`` does not reach."""
+    grads = torch.autograd.grad(total, params, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+
+
+@torch.no_grad()
+def fresh_priorities(network: MuZeroNetwork, batch: TrainingTargets, config: TrainConfig) -> torch.Tensor:
+    """|v̂₀ − h(z₀)| of every window under the network's current parameters, floored at 1e-3."""
+    hidden = network.representation(batch.observations[:, 0])
+    _, v0 = network.prediction(hidden)
+    priorities = torch.abs(v0 - scale_value(batch.target_values[:, 0], config.value_epsilon))
+    return torch.clamp_min(priorities, 1e-3)
+
+
 def train_step(
     state: TrainState,
     batch: TrainingTargets,
@@ -142,26 +169,13 @@ def train_step(
     Returns ``(state, loss breakdown, fresh per-sample priorities)``: the
     priorities are |v̂₀ − h(z₀)| under the updated parameters, floored at
     1e-3. With ``config.encoder_noise_scale > 0`` and no ``gumbel`` noise
-    given, the noise is drawn from a generator seeded with
-    ``(config.seed, state.step)``.
+    given, the noise is :func:`encoder_noise` of this step.
     """
-    network = state.network
-    if gumbel is None and config.encoder_noise_scale > 0.0 and config.chance_target_mode == "encoder":
-        device = batch.observations.device
-        gen = torch.Generator(device=device).manual_seed((config.seed << 32) + state.step)
-        shape = (*batch.actions.shape, config.codebook_size)
-        u = torch.rand(shape, generator=gen, device=device).clamp_min(1e-20)
-        gumbel = -torch.log(-torch.log(u))
-    total, loss_output = compute_loss(network, batch, config, is_weights, gumbel)
-    grads = torch.autograd.grad(total, state.params, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(state.params, grads)]
-    optimizer.update(state.params, grads, state.opt_state)
-
-    with torch.no_grad():
-        hidden = network.representation(batch.observations[:, 0])
-        _, v0 = network.prediction(hidden)
-        priorities = torch.abs(v0 - scale_value(batch.target_values[:, 0], config.value_epsilon))
-        priorities = torch.clamp_min(priorities, 1e-3)
+    if gumbel is None:
+        gumbel = encoder_noise(config, state.step, batch.actions.shape, batch.observations.device)
+    total, loss_output = compute_loss(state.network, batch, config, is_weights, gumbel)
+    optimizer.update(state.params, parameter_gradients(total, state.params), state.opt_state)
+    priorities = fresh_priorities(state.network, batch, config)
     state.step += 1
     return state, LossOutput(*(x.detach() for x in loss_output)), priorities
 
@@ -173,15 +187,19 @@ def train_superstep(
     config: TrainConfig,
     optimizer: Optimizer,
     num_steps: int,
+    step_fn: Callable | None = None,
 ):
     """``num_steps`` learner iterations (sample, step, priority update) as a
-    plain loop. Returns ``(state, buffer, mean losses)``."""
+    plain loop, each step :func:`train_step` or ``step_fn(state, batch,
+    weights)`` (the data-parallel step). Returns ``(state, buffer, mean losses)``."""
     from simulate_2048_tpu_torch.training import replay as replay_lib
 
+    if step_fn is None:
+        step_fn = lambda s, batch, weights: train_step(s, batch, weights, config, optimizer)  # noqa: E731
     acc = None
     for _ in range(num_steps):
         batch, indices, weights = replay_lib.sample_batch(buffer_state, generator, config.batch_size, config)
-        state, loss_output, priorities = train_step(state, batch, weights, config, optimizer)
+        state, loss_output, priorities = step_fn(state, batch, weights)
         buffer_state = replay_lib.update_priorities(buffer_state, indices, priorities)
         acc = loss_output if acc is None else LossOutput(*(a + x for a, x in zip(acc, loss_output)))
     return state, buffer_state, LossOutput(*(x / num_steps for x in acc))

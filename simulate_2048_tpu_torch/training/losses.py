@@ -138,17 +138,16 @@ def oracle_chance_targets(
     return code_onehot, dist, spawned
 
 
-def compute_loss(
-    network,
-    batch: TrainingTargets,
-    config: TrainConfig,
-    weights: torch.Tensor | None = None,
-    gumbel: torch.Tensor | None = None,
-) -> tuple[torch.Tensor, LossOutput]:
-    """Batched K-step unrolled loss.
+def unroll_terms(
+    network, batch: TrainingTargets, config: TrainConfig, gumbel: torch.Tensor | None = None
+) -> tuple[tuple[torch.Tensor, ...], torch.Tensor | None]:
+    """The K-step unroll of a batch, per sample.
 
-    ``batch`` fields carry a leading batch dimension; ``weights`` are
-    optional importance-sampling corrections, normalised to mean 1;
+    Returns the seven per-sample terms (B,) in the order of
+    :class:`LossOutput`'s policy, value, reward, chance, commitment,
+    consistency and afterstate-value fields, and, when the chance codes come
+    from the encoder, each sample's mean soft code (B, codebook_size), whose
+    batch mean the codebook entropy is taken of (None otherwise).
     ``gumbel`` (B, K, codebook_size) is the encoder's selection noise for
     ``config.encoder_noise_scale > 0``.
     """
@@ -176,14 +175,14 @@ def compute_loss(
     tot_v = v_loss(value0, batch.target_values[:, 0])
 
     zeros_k = torch.zeros(bsz, k_steps, dtype=torch.float32, device=dev)
-    usage = torch.zeros(config.codebook_size, dtype=torch.float32, device=dev)
+    code_usage = None
     if use_encoder:
         # Chance codes of obs_1..obs_K (the observed outcomes of steps 0..K-1).
         code_st, chance_target, commit_all, probs = _encode_chance(
             network, batch.observations[:, 1:], config.encoder_noise_scale, gumbel
         )
         chance_mask = torch.ones_like(zeros_k)
-        usage = probs.mean(1).mean(0)  # mean soft code usage, for the entropy bonus
+        code_usage = probs.mean(1)  # each sample's mean soft code, for the entropy bonus
     elif use_oracle:
         code_st, chance_target, spawned = oracle_chance_targets(
             batch.observations, batch.actions, config.codebook_size, config.chance_target_mode == "oracle_dist"
@@ -252,17 +251,31 @@ def compute_loss(
         tot_cons / n_chance,
         tot_q / k_steps,
     )
+    return per_sample, code_usage
 
-    # Batch-level codebook usage entropy: H(mean soft code distribution).
-    codebook_entropy = -(usage * torch.log(usage + 1e-12)).sum()
 
-    if weights is not None:
-        w = weights / weights.sum() * weights.shape[0]
-        reduce = lambda x: (w * x).sum() / w.shape[0]  # noqa: E731
-    else:
-        reduce = torch.mean
-    mean_p, mean_v, mean_r, mean_c, mean_commit, mean_cons, mean_q = (reduce(x) for x in per_sample)
+def codebook_entropy(usage: torch.Tensor) -> torch.Tensor:
+    """H(mean soft code distribution) of a batch."""
+    return -(usage * torch.log(usage + 1e-12)).sum()
 
+
+def weighted_means(
+    per_sample: tuple[torch.Tensor, ...], weights: torch.Tensor | None, count: int, weight_total: torch.Tensor | None
+) -> list[torch.Tensor]:
+    """Each term's importance-weighted mean over a batch of ``count`` samples
+    whose weights sum to ``weight_total`` (weights normalised to mean 1), as
+    far as these samples contribute to it: over the whole batch this is the
+    mean, over a shard of it the shard's share of the mean. Without weights,
+    the plain sum over ``count``."""
+    if weights is None:
+        return [x.sum() / count for x in per_sample]
+    w = weights / weight_total * count
+    return [(w * x).sum() / count for x in per_sample]
+
+
+def combine_loss(config: TrainConfig, means, entropy: torch.Tensor) -> tuple[torch.Tensor, LossOutput]:
+    """The weighted total of the seven means and the codebook entropy, and the breakdown."""
+    mean_p, mean_v, mean_r, mean_c, mean_commit, mean_cons, mean_q = means
     total = (
         config.policy_loss_weight * mean_p
         + config.value_loss_weight * mean_v
@@ -271,6 +284,32 @@ def compute_loss(
         + config.commitment_loss_weight * mean_commit
         + config.consistency_loss_weight * mean_cons
         + config.afterstate_value_loss_weight * mean_q
-        - config.codebook_entropy_weight * codebook_entropy
+        - config.codebook_entropy_weight * entropy
     )
-    return total, LossOutput(total, mean_p, mean_v, mean_r, mean_c, mean_commit, codebook_entropy, mean_cons, mean_q)
+    return total, LossOutput(total, mean_p, mean_v, mean_r, mean_c, mean_commit, entropy, mean_cons, mean_q)
+
+
+def compute_loss(
+    network,
+    batch: TrainingTargets,
+    config: TrainConfig,
+    weights: torch.Tensor | None = None,
+    gumbel: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, LossOutput]:
+    """Batched K-step unrolled loss.
+
+    ``batch`` fields carry a leading batch dimension; ``weights`` are
+    optional importance-sampling corrections, normalised to mean 1;
+    ``gumbel`` (B, K, codebook_size) is the encoder's selection noise for
+    ``config.encoder_noise_scale > 0``.
+    """
+    per_sample, code_usage = unroll_terms(network, batch, config, gumbel)
+    if code_usage is None:
+        usage = torch.zeros(config.codebook_size, dtype=torch.float32, device=batch.observations.device)
+    else:
+        usage = code_usage.mean(0)
+    if weights is not None:
+        means = weighted_means(per_sample, weights, weights.shape[0], weights.sum())
+    else:
+        means = [torch.mean(x) for x in per_sample]
+    return combine_loss(config, means, codebook_entropy(usage))

@@ -7,8 +7,10 @@ through the whole-search kernel; priorities are refreshed after every step
 from the learner's TD errors; the periodic reanalyze pass
 (``reanalyze_interval``) refreshes stored targets and deep evaluation
 (``deep_eval_interval``) selects the champion checkpoint in
-``<checkpoint_dir>/best``. Not ported yet, and raising
-``NotImplementedError``: the data-parallel mesh.
+``<checkpoint_dir>/best``. With a ``mesh`` (``parallel.make_mesh``) the
+learner runs data-parallel over it (``parallel/dp.py``: a replica per mesh
+device, one ring all-reduce launch per step); self-play, reanalyze and
+evaluation stay on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ import torch
 from simulate_2048_tpu_torch.device import resolve_device
 from simulate_2048_tpu_torch.env import env as envlib
 from simulate_2048_tpu_torch.models.network import MuZeroNetwork
+from simulate_2048_tpu_torch.parallel.dp import DataParallelTrainStep, make_dp_train_step, make_dp_train_superstep
+from simulate_2048_tpu_torch.parallel.mesh import Mesh
 from simulate_2048_tpu_torch.training import replay as replay_lib
 from simulate_2048_tpu_torch.training.checkpoint import CheckpointManager, load_train_config
 from simulate_2048_tpu_torch.training.config import TrainConfig
@@ -75,13 +79,15 @@ DEEP_EVAL_SALT = 0xD2EE
 
 @dataclass
 class Trainer:
-    """Actor-learner loop on one device (``device``: CUDA unless the caller asks for the CPU)."""
+    """Actor-learner loop on one device (``device``: CUDA unless the caller
+    asks for the CPU), the learner data-parallel over ``mesh`` when one is
+    given (the trainer then runs on the mesh's first device)."""
 
     config: TrainConfig
     checkpoint_dir: str | None = None
     log_dir: str | None = None
     seed: int | None = None
-    mesh: object | None = None
+    mesh: Mesh | None = None
     device: torch.device | str | None = None
 
     state: TrainState = field(init=False, default=None)
@@ -93,7 +99,12 @@ class Trainer:
 
     def __post_init__(self):
         if self.mesh is not None:
-            raise NotImplementedError("data-parallel training over a mesh is not yet ported")
+            if not isinstance(self.mesh, Mesh):
+                raise TypeError(f"mesh must be a parallel.Mesh, not {type(self.mesh).__name__}")
+            first = self.mesh.devices[0]
+            if self.device is not None and resolve_device(self.device) != first:
+                raise ValueError(f"a trainer over a mesh runs on the mesh's first device, {first}")
+            self.device = first
         self.device = resolve_device(self.device)
         seed = self._seed()
         # Weights are drawn on the CPU and moved; every other draw (run seeds,
@@ -111,6 +122,9 @@ class Trainer:
         # checkpoints are selected by deep evaluation, not by the inline curve.
         self._best_deep_eval: tuple[float, int] | None = None
         self._best_ckpt: CheckpointManager | None = None
+        # The data-parallel learner (built at its first use): one step, shared by the superstep.
+        self._dp_step: DataParallelTrainStep | None = None
+        self._dp_superstep = None
 
     def _seed(self) -> int:
         return self.seed if self.seed is not None else self.config.seed
@@ -231,18 +245,37 @@ class Trainer:
         host_intervals += [i for i in (cfg.reanalyze_interval, cfg.deep_eval_interval) if i is not None]
         return chunk if all(i % chunk == 0 for i in host_intervals) else None
 
+    def _train_fn(self, batch, weights):
+        """One optimization step: data-parallel over the mesh when one is set."""
+        if self.mesh is None:
+            return train_step(self.state, batch, weights, self.config, self._optimizer)
+        return self._data_parallel_step()(self.state, batch, weights)
+
+    def _data_parallel_step(self) -> DataParallelTrainStep:
+        if self._dp_step is None:
+            self._dp_step = make_dp_train_step(self.network, self.config, self._optimizer, self.mesh)
+        return self._dp_step
+
     def optimize_chunk(self, chunk: int) -> LossOutput:
-        """``chunk`` optimizer steps (sample, step, priority update); returns their mean losses."""
-        self.state, self.buffer, loss_output = train_superstep(
-            self.state, self.buffer, self._generator, self.config, self._optimizer, chunk
-        )
+        """``chunk`` optimizer steps (sample, step, priority update); returns
+        their mean losses. Data-parallel over the mesh when one is set."""
+        if self.mesh is None:
+            self.state, self.buffer, loss_output = train_superstep(
+                self.state, self.buffer, self._generator, self.config, self._optimizer, chunk
+            )
+            return loss_output
+        if self._dp_superstep is None:
+            self._dp_superstep = make_dp_train_superstep(
+                self.network, self.config, self._optimizer, self.mesh, chunk, train_step=self._data_parallel_step()
+            )
+        self.state, self.buffer, loss_output = self._dp_superstep(self.state, self.buffer, self._generator)
         return loss_output
 
     def optimize_step(self) -> LossOutput:
         """One sample → train → priority-update step."""
         cfg = self.config
         batch, indices, weights = replay_lib.sample_batch(self.buffer, self._generator, cfg.batch_size, cfg)
-        self.state, loss_output, priorities = train_step(self.state, batch, weights, cfg, self._optimizer)
+        self.state, loss_output, priorities = self._train_fn(batch, weights)
         self.buffer = replay_lib.update_priorities(self.buffer, indices, priorities)
         return loss_output
 

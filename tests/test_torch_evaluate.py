@@ -97,7 +97,8 @@ def test_port_imports_no_jax():
         "names = {m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')}\n"
         "assert {pkg.__name__ + '.' + n for n in ('train', 'training.trainer', 'training.losses', 'training.replay',"
         " 'training.learner', 'training.checkpoint', 'ops.distributional', 'utils.metrics', 'ops.rollout',"
-        " 'ops.rollout_kernel', 'bench', 'training.reanalyze')} <= names, names\n"
+        " 'ops.rollout_kernel', 'bench', 'training.reanalyze', 'parallel', 'parallel.ring', 'parallel.mesh',"
+        " 'parallel.dp', 'parallel.actor_learner')} <= names, names\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)

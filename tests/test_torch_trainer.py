@@ -27,6 +27,7 @@ from simulate_2048_tpu.training import learner as jlearner
 from simulate_2048_tpu.training import replay as jreplay
 from simulate_2048_tpu.training import trainer as jtrainer
 from simulate_2048_tpu_torch import evaluate, train
+from simulate_2048_tpu_torch.parallel import make_mesh
 from simulate_2048_tpu_torch.training import learner as tlearner
 from simulate_2048_tpu_torch.training import replay as treplay
 from simulate_2048_tpu_torch.training import trainer as ttrainer
@@ -324,13 +325,15 @@ def test_host_intervals_off_the_log_interval_go_step_by_step():
 
 
 def test_training_entry_points_need_a_gpu_or_ask_for_cpu():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        train.main(["--mode", "tiny", "--data-parallel", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    # Data parallelism is ported: a mesh must be a parallel.Mesh, and a trainer over one runs on its first device.
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         ttrainer.Trainer(tiny_config(), mesh=object(), device="cpu")
+    assert ttrainer.Trainer(tiny_config(), mesh=make_mesh(["cpu"] * 2)).device == torch.device("cpu")
     if torch.cuda.is_available():
         pytest.skip("this machine has a GPU; the no-GPU behaviour is checked on CPU-only machines")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--mode", "tiny", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--mode", "tiny", "--data-parallel", "--steps", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ttrainer.train_muzero(tiny_config(), num_steps=1)
