@@ -28,19 +28,23 @@ code != 0, no final ``ok`` line) if any phase fails:
    (bfloat16: identical visits, Q and value within rtol 1e-3 / atol 1e-2);
    and the streamed kernel against the resident one at H=256, chunks 2 and
    8, both types: bit for bit, with both timed at 256 and 1,024 searches;
-   and the ring all-reduce kernel at N = 2, 4 and 8 virtual ranks on the
-   card, at the full model's flattened gradient length (35.0 MB) and at an
-   odd length (also on unaligned views), twice on one workspace: bit for
-   bit its plain version (the rotation order) and within rtol 1e-5 of
-   PyTorch's own sum;
+   and the ring all-reduce kernel (one pass; ptxas must report no stack
+   frame and no spills in any of its 45 instantiations, float32 / bf16 /
+   fp16 x N = 2..16) at N = 2, 4 and 8 virtual ranks on the card, in
+   float32, bf16 and fp16, at the full model's flattened gradient length
+   (35.0 MB in float32) and at an odd length (also on unaligned views),
+   twice: bit for bit its plain version (the rotation order), float32 also
+   within rtol 1e-5 of PyTorch's own sum; float64 CUDA shards must raise;
 4. times each kernel (CUDA events after warm-up, median of 5; 3 for the
    new variants) beside its plain version and its bound: the FP32 operations
    a search needs (at the bf16 tensor-core rate for a bfloat16 pack, with
    the bytes the kernel re-reads per call beside it), the integer
    operations a rollout's definition forces (beside it, what the rollout
    kernel's source spends, as its share of the INT32 instruction rate), and the
-   bytes an all-reduce must move (the ring's own schedule beside it), with
-   the PyTorch call that computes the same sum;
+   bytes an all-reduce must move (which the one-pass kernel moves and no
+   more; float32 at N = 2, 4, 8 and bf16 at N = 4, device time over 20
+   launches enqueued behind a sleep), with the PyTorch call that computes
+   the same sum, the share of the bound and the achieved TB/s;
 5. checks greedy evaluation, a greedy self-play segment with categorical
    heads and a search-mode reanalyze of that segment on a small config on
    the card: the kernel backend against the plain search backend, game for
@@ -88,7 +92,10 @@ code != 0, no final ``ok`` line) if any phase fails:
 launched and the device's idle share over a few evaluation moves, self-play
 moves and learner steps, one reanalyze pass and one ``bench`` repetition at
 full width, and the whole-search kernel's rate at 256 to 2,048 searches a launch.
-Exits non-zero when CUDA is unavailable.
+``--ring-variants`` runs no other phase: it builds the ring kernel with each
+alternative of its build-time choices (vectors per loop iteration, load and
+store hints, the bf16/fp16 add), checks each bit for bit and times them in
+turns at the gradient length. Exits non-zero when CUDA is unavailable.
 """
 
 from __future__ import annotations
@@ -98,6 +105,7 @@ import copy
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -191,6 +199,22 @@ DP_SUPERSTEP = 4
 # Ring all-reduce check: ranks, and an odd shard length beside the full model's flattened gradient.
 RING_RANKS = (2, 4, 8)
 RING_ODD_LENGTH = 1_000_003
+RING_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+RING_CALLS = 20  # launches per CUDA-event timing of the ring (a launch takes ~0.1 ms, its host work about as much)
+# ptxas's mangling of the ring kernel's element types.
+RING_PTXAS_TYPES = {"f": "float32", "13__nv_bfloat16": "bfloat16", "6__half": "float16"}
+# --ring-variants: the build-time choices of csrc/ring_all_reduce.cu, every combination of vectors per iteration,
+# load hint and store hint, and the other bf16/fp16 add.
+RING_VARIANTS = {
+    f"{vecs} vector{'s' * (vecs > 1)}, {load} loads, {store} stores, {add} adds": (
+        f"-DRING_VECS={vecs}", f"-DRING_LOAD={load_code}", f"-DRING_STORE={store_code}", f"-DRING_HALF_ADD={add_code}",
+    )
+    for vecs in (1, 2)
+    for load_code, load in enumerate(("plain", "__ldcs", "nc.L1::no_allocate"))
+    for store_code, store in enumerate(("plain", "__stcs"))
+    for add_code, add in enumerate(("float", "packed"))
+    if add_code == 1 or (vecs, load_code, store_code) == (1, 0, 0)
+}  # fmt: skip
 HBM_TBPS = {"H100 SXM": 3.35, "H100 NVL": 3.9, "H100 PCIe": 2.0, "H200": 4.8}
 
 
@@ -216,11 +240,43 @@ def timed_once(fn):
     return out, start.elapsed_time(end)
 
 
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn()`` after ``warmup`` calls."""
+def cuda_ms(fn, reps: int, warmup: int = 1, calls: int = 1) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn()`` after ``warmup`` calls.
+    With ``calls`` > 1 each timing spans that many calls in a row, enqueued
+    while the stream is held busy (``torch.cuda._sleep``), so that it is the
+    device's time alone: for a kernel of ~0.1 ms the host's launch overhead is
+    as long as the kernel."""
     for _ in range(warmup):
         fn()
-    return statistics.median(timed_once(fn)[1] for _ in range(reps))
+    if calls == 1:
+        return statistics.median(timed_once(fn)[1] for _ in range(reps))
+    return statistics.median(queued_ms(fn, calls) for _ in range(reps))
+
+
+def queued_ms(fn, calls: int, cycles: int = 1 << 24) -> float:
+    """Device ms per call of ``calls`` calls of ``fn()``, all enqueued behind
+    a sleep of ``cycles`` clocks. Until the device is still in the sleep when
+    the host has enqueued the last call, the sleep doubles up to 2^27 clocks
+    (~70 ms), then the calls halve: a stream takes only so many launches
+    ahead of the device before the host blocks (the plain version launches
+    N^2 kernels a call)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    while True:
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        queued = not start.query()
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(end) / calls
+        if cycles < 1 << 27:
+            cycles *= 2
+        elif calls > 1:
+            calls //= 2
+        else:
+            fail("queued_ms: the host could not enqueue one call within a sleep of 2^27 clocks")
 
 
 def full_width_inputs(
@@ -890,63 +946,114 @@ def gradient_length(config) -> int:
     return sum(p.numel() for p in network_from_config(config, torch.Generator().manual_seed(SEED), "cpu").parameters())
 
 
+def check_ring_ptxas(log: str | None) -> None:
+    """ptxas's report on every instantiation of the ring kernel (element type
+    x N): fails on a stack frame or a spill, prints the registers per thread
+    by dtype and N."""
+    if log is None:
+        print("ring_all_reduce: no ptxas report (the library was built before this run)")
+        return
+    registers: dict[str, dict[int, int]] = {}
+    for chunk in log.split("Compiling entry function '")[1:]:
+        found = re.search(r"all_reduce_kernelI(f|13__nv_bfloat16|6__half)Li(\d+)E", chunk.split("'", 1)[0])
+        if found is None:
+            continue
+        dtype, n = RING_PTXAS_TYPES[found[1]], int(found[2])
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
+        used = re.search(r"Used (\d+) registers", chunk)
+        if frame is None or used is None:
+            fail(f"ring_all_reduce {dtype} N={n}: no ptxas report of its frame or registers")
+        if any(int(x) for x in frame.groups()):
+            fail(f"ring_all_reduce {dtype} N={n}: {frame[0]}")
+        registers.setdefault(dtype, {})[n] = int(used[1])
+    if sorted(registers) != sorted(RING_PTXAS_TYPES.values()) or any(len(r) != 15 for r in registers.values()):
+        fail(f"ring_all_reduce: ptxas reported {sum(len(r) for r in registers.values())} of 45 instantiations")
+    for dtype, by_n in registers.items():
+        print(f"ring_all_reduce {dtype}: 0 bytes stack frame and no spills at N = 2..16; registers per thread "
+              + ", ".join(f"N={n}: {r}" for n, r in sorted(by_n.items())))  # fmt: skip
+
+
+def ring_shards(n: int, m: int, dtype: torch.dtype, gen: torch.Generator, device) -> dict[str, list[torch.Tensor]]:
+    """``n`` seeded shards of ``m`` elements: aligned, and at an odd ``m`` also unaligned views of one buffer."""
+    cases = {"aligned": [torch.randn(m, generator=gen, device=device).to(dtype) for _ in range(n)]}
+    if m % 2:
+        base = torch.randn(n * m + 1, generator=gen, device=device).to(dtype)
+        cases["unaligned"] = [base[1 + i * m : 1 + (i + 1) * m] for i in range(n)]
+    return cases
+
+
+def ring_bound(n: int, m: int, dtype: torch.dtype, card: str) -> tuple[float, str, int]:
+    """The all-reduce's bound in ms, what bounds it, and its bytes: each shard
+    read once and each sum written once at the HBM rate, against the N (N - 1)
+    adds per element (every rank its own order) at the FP32 rate."""
+    nbytes = 2 * n * m * dtype.itemsize
+    bytes_ms = nbytes / (HBM_TBPS[card] * 1e12) * 1e3
+    op_ms = n * (n - 1) * m / (FP32_TFLOPS[card] * 1e12) * 1e3
+    return max(bytes_ms, op_ms), "bytes" if bytes_ms >= op_ms else "operations", nbytes
+
+
 def check_ring_all_reduce(device) -> dict:
     """The ring all-reduce kernel against its plain version (the rotation
-    order, bit for bit) and against PyTorch's own sum (rtol 1e-5, atol 1e-5),
-    at N = 2, 4 and 8 virtual ranks on the card, at the full model's
-    flattened gradient length and at an odd length, each launched twice on
-    the same workspace; at the odd length also on unaligned views (the
-    kernel's scalar path). Then times at the gradient length: kernel, plain
-    version and the one PyTorch call (the (N, m) stack summed over N and
-    written to N outputs), median of 5; the bound is the N shards read once
-    and the N sums written once at the HBM rate. Returns the entry of the
-    data-parallel path's shape, N = DP_REPLICAS."""
+    order, bit for bit), in float32, bfloat16 and float16, at N = 2, 4 and 8
+    virtual ranks on the card, at the full model's flattened gradient length
+    and at an odd length, each launched twice; at the odd length also on
+    unaligned views (the kernel's scalar loop). float32 is also held within
+    rtol 1e-5 / atol 1e-5 of PyTorch's own sum, and float64 CUDA shards must
+    raise. Then times (CUDA events over RING_CALLS launches, median of 5)
+    float32 at the gradient length for each N and bfloat16 at N = 4: kernel,
+    plain version and the one PyTorch call (the (N, m) stack summed over N and
+    written to N outputs), beside the bound. Returns the entry of the
+    data-parallel path's shape, N = DP_REPLICAS in float32."""
     grad_length = gradient_length(training_config())
     gen = torch.Generator(device=device).manual_seed(SEED)
     card = sku(torch.cuda.get_device_name(0))
-    hbm = HBM_TBPS[card] * 1e12
+    try:
+        ring.ring_all_reduce_shard([torch.zeros(8, dtype=torch.float64, device=device)] * 2)
+        fail("ring_all_reduce: float64 CUDA shards did not raise")
+    except ValueError as err:
+        if "float32, bfloat16 or float16" not in str(err):
+            fail(f"ring_all_reduce: the error for float64 CUDA shards does not name the kernel's dtypes: {err}")
     entry = None
     for n in RING_RANKS:
-        for m in (grad_length, RING_ODD_LENGTH):
-            shards = [torch.randn(m, generator=gen, device=device) for _ in range(n)]
-            cases = {"aligned": shards}
-            if m == RING_ODD_LENGTH:
-                base = torch.randn(n * m + 1, generator=gen, device=device)
-                cases["unaligned"] = [base[1 + i * m : 1 + (i + 1) * m] for i in range(n)]
-            for label, xs in cases.items():
-                want = ring.ring_all_reduce_reference(xs)
-                total = torch.stack(xs).sum(0)
-                for launch in (1, 2):  # the second on the workspace the first left
-                    got = ring.ring_all_reduce_shard(xs)
-                    torch.cuda.synchronize()
-                    for rank, (a, b) in enumerate(zip(got, want)):
-                        if not torch.equal(a, b):
-                            fail(f"ring_all_reduce: N={n}, m={m} {label}, launch {launch}: rank {rank} differs from "
-                                 f"the plain version in {int((a != b).sum())} of {m} elements")  # fmt: skip
-                        if not torch.allclose(a, total, rtol=1e-5, atol=1e-5):
-                            fail(f"ring_all_reduce: N={n}, m={m} {label}: rank {rank} is not the sum (rtol 1e-5)")
-                spread = max(float((g - total).abs().max()) for g in got)
-                print(f"ring_all_reduce: N={n}, m={m:,} ({label}), {ring.LAST_CHANNELS['ring_all_reduce']} channels: "
-                      f"two launches on one workspace equal the plain version bit for bit; max |rank sum - "
-                      f"torch.sum| {spread:.3g}")  # fmt: skip
-            if m != grad_length:
+        for dtype in RING_DTYPES:
+            for m in (grad_length, RING_ODD_LENGTH):
+                cases = ring_shards(n, m, dtype, gen, device)
+                for label, xs in cases.items():
+                    want = ring.ring_all_reduce_reference(xs)
+                    total = torch.stack(xs).float().sum(0)
+                    for launch in (1, 2):
+                        got = ring.ring_all_reduce_shard(xs)
+                        torch.cuda.synchronize()
+                        for rank, (a, b) in enumerate(zip(got, want)):
+                            if not torch.equal(a, b):
+                                fail(f"ring_all_reduce: {dtype} N={n}, m={m} {label}, launch {launch}: rank {rank} "
+                                     f"differs from the plain version at {int((a != b).sum())} of {m}")  # fmt: skip
+                            if dtype == torch.float32 and not torch.allclose(a, total, rtol=1e-5, atol=1e-5):
+                                fail(f"ring_all_reduce: N={n}, m={m} {label}: rank {rank} is not the sum (rtol 1e-5)")
+                    spread = max(float((g.float() - total).abs().max()) for g in got)
+                    grid = ring.LAST_GRID
+                    print(f"ring_all_reduce: {str(dtype)[6:]} N={n}, m={m:,} ({label}), {grid['blocks']} blocks, "
+                          f"{grid['vectors_per_thread']} vectors a thread (0: the scalar loop): two launches equal "
+                          f"the plain version bit for bit; max |rank sum - f32 sum| {spread:.3g}")  # fmt: skip
+            if not (dtype == torch.float32 or (dtype == torch.bfloat16 and n == DP_REPLICAS)):
                 continue
+            shards = ring_shards(n, grad_length, dtype, gen, device)["aligned"]
             stacked = torch.stack(shards)
-            ms = cuda_ms(lambda: ring.ring_all_reduce_shard(shards), reps=5)
-            plain_ms = cuda_ms(lambda: ring.ring_all_reduce_reference(shards), reps=5)
-            library_ms = cuda_ms(lambda: stacked.sum(0).expand(n, m).contiguous(), reps=5)
-            nbytes = 2 * n * m * 4  # each shard read once, each sum written once
-            op_ms = (n - 1) * m / (FP32_TFLOPS[card] * 1e12) * 1e3  # the adds of one sum
-            bound_ms = max(nbytes / hbm * 1e3, op_ms)
-            schedule_bytes = (3 + 5 * (n - 1)) * n * m * 4
-            print(
-                f"ring_all_reduce: N={n}, m={m:,} ({m * 4 / 1e6:.1f} MB a shard): kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, torch (N, m).sum(0) to N outputs {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                f"({nbytes / 1e6:.1f} MB at {HBM_TBPS[card]} TB/s, {card}); the simple ring's schedule moves "
-                f"{schedule_bytes / 1e9:.3f} GB: {schedule_bytes / hbm * 1e3:.4f} ms at that rate, "
-                f"{schedule_bytes / (ms * 1e-3) / 1e12:.3f} TB/s achieved"
+            ms = cuda_ms(lambda: ring.ring_all_reduce_shard(shards), reps=5, calls=RING_CALLS)
+            plain_ms = cuda_ms(lambda: ring.ring_all_reduce_reference(shards), reps=5, calls=RING_CALLS)
+            library_ms = cuda_ms(
+                lambda: stacked.sum(0).expand(n, grad_length).contiguous(), reps=5, calls=RING_CALLS
             )
-            if n == DP_REPLICAS:
+            bound_ms, bound_by, nbytes = ring_bound(n, grad_length, dtype, card)
+            print(
+                f"ring_all_reduce: {str(dtype)[6:]} N={n}, m={grad_length:,} "
+                f"({grad_length * dtype.itemsize / 1e6:.1f} MB a shard): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                f"ms, torch (N, m).sum(0) to N outputs {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({nbytes / 1e6:.1f} MB at {HBM_TBPS[card]} TB/s, {card}; the kernel moves these bytes and no "
+                f"more): {bound_ms / ms:.3f} of the bound, {nbytes / (ms * 1e-3) / 1e12:.3f} TB/s achieved; "
+                f"{library_ms / ms:.2f}x the torch call's speed"
+            )
+            if n == DP_REPLICAS and dtype == torch.float32:
                 entry = {
                     "name": "ring_all_reduce",
                     "route": "cuda",
@@ -956,10 +1063,58 @@ def check_ring_all_reduce(device) -> dict:
                     "ms": ms,
                     "plain_ms": plain_ms,
                     "bound_ms": bound_ms,
-                    "bound_by": "bytes" if nbytes / hbm * 1e3 >= op_ms else "operations",
+                    "bound_by": bound_by,
                     "library_ms": library_ms,
                 }
     return entry
+
+
+def ring_variants(device) -> None:
+    """``--ring-variants``: the ring kernel built with each alternative of its
+    build-time choices (csrc/ring_all_reduce.cu: vectors per iteration, load
+    and store hints, the bf16/fp16 add), each checked bit for bit against the
+    plain version and timed in turns (CUDA events over RING_CALLS launches,
+    median of 7 rounds) at the gradient length: float32 at N = 2, 4, 8,
+    bfloat16 and float16 at N = 4."""
+    names = {}
+    for label, defines in RING_VARIANTS.items():
+        name = "ring_all_reduce_" + "_".join(d[len("-DRING_") :].lower().replace("=", "") for d in defines)
+        _build.LIBRARIES[name] = ("ring_all_reduce", defines)
+        names[label] = name
+    t0 = time.perf_counter()
+    _build.build_all(tuple(names.values()))
+    print(f"ring variants: {len(names)} libraries built in {time.perf_counter() - t0:.1f} s")
+    libs = {label: ring._load(name) for label, name in names.items()}
+    grad_length = gradient_length(training_config())
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    card = sku(torch.cuda.get_device_name(0))
+    results = []
+    for n, dtype in ((2, torch.float32), (4, torch.float32), (8, torch.float32), (4, torch.bfloat16),
+                     (4, torch.float16)):  # fmt: skip
+        shards = ring_shards(n, grad_length, dtype, gen, device)["aligned"]
+        want = ring.ring_all_reduce_reference(shards)
+        outs = [torch.empty_like(s) for s in shards]
+        for label, lib in libs.items():
+            ring.launch(lib, shards, outs)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(outs, want)):
+                fail(f"ring variant {label}: {dtype} N={n} differs from the plain version")
+        stacked = torch.stack(shards)
+        fns = {label: (lambda lib=lib: ring.launch(lib, shards, outs)) for label, lib in libs.items()}
+        fns["torch (N, m).sum(0) to N outputs"] = lambda: stacked.sum(0).expand(n, grad_length).contiguous()
+        times = {label: [] for label in fns}
+        for rnd in range(7):
+            order = list(fns) if rnd % 2 == 0 else list(reversed(fns))
+            for label in order:
+                times[label].append(cuda_ms(fns[label], reps=1, calls=RING_CALLS))
+        bound_ms, _, nbytes = ring_bound(n, grad_length, dtype, card)
+        for label, ts in times.items():
+            ms = statistics.median(ts)
+            results.append({"n": n, "dtype": str(dtype)[6:], "variant": label, "ms": ms, "bound_ms": bound_ms})
+            print(f"ring variants: {str(dtype)[6:]} N={n}: {label}: {ms:.4f} ms (min {min(ts):.4f}, max "
+                  f"{max(ts):.4f}), {bound_ms / ms:.3f} of the {bound_ms:.4f} ms bound, "
+                  f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s")  # fmt: skip
+    print(json.dumps({"ring_variants": results}))
 
 
 def dp_config():
@@ -1049,7 +1204,7 @@ def drive_dp_training(device, ring_ms: float) -> int:
         f"H={config.hidden_size}, NB={config.num_residual_blocks}, bins 256/128): one {TRAIN_SEGMENT_MOVES}-move "
         f"segment of {BATCH} games {t1 - t0:.2f} s with set-up; fused superstep of {DP_SUPERSTEP} steps "
         f"{fused_ms:.2f} ms per step, the per-step path {step_ms:.2f} ms; the ring kernel ({ring_ms:.4f} ms alone "
-        f"at this shape) is {ring_ms / fused_ms:.5f} of a fused step; {launches} ring launches for {steps} steps; "
+        f"at this shape) is {ring_ms / fused_ms:.3g} of a fused step; {launches} ring launches for {steps} steps; "
         f"replicas bit-identical; {changed}/{len(trainer.state.params)} parameter tensors changed"
     )
     print("data-parallel path: last step " + " ".join(f"{k}={float(getattr(loss, k)):.4f}" for k in loss._fields))
@@ -1176,6 +1331,8 @@ def profile_paths(device, moves: int = 5, steps: int = 3) -> None:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true", help="also profile a few moves and learner steps")
+    parser.add_argument("--ring-variants", action="store_true",
+                        help="only time the ring kernel's build-time alternatives (no other phase, no ok line)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test runs on a GPU")
@@ -1189,8 +1346,16 @@ def main() -> None:
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else f"nvidia-smi failed: {smi.stderr.strip()}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
+    if args.ring_variants:
+        ring_variants(device)
+        return
+
     t0 = time.perf_counter()
     seconds = _build.build_all(verbose=True)
+    for name, log in _build.BUILD_LOGS.items():
+        if name != "ring_all_reduce" and log:
+            print(log)
+    check_ring_ptxas(_build.BUILD_LOGS.get("ring_all_reduce"))
     print(json.dumps({"kernels_built": list(seconds), "build_s": round(time.perf_counter() - t0, 3)}))
 
     kernels = {

@@ -1,202 +1,263 @@
-// Ring all-reduce-sum kernel for Hopper (sm_90a): N ranks, each holding a
-// same-shaped float32 shard, end with the sum of all N shards, in one launch.
+// All-reduce-sum kernel for Hopper (sm_90a), in one pass: N ranks, each
+// holding a same-shaped float32, bfloat16 or float16 shard, end with the sum
+// of all N shards, in one launch.
 //
 // Replaces the TPU kernel simulate_2048_tpu/parallel/ring.py (_ring_kernel /
 // ring_all_reduce_shard) and computes what it computes, in its order of
 // additions: rank i ends with ((x_i + x_{i-1}) + x_{i-2}) + ... + x_{i+1},
 // bit for bit what parallel/ring.py's ring_all_reduce_reference computes.
 //
-// The ranks are virtual: every rank's input, output and two ring slots are
-// separate allocations on one card, addressed through a table of pointers
-// (RingArgs, in the kernel's parameters), and each rank is played by its own
-// thread blocks of one cooperative launch. A "remote copy" is a store into the
-// right neighbour's slot; a semaphore is a counter in global memory, raised
-// with a release at system scope and polled with an acquire at system scope.
-// Nothing in the kernel assumes that the pointers lie on one card: with peer
-// pointers in the table the same protocol runs across cards.
+// What bounds it: device memory. The function must read N shards and write
+// N sums, 2 N m sizeof(T) bytes; its adds, N (N - 1) per element, are a few
+// microseconds at the FP32 rate. There is no reuse to stage in shared memory.
+// What the card needs is enough bytes in flight: by Little's law about
+// 3.35 TB/s x 0.8 us = 2.7 MB, some 20 KB per SM.
 //
-// Channels: block c of every rank runs its own ring over chunk c of the shard
-// (a multiple of 4 elements; the last chunk takes the tail), with its own
-// counters, so that N * C blocks spread over the card. Each element still
-// sees the same additions in the same order.
+// The design: one pass, with element ranges, not ranks, owning the work.
+//   - A launch takes the N input pointers, the N output pointers and an
+//     element range [lo, hi); on one card the range is the whole shard.
+//   - A grid-stride loop gives each thread whole 16-byte vectors of the
+//     range (4 floats, or 8 bf16 / fp16 values). For each vector the thread
+//     loads the N ranks' values into registers, forms every rank's sum in
+//     that rank's rotation order, acc = v[i], then acc = add(acc,
+//     v[(i - 1 - s) mod N]) for s = 0 .. N-2, and stores the N sums. So every
+//     byte is read once and written once: the bound's bytes, no more.
+//   - N and the element type are template parameters, so v[] and the
+//     rotation indices are compile-time and v[] stays in registers.
+//   - add is __fadd_rn in float32. In bf16 and fp16 it is the float sum
+//     rounded to the type after every add, which is what the plain version
+//     and the TPU kernel's `o_ref[...] += comm[dst]` compute; RING_HALF_ADD
+//     picks how: a float add then __floats2bfloat162_rn / __floats2half2_rn,
+//     or the packed bf16x2 / f16x2 add. Both give the same bits: a float32
+//     sum of two values of p-bit significands, rounded to p bits, is the
+//     correctly rounded sum whenever 24 >= 2p + 2 (p = 8 for bf16, 11 for
+//     fp16), and the packed add is correctly rounded.
+//   - The grid is one wave: SMs x the blocks an SM holds, capped by the
+//     vectors there are.
+//   - Views that are not 16-byte aligned, and the tail of fewer than one
+//     vector, take a scalar loop with the same order of additions.
+//   - No block waits on another: there is no protocol inside a launch.
 //
-// Protocol per channel, as ring.py:53-84 (counters only grow; a wait is
-// "until the counter reaches k"):
-//   1. barrier: raise both neighbours' barrier counters, wait for ours to reach 2;
-//   2. acc <- x, slot[0] <- x;
-//   3. for step in 0 .. N-2 (src = step % 2, dst = 1 - src):
-//        from step 1 on, wait for our ack counter to reach step (the right
-//        neighbour has sent from, and added, the slot we are about to fill);
-//        store slot[src] into the right neighbour's slot[dst]; raise its recv;
-//        wait for our recv counter to reach step + 1;
-//        unless this is the last step, raise the left neighbour's ack;
-//        acc += slot[dst].
-//   The last step sends no ack, as ring.py:83-84: an ack left over would
-//   start the next launch off by one.
+// Across cards the same body would run on each card over its 1/N of the
+// elements, through peer pointers, between an entry and an exit barrier;
+// that is not built here (the wrapper takes the ranks of one card).
 //
-// Memory ordering: the writer's threads finish their stores, __syncthreads(),
-// then thread 0 fences and raises the counter with red.release.sys. The
-// reader's thread 0 polls with ld.acquire.sys, then __syncthreads(). Slots are
-// read with ld.global.cg (L2, never a stale L1 line: a slot is refilled every
-// other step).
-//
-// The counters live in a workspace that the wrapper owns, and the launcher
-// zeroes them with cudaMemsetAsync on the launch's stream before every
-// launch (no epoch counters).
-//
-// Every poll is bounded: after kMaxPolls polls (with __nanosleep between
-// them) the kernel traps, so a protocol fault is a CUDA error in Python and
-// not a hang. The launch is cooperative: it either has every one of the
-// N * C blocks resident at once or fails, since a spinning block waiting on
-// one that was never scheduled would deadlock silently.
-//
-// What bounds it: device memory. The function reads N shards and writes N
-// sums; the simple ring's schedule moves (3 + 5 (N - 1)) shard sizes per
-// rank (init: read x, write acc and slot 0; per step: read the send slot,
-// write the neighbour's slot, read the received slot, read and write acc).
-// The adds are 1 per 5 words moved. So the design keeps every load and store
-// 16 bytes wide when the pointers allow it, and puts enough blocks in flight
-// to saturate HBM; it spends no shared memory.
+// Build-time choices, measured with `python3 chip_smoke.py --ring-variants`
+// (PERF.md): RING_VECS, the 16-byte vectors per rank a thread loads per loop
+// iteration; RING_LOAD, 0 plain loads, 1 __ldcs, 2 ld.global.nc.
+// L1::no_allocate (the inputs are read once); RING_STORE, 0 plain stores,
+// 1 __stcs (the caller reads the sums right after); RING_HALF_ADD as above.
+// They differ by under 2% on an H100 SXM; the defaults are the fastest or
+// tie with it: one vector, __ldcs loads, plain stores, packed adds.
 //
 // Plain C interface at the bottom; loaded with ctypes (parallel/ring.py).
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#ifndef RING_VECS
+#define RING_VECS 1
+#endif
+#ifndef RING_LOAD
+#define RING_LOAD 1
+#endif
+#ifndef RING_STORE
+#define RING_STORE 0
+#endif
+#ifndef RING_HALF_ADD
+#define RING_HALF_ADD 1
+#endif
 
 namespace {
 
 constexpr int kMaxRanks = 16;
-constexpr int kMaxChannels = 512;
-constexpr int kCountersPerChannel = 4;  // barrier, recv, ack, padding
-constexpr int kBarrier = 0, kRecv = 1, kAck = 2;
-constexpr int kThreads = 512;
-constexpr unsigned long long kMaxPolls = 1ull << 24;
+constexpr int kThreads = 256;
 
-struct RingArgs {
-  const float* in[kMaxRanks];
-  float* out[kMaxRanks];
-  float* slot[kMaxRanks][2];
-  unsigned int* counters[kMaxRanks];  // each rank's (kMaxChannels, kCountersPerChannel) block
+struct Ptrs {
+  const void* in[kMaxRanks];
+  void* out[kMaxRanks];
 };
 
-// Thread 0 only, after the block's __syncthreads(): publish the block's writes, then raise *counter.
-__device__ __forceinline__ void post(unsigned int* counter) {
-  __threadfence_system();
-  asm volatile("red.release.sys.global.add.u32 [%0], 1;" ::"l"(counter) : "memory");
+// ---- one element: the scalar loop (tail, unaligned views)
+
+__device__ __forceinline__ float add1(float a, float b) { return __fadd_rn(a, b); }
+
+__device__ __forceinline__ __nv_bfloat16 add1(__nv_bfloat16 a, __nv_bfloat16 b) {
+  return __float2bfloat16_rn(__fadd_rn(__bfloat162float(a), __bfloat162float(b)));
 }
 
-__device__ __forceinline__ unsigned int load_acquire(const unsigned int* counter) {
-  unsigned int v;
-  asm volatile("ld.acquire.sys.global.u32 %0, [%1];" : "=r"(v) : "l"(counter) : "memory");
+__device__ __forceinline__ __half add1(__half a, __half b) {
+  return __float2half_rn(__fadd_rn(__half2float(a), __half2float(b)));
+}
+
+// ---- 16 bytes: the vector loop
+
+template <typename P>
+__device__ __forceinline__ P as(uint32_t w) {
+  P p;
+  memcpy(&p, &w, sizeof(w));
+  return p;
+}
+
+template <typename P>
+__device__ __forceinline__ uint32_t word(P p) {
+  uint32_t w;
+  memcpy(&w, &p, sizeof(w));
+  return w;
+}
+
+// One 32-bit word: one float, or two bf16 / fp16 values.
+template <typename T>
+__device__ __forceinline__ uint32_t add_word(uint32_t a, uint32_t b);
+
+template <>
+__device__ __forceinline__ uint32_t add_word<float>(uint32_t a, uint32_t b) {
+  return __float_as_uint(__fadd_rn(__uint_as_float(a), __uint_as_float(b)));
+}
+
+template <>
+__device__ __forceinline__ uint32_t add_word<__nv_bfloat16>(uint32_t a, uint32_t b) {
+#if RING_HALF_ADD
+  return word(__hadd2(as<__nv_bfloat162>(a), as<__nv_bfloat162>(b)));
+#else
+  const float2 x = __bfloat1622float2(as<__nv_bfloat162>(a)), y = __bfloat1622float2(as<__nv_bfloat162>(b));
+  return word(__floats2bfloat162_rn(__fadd_rn(x.x, y.x), __fadd_rn(x.y, y.y)));
+#endif
+}
+
+template <>
+__device__ __forceinline__ uint32_t add_word<__half>(uint32_t a, uint32_t b) {
+#if RING_HALF_ADD
+  return word(__hadd2(as<__half2>(a), as<__half2>(b)));
+#else
+  const float2 x = __half22float2(as<__half2>(a)), y = __half22float2(as<__half2>(b));
+  return word(__floats2half2_rn(__fadd_rn(x.x, y.x), __fadd_rn(x.y, y.y)));
+#endif
+}
+
+template <typename T>
+__device__ __forceinline__ uint4 add16(uint4 a, uint4 b) {
+  return make_uint4(add_word<T>(a.x, b.x), add_word<T>(a.y, b.y), add_word<T>(a.z, b.z), add_word<T>(a.w, b.w));
+}
+
+__device__ __forceinline__ uint4 load16(const uint4* p) {
+#if RING_LOAD == 1
+  return __ldcs(p);
+#elif RING_LOAD == 2
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
   return v;
+#else
+  return *p;
+#endif
 }
 
-// The whole block waits until *counter >= target; thread 0 polls.
-__device__ __forceinline__ void wait_for(const unsigned int* counter, unsigned int target) {
-  if (threadIdx.x == 0) {
-    unsigned long long polls = 0;
-    while (load_acquire(counter) < target) {
-      if (++polls > kMaxPolls) __trap();
-      if (polls > 32) __nanosleep(256);
+__device__ __forceinline__ void store16(uint4* p, uint4 v) {
+#if RING_STORE == 1
+  __stcs(p, v);
+#else
+  *p = v;
+#endif
+}
+
+// Every rank's sum over [lo, hi), in its rotation order. With `vec` the
+// 2 N pointers plus lo are 16-byte aligned and whole vectors take the vector
+// loop; the rest takes the scalar loop.
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads, 1) all_reduce_kernel(Ptrs p, long long lo, long long hi, int vec) {
+  constexpr int kPer = 16 / sizeof(T);
+  const long long thread = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  const long long threads = static_cast<long long>(gridDim.x) * kThreads;
+  long long tail = lo;
+  if (vec) {
+    const long long nvec = (hi - lo) / kPer;
+    for (long long k = thread; k < nvec; k += RING_VECS * threads) {
+      uint4 v[RING_VECS][N];
+#pragma unroll
+      for (int u = 0; u < RING_VECS; ++u) {
+        const long long j = k + u * threads;
+        if (j < nvec) {
+#pragma unroll
+          for (int r = 0; r < N; ++r) {
+            v[u][r] = load16(reinterpret_cast<const uint4*>(static_cast<const T*>(p.in[r]) + lo) + j);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < RING_VECS; ++u) {
+        const long long j = k + u * threads;
+        if (j < nvec) {
+#pragma unroll
+          for (int i = 0; i < N; ++i) {
+            uint4 acc = v[u][i];
+#pragma unroll
+            for (int s = 0; s < N - 1; ++s) acc = add16<T>(acc, v[u][(i + 2 * N - 1 - s) % N]);
+            store16(reinterpret_cast<uint4*>(static_cast<T*>(p.out[i]) + lo) + j, acc);
+          }
+        }
+      }
     }
-    __threadfence_system();
+    tail = lo + nvec * kPer;
   }
-  __syncthreads();
-}
-
-// acc[i] = x[i]; slot[i] = x[i] over [lo, hi).
-template <bool kVec>
-__device__ __forceinline__ void load_shard(const float* x, float* acc, float* slot, long long lo, long long hi) {
-  long long i = lo + threadIdx.x;
-  if (kVec) {
-    const long long hi4 = lo + (hi - lo) / 4 * 4;
-    for (long long j = lo + 4 * threadIdx.x; j < hi4; j += 4 * kThreads) {
-      const float4 v = *reinterpret_cast<const float4*>(x + j);
-      *reinterpret_cast<float4*>(acc + j) = v;
-      __stcg(reinterpret_cast<float4*>(slot + j), v);
+  for (long long e = tail + thread; e < hi; e += threads) {
+    T x[N];
+#pragma unroll
+    for (int r = 0; r < N; ++r) x[r] = static_cast<const T*>(p.in[r])[e];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      T acc = x[i];
+#pragma unroll
+      for (int s = 0; s < N - 1; ++s) acc = add1(acc, x[(i + 2 * N - 1 - s) % N]);
+      static_cast<T*>(p.out[i])[e] = acc;
     }
-    i = hi4 + threadIdx.x;
-  }
-  for (; i < hi; i += kThreads) {
-    const float v = x[i];
-    acc[i] = v;
-    __stcg(slot + i, v);
   }
 }
 
-// dst[i] = src[i] over [lo, hi): our send slot into the right neighbour's receive slot.
-template <bool kVec>
-__device__ __forceinline__ void send(const float* src, float* dst, long long lo, long long hi) {
-  long long i = lo + threadIdx.x;
-  if (kVec) {
-    const long long hi4 = lo + (hi - lo) / 4 * 4;
-    for (long long j = lo + 4 * threadIdx.x; j < hi4; j += 4 * kThreads) {
-      __stcg(reinterpret_cast<float4*>(dst + j), __ldcg(reinterpret_cast<const float4*>(src + j)));
-    }
-    i = hi4 + threadIdx.x;
+bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; }
+
+template <typename T, int N>
+cudaError_t launch(const Ptrs& p, long long lo, long long hi, cudaStream_t stream, int* blocks_out,
+                   long long* vectors_per_thread_out) {
+  constexpr long long kPer = 16 / sizeof(T);
+  bool vec = (lo * static_cast<long long>(sizeof(T))) % 16 == 0;
+  for (int r = 0; r < N; ++r) vec = vec && aligned16(p.in[r]) && aligned16(p.out[r]);
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, all_reduce_kernel<T, N>, kThreads, 0);
   }
-  for (; i < hi; i += kThreads) __stcg(dst + i, __ldcg(src + i));
+  if (err != cudaSuccess) return err;
+  // Work items: whole vectors on the vector path (the tail's few scalars ride along), scalars otherwise.
+  const long long items = vec ? (hi - lo) / kPer : hi - lo;
+  const long long wanted = (items + static_cast<long long>(kThreads) * RING_VECS - 1) / (kThreads * RING_VECS);
+  long long blocks = static_cast<long long>(sms) * per_sm;
+  blocks = blocks < wanted ? blocks : wanted;
+  blocks = blocks > 1 ? blocks : 1;
+  *blocks_out = static_cast<int>(blocks);
+  *vectors_per_thread_out = vec ? (items + blocks * kThreads - 1) / (blocks * kThreads) : 0;
+  all_reduce_kernel<T, N><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(p, lo, hi, vec ? 1 : 0);
+  return cudaGetLastError();
 }
 
-// acc[i] += slot[i] over [lo, hi).
-template <bool kVec>
-__device__ __forceinline__ void accumulate(float* acc, const float* slot, long long lo, long long hi) {
-  long long i = lo + threadIdx.x;
-  if (kVec) {
-    const long long hi4 = lo + (hi - lo) / 4 * 4;
-    for (long long j = lo + 4 * threadIdx.x; j < hi4; j += 4 * kThreads) {
-      float4 a = *reinterpret_cast<float4*>(acc + j);
-      const float4 b = __ldcg(reinterpret_cast<const float4*>(slot + j));
-      a.x = __fadd_rn(a.x, b.x);
-      a.y = __fadd_rn(a.y, b.y);
-      a.z = __fadd_rn(a.z, b.z);
-      a.w = __fadd_rn(a.w, b.w);
-      *reinterpret_cast<float4*>(acc + j) = a;
-    }
-    i = hi4 + threadIdx.x;
+template <typename T>
+cudaError_t dispatch(int ranks, const Ptrs& p, long long lo, long long hi, cudaStream_t stream, int* blocks_out,
+                     long long* vectors_per_thread_out) {
+  switch (ranks) {
+#define RING_CASE(n) \
+  case n:            \
+    return launch<T, n>(p, lo, hi, stream, blocks_out, vectors_per_thread_out);
+    RING_CASE(2) RING_CASE(3) RING_CASE(4) RING_CASE(5) RING_CASE(6) RING_CASE(7) RING_CASE(8) RING_CASE(9)
+    RING_CASE(10) RING_CASE(11) RING_CASE(12) RING_CASE(13) RING_CASE(14) RING_CASE(15) RING_CASE(16)
+#undef RING_CASE
   }
-  for (; i < hi; i += kThreads) acc[i] = __fadd_rn(acc[i], __ldcg(slot + i));
+  return cudaErrorInvalidValue;
 }
-
-// Block b plays channel b % channels of rank b / channels.
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads) ring_kernel(RingArgs a, int ranks, int channels, long long n,
-                                                        long long per_channel) {
-  const int rank = blockIdx.x / channels;
-  const int channel = blockIdx.x % channels;
-  const int right = rank + 1 == ranks ? 0 : rank + 1;
-  const int left = rank == 0 ? ranks - 1 : rank - 1;
-  const long long lo = min(n, channel * per_channel);
-  const long long hi = min(n, lo + per_channel);
-  unsigned int* mine = a.counters[rank] + channel * kCountersPerChannel;
-  unsigned int* of_right = a.counters[right] + channel * kCountersPerChannel;
-  unsigned int* of_left = a.counters[left] + channel * kCountersPerChannel;
-
-  // 1. Both neighbours have started before anyone stores into their slots.
-  if (threadIdx.x == 0) {
-    post(of_left + kBarrier);
-    post(of_right + kBarrier);
-  }
-  wait_for(mine + kBarrier, 2);
-
-  // 2. acc <- x, slot[0] <- x.
-  float* acc = a.out[rank];
-  load_shard<kVec>(a.in[rank], acc, a.slot[rank][0], lo, hi);
-
-  // 3. N - 1 hops to the right.
-  for (int step = 0; step < ranks - 1; ++step) {
-    const int src = step & 1, dst = src ^ 1;
-    if (step >= 1) wait_for(mine + kAck, step);
-    send<kVec>(a.slot[rank][src], a.slot[right][dst], lo, hi);
-    __syncthreads();
-    if (threadIdx.x == 0) post(of_right + kRecv);
-    wait_for(mine + kRecv, step + 1);
-    if (step < ranks - 2 && threadIdx.x == 0) post(of_left + kAck);
-    accumulate<kVec>(acc, a.slot[rank][dst], lo, hi);
-  }
-}
-
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 
@@ -206,54 +267,32 @@ const char* ring_all_reduce_error_string(int err) { return cudaGetErrorString(st
 
 int ring_all_reduce_max_ranks() { return kMaxRanks; }
 
-// Bytes of the counter workspace for `ranks` ranks.
-long long ring_all_reduce_counter_bytes(int ranks) {
-  return static_cast<long long>(ranks) * kMaxChannels * kCountersPerChannel * sizeof(unsigned int);
-}
-
-// One cooperative launch on `stream` (and the counters' memset before it).
-// inputs / outputs: `ranks` pointers to n float32 each; slots: 2 * ranks
-// buffers of n float32, slot s of rank r at slots + (2 r + s) * slot_stride;
-// counters: ring_all_reduce_counter_bytes(ranks) bytes. Writes the channel
-// count used to *channels_out. Returns a cudaError_t (0 on success).
-int ring_all_reduce_launch(const void* const* inputs, void* const* outputs, void* slots, long long slot_stride,
-                           void* counters, int ranks, long long n, void* stream, int* channels_out) {
-  if (ranks < 2 || ranks > kMaxRanks || n < 0 || slot_stride < n) return static_cast<int>(cudaErrorInvalidValue);
-  RingArgs a;
-  bool vec = aligned16(slots) && slot_stride % 4 == 0;
+// One launch on `stream` over the element range [lo, hi) of every shard.
+// inputs / outputs: `ranks` pointers each; dtype: 0 float32, 1 bfloat16,
+// 2 float16. Writes the grid's blocks and the 16-byte vectors per rank each
+// thread handles (0 on the scalar path) to the two out-pointers; launches
+// nothing for an empty range. Returns a cudaError_t (0 on success).
+int ring_all_reduce_launch(const void* const* inputs, void* const* outputs, int ranks, int dtype, long long lo,
+                           long long hi, void* stream, int* blocks_out, long long* vectors_per_thread_out) {
+  *blocks_out = 0;
+  *vectors_per_thread_out = 0;
+  if (ranks < 2 || ranks > kMaxRanks || lo < 0 || hi < lo) return static_cast<int>(cudaErrorInvalidValue);
+  if (hi == lo) return 0;
+  Ptrs p;
   for (int r = 0; r < ranks; ++r) {
-    a.in[r] = static_cast<const float*>(inputs[r]);
-    a.out[r] = static_cast<float*>(outputs[r]);
-    a.slot[r][0] = static_cast<float*>(slots) + (2LL * r) * slot_stride;
-    a.slot[r][1] = static_cast<float*>(slots) + (2LL * r + 1) * slot_stride;
-    a.counters[r] = static_cast<unsigned int*>(counters) + static_cast<long long>(r) * kMaxChannels * kCountersPerChannel;
-    vec = vec && aligned16(inputs[r]) && aligned16(outputs[r]);
+    p.in[r] = inputs[r];
+    p.out[r] = outputs[r];
   }
-  int device = 0, sms = 0, cooperative = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&cooperative, cudaDevAttrCooperativeLaunch, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (!cooperative) return static_cast<int>(cudaErrorNotSupported);
-  const void* fn = vec ? (const void*)ring_kernel<true> : (const void*)ring_kernel<false>;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, 0);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // As many channels as can be resident together, and no more than the shard has 4 * kThreads elements.
-  long long channels = static_cast<long long>(per_sm) * sms / ranks;
-  channels = channels < kMaxChannels ? channels : kMaxChannels;
-  const long long wanted = (n + 4LL * kThreads - 1) / (4LL * kThreads);
-  channels = channels < wanted ? channels : wanted;
-  channels = channels > 1 ? channels : 1;
-  int c = static_cast<int>(channels);
-  long long per_channel = ((n + c - 1) / c + 3) / 4 * 4;
-  *channels_out = c;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = cudaMemsetAsync(counters, 0, ring_all_reduce_counter_bytes(ranks), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  void* args[] = {&a, &ranks, &c, &n, &per_channel};
-  err = cudaLaunchCooperativeKernel(fn, dim3(ranks * c), dim3(kThreads), args, 0, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  switch (dtype) {
+    case 0:
+      return static_cast<int>(dispatch<float>(ranks, p, lo, hi, s, blocks_out, vectors_per_thread_out));
+    case 1:
+      return static_cast<int>(dispatch<__nv_bfloat16>(ranks, p, lo, hi, s, blocks_out, vectors_per_thread_out));
+    case 2:
+      return static_cast<int>(dispatch<__half>(ranks, p, lo, hi, s, blocks_out, vectors_per_thread_out));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

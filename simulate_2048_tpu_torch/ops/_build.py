@@ -31,6 +31,8 @@ LIBRARIES = {
     "random_rollout": ("random_rollout", ()),
     "ring_all_reduce": ("ring_all_reduce", ()),
 }
+# Library name -> the compiler's output of its build in this process (absent when the library was cached).
+BUILD_LOGS: dict[str, str] = {}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 
@@ -65,8 +67,9 @@ def _start(name: str, verbose: bool) -> tuple[subprocess.Popen, Path, Path] | No
 def build_all(names: tuple[str, ...] = tuple(LIBRARIES), verbose: bool = False) -> dict[str, float]:
     """Compile every named library that is not built yet, one ``nvcc`` per
     library, all started together. Returns seconds per library (0 when cached);
-    raises with the compiler's output if a build fails. With ``verbose``,
-    ptxas's register/shared-memory report is printed."""
+    raises with the compiler's output if a build fails. The compiler's output
+    is kept in ``BUILD_LOGS``; with ``verbose`` it holds ptxas's register,
+    stack and spill report."""
     t0 = time.perf_counter()
     jobs = {name: _start(name, verbose) for name in names}
     seconds = {}
@@ -78,8 +81,7 @@ def build_all(names: tuple[str, ...] = tuple(LIBRARIES), verbose: bool = False) 
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
-        if verbose and log:
-            print(log)
+        BUILD_LOGS[name] = log
         os.replace(tmp, out)
         seconds[name] = time.perf_counter() - t0
     return seconds

@@ -18,9 +18,10 @@ mean code, enters each shard's loss as its linearisation at that mean (the
 mean comes from an encoder pass before the step, only when the bonus has a
 weight). The clip acts on the reduced gradient, inside each replica's update.
 
-The ring gives each rank the sum in an order of its own, so for three or
-more replicas the ranks' sums may differ in the last bits: every replica
-applies rank 0's sum, and the replicas stay bit-identical.
+The all-reduce gives each rank the sum in that rank's own rotation order
+(the ring's order, which the one-pass kernel keeps), so for three or more
+replicas the ranks' sums may differ in the last bits: every replica applies
+rank 0's sum, and the replicas stay bit-identical.
 
 When ``torch.distributed`` is initialised with more than one process, each
 process holds its part of the global batch (parts in rank order), and a

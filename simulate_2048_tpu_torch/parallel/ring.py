@@ -1,8 +1,7 @@
 """Ring all-reduce-sum over the ranks of a mesh, in one CUDA kernel launch
 (port of the JAX package's ``parallel/ring.py``).
 
-Algorithm (N ranks, each holding a same-shaped shard ``x``), as the TPU
-kernel runs it:
+The TPU kernel runs a ring (N ranks, each holding a same-shaped shard ``x``):
 
     acc <- x;  slot[0] <- x
     for step in 0 .. N-2:
@@ -13,18 +12,21 @@ kernel runs it:
 At step s rank i receives the shard that rank i-1-s started with, so rank i
 ends with ``((x_i + x_{i-1}) + x_{i-2}) + ... + x_{i+1}``: every rank holds the
 sum, each added in an order of its own (for N >= 3 the ranks' sums may differ
-in the last bits). The flow control (a start barrier, an ack from the right
-neighbour before a slot is reused) is the kernel's; see
-``csrc/ring_all_reduce.cu``.
+in the last bits). The CUDA kernel (``csrc/ring_all_reduce.cu``) computes the
+same sums in one pass over the ranks of one card: each thread reads the N
+shards' values at its elements once, forms every rank's sum in that rank's
+order in registers, and writes the N sums once. Nothing passes between
+blocks, so there are no slots, counters or waits.
 
 Three things live here, beside the mesh-level functions:
 
 - :func:`ring_all_reduce_reference`, the plain PyTorch version, adding in
-  the kernel's rotation order;
-- :func:`ring_all_reduce_shard`, the wrapper: the CUDA kernel for shards on
-  one card (the ranks of a virtual mesh), the plain version for CPU shards,
-  nothing else;
-- ``LAUNCHES``, the count of kernel launches.
+  the rotation order;
+- :func:`ring_all_reduce_shard`, the wrapper: the CUDA kernel for float32,
+  bfloat16 or float16 shards on one card (the ranks of a virtual mesh), the
+  plain version for CPU shards, nothing else;
+- ``LAUNCHES``, the count of kernel launches, and ``LAST_GRID``, the grid of
+  the last one.
 """
 
 from __future__ import annotations
@@ -39,8 +41,11 @@ from simulate_2048_tpu_torch.parallel.mesh import Mesh, batch_sharding
 
 # Launches of the CUDA kernel by the wrapper (and nowhere else).
 LAUNCHES = {"ring_all_reduce": 0}
-# Channels (blocks per rank) of the last launch, for the record.
-LAST_CHANNELS = {"ring_all_reduce": 0}
+# The grid of the last launch, for the record: blocks, and the 16-byte vectors
+# per rank each thread handled (0 when unaligned views took the scalar loop).
+LAST_GRID = {"blocks": 0, "vectors_per_thread": 0}
+# The kernel's element types, by the code its launcher takes.
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def ring_all_reduce_reference(shards: Sequence[torch.Tensor]) -> list[torch.Tensor]:
@@ -56,26 +61,12 @@ def ring_all_reduce_reference(shards: Sequence[torch.Tensor]) -> list[torch.Tens
     return out
 
 
-class _Workspace:
-    """The slots (2 per rank, padded to whole 16-byte vectors) and the
-    counters of one (device, ranks, shard length). The launcher zeroes the
-    counters before every launch."""
-
-    def __init__(self, lib: ctypes.CDLL, device: torch.device, ranks: int, numel: int):
-        self.stride = -(-numel // 4) * 4
-        self.slots = torch.empty(ranks, 2, max(self.stride, 4), dtype=torch.float32, device=device)
-        counter_words = lib.ring_all_reduce_counter_bytes(ranks) // 4
-        self.counters = torch.empty(counter_words, dtype=torch.int32, device=device)
-
-
-_WORKSPACES: dict[tuple[torch.device, int, int], _Workspace] = {}
-
-
 def ring_all_reduce_shard(shards: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     """All-reduce-sum of one shard per rank: returns N tensors, rank ``i``'s
-    sum in the kernel's rotation order. One kernel launch for CUDA shards
-    (float32, contiguous, all on one card); the plain version for CPU
-    shards. With one rank the input comes back, as in the JAX package."""
+    sum in the rotation order. One kernel launch for CUDA shards (float32,
+    bfloat16 or float16, contiguous, all on one card); the plain version for
+    CPU shards, of any dtype. With one rank the input comes back, as in the
+    JAX package."""
     shards = list(shards)
     n = len(shards)
     if n == 0:
@@ -94,32 +85,41 @@ def ring_all_reduce_shard(shards: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     if any(s.device != device for s in shards):
         raise NotImplementedError(
             "ring_all_reduce_shard takes the ranks of one card (a virtual mesh); ranks on separate cards need "
-            "peer pointers in the kernel's table"
+            "peer pointers and barriers across the cards"
         )
-    if dtype != torch.float32 or not all(s.is_contiguous() for s in shards):
-        raise ValueError("ring_all_reduce_shard's kernel takes contiguous float32 shards")
+    if dtype not in DTYPES or not all(s.is_contiguous() for s in shards):
+        raise ValueError(
+            f"ring_all_reduce_shard's kernel takes contiguous float32, bfloat16 or float16 shards, not {dtype}"
+        )
     lib = _load()
     if n > lib.ring_all_reduce_max_ranks():
         raise ValueError(f"ring_all_reduce_shard's kernel takes at most {lib.ring_all_reduce_max_ranks()} ranks")
-    numel = shards[0].numel()
     outputs = [torch.empty_like(s) for s in shards]
-    key = (device, n, numel)
-    if key not in _WORKSPACES:
-        _WORKSPACES[key] = _Workspace(lib, device, n, numel)
-    ws = _WORKSPACES[key]
+    if shards[0].numel() == 0:
+        return outputs
+    LAST_GRID.update(launch(lib, shards, outputs))
+    LAUNCHES["ring_all_reduce"] += 1
+    return outputs
+
+
+def launch(lib: ctypes.CDLL, shards: Sequence[torch.Tensor], outputs: Sequence[torch.Tensor]) -> dict[str, int]:
+    """One launch of ``lib``'s kernel over every element of the CUDA
+    ``shards`` into ``outputs`` (checked by the caller), on the current
+    stream; returns the grid. Counts nothing: :func:`ring_all_reduce_shard`
+    counts its launches."""
+    n = len(shards)
     inputs = (ctypes.c_void_p * n)(*(s.data_ptr() for s in shards))
     outs = (ctypes.c_void_p * n)(*(o.data_ptr() for o in outputs))
-    channels = ctypes.c_int(0)
+    blocks, vectors = ctypes.c_int(0), ctypes.c_longlong(0)
+    device = shards[0].device
     with torch.cuda.device(device):
         err = lib.ring_all_reduce_launch(
-            inputs, outs, ws.slots.data_ptr(), ws.stride, ws.counters.data_ptr(), n, numel,
-            torch.cuda.current_stream(device).cuda_stream, ctypes.byref(channels),
+            inputs, outs, n, DTYPES[shards[0].dtype], 0, shards[0].numel(),
+            torch.cuda.current_stream(device).cuda_stream, ctypes.byref(blocks), ctypes.byref(vectors),
         )  # fmt: skip
     if err != 0:
         raise RuntimeError(f"ring_all_reduce kernel launch failed: {lib.ring_all_reduce_error_string(err).decode()}")
-    LAUNCHES["ring_all_reduce"] += 1
-    LAST_CHANNELS["ring_all_reduce"] = channels.value
-    return outputs
+    return {"blocks": blocks.value, "vectors_per_thread": vectors.value}
 
 
 def ring_all_reduce(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -139,18 +139,18 @@ def psum_reference(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return total.repeat(n, *[1] * (x.dim() - 1))
 
 
-def _load() -> ctypes.CDLL:
-    lib = _build.load("ring_all_reduce")
+def _load(library: str = "ring_all_reduce") -> ctypes.CDLL:
+    """The built ``library`` (``ops/_build.py``) with its argument types set."""
+    lib = _build.load(library)
     if not getattr(lib, "_argtypes_set", False):
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.ring_all_reduce_error_string.argtypes = [i32]
         lib.ring_all_reduce_error_string.restype = ctypes.c_char_p
         lib.ring_all_reduce_max_ranks.argtypes = []
         lib.ring_all_reduce_max_ranks.restype = i32
-        lib.ring_all_reduce_counter_bytes.argtypes = [i32]
-        lib.ring_all_reduce_counter_bytes.restype = i64
         ptrs = ctypes.POINTER(ctypes.c_void_p)
-        lib.ring_all_reduce_launch.argtypes = [ptrs, ptrs, ptr, i64, ptr, i32, i64, ptr, ctypes.POINTER(i32)]
+        lib.ring_all_reduce_launch.argtypes = [ptrs, ptrs, i32, i32, i64, i64, ptr, ctypes.POINTER(i32),
+                                               ctypes.POINTER(i64)]  # fmt: skip
         lib.ring_all_reduce_launch.restype = i32
         lib._argtypes_set = True
     return lib

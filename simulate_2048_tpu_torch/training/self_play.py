@@ -91,14 +91,25 @@ def search_config_from(config: TrainConfig, eval_mode: bool = False) -> SearchCo
     )
 
 
-def _use_kernel(config: TrainConfig, device: torch.device) -> bool:
-    """The JAX package's backend dispatch, read for the port: "pallas" takes
-    the kernel wrapper (the kernel on CUDA, its plain version on the CPU),
-    "auto" the kernel on CUDA only. Both searches raise for the variants
-    that are not ported yet (``search.mcts.check_supported``)."""
+def _use_kernel(config: TrainConfig, cfg: SearchConfig, device: torch.device) -> bool:
+    """The JAX package's backend dispatch (its ``training/self_play.py:150-171``),
+    read for the port: the kernel's scope is PUCT root selection, argmax
+    chance selection and no progressive widening (``pallas_search._in_scope``),
+    judged on the search config ``cfg`` (evaluation searches use the PUCT
+    root). "pallas" takes the kernel wrapper (the kernel on CUDA, its plain
+    version on the CPU) and raises outside the scope; "auto" takes the kernel
+    on CUDA inside the scope and the plain search otherwise."""
     if config.search_backend == "xla":
         return False
-    return config.search_backend == "pallas" or device.type == "cuda"
+    in_scope = cfg.root_selection == "puct" and cfg.chance_selection == "argmax" and cfg.pw_c is None
+    if config.search_backend == "pallas":
+        if not in_scope:
+            raise ValueError(
+                "search_backend='pallas' but the config is outside the kernel's scope (needs PUCT root selection, "
+                "argmax chance selection and pw_c=None)"
+            )
+        return True
+    return in_scope and device.type == "cuda"
 
 
 SearchFn = Callable[[torch.Tensor, torch.Tensor, "torch.Tensor | None"], PolicyOutput]
@@ -109,7 +120,7 @@ def _make_search(network, config: TrainConfig, cfg: SearchConfig, device: torch.
     the whole-search kernel with the weights packed here, once, in the
     layout :func:`search_kernel.search_plan` picks (resident or streamed,
     in ``config.search_weight_dtype``), or the plain search."""
-    if not _use_kernel(config, device):
+    if not _use_kernel(config, cfg, device):
         return lambda obs, invalid, noise=None: batched_run_mcts(network, obs, cfg, invalid, noise)
     weight_dtype = torch.bfloat16 if config.search_weight_dtype == "bfloat16" else torch.float32
     chunk = search_kernel.search_plan(cfg, config.hidden_size, weight_dtype)

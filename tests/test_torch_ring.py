@@ -48,6 +48,16 @@ def test_plain_ring_equals_jax_ring_bit_for_bit(jax_mesh, mesh, seed):
                                              x[16:24]) + x[8:16]))  # fmt: skip
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_plain_ring_equals_jax_ring_bit_for_bit_in_half_types(jax_mesh, mesh, dtype):
+    # JAX's ring works in the shard's dtype, rounding after every add; so do the port's plain version and kernel.
+    x = random_shards(3)
+    want = jring.ring_all_reduce(jax.numpy.asarray(x, dtype=getattr(jax.numpy, dtype)), jax_mesh, interpret=True)
+    got = ring.ring_all_reduce(torch.from_numpy(x).to(getattr(torch, dtype)), mesh)
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jax.numpy.float32)))
+
+
 def test_ring_matches_psum(jax_mesh, mesh):
     x = random_shards(2)
     got = ring.ring_all_reduce(torch.from_numpy(x), mesh)
@@ -78,6 +88,16 @@ def test_shard_wrapper_on_cpu_is_the_rotation_order(ranks):
             want = want + shards[(i - 1 - step) % ranks]
         assert torch.equal(out, want)
     assert ring.LAUNCHES["ring_all_reduce"] == launches, "the plain version counts no launch"
+
+
+def test_shard_wrapper_on_cpu_takes_any_dtype():
+    # Only the CUDA kernel is limited to float32, bfloat16 and float16; the CPU path sums float64 in rotation order.
+    rs = np.random.RandomState(4)
+    shards = [torch.from_numpy(rs.standard_normal(257)) for _ in range(3)]
+    got = ring.ring_all_reduce_shard(shards)
+    for i, out in enumerate(got):
+        assert out.dtype == torch.float64
+        assert torch.equal(out, (shards[i] + shards[(i - 1) % 3]) + shards[(i - 2) % 3])
 
 
 def test_one_rank_returns_its_input():
