@@ -42,9 +42,9 @@ code != 0, no final ``ok`` line) if any phase fails:
    operations a rollout's definition forces (beside it, what the rollout
    kernel's source spends, as its share of the INT32 instruction rate), and the
    bytes an all-reduce must move (which the one-pass kernel moves and no
-   more; float32 at N = 2, 4, 8 and bf16 at N = 4, device time over 20
-   launches enqueued behind a sleep), with the PyTorch call that computes
-   the same sum, the share of the bound and the achieved TB/s;
+   more; float32 at N = 2, 4, 8 and bf16 at N = 4, the kernel and the
+   PyTorch call that computes the same sum timed over 20 calls enqueued
+   behind a sleep), with the share of the bound and the achieved TB/s;
 5. checks greedy evaluation, a greedy self-play segment with categorical
    heads and a search-mode reanalyze of that segment on a small config on
    the card: the kernel backend against the plain search backend, game for
@@ -92,10 +92,7 @@ code != 0, no final ``ok`` line) if any phase fails:
 launched and the device's idle share over a few evaluation moves, self-play
 moves and learner steps, one reanalyze pass and one ``bench`` repetition at
 full width, and the whole-search kernel's rate at 256 to 2,048 searches a launch.
-``--ring-variants`` runs no other phase: it builds the ring kernel with each
-alternative of its build-time choices (vectors per loop iteration, load and
-store hints, the bf16/fp16 add), checks each bit for bit and times them in
-turns at the gradient length. Exits non-zero when CUDA is unavailable.
+Exits non-zero when CUDA is unavailable.
 """
 
 from __future__ import annotations
@@ -201,20 +198,9 @@ RING_RANKS = (2, 4, 8)
 RING_ODD_LENGTH = 1_000_003
 RING_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 RING_CALLS = 20  # launches per CUDA-event timing of the ring (a launch takes ~0.1 ms, its host work about as much)
+SLEEP_CYCLES = 1 << 25  # the device's sleep (~17 ms) behind which RING_CALLS calls are enqueued
 # ptxas's mangling of the ring kernel's element types.
 RING_PTXAS_TYPES = {"f": "float32", "13__nv_bfloat16": "bfloat16", "6__half": "float16"}
-# --ring-variants: the build-time choices of csrc/ring_all_reduce.cu, every combination of vectors per iteration,
-# load hint and store hint, and the other bf16/fp16 add.
-RING_VARIANTS = {
-    f"{vecs} vector{'s' * (vecs > 1)}, {load} loads, {store} stores, {add} adds": (
-        f"-DRING_VECS={vecs}", f"-DRING_LOAD={load_code}", f"-DRING_STORE={store_code}", f"-DRING_HALF_ADD={add_code}",
-    )
-    for vecs in (1, 2)
-    for load_code, load in enumerate(("plain", "__ldcs", "nc.L1::no_allocate"))
-    for store_code, store in enumerate(("plain", "__stcs"))
-    for add_code, add in enumerate(("float", "packed"))
-    if add_code == 1 or (vecs, load_code, store_code) == (1, 0, 0)
-}  # fmt: skip
 HBM_TBPS = {"H100 SXM": 3.35, "H100 NVL": 3.9, "H100 PCIe": 2.0, "H200": 4.8}
 
 
@@ -243,40 +229,27 @@ def timed_once(fn):
 def cuda_ms(fn, reps: int, warmup: int = 1, calls: int = 1) -> float:
     """Median of ``reps`` CUDA-event timings of ``fn()`` after ``warmup`` calls.
     With ``calls`` > 1 each timing spans that many calls in a row, enqueued
-    while the stream is held busy (``torch.cuda._sleep``), so that it is the
-    device's time alone: for a kernel of ~0.1 ms the host's launch overhead is
-    as long as the kernel."""
+    while the stream is held busy by a sleep of SLEEP_CYCLES clocks, so that
+    it is the device's time alone: for a kernel of ~0.1 ms the host's launch
+    overhead is as long as the kernel. Only for functions of a few launches:
+    a stream takes only so many ahead of the device."""
     for _ in range(warmup):
         fn()
     if calls == 1:
         return statistics.median(timed_once(fn)[1] for _ in range(reps))
-    return statistics.median(queued_ms(fn, calls) for _ in range(reps))
-
-
-def queued_ms(fn, calls: int, cycles: int = 1 << 24) -> float:
-    """Device ms per call of ``calls`` calls of ``fn()``, all enqueued behind
-    a sleep of ``cycles`` clocks. Until the device is still in the sleep when
-    the host has enqueued the last call, the sleep doubles up to 2^27 clocks
-    (~70 ms), then the calls halve: a stream takes only so many launches
-    ahead of the device before the host blocks (the plain version launches
-    N^2 kernels a call)."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    while True:
-        torch.cuda._sleep(cycles)
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         for _ in range(calls):
             fn()
         end.record()
-        queued = not start.query()
+        if start.query():
+            print(f"note: the device finished its sleep before {calls} calls were enqueued; the time holds host gaps")
         torch.cuda.synchronize()
-        if queued:
-            return start.elapsed_time(end) / calls
-        if cycles < 1 << 27:
-            cycles *= 2
-        elif calls > 1:
-            calls //= 2
-        else:
-            fail("queued_ms: the host could not enqueue one call within a sleep of 2^27 clocks")
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
 
 
 def full_width_inputs(
@@ -946,13 +919,11 @@ def gradient_length(config) -> int:
     return sum(p.numel() for p in network_from_config(config, torch.Generator().manual_seed(SEED), "cpu").parameters())
 
 
-def check_ring_ptxas(log: str | None) -> None:
+def check_ring_ptxas(log: str) -> None:
     """ptxas's report on every instantiation of the ring kernel (element type
-    x N): fails on a stack frame or a spill, prints the registers per thread
+    x N), kept with its build: fails on a stack frame or a spill, or when an
+    instantiation is missing from the report; prints the registers per thread
     by dtype and N."""
-    if log is None:
-        print("ring_all_reduce: no ptxas report (the library was built before this run)")
-        return
     registers: dict[str, dict[int, int]] = {}
     for chunk in log.split("Compiling entry function '")[1:]:
         found = re.search(r"all_reduce_kernelI(f|13__nv_bfloat16|6__half)Li(\d+)E", chunk.split("'", 1)[0])
@@ -999,10 +970,11 @@ def check_ring_all_reduce(device) -> dict:
     and at an odd length, each launched twice; at the odd length also on
     unaligned views (the kernel's scalar loop). float32 is also held within
     rtol 1e-5 / atol 1e-5 of PyTorch's own sum, and float64 CUDA shards must
-    raise. Then times (CUDA events over RING_CALLS launches, median of 5)
-    float32 at the gradient length for each N and bfloat16 at N = 4: kernel,
-    plain version and the one PyTorch call (the (N, m) stack summed over N and
-    written to N outputs), beside the bound. Returns the entry of the
+    raise. Then times (CUDA events, median of 5) float32 at the gradient
+    length for each N and bfloat16 at N = 4: the kernel and the one PyTorch
+    call (the (N, m) stack summed over N and written to N outputs), each over
+    RING_CALLS calls enqueued behind a sleep, and the plain version (N^2
+    launches a call) one call at a time, beside the bound. Returns the entry of the
     data-parallel path's shape, N = DP_REPLICAS in float32."""
     grad_length = gradient_length(training_config())
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -1040,7 +1012,7 @@ def check_ring_all_reduce(device) -> dict:
             shards = ring_shards(n, grad_length, dtype, gen, device)["aligned"]
             stacked = torch.stack(shards)
             ms = cuda_ms(lambda: ring.ring_all_reduce_shard(shards), reps=5, calls=RING_CALLS)
-            plain_ms = cuda_ms(lambda: ring.ring_all_reduce_reference(shards), reps=5, calls=RING_CALLS)
+            plain_ms = cuda_ms(lambda: ring.ring_all_reduce_reference(shards), reps=5)
             library_ms = cuda_ms(
                 lambda: stacked.sum(0).expand(n, grad_length).contiguous(), reps=5, calls=RING_CALLS
             )
@@ -1067,54 +1039,6 @@ def check_ring_all_reduce(device) -> dict:
                     "library_ms": library_ms,
                 }
     return entry
-
-
-def ring_variants(device) -> None:
-    """``--ring-variants``: the ring kernel built with each alternative of its
-    build-time choices (csrc/ring_all_reduce.cu: vectors per iteration, load
-    and store hints, the bf16/fp16 add), each checked bit for bit against the
-    plain version and timed in turns (CUDA events over RING_CALLS launches,
-    median of 7 rounds) at the gradient length: float32 at N = 2, 4, 8,
-    bfloat16 and float16 at N = 4."""
-    names = {}
-    for label, defines in RING_VARIANTS.items():
-        name = "ring_all_reduce_" + "_".join(d[len("-DRING_") :].lower().replace("=", "") for d in defines)
-        _build.LIBRARIES[name] = ("ring_all_reduce", defines)
-        names[label] = name
-    t0 = time.perf_counter()
-    _build.build_all(tuple(names.values()))
-    print(f"ring variants: {len(names)} libraries built in {time.perf_counter() - t0:.1f} s")
-    libs = {label: ring._load(name) for label, name in names.items()}
-    grad_length = gradient_length(training_config())
-    gen = torch.Generator(device=device).manual_seed(SEED)
-    card = sku(torch.cuda.get_device_name(0))
-    results = []
-    for n, dtype in ((2, torch.float32), (4, torch.float32), (8, torch.float32), (4, torch.bfloat16),
-                     (4, torch.float16)):  # fmt: skip
-        shards = ring_shards(n, grad_length, dtype, gen, device)["aligned"]
-        want = ring.ring_all_reduce_reference(shards)
-        outs = [torch.empty_like(s) for s in shards]
-        for label, lib in libs.items():
-            ring.launch(lib, shards, outs)
-            torch.cuda.synchronize()
-            if not all(torch.equal(a, b) for a, b in zip(outs, want)):
-                fail(f"ring variant {label}: {dtype} N={n} differs from the plain version")
-        stacked = torch.stack(shards)
-        fns = {label: (lambda lib=lib: ring.launch(lib, shards, outs)) for label, lib in libs.items()}
-        fns["torch (N, m).sum(0) to N outputs"] = lambda: stacked.sum(0).expand(n, grad_length).contiguous()
-        times = {label: [] for label in fns}
-        for rnd in range(7):
-            order = list(fns) if rnd % 2 == 0 else list(reversed(fns))
-            for label in order:
-                times[label].append(cuda_ms(fns[label], reps=1, calls=RING_CALLS))
-        bound_ms, _, nbytes = ring_bound(n, grad_length, dtype, card)
-        for label, ts in times.items():
-            ms = statistics.median(ts)
-            results.append({"n": n, "dtype": str(dtype)[6:], "variant": label, "ms": ms, "bound_ms": bound_ms})
-            print(f"ring variants: {str(dtype)[6:]} N={n}: {label}: {ms:.4f} ms (min {min(ts):.4f}, max "
-                  f"{max(ts):.4f}), {bound_ms / ms:.3f} of the {bound_ms:.4f} ms bound, "
-                  f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s")  # fmt: skip
-    print(json.dumps({"ring_variants": results}))
 
 
 def dp_config():
@@ -1331,8 +1255,6 @@ def profile_paths(device, moves: int = 5, steps: int = 3) -> None:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true", help="also profile a few moves and learner steps")
-    parser.add_argument("--ring-variants", action="store_true",
-                        help="only time the ring kernel's build-time alternatives (no other phase, no ok line)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test runs on a GPU")
@@ -1346,16 +1268,12 @@ def main() -> None:
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else f"nvidia-smi failed: {smi.stderr.strip()}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
-    if args.ring_variants:
-        ring_variants(device)
-        return
-
     t0 = time.perf_counter()
-    seconds = _build.build_all(verbose=True)
-    for name, log in _build.BUILD_LOGS.items():
-        if name != "ring_all_reduce" and log:
-            print(log)
-    check_ring_ptxas(_build.BUILD_LOGS.get("ring_all_reduce"))
+    seconds = _build.build_all()
+    for name in seconds:
+        if name != "ring_all_reduce":
+            print(_build.build_log(name))
+    check_ring_ptxas(_build.build_log("ring_all_reduce"))
     print(json.dumps({"kernels_built": list(seconds), "build_s": round(time.perf_counter() - t0, 3)}))
 
     kernels = {

@@ -26,12 +26,13 @@
 //     rotation indices are compile-time and v[] stays in registers.
 //   - add is __fadd_rn in float32. In bf16 and fp16 it is the float sum
 //     rounded to the type after every add, which is what the plain version
-//     and the TPU kernel's `o_ref[...] += comm[dst]` compute; RING_HALF_ADD
-//     picks how: a float add then __floats2bfloat162_rn / __floats2half2_rn,
-//     or the packed bf16x2 / f16x2 add. Both give the same bits: a float32
-//     sum of two values of p-bit significands, rounded to p bits, is the
-//     correctly rounded sum whenever 24 >= 2p + 2 (p = 8 for bf16, 11 for
-//     fp16), and the packed add is correctly rounded.
+//     and the TPU kernel's `o_ref[...] += comm[dst]` compute. The vector
+//     loop does it with the packed bf16x2 / f16x2 add, which gives the same
+//     bits: a float32 sum of two values of p-bit significands, rounded to p
+//     bits, is the correctly rounded sum whenever 24 >= 2p + 2 (p = 8 for
+//     bf16, 11 for fp16), and the packed add is correctly rounded.
+//   - The inputs are read once, so they are loaded with __ldcs (evict
+//     first); the sums take plain stores, since the caller reads them next.
 //   - The grid is one wave: SMs x the blocks an SM holds, capped by the
 //     vectors there are.
 //   - Views that are not 16-byte aligned, and the tail of fewer than one
@@ -42,13 +43,10 @@
 // elements, through peer pointers, between an entry and an exit barrier;
 // that is not built here (the wrapper takes the ranks of one card).
 //
-// Build-time choices, measured with `python3 chip_smoke.py --ring-variants`
-// (PERF.md): RING_VECS, the 16-byte vectors per rank a thread loads per loop
-// iteration; RING_LOAD, 0 plain loads, 1 __ldcs, 2 ld.global.nc.
-// L1::no_allocate (the inputs are read once); RING_STORE, 0 plain stores,
-// 1 __stcs (the caller reads the sums right after); RING_HALF_ADD as above.
-// They differ by under 2% on an H100 SXM; the defaults are the fastest or
-// tie with it: one vector, __ldcs loads, plain stores, packed adds.
+// Two vectors per rank per loop iteration, ld.global.nc.L1::no_allocate or
+// plain loads, __stcs stores and a float add rounded per add were measured
+// beside this design on an NVIDIA H100 80GB HBM3 at 700.00 W and were no
+// faster (PERF.md).
 //
 // Plain C interface at the bottom; loaded with ctypes (parallel/ring.py).
 
@@ -57,19 +55,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
-
-#ifndef RING_VECS
-#define RING_VECS 1
-#endif
-#ifndef RING_LOAD
-#define RING_LOAD 1
-#endif
-#ifndef RING_STORE
-#define RING_STORE 0
-#endif
-#ifndef RING_HALF_ADD
-#define RING_HALF_ADD 1
-#endif
 
 namespace {
 
@@ -120,49 +105,17 @@ __device__ __forceinline__ uint32_t add_word<float>(uint32_t a, uint32_t b) {
 
 template <>
 __device__ __forceinline__ uint32_t add_word<__nv_bfloat16>(uint32_t a, uint32_t b) {
-#if RING_HALF_ADD
   return word(__hadd2(as<__nv_bfloat162>(a), as<__nv_bfloat162>(b)));
-#else
-  const float2 x = __bfloat1622float2(as<__nv_bfloat162>(a)), y = __bfloat1622float2(as<__nv_bfloat162>(b));
-  return word(__floats2bfloat162_rn(__fadd_rn(x.x, y.x), __fadd_rn(x.y, y.y)));
-#endif
 }
 
 template <>
 __device__ __forceinline__ uint32_t add_word<__half>(uint32_t a, uint32_t b) {
-#if RING_HALF_ADD
   return word(__hadd2(as<__half2>(a), as<__half2>(b)));
-#else
-  const float2 x = __half22float2(as<__half2>(a)), y = __half22float2(as<__half2>(b));
-  return word(__floats2half2_rn(__fadd_rn(x.x, y.x), __fadd_rn(x.y, y.y)));
-#endif
 }
 
 template <typename T>
 __device__ __forceinline__ uint4 add16(uint4 a, uint4 b) {
   return make_uint4(add_word<T>(a.x, b.x), add_word<T>(a.y, b.y), add_word<T>(a.z, b.z), add_word<T>(a.w, b.w));
-}
-
-__device__ __forceinline__ uint4 load16(const uint4* p) {
-#if RING_LOAD == 1
-  return __ldcs(p);
-#elif RING_LOAD == 2
-  uint4 v;
-  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
-      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-      : "l"(p));
-  return v;
-#else
-  return *p;
-#endif
-}
-
-__device__ __forceinline__ void store16(uint4* p, uint4 v) {
-#if RING_STORE == 1
-  __stcs(p, v);
-#else
-  *p = v;
-#endif
 }
 
 // Every rank's sum over [lo, hi), in its rotation order. With `vec` the
@@ -176,30 +129,18 @@ __global__ void __launch_bounds__(kThreads, 1) all_reduce_kernel(Ptrs p, long lo
   long long tail = lo;
   if (vec) {
     const long long nvec = (hi - lo) / kPer;
-    for (long long k = thread; k < nvec; k += RING_VECS * threads) {
-      uint4 v[RING_VECS][N];
+    for (long long k = thread; k < nvec; k += threads) {
+      uint4 v[N];
 #pragma unroll
-      for (int u = 0; u < RING_VECS; ++u) {
-        const long long j = k + u * threads;
-        if (j < nvec) {
-#pragma unroll
-          for (int r = 0; r < N; ++r) {
-            v[u][r] = load16(reinterpret_cast<const uint4*>(static_cast<const T*>(p.in[r]) + lo) + j);
-          }
-        }
+      for (int r = 0; r < N; ++r) {
+        v[r] = __ldcs(reinterpret_cast<const uint4*>(static_cast<const T*>(p.in[r]) + lo) + k);
       }
 #pragma unroll
-      for (int u = 0; u < RING_VECS; ++u) {
-        const long long j = k + u * threads;
-        if (j < nvec) {
+      for (int i = 0; i < N; ++i) {
+        uint4 acc = v[i];
 #pragma unroll
-          for (int i = 0; i < N; ++i) {
-            uint4 acc = v[u][i];
-#pragma unroll
-            for (int s = 0; s < N - 1; ++s) acc = add16<T>(acc, v[u][(i + 2 * N - 1 - s) % N]);
-            store16(reinterpret_cast<uint4*>(static_cast<T*>(p.out[i]) + lo) + j, acc);
-          }
-        }
+        for (int s = 0; s < N - 1; ++s) acc = add16<T>(acc, v[(i + 2 * N - 1 - s) % N]);
+        reinterpret_cast<uint4*>(static_cast<T*>(p.out[i]) + lo)[k] = acc;
       }
     }
     tail = lo + nvec * kPer;
@@ -235,7 +176,7 @@ cudaError_t launch(const Ptrs& p, long long lo, long long hi, cudaStream_t strea
   if (err != cudaSuccess) return err;
   // Work items: whole vectors on the vector path (the tail's few scalars ride along), scalars otherwise.
   const long long items = vec ? (hi - lo) / kPer : hi - lo;
-  const long long wanted = (items + static_cast<long long>(kThreads) * RING_VECS - 1) / (kThreads * RING_VECS);
+  const long long wanted = (items + kThreads - 1) / kThreads;
   long long blocks = static_cast<long long>(sms) * per_sm;
   blocks = blocks < wanted ? blocks : wanted;
   blocks = blocks > 1 ? blocks : 1;

@@ -4,7 +4,9 @@ Each library is a ``csrc/<source>.cu`` with a plain C interface, compiled
 with its own defines at first use into ``build/kernels/<name>-<hash>.so`` at
 the root of the checkout (a directory ``.gitignore`` lists), for ``sm_90a``
 (Hopper). The hash covers the source and the flags, so an edited source is
-rebuilt and an unchanged one is loaded from the cache. The whole-search
+rebuilt and an unchanged one is loaded from the cache. Every build keeps
+ptxas's report (registers, stack frame and spills per kernel) beside its
+library, in ``<name>-<hash>.log``. The whole-search
 source builds one library per weight variant, so that its four kernels
 compile in parallel. Nothing here runs when the module is imported.
 """
@@ -31,9 +33,9 @@ LIBRARIES = {
     "random_rollout": ("random_rollout", ()),
     "ring_all_reduce": ("ring_all_reduce", ()),
 }
-# Library name -> the compiler's output of its build in this process (absent when the library was cached).
-BUILD_LOGS: dict[str, str] = {}
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)  # fmt: skip
 
 
 def _nvcc() -> str:
@@ -51,27 +53,31 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
-def _start(name: str, verbose: bool) -> tuple[subprocess.Popen, Path, Path] | None:
+def build_log(name: str) -> str:
+    """The compiler's output of the build of library ``name`` (built first if
+    needed), ptxas's report included."""
+    build_all((name,))
+    return library_path(name).with_suffix(".log").read_text()
+
+
+def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
     out = library_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     source, defines = LIBRARIES[name]
-    verbose_flags = ["-Xptxas", "-v"] if verbose else []
-    cmd = [_nvcc(), *NVCC_FLAGS, *defines, *verbose_flags, "-o", str(tmp), str(CSRC / f"{source}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp), str(CSRC / f"{source}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 
 
-def build_all(names: tuple[str, ...] = tuple(LIBRARIES), verbose: bool = False) -> dict[str, float]:
+def build_all(names: tuple[str, ...] = tuple(LIBRARIES)) -> dict[str, float]:
     """Compile every named library that is not built yet, one ``nvcc`` per
     library, all started together. Returns seconds per library (0 when cached);
-    raises with the compiler's output if a build fails. The compiler's output
-    is kept in ``BUILD_LOGS``; with ``verbose`` it holds ptxas's register,
-    stack and spill report."""
+    raises with the compiler's output if a build fails."""
     t0 = time.perf_counter()
-    jobs = {name: _start(name, verbose) for name in names}
+    jobs = {name: _start(name) for name in names}
     seconds = {}
     for name, job in jobs.items():
         if job is None:
@@ -81,7 +87,7 @@ def build_all(names: tuple[str, ...] = tuple(LIBRARIES), verbose: bool = False) 
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
-        BUILD_LOGS[name] = log
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
         seconds[name] = time.perf_counter() - t0
     return seconds

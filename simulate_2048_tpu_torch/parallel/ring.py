@@ -97,29 +97,19 @@ def ring_all_reduce_shard(shards: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     outputs = [torch.empty_like(s) for s in shards]
     if shards[0].numel() == 0:
         return outputs
-    LAST_GRID.update(launch(lib, shards, outputs))
-    LAUNCHES["ring_all_reduce"] += 1
-    return outputs
-
-
-def launch(lib: ctypes.CDLL, shards: Sequence[torch.Tensor], outputs: Sequence[torch.Tensor]) -> dict[str, int]:
-    """One launch of ``lib``'s kernel over every element of the CUDA
-    ``shards`` into ``outputs`` (checked by the caller), on the current
-    stream; returns the grid. Counts nothing: :func:`ring_all_reduce_shard`
-    counts its launches."""
-    n = len(shards)
     inputs = (ctypes.c_void_p * n)(*(s.data_ptr() for s in shards))
     outs = (ctypes.c_void_p * n)(*(o.data_ptr() for o in outputs))
     blocks, vectors = ctypes.c_int(0), ctypes.c_longlong(0)
-    device = shards[0].device
     with torch.cuda.device(device):
         err = lib.ring_all_reduce_launch(
-            inputs, outs, n, DTYPES[shards[0].dtype], 0, shards[0].numel(),
+            inputs, outs, n, DTYPES[dtype], 0, shards[0].numel(),
             torch.cuda.current_stream(device).cuda_stream, ctypes.byref(blocks), ctypes.byref(vectors),
         )  # fmt: skip
     if err != 0:
         raise RuntimeError(f"ring_all_reduce kernel launch failed: {lib.ring_all_reduce_error_string(err).decode()}")
-    return {"blocks": blocks.value, "vectors_per_thread": vectors.value}
+    LAST_GRID.update(blocks=blocks.value, vectors_per_thread=vectors.value)
+    LAUNCHES["ring_all_reduce"] += 1
+    return outputs
 
 
 def ring_all_reduce(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -139,9 +129,8 @@ def psum_reference(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return total.repeat(n, *[1] * (x.dim() - 1))
 
 
-def _load(library: str = "ring_all_reduce") -> ctypes.CDLL:
-    """The built ``library`` (``ops/_build.py``) with its argument types set."""
-    lib = _build.load(library)
+def _load() -> ctypes.CDLL:
+    lib = _build.load("ring_all_reduce")
     if not getattr(lib, "_argtypes_set", False):
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.ring_all_reduce_error_string.argtypes = [i32]
