@@ -188,7 +188,6 @@ INT32_LANES_PER_SM = 64  # Hopper: 4 partitions of 16 INT32 lanes
 # FP32 (non-tensor-core) and dense bf16 tensor-core peaks by SKU, NVIDIA data sheets (at the full power limit).
 FP32_TFLOPS = {"H100 SXM": 67.0, "H100 NVL": 60.0, "H100 PCIe": 51.0, "H200": 67.0}
 BF16_TFLOPS = {"H100 SXM": 989.0, "H100 NVL": 835.0, "H100 PCIe": 756.0, "H200": 989.0}
-SEARCHES_PER_BLOCK = 2  # G in csrc/whole_search.cu
 # Data-parallel path: a virtual mesh of DP_REPLICAS replicas on one card, one self-play segment, then one fused
 # superstep of DP_SUPERSTEP steps and one per-step step.
 DP_REPLICAS = 4
@@ -411,12 +410,27 @@ def check_whole_search(
         f"B={timed} S={s} H={h} NB={nb} value_bins={value_bins} reward_bins={reward_bins} "
         f"weights {str(weight_dtype).removeprefix('torch.')} {layout}"
     )
-    blocks = -(-timed // SEARCHES_PER_BLOCK)
-    reread = blocks * s * weight_bytes
+    library = f"whole_search{'_bf16' * bf16}{'_streamed' * bool(stream_chunk)}"
+    shape = sk.launch_shape(library, timed, h, max(cfg.num_actions, cfg.codebook_size), value_bins, reward_bins)
+    if shape.searches_per_block != sk.SEARCHES_PER_BLOCK or shape.blocks != sk.kernel_blocks(timed, shape.cluster):
+        fail(f"{name}: the library's launch shape {shape} disagrees with search_kernel's G and kernel_blocks")
+    if library == "whole_search" and shape.cluster != sk.CLUSTER_BLOCKS:
+        fail(f"{name}: the library's cluster of {shape.cluster} is not search_kernel.CLUSTER_BLOCKS")
+    tile_kb = 2 * shape.tile_rows * h * packed.hh.element_size() / 1024
     print(
-        f"{name}: the kernel re-reads the pack once per block and simulation: {blocks} blocks "
-        f"(G={SEARCHES_PER_BLOCK}) x {s} x {weight_bytes / 1e6:.1f} MB = {reread / 1e9:.1f} GB a call, "
-        f"{reread / (HBM_TBPS[card] * 1e9):.1f} ms at the HBM rate if none of it came from the 50 MB L2"
+        f"{name}: {timed} searches a launch: {shape.blocks} blocks of {2 * h} threads (G={shape.searches_per_block}) "
+        f"in clusters of C={shape.cluster}; {shape.stages} weight stages of T={shape.tile_rows} rows of each input "
+        f"half ({tile_kb:.0f} KB); {shape.smem_bytes} B of shared memory a block; "
+        f"{shape.resident} clusters resident at once (cudaOccupancyMaxActiveClusters; blocks when C=1): "
+        f"{-(-(shape.blocks // shape.cluster) // shape.resident)} wave(s)"
+    )
+    hh_bytes = len(sk.call_order(nb)) * h * h * packed.hh.element_size()  # a streamed pack's padding is never read
+    other_bytes = weight_bytes - packed.hh.numel() * packed.hh.element_size()
+    l2 = shape.blocks // shape.cluster * s * hh_bytes + shape.blocks * s * other_bytes
+    print(
+        f"{name}: L2 bytes a call: the hh layers once per cluster and simulation, {shape.blocks} blocks / "
+        f"C={shape.cluster} x {s} x {hh_bytes / 1e6:.2f} MB, and heads and vectors once per block and simulation, "
+        f"{shape.blocks} x {s} x {other_bytes / 1e6:.3f} MB: {l2 / 1e9:.1f} GB a call"
     )
     replaces = "249" if value_bins == reward_bins == 1 else "414"
     replaces = "350" if stream_chunk else ("337" if bf16 else replaces)
@@ -919,6 +933,16 @@ def gradient_length(config) -> int:
     return sum(p.numel() for p in network_from_config(config, torch.Generator().manual_seed(SEED), "cpu").parameters())
 
 
+def whole_search_ptxas(library: str, log: str) -> str:
+    """ptxas's registers, stack frame and spills of ``library``'s whole-search kernel, from its build's report."""
+    chunk = log.split("Compiling entry function '")[-1]
+    frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
+    used = re.search(r"Used (\d+) registers", chunk)
+    if "whole_search_kernel" not in chunk or frame is None or used is None:
+        fail(f"{library}: no ptxas report of the whole-search kernel's frame or registers")
+    return f"{library} ptxas: {used[1]} registers a thread, {frame[0]}"
+
+
 def check_ring_ptxas(log: str) -> None:
     """ptxas's report on every instantiation of the ring kernel (element type
     x N), kept with its build: fails on a stack frame or a spill, or when an
@@ -1273,6 +1297,8 @@ def main() -> None:
     for name in seconds:
         if name != "ring_all_reduce":
             print(_build.build_log(name))
+        if name.startswith("whole_search"):
+            print(whole_search_ptxas(name, _build.build_log(name)))
     check_ring_ptxas(_build.build_log("ring_all_reduce"))
     print(json.dumps({"kernels_built": list(seconds), "build_s": round(time.perf_counter() - t0, 3)}))
 

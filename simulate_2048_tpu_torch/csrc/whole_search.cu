@@ -96,6 +96,36 @@ constexpr int kSearchesPerBlock = 2;  // G
 using Weight = std::conditional_t<WHOLE_SEARCH_BF16, __nv_bfloat16, float>;
 constexpr bool kStreamed = WHOLE_SEARCH_STREAMED;
 constexpr int kTileBytes = 64 * 1024;  // one streamed tile: T rows of both input halves
+// The float32 resident library feeds its dense layers through a ring of
+// weight tiles in shared memory (Ring below); the other three keep their feeds.
+constexpr bool kRing = !WHOLE_SEARCH_BF16 && !WHOLE_SEARCH_STREAMED;
+#ifndef WHOLE_SEARCH_CLUSTER
+#define WHOLE_SEARCH_CLUSTER 1
+#endif
+#ifndef WHOLE_SEARCH_STAGES
+#define WHOLE_SEARCH_STAGES 3
+#endif
+constexpr int kCluster = WHOLE_SEARCH_CLUSTER;  // C: blocks that one multicast copy of a tile feeds
+constexpr int kStages = WHOLE_SEARCH_STAGES;    // tiles of the ring, each at most kRingStageBytes
+constexpr int kRingStageBytes = 192 * 1024 / kStages;
+constexpr int kBarrierFloats = 32;              // 2 kStages mbarriers of 8 bytes after the stages
+static_assert(2 * kStages * 8 <= kBarrierFloats * 4, "the ring's barriers fit their slot");
+constexpr unsigned kMaxSpins = 1u << 24;        // a wait that spins longer traps: the pipeline stalled
+#ifndef WHOLE_SEARCH_PROFILE
+#define WHOLE_SEARCH_PROFILE 0
+#endif
+#if WHOLE_SEARCH_PROFILE
+__device__ unsigned long long g_prof[12];
+__shared__ unsigned long long s_prof[12];
+#define PROF_START(v) long long v = clock64()
+#define PROF_ADD(k, v)                                   \
+  do {                                                   \
+    if (threadIdx.x == 0) s_prof[k] += clock64() - (v);  \
+  } while (0)
+#else
+#define PROF_START(v)
+#define PROF_ADD(k, v)
+#endif
 
 struct Args {
   const float* root_h;  // (B, H)
@@ -248,6 +278,173 @@ struct Stream {
   __device__ void wait() const { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
 };
 
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Waits for the phase of parity `parity` of the mbarrier at `bar` to
+// complete; traps after kMaxSpins failed tries, so
+// that a stalled pipeline ends the launch with an error instead of hanging.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  for (unsigned spin = 0;; ++spin) {
+    unsigned done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spin == kMaxSpins) __trap();
+  }
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The threads that compute, 2H: the whole block, but for the ring's producer warp.
+__device__ __forceinline__ int compute_threads() { return kRing ? (int)blockDim.x - 32 : (int)blockDim.x; }
+
+// __syncthreads over the threads that compute (named barrier 1 beside the
+// ring's producer warp, which never waits with them).
+__device__ __forceinline__ void block_sync() {
+  if constexpr (kRing) {
+    asm volatile("bar.sync 1, %0;\n" ::"r"(compute_threads()) : "memory");
+  } else {
+    __syncthreads();
+  }
+}
+
+// The float32 resident kernel's ring of weight tiles. Tile q of the launch
+// (q < S x n_real x tpl: every simulation's expansion, its layers in call
+// order) holds rows [t T, t T + T) and [H/2 + t T, H/2 + t T + T) of
+// call-order layer (q / tpl) % n_real (t = q % tpl), pack layer
+// (that + rot) % n_real, in stage q % kStages: two 1-D bulk copies
+// (cp.async.bulk) land it and complete their bytes on the stage's full
+// mbarrier. A producer warp beside the 2H threads that compute does nothing
+// else (CUTLASS's PipelineTmaAsync, without its classes): in cluster rank 0
+// its lane 0 waits until every computing warp of the cluster has released
+// stage s, arms its block's full barrier for the stage's next tile and
+// issues the copies, multicast into all kCluster blocks; in the other ranks
+// it only arms its block's full barrier for a stage's next tile once the
+// last one has landed there. A computing warp waits on the full barrier of
+// tile q, reads it, and releases the stage with one arrive (lane 0) on rank
+// 0's empty barrier, which counts every computing warp of the cluster. The
+// phases come from q alone: stage q % kStages fills for the
+// (q / kStages)-th time. Every thread keeps its own copy of the cursor.
+struct Ring {
+  float* buf;          // kStages stages of (2, T, H): [half][row][out]
+  unsigned bars;       // shared address of full[0]; full[s] at + 8 s, empty[s] at + 8 (kStages + s)
+  unsigned empty_r0;   // rank 0's empty[0] in the cluster's shared window
+  int H, T, tpl;       // tpl: tiles per layer, H / 2 / T
+  int n_real;          // layers of one expansion
+  int rot;             // pack layer of call-order layer j: (j + rot) % n_real
+  int total;           // tiles of the launch
+  int q;               // the next tile to compute
+  unsigned rank;       // this block's rank in its cluster
+
+  __device__ unsigned full(int s) const { return bars + 8 * s; }
+  __device__ unsigned empty(int s) const { return bars + 8 * (kStages + s); }
+  __device__ unsigned tile_bytes() const { return (unsigned)(2 * T * H) * sizeof(float); }
+
+  // Sets up the cursor and initialises the barriers. Every thread of the
+  // block, the producer warp's too, calls it.
+  __device__ void start(const Args& a, float* smem, int tower_hh) {
+    H = a.H;
+    T = a.tile_rows;
+    tpl = H / 2 / T;
+    n_real = 4 * tower_hh + 4;
+    rot = tower_hh;
+    total = a.S * n_real * tpl;
+    q = 0;
+    buf = smem;
+    bars = smem_addr(smem + (size_t)kStages * 2 * T * H);
+    asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+    empty_r0 = empty(0);
+    if constexpr (kCluster > 1) {
+      asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(empty_r0) : "r"(empty(0)), "r"(0));
+    }
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < kStages; ++s) {
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(full(s)) : "memory");
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(empty(s)), "r"(compute_threads() / 32 * kCluster)
+                     : "memory");
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    // Every block's barriers are initialised before any arrive or copy reaches them.
+    if constexpr (kCluster > 1) cluster_sync();
+    else __syncthreads();
+  }
+
+  // This block's full barrier of stage s expects one tile's bytes.
+  __device__ void arm(int s) const {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(full(s)), "r"(tile_bytes())
+                 : "memory");
+  }
+
+  // Rank 0: tile r into stage r % kStages of every block of the cluster.
+  __device__ void issue(const Args& a, int r) const {
+    const int j = (r / tpl) % n_real, t = r % tpl;
+    const int layer = j + rot < n_real ? j + rot : j + rot - n_real;
+    const float* src = static_cast<const float*>(a.hh) + ((size_t)layer * H + (size_t)t * T) * H;
+    const int s = r % kStages;
+    const unsigned dst = smem_addr(buf + (size_t)s * 2 * T * H);
+    const unsigned bytes = tile_bytes() / 2;  // one input half
+    for (int half = 0; half < 2; ++half) {
+      const float* from = src + (size_t)half * (H / 2) * H;
+      if constexpr (kCluster > 1) {
+        const unsigned short mask = (1u << kCluster) - 1;
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
+            " [%0], [%1], %2, [%3], %4;\n" ::"r"(dst + half * bytes),
+            "l"(from), "r"(bytes), "r"(full(s)), "h"(mask)
+            : "memory");
+      } else {
+        asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                         dst + half * bytes),
+                     "l"(from), "r"(bytes), "r"(full(s))
+                     : "memory");
+      }
+    }
+  }
+
+  // The producer warp's lane 0: every tile of the launch, in order.
+  __device__ void produce(const Args& a) const {
+    for (int r = 0; r < total; ++r) {
+      const int s = r % kStages, k = r / kStages;
+      if (rank == 0) {
+        if (k > 0) mbar_wait(empty(s), (k - 1) & 1);  // the cluster is done with tile r - kStages
+        arm(s);
+        issue(a, r);
+      } else {
+        if (k > 0) mbar_wait(full(s), (k - 1) & 1);  // tile r - kStages landed: its phase is complete
+        arm(s);  // the multicast of tile r may land before this: the count of bytes goes below 0 meanwhile
+      }
+    }
+  }
+
+  // A computing thread: waits for tile q and returns its stage.
+  __device__ const float* ready() const {
+    const int s = q % kStages;
+    mbar_wait(full(s), (q / kStages) & 1);
+    return buf + (size_t)s * 2 * T * H;
+  }
+
+  // A computing warp is done with tile q: its lane 0 releases the stage to rank 0's producer.
+  __device__ void release() const {
+    __syncwarp();
+    if ((threadIdx.x & 31) != 0) return;
+    const unsigned bar = empty_r0 + 8 * (q % kStages);
+    if constexpr (kCluster > 1) {
+      asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(bar) : "memory");
+    } else {
+      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+    }
+  }
+};
+
 // acc[g] += w * x[g] over one input row (x: G activations, read as float2s).
 template <int G, typename W>
 __device__ __forceinline__ void fma_row(float (&acc)[G], float w, const float* x) {
@@ -356,11 +553,12 @@ __device__ void pick(const Args& a, int b, int node, int lane, int& edge, int& n
 
 // out (H, G) = W[layer]^T in + vec[iv] (+ rows[row_idx[g]] | + out).
 // 2H threads: thread t owns output row t % H and input half t / H, and sums
-// its half's products as RowSum does, alike in both kernels. The resident
-// kernel reads W from global memory (L2); the streamed one computes on the
-// tiles of `st`, which must stand at this layer's first tile.
-template <int G, typename W, bool kStream>
-__device__ void dense(const Args& a, Stream<W>& st, int layer, int iv, const float* in, float* out, float* part,
+// its half's products as RowSum does, alike in every kernel. The bfloat16
+// resident kernel reads W from global memory (L2); the streamed ones compute
+// on the tiles of `st` (a Stream), the float32 resident one on those of its
+// Ring; either must stand at this layer's first tile.
+template <int G, typename W, bool kStream, typename Feed>
+__device__ void dense(const Args& a, Feed& st, int layer, int iv, const float* in, float* out, float* part,
                       const W* rows, const int* row_idx, bool residual) {
   const int H = a.H;
   const int o = threadIdx.x % H;
@@ -384,6 +582,65 @@ __device__ void dense(const Args& a, Stream<W>& st, int layer, int iv, const flo
       }
       ++st.q;
     }
+  } else if constexpr (kRing) {
+    PROF_START(td);
+    // The epilogue's global loads are issued before the tiles, so their latency hides behind them.
+    float bias = 0.f, row[G];
+    if (half == 0) {
+      bias = a.vecs[(size_t)iv * H + o];
+#pragma unroll
+      for (int g = 0; g < G; ++g) row[g] = rows != nullptr ? to_f(rows[(size_t)row_idx[g] * H + o]) : 0.f;
+    }
+    for (int t = 0; t < st.tpl; ++t) {
+      PROF_START(t3);
+      const float* w = st.ready() + (size_t)half * st.T * H + o;
+      PROF_ADD(5, t3);
+      const float* x = in + (i0 + t * st.T) * G;
+      for (int u = 0; u < st.T; u += 8) {
+        float wr[8];
+#pragma unroll
+        for (int v = 0; v < 8; ++v) wr[v] = w[(size_t)(u + v) * H];
+        // The 8 rows' activations as float4s (two rows each at G = 2), then
+        // RowSum's float32 chain: row after row, search after search.
+        float xr[8 * G];
+#pragma unroll
+        for (int v = 0; v < 2 * G; ++v) {
+          const float4 f = reinterpret_cast<const float4*>(x + u * G)[v];
+          xr[4 * v + 0] = f.x;
+          xr[4 * v + 1] = f.y;
+          xr[4 * v + 2] = f.z;
+          xr[4 * v + 3] = f.w;
+        }
+#pragma unroll
+        for (int v = 0; v < 8; ++v) {
+#pragma unroll
+          for (int g = 0; g < G; ++g) sum.acc[g] = fmaf(wr[v], xr[v * G + g], sum.acc[g]);
+        }
+      }
+      PROF_START(t2);
+      st.release();
+      PROF_ADD(6, t2);
+      ++st.q;
+    }
+    PROF_START(t4);
+    if (half == 1) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) part[o * G + g] = sum.acc[g];
+    }
+    block_sync();
+    if (half == 0) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float v = (sum.acc[g] + part[o * G + g]) + bias;
+        if (rows != nullptr) v += row[g];
+        if (residual) v += out[o * G + g];
+        out[o * G + g] = v;
+      }
+    }
+    block_sync();
+    PROF_ADD(8, t4);
+    PROF_ADD(4, td);
+    return;
   } else {
     const W* __restrict__ w = static_cast<const W*>(a.hh) + ((size_t)layer * H + i0) * H + o;
     // Weights for rows i..i+7 are in registers while rows i+8..i+15 load.
@@ -405,7 +662,7 @@ __device__ void dense(const Args& a, Stream<W>& st, int layer, int iv, const flo
 #pragma unroll
     for (int g = 0; g < G; ++g) part[o * G + g] = sum.acc[g];
   }
-  __syncthreads();
+  block_sync();
   if (half == 0) {
     const float bias = a.vecs[(size_t)iv * H + o];
 #pragma unroll
@@ -416,7 +673,7 @@ __device__ void dense(const Args& a, Stream<W>& st, int layer, int iv, const flo
       out[o * G + g] = v;
     }
   }
-  __syncthreads();
+  block_sync();
 }
 
 // A balanced tree over this lane's values x[(lane + 32 j) G + g], j < n =
@@ -449,10 +706,40 @@ __device__ __forceinline__ float lane_tree(const float* x, int g, int n, int lan
 // lane_tree, then the butterfly of warp_sum.
 template <int G, typename W>
 __device__ void layer_norm_relu(const Args& a, int iv, const float* in, float* out) {
+  PROF_START(tl);
   const int H = a.H;
   const int lane = threadIdx.x & 31;
-  for (int g = threadIdx.x >> 5; g < G; g += blockDim.x >> 5) {
-    if constexpr (sizeof(W) == 4) {
+  for (int g = threadIdx.x >> 5; g < G; g += compute_threads() >> 5) {
+    if constexpr (kRing) {  // the float32 branch below, with this lane's values and vectors in registers (H <= 256)
+      float v[8], gamma[8], beta[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int i = lane + 32 * j;
+        gamma[j] = i < H ? a.vecs[(size_t)iv * H + i] : 0.f;
+        beta[j] = i < H ? a.vecs[(size_t)(iv + 1) * H + i] : 0.f;
+        v[j] = i < H ? in[i * G + g] : 0.f;
+      }
+      const float inv_h = 1.f / (float)H;
+      float s = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (lane + 32 * j < H) s += v[j];
+      }
+      const float mean = warp_sum(s) * inv_h;
+      float s2 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        v[j] = v[j] - mean;
+        if (lane + 32 * j < H) s2 += v[j] * v[j];
+      }
+      const float r = rsqrtf(warp_sum(s2) * inv_h + 1e-6f);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float y = v[j] * r;
+        const float z = y * gamma[j] + beta[j];
+        if (lane + 32 * j < H) out[(lane + 32 * j) * G + g] = fmaxf(z, 0.f);
+      }
+    } else if constexpr (sizeof(W) == 4) {
       const float inv_h = 1.f / (float)H;
       float s = 0.f;
       for (int i = lane; i < H; i += 32) s += in[i * G + g];
@@ -480,13 +767,14 @@ __device__ void layer_norm_relu(const Args& a, int iv, const float* in, float* o
       }
     }
   }
-  __syncthreads();
+  block_sync();
+  PROF_ADD(9, tl);
 }
 
 // TowerWithHead: dense -> NB pre-LN residual blocks -> LN -> relu; result in x.
 // `in` may alias u (it is consumed by the first layer).
-template <int G, typename W, bool kStream>
-__device__ void tower(const Args& a, Stream<W>& st, int ihh, int iv, const float* in, float* x, float* t, float* u,
+template <int G, typename W, bool kStream, typename Feed>
+__device__ void tower(const Args& a, Feed& st, int ihh, int iv, const float* in, float* x, float* t, float* u,
                       float* part) {
   dense<G, W, kStream>(a, st, ihh, iv, in, x, part, nullptr, nullptr, false);
   ihh += 1;
@@ -506,13 +794,13 @@ __device__ void tower(const Args& a, Stream<W>& st, int ihh, int iv, const float
 template <int G>
 __device__ void head_scalar(const Args& a, int c, const float* x, float* out) {
   const int lane = threadIdx.x & 31;
-  for (int g = threadIdx.x >> 5; g < G; g += blockDim.x >> 5) {
+  for (int g = threadIdx.x >> 5; g < G; g += compute_threads() >> 5) {
     float s = 0.f;
     for (int i = lane; i < a.H; i += 32) s = fmaf(a.scal[i * 8 + c], x[i * G + g], s);
     s = warp_sum(s) + a.scal_b[c];
     if (lane == 0) out[g] = untransform(a, s);
   }
-  __syncthreads();
+  block_sync();
 }
 
 // out[g] = untransform(sum_k softmax(cat[:, off:off+bins]^T x[:, g] + cat_b)[k] * k * step).
@@ -520,7 +808,7 @@ __device__ void head_scalar(const Args& a, int c, const float* x, float* out) {
 template <int G, typename W>
 __device__ void head_categorical(const Args& a, int off, int bins, float step, const float* x, float* out,
                                  float* psum, float* lg) {
-  const int H = a.H, T = blockDim.x;
+  const int H = a.H, T = compute_threads();
   const int nparts = bins >= T ? 1 : T / bins;  // input ranges summed by separate threads
   const int chunk = (H + nparts - 1) / nparts;
   for (int e = threadIdx.x; e < nparts * bins; e += T) {
@@ -538,14 +826,14 @@ __device__ void head_categorical(const Args& a, int off, int bins, float step, c
 #pragma unroll
     for (int g = 0; g < G; ++g) psum[(size_t)e * G + g] = acc[g];
   }
-  __syncthreads();
+  block_sync();
   for (int e = threadIdx.x; e < bins * G; e += T) {
     const int k = e / G, g = e % G;
     float s = 0.f;
     for (int part = 0; part < nparts; ++part) s += psum[(size_t)(part * bins + k) * G + g];
     lg[e] = s + a.cat_b[off + k];
   }
-  __syncthreads();
+  block_sync();
   const int lane = threadIdx.x & 31;
   for (int g = threadIdx.x >> 5; g < G; g += T >> 5) {
     float m = -INFINITY;
@@ -561,33 +849,38 @@ __device__ void head_categorical(const Args& a, int off, int bins, float step, c
     den = warp_sum(den);
     if (lane == 0) out[g] = untransform(a, __fdiv_rn(num, den));
   }
-  __syncthreads();
+  block_sync();
 }
 
 // The value (c = 0), Q (c = 1) or reward (c = 2) head, scalar (float32
 // weights and activations, whatever W is) or categorical.
 template <int G, typename W>
 __device__ void head_value(const Args& a, int c, const float* x, float* out, float* psum, float* lg) {
+  PROF_START(th);
   const int bins = c == 2 ? a.reward_bins : a.value_bins;
   if (bins == 1) {
     head_scalar<G>(a, c, x, out);
+    PROF_ADD(10, th);
     return;
   }
   const int off = a.value_bins > 1 ? c * a.value_bins : 0;
   head_categorical<G, W>(a, off, bins, c == 2 ? a.reward_step : a.value_step, x, out, psum, lg);
+  PROF_ADD(10, th);
 }
 
 // logits (K, G) = wide[j]^T x + wide_b[:, j].
 template <int G, typename W>
 __device__ void head_logits(const Args& a, int j, const float* x, float* logits) {
-  for (int e = threadIdx.x; e < a.K * G; e += blockDim.x) {
+  PROF_START(th);
+  for (int e = threadIdx.x; e < a.K * G; e += compute_threads()) {
     const int k = e / G, g = e % G;
     const W* w = static_cast<const W*>(a.wide) + (size_t)j * a.H * a.K + k;
     float s = 0.f;
     for (int i = 0; i < a.H; ++i) s = fmaf(to_f(w[(size_t)i * a.K]), act<W>(x[i * G + g]), s);
     logits[e] = s + a.wide_b[k * 2 + j];
   }
-  __syncthreads();
+  block_sync();
+  PROF_ADD(10, th);
 }
 
 // Floats of shared memory the categorical heads take beside the rest: partial
@@ -614,8 +907,17 @@ inline int stream_tile_rows(int H, int wsize) {
   return T;
 }
 
+// The ring's kernel runs 2H <= 512 computing threads and a producer warp,
+// one block an SM (its stages take 192 KB of shared memory), so it may take
+// 65,536 / 544 registers a thread: without the 1, ptxas keeps 64 and spills.
+#if !WHOLE_SEARCH_BF16 && !WHOLE_SEARCH_STREAMED
+#define WHOLE_SEARCH_BOUNDS __launch_bounds__(544, 1)
+#else
+#define WHOLE_SEARCH_BOUNDS __launch_bounds__(kStream ? 1024 : 512)
+#endif
+
 template <int G, typename W, bool kStream>
-__global__ void __launch_bounds__(kStream ? 1024 : 512) whole_search_kernel(Args a) {
+__global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
   extern __shared__ __align__(16) float smem[];
   const int H = a.H, K = a.K, A = a.A, N = a.S + 1, P = a.P;
   const int HG = H * G;
@@ -634,7 +936,7 @@ __global__ void __launch_bounds__(kStream ? 1024 : 512) whole_search_kernel(Args
   float* s_v = s_r + G;
   float* psum = s_v + G;  // categorical heads: partial sums, then the (bins, G) logits
   const int cat_bins = max(a.value_bins, a.reward_bins);
-  const int cat_floats = cat_bins > 1 ? (max((int)blockDim.x, cat_bins) + cat_bins) * G : 0;
+  const int cat_floats = cat_bins > 1 ? (max(compute_threads(), cat_bins) + cat_bins) * G : 0;
   float* lgt = psum + (cat_floats - cat_bins * G);
   int* s_parent = reinterpret_cast<int*>(s_v + G + cat_floats);
   int* s_edge = s_parent + G;
@@ -644,8 +946,13 @@ __global__ void __launch_bounds__(kStream ? 1024 : 512) whole_search_kernel(Args
   int* s_arow = s_dec + G;
   int* s_crow = s_arow + G;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = compute_threads() >> 5;
   const int b0 = blockIdx.x * G;
+#if WHOLE_SEARCH_PROFILE
+  if (tid < 12) s_prof[tid] = 0;
+  __syncthreads();
+#endif
+  PROF_START(tk);
 
   // Offsets into the packed weights (mirror pack_search_params).
   const int tower_hh = 1 + 2 * a.NB, tower_vec = 3 + 6 * a.NB;
@@ -659,34 +966,46 @@ __global__ void __launch_bounds__(kStream ? 1024 : 512) whole_search_kernel(Args
   const int G_HEAD_HH = G_HH + tower_hh, G_HEAD_V = G_V + tower_vec;
   const W* win = static_cast<const W*>(a.win);
 
-  Stream<W> st{reinterpret_cast<W*>(smem), a.tile_rows, 0, 0, 0};
-  if constexpr (kStream) {
-    st.tpl = H / 2 / a.tile_rows;
-    st.total = (4 * tower_hh + 4) * st.tpl;
+  std::conditional_t<kRing, Ring, Stream<W>> st{};
+  if constexpr (kRing) {
+    st.start(a, smem, tower_hh);
+    if (tid >= compute_threads()) {  // the producer warp
+      if (lane == 0) st.produce(a);
+      __syncwarp();
+      if constexpr (kCluster > 1) cluster_sync();  // the teardown's cluster barrier, as the computing threads
+      return;
+    }
+  } else {
+    st = Stream<W>{reinterpret_cast<W*>(smem), a.tile_rows, 0, 0, 0};
+    if constexpr (kStream) {
+      st.tpl = H / 2 / a.tile_rows;
+      st.total = (4 * tower_hh + 4) * st.tpl;
+    }
   }
 
   // ---- tree init: root = node 0, a decision node
   for (int g = 0; g < G && b0 + g < a.B; ++g) {
     const int b = b0 + g;
     const size_t nk = (size_t)b * N * K, nn = (size_t)b * N;
-    for (int e = tid; e < N * K; e += blockDim.x) {
+    for (int e = tid; e < N * K; e += compute_threads()) {
       a.cidx[nk + e] = kUnvisited;
       a.cvis[nk + e] = 0.f;
       a.cval[nk + e] = 0.f;
       a.prior[nk + e] = e < K ? a.root_p[(size_t)b * K + e] : 0.f;
     }
-    for (int e = tid; e < N; e += blockDim.x) {
+    for (int e = tid; e < N; e += compute_threads()) {
       a.nvis[nn + e] = e == 0 ? 1.f : 0.f;
       a.nval[nn + e] = e == 0 ? a.root_v[b] : 0.f;
       a.nrew[nn + e] = 0.f;
       a.ndis[nn + e] = 1.f;
       a.ndec[nn + e] = e == 0 ? 1.f : 0.f;
     }
-    for (int e = tid; e < H; e += blockDim.x) emb[nn * H + e] = from_f<W>(a.root_h[(size_t)b * H + e]);
+    for (int e = tid; e < H; e += compute_threads()) emb[nn * H + e] = from_f<W>(a.root_h[(size_t)b * H + e]);
   }
-  __syncthreads();
+  block_sync();
 
   for (int sim = 0; sim < a.S; ++sim) {
+    PROF_START(ts);
     const int new_index = sim + 1;
     if constexpr (kStream) {  // the expansion's first tile lands while the block traverses
       st.q = 0;
@@ -736,14 +1055,16 @@ __global__ void __launch_bounds__(kStream ? 1024 : 512) whole_search_kernel(Args
         s_crow[g] = min(edge, K - 1);
       }
     }
-    __syncthreads();
+    block_sync();
 
     // ---- expansion: both transition types at (parent, edge)
-    for (int e = tid; e < HG; e += blockDim.x) {
+    for (int e = tid; e < HG; e += compute_threads()) {
       const int i = e / G, g = e % G, b = b0 + g;
       pe[e] = b < a.B ? to_f(emb[((size_t)b * N + s_parent[g]) * H + i]) : 0.f;
     }
-    __syncthreads();
+    block_sync();
+    PROF_ADD(1, ts);
+    PROF_START(te);
 
     // phi then psi (decision parent -> chance child)
     // (in call order: the streamed pack holds the layers in this order)
@@ -763,9 +1084,11 @@ __global__ void __launch_bounds__(kStream ? 1024 : 512) whole_search_kernel(Args
     head_value<G, W>(a, 0, x, s_v, psum, lgt);
     head_logits<G, W>(a, 0, x, la);
 
+    PROF_ADD(2, te);
+    PROF_START(tb);
     // ---- install the new node at row new_index (unreachable when the
     // depth cap stopped on an expanded edge)
-    for (int e = tid; e < HG; e += blockDim.x) {
+    for (int e = tid; e < HG; e += compute_threads()) {
       const int i = e / G, g = e % G, b = b0 + g;
       if (b < a.B) emb[((size_t)b * N + new_index) * H + i] = from_f<W>(s_dec[g] ? after[e] : hnew[e]);
     }
@@ -821,11 +1144,12 @@ __global__ void __launch_bounds__(kStream ? 1024 : 512) whole_search_kernel(Args
         a.cval[ek] = __fadd_rn(a.nrew[nb + cn], __fmul_rn(a.ndis[nb + cn], a.nval[nb + cn]));
       }
     }
-    __syncthreads();
+    block_sync();
+    PROF_ADD(3, tb);
   }
 
   // ---- root statistics
-  for (int e = tid; e < G * A; e += blockDim.x) {
+  for (int e = tid; e < G * A; e += compute_threads()) {
     const int g = e / A, act = e % A, b = b0 + g;
     if (b < a.B) {
       a.visits[(size_t)b * A + act] = a.cvis[(size_t)b * N * K + act];
@@ -833,20 +1157,110 @@ __global__ void __launch_bounds__(kStream ? 1024 : 512) whole_search_kernel(Args
     }
   }
   if (tid < G && b0 + tid < a.B) a.rootv[b0 + tid] = a.nval[(size_t)(b0 + tid) * N];
+  // No block leaves while another can still arrive on its barriers or copy into its shared memory.
+  if constexpr (kRing && kCluster > 1) cluster_sync();
+  PROF_ADD(0, tk);
+#if WHOLE_SEARCH_PROFILE
+  block_sync();
+  if (tid < 12) atomicAdd(&g_prof[tid], s_prof[tid]);
+#endif
+}
+
+// The ring's tile: T rows of each input half, the largest power of two times
+// 8 that divides H / 2 with both halves in kRingStageBytes.
+inline int ring_tile_rows(int H) {
+  int T = 8;
+  while ((H / 2) % (2 * T) == 0 && 2 * (2 * T) * H * (int)sizeof(float) <= kRingStageBytes) T *= 2;
+  return T;
+}
+
+// How a launch of B searches runs: blocks (one per G searches, padded to a
+// multiple of the cluster; a block past the last search runs dummy searches
+// through the whole pipeline), blocks per cluster, the tile geometry and the
+// dynamic shared memory.
+struct Plan {
+  int blocks, threads, cluster, tile_rows, tile_floats;
+  size_t smem;
+};
+
+template <int G, typename W, bool kStream>
+Plan make_plan(int B, int H, int K, int value_bins, int reward_bins) {
+  Plan p{(B + G - 1) / G, 2 * H, 1, 0, 0, 0};
+  if (kStream) {
+    p.tile_rows = stream_tile_rows(H, (int)sizeof(W));
+    p.tile_floats = 2 * 2 * p.tile_rows * H * (int)sizeof(W) / (int)sizeof(float);
+  }
+  if (kRing) {
+    p.threads = 2 * H + 32;  // and the producer warp
+    p.cluster = kCluster;
+    p.blocks = (p.blocks + kCluster - 1) / kCluster * kCluster;
+    p.tile_rows = ring_tile_rows(H);
+    p.tile_floats = kStages * 2 * p.tile_rows * H + kBarrierFloats;
+  }
+  p.smem = smem_bytes<G>(H, K, value_bins, reward_bins, p.tile_floats);
+  return p;
+}
+
+// A cluster launch of `p` (kRing) on `stream`; `attr` must outlive the config.
+inline cudaLaunchConfig_t cluster_config(const Plan& p, cudaStream_t stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(p.blocks);
+  cfg.blockDim = dim3(p.threads);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = p.cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 template <int G, typename W, bool kStream>
 int launch(Args a, cudaStream_t stream) {
-  if (kStream) {
-    a.tile_rows = stream_tile_rows(a.H, (int)sizeof(W));
-    a.tile_floats = 2 * 2 * a.tile_rows * a.H * (int)sizeof(W) / (int)sizeof(float);
-  }
-  const size_t smem = smem_bytes<G>(a.H, a.K, a.value_bins, a.reward_bins, a.tile_floats);
+  const Plan p = make_plan<G, W, kStream>(a.B, a.H, a.K, a.value_bins, a.reward_bins);
+  a.tile_rows = p.tile_rows;
+  a.tile_floats = p.tile_floats;
   cudaError_t err =
-      cudaFuncSetAttribute(whole_search_kernel<G, W, kStream>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      cudaFuncSetAttribute(whole_search_kernel<G, W, kStream>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (err != cudaSuccess) return (int)err;
-  whole_search_kernel<G, W, kStream><<<(a.B + G - 1) / G, 2 * a.H, smem, stream>>>(a);
+  if constexpr (kRing) {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config(p, stream, &attr);
+    err = cudaLaunchKernelEx(&cfg, whole_search_kernel<G, W, kStream>, a);
+    if (err != cudaSuccess) return (int)err;
+  } else {
+    whole_search_kernel<G, W, kStream><<<p.blocks, p.threads, p.smem, stream>>>(a);
+  }
   return (int)cudaGetLastError();
+}
+
+// make_plan's numbers for this library's kernel, and how many of its
+// clusters (blocks, when not kRing) the card keeps resident at once.
+template <int G, typename W, bool kStream>
+int launch_shape(int B, int H, int K, int value_bins, int reward_bins, int* out) {
+  const Plan p = make_plan<G, W, kStream>(B, H, K, value_bins, reward_bins);
+  auto kernel = whole_search_kernel<G, W, kStream>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  if (err != cudaSuccess) return (int)err;
+  int resident = 0;
+  if constexpr (kRing) {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config(p, nullptr, &attr);
+    err = cudaOccupancyMaxActiveClusters(&resident, (const void*)kernel, &cfg);
+  } else {
+    int per_sm = 0, sms = 0, dev = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, p.threads, p.smem);
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    resident = per_sm * sms;
+  }
+  if (err != cudaSuccess) return (int)err;
+  const int values[7] = {p.blocks, p.cluster, G, kRing ? kStages : (kStream ? 2 : 0), p.tile_rows,
+                         resident, (int)p.smem};
+  for (int i = 0; i < 7; ++i) out[i] = values[i];
+  return 0;
 }
 
 }  // namespace
@@ -859,6 +1273,26 @@ size_t whole_search_workspace_bytes(int B, int H, int K, int S, int P) {
 }
 
 const char* whole_search_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+
+#if WHOLE_SEARCH_PROFILE
+// Thread 0's clock64 cycles by region, summed over blocks since the last call; resets them.
+int whole_search_profile(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));
+  if (err != cudaSuccess) return (int)err;
+  unsigned long long zero[12] = {};
+  return (int)cudaMemcpyToSymbol(g_prof, zero, sizeof(zero));
+}
+#endif
+
+// How a launch of B searches at these widths runs: out[0..6] = blocks,
+// blocks per cluster, searches per block (G), weight stages in shared memory
+// (0: none, the bfloat16 resident kernel reads L2 directly), rows of each
+// input half per tile, clusters (blocks when the cluster is 1) resident on
+// the card at once, dynamic shared memory bytes per block. Returns 0 or a
+// CUDA error code.
+int whole_search_launch_shape(int B, int H, int K, int value_bins, int reward_bins, int* out) {
+  return launch_shape<kSearchesPerBlock, Weight, kStreamed>(B, H, K, value_bins, reward_bins, out);
+}
 
 // Returns cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for shapes the kernel does not take and for a

@@ -66,6 +66,8 @@ LAUNCHES = {
 RESIDENT_MAX_H = 256  # the resident kernel: 2H threads under __launch_bounds__(512)
 STREAMED_MAX_H = 512  # the streamed kernel: 2H threads under __launch_bounds__(1024)
 STREAM_CHUNK = 8  # layers per unit of zero padding in a streamed pack (JAX's largest chunk)
+SEARCHES_PER_BLOCK = 2  # G in csrc/whole_search.cu
+CLUSTER_BLOCKS = 1  # C in csrc/whole_search.cu: the float32 resident kernel's blocks per thread-block cluster
 
 
 class PackedSearchParams(NamedTuple):
@@ -103,6 +105,33 @@ def cat_layout(value_bins: int, reward_bins: int) -> tuple[int, int, int, int]:
     r_off = 2 * value_bins if value_bins > 1 else 0
     cols = r_off + (reward_bins if reward_bins > 1 else 0)
     return v_off, q_off, r_off, max(8, -(-cols // 8) * 8)
+
+
+def call_order(num_blocks: int) -> list[int]:
+    """The pack-order ``hh`` layers in the order one expansion calls them: φ
+    fuse, the φ tower, φ head, the ψ tower, g fuse, the g tower, g head, then
+    the f tower, which the pack holds first. A streamed pack stores its layers
+    in this order, and the float32 resident kernel's ring copies a resident
+    pack's layers in it (``(j + tower_hh) % n_real`` in ``csrc/whole_search.cu``)."""
+    tower_hh = 1 + 2 * num_blocks
+    n_real = 4 * tower_hh + 4
+    return [(j + tower_hh) % n_real for j in range(n_real)]
+
+
+def kernel_blocks(batch: int, cluster: int = CLUSTER_BLOCKS) -> int:
+    """Thread blocks of a launch of ``batch`` searches: one per
+    SEARCHES_PER_BLOCK searches, padded to a multiple of ``cluster`` (the
+    float32 resident kernel's thread-block clusters; the padding blocks run
+    dummy searches through the whole pipeline)."""
+    blocks = -(-batch // SEARCHES_PER_BLOCK)
+    return -(-blocks // cluster) * cluster
+
+
+def pack_layer(packed_hh: torch.Tensor, ihh: int, num_blocks: int, streamed: bool) -> torch.Tensor:
+    """Pack-order layer ``ihh`` of ``packed_hh``, wherever the layout keeps it:
+    at ``ihh`` in a resident pack, at its place in :func:`call_order` in a
+    streamed one."""
+    return packed_hh[call_order(num_blocks).index(ihh) if streamed else ihh]
 
 
 def _tower_arrays(tw, num_blocks: int) -> tuple[list, list]:
@@ -203,8 +232,7 @@ def pack_search_params(
             cat_b[off : off + bins, 0] = head.bias
 
     if stream_chunk is not None:
-        tower_hh = 1 + 2 * num_blocks
-        hh = hh[tower_hh:] + hh[:tower_hh]  # rotate into call order
+        hh = [hh[i] for i in call_order(num_blocks)]
         hh += [torch.zeros_like(hh[0])] * (-len(hh) % stream_chunk)
 
     return PackedSearchParams(
@@ -268,7 +296,6 @@ def packed_transitions(packed: PackedSearchParams, cfg: SearchConfig):
     a, k = cfg.num_actions, max(cfg.num_actions, cfg.codebook_size)
     h = vecs.shape[0]
     tower_hh, tower_vec = 1 + 2 * num_blocks, 3 + 6 * num_blocks
-    n_real = 4 * tower_hh + 4
     bf16 = packed.hh.dtype == torch.bfloat16
     if bf16:
         _check_tree_width(h)
@@ -278,8 +305,7 @@ def packed_transitions(packed: PackedSearchParams, cfg: SearchConfig):
     lanes = LANES_BIT_REVERSED.to(vecs.device)
 
     def layer(ihh):
-        """The pack-order layer ``ihh``, wherever the pack's layout keeps it."""
-        return hh[(ihh - tower_hh) % n_real if packed.stream_chunk else ihh]
+        return pack_layer(hh, ihh, num_blocks, packed.stream_chunk > 0)
 
     def product(x, w):
         """x @ w with x rounded to the weights' type (bfloat16 packs), sums in float32."""
@@ -499,6 +525,29 @@ def whole_search(
     return visits, qvals, rootv
 
 
+class LaunchShape(NamedTuple):
+    """How the CUDA kernel of one library runs a launch (``whole_search_launch_shape``)."""
+
+    blocks: int  # thread blocks: kernel_blocks(batch, cluster)
+    cluster: int  # blocks per thread-block cluster
+    searches_per_block: int
+    stages: int  # weight tiles in shared memory (0: the bfloat16 resident kernel reads L2 directly)
+    tile_rows: int  # rows of each input half in a tile
+    resident: int  # clusters (blocks, when the cluster is 1) the card keeps resident at once
+    smem_bytes: int  # dynamic shared memory per block
+
+
+def launch_shape(library: str, batch: int, hidden: int, width: int, value_bins: int, reward_bins: int) -> LaunchShape:
+    """The kernel's launch of ``batch`` searches at these widths in ``library``
+    (``width``: K, the child slots), as the built library computes it."""
+    lib = _load(library)
+    out = (ctypes.c_int * len(LaunchShape._fields))()
+    err = lib.whole_search_launch_shape(batch, hidden, width, value_bins, reward_bins, out)
+    if err != 0:
+        raise RuntimeError(f"whole_search_launch_shape failed: {lib.whole_search_error_string(err).decode()}")
+    return LaunchShape(*out)
+
+
 def _load(library: str) -> ctypes.CDLL:
     """The loaded ``library``, with its functions' argument types set."""
     lib = _build.load(library)
@@ -510,6 +559,8 @@ def _load(library: str) -> ctypes.CDLL:
         lib.whole_search_error_string.restype = ctypes.c_char_p
         lib.whole_search_launch.argtypes = [ptr] * 16 + [i32] * 12 + [f32] * 6 + [i32] + [f32] * 3 + [ptr]
         lib.whole_search_launch.restype = i32
+        lib.whole_search_launch_shape.argtypes = [i32] * 5 + [ptr]
+        lib.whole_search_launch_shape.restype = i32
         lib._argtypes_set = True
     return lib
 
