@@ -24,15 +24,15 @@ import chip_smoke as cs
 from simulate_2048_tpu_torch.ops import _build
 from simulate_2048_tpu_torch.ops import search_kernel as sk
 
-# name -> (C, stages, clock64 profile)
+# name -> (C, stages, clock64 profile, outputs per thread in the dense layers, rows a batch, heads' unroll)
 VARIANTS = {
-    "c1": (1, 3, 0),
-    "c1_s6": (1, 6, 0),
-    "c2": (2, 3, 0),
-    "c2_s6": (2, 6, 0),
-    "c4": (4, 3, 0),
-    "c1_prof": (1, 3, 1),
-    "c2_prof": (2, 3, 1),
+    "o2": (1, 3, 0, 2, 8, 0),
+    "o2_r4": (1, 3, 0, 2, 4, 0),
+    "o2_hu8": (1, 3, 0, 2, 8, 8),
+    "o2_r4_hu8": (1, 3, 0, 2, 4, 8),
+    "o2_r4_hu4": (1, 3, 0, 2, 4, 4),
+    "c2_o2_r4_hu8": (2, 3, 0, 2, 4, 8),
+    "o2_prof": (1, 3, 1, 2, 8, 0),
 }
 REGIONS = ("kernel", "traversal+gather", "expansion", "install+backup", "dense", "dense: tile waits",
            "dense: releases", "-", "dense: epilogue", "layer norms", "heads")  # fmt: skip
@@ -50,12 +50,13 @@ def main() -> None:
     )
     print(smi.stdout.strip(), f"torch {torch.__version__} CUDA {torch.version.cuda}", flush=True)
     variants = {}
-    for label, (c, stages, prof) in VARIANTS.items():
+    for label, (c, stages, prof, outs, rows, hu) in VARIANTS.items():
         name = f"whole_search_{label}"
         _build.LIBRARIES[name] = (
             "whole_search",
             ("-DWHOLE_SEARCH_BF16=0", "-DWHOLE_SEARCH_STREAMED=0", f"-DWHOLE_SEARCH_CLUSTER={c}",
-             f"-DWHOLE_SEARCH_STAGES={stages}", f"-DWHOLE_SEARCH_PROFILE={prof}"),
+             f"-DWHOLE_SEARCH_STAGES={stages}", f"-DWHOLE_SEARCH_PROFILE={prof}", f"-DWHOLE_SEARCH_OUTS={outs}",
+             f"-DWHOLE_SEARCH_ROWS={rows}", f"-DWHOLE_SEARCH_HU={hu}"),
         )  # fmt: skip
         variants[name] = (c, stages)
     seconds = _build.build_all(tuple(_build.LIBRARIES))

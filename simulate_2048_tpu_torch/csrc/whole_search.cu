@@ -105,12 +105,28 @@ constexpr bool kRing = !WHOLE_SEARCH_BF16 && !WHOLE_SEARCH_STREAMED;
 #ifndef WHOLE_SEARCH_STAGES
 #define WHOLE_SEARCH_STAGES 3
 #endif
+#ifndef WHOLE_SEARCH_OUTS
+#define WHOLE_SEARCH_OUTS 1
+#endif
+constexpr int kOuts = WHOLE_SEARCH_OUTS;        // outputs per thread in the ring kernel's dense layers
 constexpr int kCluster = WHOLE_SEARCH_CLUSTER;  // C: blocks that one multicast copy of a tile feeds
 constexpr int kStages = WHOLE_SEARCH_STAGES;    // tiles of the ring, each at most kRingStageBytes
 constexpr int kRingStageBytes = 192 * 1024 / kStages;
 constexpr int kBarrierFloats = 32;              // 2 kStages mbarriers of 8 bytes after the stages
 static_assert(2 * kStages * 8 <= kBarrierFloats * 4, "the ring's barriers fit their slot");
 constexpr unsigned kMaxSpins = 1u << 24;        // a wait that spins longer traps: the pipeline stalled
+#ifndef WHOLE_SEARCH_ROWS
+#define WHOLE_SEARCH_ROWS 8
+#endif
+#ifndef WHOLE_SEARCH_HU
+#define WHOLE_SEARCH_HU 0
+#endif
+#define WS_STR(x) #x
+#if !WHOLE_SEARCH_BF16 && !WHOLE_SEARCH_STREAMED && WHOLE_SEARCH_HU
+#define RING_UNROLL(n) _Pragma(WS_STR(unroll n))
+#else
+#define RING_UNROLL(n)
+#endif
 #ifndef WHOLE_SEARCH_PROFILE
 #define WHOLE_SEARCH_PROFILE 0
 #endif
@@ -316,6 +332,16 @@ __device__ __forceinline__ void block_sync() {
   }
 }
 
+// The warps that compute the ring kernel's dense layers: 2H / kOuts threads.
+__device__ __forceinline__ int dense_warps(int H) { return (2 * H / kOuts + 31) / 32; }
+
+// The ring kernel's slot for the LayerNorm vectors (gamma, beta: 2H floats)
+// that the next layer norm takes, at the end of the ring's region.
+__device__ __forceinline__ float* ln_vectors(const Args& a) {
+  extern __shared__ __align__(16) float smem[];
+  return smem + a.tile_floats - 2 * a.H;
+}
+
 // The float32 resident kernel's ring of weight tiles. Tile q of the launch
 // (q < S x n_real x tpl: every simulation's expansion, its layers in call
 // order) holds rows [t T, t T + T) and [H/2 + t T, H/2 + t T + T) of
@@ -368,7 +394,7 @@ struct Ring {
     if (threadIdx.x == 0) {
       for (int s = 0; s < kStages; ++s) {
         asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(full(s)) : "memory");
-        asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(empty(s)), "r"(compute_threads() / 32 * kCluster)
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(empty(s)), "r"(dense_warps(H) * kCluster)
                      : "memory");
       }
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -551,6 +577,118 @@ __device__ void pick(const Args& a, int b, int node, int lane, int& edge, int& n
   next = __shfl_sync(kFull, ci, idx);
 }
 
+// Float32 loads of U consecutive floats (U = 1, 2, 4), 4 U-byte aligned.
+template <int U>
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[U]) {
+  if constexpr (U == 4) {
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
+  } else if constexpr (U == 2) {
+    const float2 f = *reinterpret_cast<const float2*>(p);
+    v[0] = f.x, v[1] = f.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
+// The float32 resident kernel's dense layer (dense's contract), on the tiles
+// of its Ring: 2H / kOuts threads, thread t owning outputs o0 .. o0 + kOuts - 1
+// of input half `half`; each output sums its half's rows in order, one FMA
+// chain per search, as RowSum<G, float> does, so every output's bits are
+// those of one thread per output. A warp reads a row's weights as one
+// kOuts-float load per lane and the activations of 2 rows as one broadcast
+// float4 (G = 2). The epilogue's global loads, and the next layer norm's
+// vectors (ln_next: vectors iv + 1, iv + 2, which half 1 parks in shared
+// memory for it), are issued before the tiles.
+template <int G>
+__device__ void dense_ring(const Args& a, Ring& st, int iv, const float* in, float* out, float* part,
+                           const float* rows, const int* row_idx, bool residual, bool ln_next) {
+  constexpr int U = kOuts;
+  static_assert(G == 2, "activations are read as float4s of two rows");
+  PROF_START(td);
+  const int H = a.H;
+  const int per_half = H / U;
+  const bool active = (int)threadIdx.x < 2 * per_half;
+  const bool in_warp = (int)threadIdx.x < 32 * dense_warps(H);  // warp-uniform: takes part in the ring
+  const int half = threadIdx.x / per_half;
+  const int o0 = (threadIdx.x % per_half) * U;
+  const int i0 = half * (H / 2);
+  float acc[U][G], bias[U], row[U][G], gamma[U], beta[U];
+#pragma unroll
+  for (int k = 0; k < U; ++k) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) acc[k][g] = 0.f;
+  }
+  if (active && half == 0) {
+    load_vec<U>(a.vecs + (size_t)iv * H + o0, bias);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float r[U] = {};
+      if (rows != nullptr) load_vec<U>(rows + (size_t)row_idx[g] * H + o0, r);
+#pragma unroll
+      for (int k = 0; k < U; ++k) row[k][g] = r[k];
+    }
+  } else if (active && ln_next) {
+    load_vec<U>(a.vecs + (size_t)(iv + 1) * H + o0, gamma);
+    load_vec<U>(a.vecs + (size_t)(iv + 2) * H + o0, beta);
+  }
+  for (int t = 0; t < st.tpl; ++t, ++st.q) {
+    if (!in_warp) continue;
+    PROF_START(t3);
+    const float* w = st.ready() + (size_t)half * st.T * H + o0;
+    PROF_ADD(5, t3);
+    const float* x = in + (i0 + t * st.T) * G;
+    constexpr int R = WHOLE_SEARCH_ROWS;
+    for (int u = 0; u < st.T && active; u += R) {
+      float wr[R][U], xq[R * G / 4][4];
+#pragma unroll
+      for (int v = 0; v < R; ++v) load_vec<U>(w + (size_t)(u + v) * H, wr[v]);
+#pragma unroll
+      for (int v = 0; v < R * G / 4; ++v) load_vec<4>(x + (u + 2 * v) * G, xq[v]);
+#pragma unroll
+      for (int v = 0; v < R; ++v) {
+#pragma unroll
+        for (int k = 0; k < U; ++k) {
+#pragma unroll
+          for (int g = 0; g < G; ++g) acc[k][g] = fmaf(wr[v][k], xq[(v * G + g) / 4][(v * G + g) % 4], acc[k][g]);
+        }
+      }
+    }
+    PROF_START(t2);
+    st.release();
+    PROF_ADD(6, t2);
+  }
+  PROF_START(t4);
+  if (active && half == 1) {
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) part[(o0 + k) * G + g] = acc[k][g];
+      if (ln_next) {
+        ln_vectors(a)[o0 + k] = gamma[k];
+        ln_vectors(a)[H + o0 + k] = beta[k];
+      }
+    }
+  }
+  block_sync();
+  if (active && half == 0) {
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      const int o = o0 + k;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float v = (acc[k][g] + part[o * G + g]) + bias[k];
+        if (rows != nullptr) v += row[k][g];
+        if (residual) v += out[o * G + g];
+        out[o * G + g] = v;
+      }
+    }
+  }
+  block_sync();
+  PROF_ADD(8, t4);
+  PROF_ADD(4, td);
+}
+
 // out (H, G) = W[layer]^T in + vec[iv] (+ rows[row_idx[g]] | + out).
 // 2H threads: thread t owns output row t % H and input half t / H, and sums
 // its half's products as RowSum does, alike in every kernel. The bfloat16
@@ -559,7 +697,7 @@ __device__ void pick(const Args& a, int b, int node, int lane, int& edge, int& n
 // Ring; either must stand at this layer's first tile.
 template <int G, typename W, bool kStream, typename Feed>
 __device__ void dense(const Args& a, Feed& st, int layer, int iv, const float* in, float* out, float* part,
-                      const W* rows, const int* row_idx, bool residual) {
+                      const W* rows, const int* row_idx, bool residual, bool ln_next = false) {
   const int H = a.H;
   const int o = threadIdx.x % H;
   const int half = threadIdx.x / H;
@@ -583,63 +721,7 @@ __device__ void dense(const Args& a, Feed& st, int layer, int iv, const float* i
       ++st.q;
     }
   } else if constexpr (kRing) {
-    PROF_START(td);
-    // The epilogue's global loads are issued before the tiles, so their latency hides behind them.
-    float bias = 0.f, row[G];
-    if (half == 0) {
-      bias = a.vecs[(size_t)iv * H + o];
-#pragma unroll
-      for (int g = 0; g < G; ++g) row[g] = rows != nullptr ? to_f(rows[(size_t)row_idx[g] * H + o]) : 0.f;
-    }
-    for (int t = 0; t < st.tpl; ++t) {
-      PROF_START(t3);
-      const float* w = st.ready() + (size_t)half * st.T * H + o;
-      PROF_ADD(5, t3);
-      const float* x = in + (i0 + t * st.T) * G;
-      for (int u = 0; u < st.T; u += 8) {
-        float wr[8];
-#pragma unroll
-        for (int v = 0; v < 8; ++v) wr[v] = w[(size_t)(u + v) * H];
-        // The 8 rows' activations as float4s (two rows each at G = 2), then
-        // RowSum's float32 chain: row after row, search after search.
-        float xr[8 * G];
-#pragma unroll
-        for (int v = 0; v < 2 * G; ++v) {
-          const float4 f = reinterpret_cast<const float4*>(x + u * G)[v];
-          xr[4 * v + 0] = f.x;
-          xr[4 * v + 1] = f.y;
-          xr[4 * v + 2] = f.z;
-          xr[4 * v + 3] = f.w;
-        }
-#pragma unroll
-        for (int v = 0; v < 8; ++v) {
-#pragma unroll
-          for (int g = 0; g < G; ++g) sum.acc[g] = fmaf(wr[v], xr[v * G + g], sum.acc[g]);
-        }
-      }
-      PROF_START(t2);
-      st.release();
-      PROF_ADD(6, t2);
-      ++st.q;
-    }
-    PROF_START(t4);
-    if (half == 1) {
-#pragma unroll
-      for (int g = 0; g < G; ++g) part[o * G + g] = sum.acc[g];
-    }
-    block_sync();
-    if (half == 0) {
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float v = (sum.acc[g] + part[o * G + g]) + bias;
-        if (rows != nullptr) v += row[g];
-        if (residual) v += out[o * G + g];
-        out[o * G + g] = v;
-      }
-    }
-    block_sync();
-    PROF_ADD(8, t4);
-    PROF_ADD(4, td);
+    dense_ring<G>(a, st, iv, in, out, part, rows, row_idx, residual, ln_next);
     return;
   } else {
     const W* __restrict__ w = static_cast<const W*>(a.hh) + ((size_t)layer * H + i0) * H + o;
@@ -710,13 +792,16 @@ __device__ void layer_norm_relu(const Args& a, int iv, const float* in, float* o
   const int H = a.H;
   const int lane = threadIdx.x & 31;
   for (int g = threadIdx.x >> 5; g < G; g += compute_threads() >> 5) {
-    if constexpr (kRing) {  // the float32 branch below, with this lane's values and vectors in registers (H <= 256)
+    if constexpr (kRing) {
+      // The float32 branch below, with this lane's values in registers (H <= 256) and the vectors from the
+      // slot where the dense layer before this one parked them.
+      const float* vec = ln_vectors(a);
       float v[8], gamma[8], beta[8];
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int i = lane + 32 * j;
-        gamma[j] = i < H ? a.vecs[(size_t)iv * H + i] : 0.f;
-        beta[j] = i < H ? a.vecs[(size_t)(iv + 1) * H + i] : 0.f;
+        gamma[j] = i < H ? vec[i] : 0.f;
+        beta[j] = i < H ? vec[H + i] : 0.f;
         v[j] = i < H ? in[i * G + g] : 0.f;
       }
       const float inv_h = 1.f / (float)H;
@@ -776,14 +861,14 @@ __device__ void layer_norm_relu(const Args& a, int iv, const float* in, float* o
 template <int G, typename W, bool kStream, typename Feed>
 __device__ void tower(const Args& a, Feed& st, int ihh, int iv, const float* in, float* x, float* t, float* u,
                       float* part) {
-  dense<G, W, kStream>(a, st, ihh, iv, in, x, part, nullptr, nullptr, false);
+  dense<G, W, kStream>(a, st, ihh, iv, in, x, part, nullptr, nullptr, false, true);
   ihh += 1;
   iv += 1;
   for (int blk = 0; blk < a.NB; ++blk) {
     layer_norm_relu<G, W>(a, iv, x, t);
-    dense<G, W, kStream>(a, st, ihh, iv + 2, t, u, part, nullptr, nullptr, false);
+    dense<G, W, kStream>(a, st, ihh, iv + 2, t, u, part, nullptr, nullptr, false, true);
     layer_norm_relu<G, W>(a, iv + 3, u, u);
-    dense<G, W, kStream>(a, st, ihh + 1, iv + 5, u, x, part, nullptr, nullptr, true);
+    dense<G, W, kStream>(a, st, ihh + 1, iv + 5, u, x, part, nullptr, nullptr, true, true);
     ihh += 2;
     iv += 6;
   }
@@ -796,6 +881,7 @@ __device__ void head_scalar(const Args& a, int c, const float* x, float* out) {
   const int lane = threadIdx.x & 31;
   for (int g = threadIdx.x >> 5; g < G; g += compute_threads() >> 5) {
     float s = 0.f;
+    RING_UNROLL(WHOLE_SEARCH_HU)
     for (int i = lane; i < a.H; i += 32) s = fmaf(a.scal[i * 8 + c], x[i * G + g], s);
     s = warp_sum(s) + a.scal_b[c];
     if (lane == 0) out[g] = untransform(a, s);
@@ -818,6 +904,7 @@ __device__ void head_categorical(const Args& a, int off, int bins, float step, c
     float acc[G];
 #pragma unroll
     for (int g = 0; g < G; ++g) acc[g] = 0.f;
+    RING_UNROLL(WHOLE_SEARCH_HU)
     for (int i = i0; i < i1; ++i) {
       const float wv = load_w(w + (size_t)i * a.CB);
 #pragma unroll
@@ -876,6 +963,7 @@ __device__ void head_logits(const Args& a, int j, const float* x, float* logits)
     const int k = e / G, g = e % G;
     const W* w = static_cast<const W*>(a.wide) + (size_t)j * a.H * a.K + k;
     float s = 0.f;
+    RING_UNROLL(WHOLE_SEARCH_HU)
     for (int i = 0; i < a.H; ++i) s = fmaf(to_f(w[(size_t)i * a.K]), act<W>(x[i * G + g]), s);
     logits[e] = s + a.wide_b[k * 2 + j];
   }
@@ -1195,7 +1283,7 @@ Plan make_plan(int B, int H, int K, int value_bins, int reward_bins) {
     p.cluster = kCluster;
     p.blocks = (p.blocks + kCluster - 1) / kCluster * kCluster;
     p.tile_rows = ring_tile_rows(H);
-    p.tile_floats = kStages * 2 * p.tile_rows * H + kBarrierFloats;
+    p.tile_floats = kStages * 2 * p.tile_rows * H + kBarrierFloats + 2 * H;  // and the layer norm's vectors
   }
   p.smem = smem_bytes<G>(H, K, value_bins, reward_bins, p.tile_floats);
   return p;
