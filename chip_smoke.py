@@ -37,8 +37,12 @@ code != 0, no final ``ok`` line) if any phase fails:
    within rtol 1e-5 of PyTorch's own sum; float64 CUDA shards must raise;
 4. times each kernel (CUDA events after warm-up, median of 5; 3 for the
    new variants) beside its plain version and its bound: the FP32 operations
-   a search needs (at the bf16 tensor-core rate for a bfloat16 pack, with
-   the bytes the kernel re-reads per call beside it), the integer
+   a search needs (at the bf16 tensor-core rate for a bfloat16 pack; beside
+   it each library's launch shape: blocks, cluster size C, weight stages and
+   rows T of a tile, the clusters the card keeps resident at once
+   (cudaOccupancyMaxActiveClusters); the bytes the kernel reads from L2 per
+   call; and ptxas's registers, stack frame and spills, printed after the
+   build), the integer
    operations a rollout's definition forces (beside it, what the rollout
    kernel's source spends, as its share of the INT32 instruction rate), and the
    bytes an all-reduce must move (which the one-pass kernel moves and no

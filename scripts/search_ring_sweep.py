@@ -1,13 +1,16 @@
 """Sweep of the float32 resident whole-search kernel's ring on one GPU.
 
 ``env PYTHONPATH=. python scripts/search_ring_sweep.py`` from the repo root.
-Builds ``csrc/whole_search.cu``'s float32 resident library once per cluster
-size C and number of stages (``-DWHOLE_SEARCH_CLUSTER``,
-``-DWHOLE_SEARCH_STAGES``), prints ptxas's report and the launch shape of
-each, holds each bit for bit against the streamed float32 library (visits,
-Q and root value) at the paper preset (H=256, 10 blocks, 100 simulations)
-with scalar heads and with 256/128 bins, at 256 and 1,024 searches a
-launch, and times them in turns (CUDA events, median of 5 rounds).
+Builds ``csrc/whole_search.cu``'s float32 resident library once per variant
+of the ring (cluster size C, stages, outputs per computing thread, rows a
+batch: ``-DWHOLE_SEARCH_CLUSTER``, ``_STAGES``, ``_OUTS``, ``_ROWS``),
+prints ptxas's report and the launch shape of each, holds each bit for bit
+against the streamed float32 library (visits, Q and root value) at the
+paper preset (H=256, 10 blocks, 100 simulations) with scalar heads and with
+256/128 bins, at 256 and 1,024 searches a launch, and times them in turns
+(CUDA events, median of 5 rounds), beside the parent commit's L2-direct
+kernel when its source is at ``profiles/parent_whole_search.cu``
+(``git show <parent>:simulate_2048_tpu_torch/csrc/whole_search.cu``).
 """
 
 from __future__ import annotations
@@ -24,18 +27,16 @@ import chip_smoke as cs
 from simulate_2048_tpu_torch.ops import _build
 from simulate_2048_tpu_torch.ops import search_kernel as sk
 
-# name -> (C, stages, clock64 profile, outputs per thread in the dense layers, rows a batch, heads' unroll)
+# name -> (C, stages, outputs per thread in the dense layers, rows a batch); the first is the shipped design
 VARIANTS = {
-    "o2": (1, 3, 0, 2, 8, 0),
-    "o2_r4": (1, 3, 0, 2, 4, 0),
-    "o2_hu8": (1, 3, 0, 2, 8, 8),
-    "o2_r4_hu8": (1, 3, 0, 2, 4, 8),
-    "o2_r4_hu4": (1, 3, 0, 2, 4, 4),
-    "c2_o2_r4_hu8": (2, 3, 0, 2, 4, 8),
-    "o2_prof": (1, 3, 1, 2, 8, 0),
+    "c1": (1, 3, 2, 4),
+    "c2": (2, 3, 2, 4),
+    "c4": (4, 3, 2, 4),
+    "c1_s6": (1, 6, 2, 4),
+    "c1_o1": (1, 3, 1, 4),
+    "c1_o4": (1, 3, 4, 4),
+    "c1_r8": (1, 3, 2, 8),
 }
-REGIONS = ("kernel", "traversal+gather", "expansion", "install+backup", "dense", "dense: tile waits",
-           "dense: releases", "-", "dense: epilogue", "layer norms", "heads")  # fmt: skip
 # The parent commit's source, if present, built by hand as "whole_search_parent" (the L2-direct kernel).
 PARENT = Path("profiles/parent_whole_search.cu")
 ROUNDS = 5
@@ -50,13 +51,12 @@ def main() -> None:
     )
     print(smi.stdout.strip(), f"torch {torch.__version__} CUDA {torch.version.cuda}", flush=True)
     variants = {}
-    for label, (c, stages, prof, outs, rows, hu) in VARIANTS.items():
+    for label, (c, stages, outs, rows) in VARIANTS.items():
         name = f"whole_search_{label}"
         _build.LIBRARIES[name] = (
             "whole_search",
             ("-DWHOLE_SEARCH_BF16=0", "-DWHOLE_SEARCH_STREAMED=0", f"-DWHOLE_SEARCH_CLUSTER={c}",
-             f"-DWHOLE_SEARCH_STAGES={stages}", f"-DWHOLE_SEARCH_PROFILE={prof}", f"-DWHOLE_SEARCH_OUTS={outs}",
-             f"-DWHOLE_SEARCH_ROWS={rows}", f"-DWHOLE_SEARCH_HU={hu}"),
+             f"-DWHOLE_SEARCH_STAGES={stages}", f"-DWHOLE_SEARCH_OUTS={outs}", f"-DWHOLE_SEARCH_ROWS={rows}"),
         )  # fmt: skip
         variants[name] = (c, stages)
     seconds = _build.build_all(tuple(_build.LIBRARIES))
@@ -113,21 +113,6 @@ def main() -> None:
                     times[name].append(cs.timed_once(lambda: sk.whole_search(*part, pk, cfg))[1])
             line = ", ".join(f"{name} {statistics.median(t):.3f}" for name, t in times.items())
             print(f"times ms, bins {vb}/{rb}, B={b}, median of {ROUNDS} in turns: {line}", flush=True)
-            for name in variants:
-                if not name.endswith("_prof"):
-                    continue
-                lib = load(name)
-                out = (ctypes.c_ulonglong * 12)()
-                lib.whole_search_profile.argtypes = [ctypes.c_void_p]
-                lib.whole_search_profile(out)  # reset
-                use(name)
-                sk.whole_search(*part, packed, cfg)
-                torch.cuda.synchronize()
-                lib.whole_search_profile(out)
-                blocks = sk.kernel_blocks(b, variants[name][0])
-                per = [out[i] / blocks / cfg.num_simulations for i in range(len(REGIONS))]
-                print(f"profile {name} bins {vb}/{rb} B={b}, thread 0's cycles per block and simulation: "
-                      + ", ".join(f"{r} {v:.0f} ({v / per[0]:.3f})" for r, v in zip(REGIONS, per)), flush=True)
     use("whole_search")
     print("sweep ok")
 

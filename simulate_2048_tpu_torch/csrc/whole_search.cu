@@ -25,15 +25,25 @@
 // weight traffic: each block reads the whole pack once per simulation (23 MB
 // at H=256 in float32; 92 MB at H=512, 46 MB in bfloat16, more than or about
 // the 50 MB L2). 100 dependent simulations leave no parallelism but the batch.
+// Read from L2 straight into registers (the bfloat16 resident kernel's way),
+// a float32 pack is bound by the loads' latency: 8 rows in flight a thread,
+// a restart at every layer. Staged through shared memory, the float32
+// resident kernel is bound by each SM's shared-memory pipe: a 64 KB tile is
+// written once by the copy and read once as weights, beside the activations'
+// broadcast reads (about 1,300 cycles a tile by a clock64 profile on an
+// NVIDIA H100 80GB HBM3 at 700 W), and then by the latency of the layer norms
+// and heads, which only G warps can work on (PERF.md).
 //
 // Design. The TPU version keeps 128 searches' tree tables and all weights in
 // VMEM and reads rows by one-hot mask sums (no gather on the TPU). Neither
 // fits 227 KB of shared memory, so here:
-// - one thread block owns G = 2 searches and loops over all simulations;
-//   blocks never communicate. Each block streams the whole weight pack
-//   from L2 once per simulation whatever G is, so small G buys blocks (SMs)
-//   at the price of L2 traffic: at B=256 on an H100, G=2 (128 blocks)
-//   measured fastest, then 4, 8, 16 (PERF.md);
+// - one thread block owns G = 2 searches and loops over all simulations.
+//   Each block streams the whole weight pack from L2 once per simulation
+//   whatever G is, so small G buys blocks (SMs) at the price of L2 traffic:
+//   at B=256 on an H100, G=2 (128 blocks) measured fastest, then 4, 8, 16
+//   (PERF.md). Only the float32 resident kernel's blocks may share their
+//   weight tiles, through a thread-block cluster (Ring below); at C = 1 they
+//   too never communicate;
 // - tree tables live in global memory (allocated by the wrapper) and are
 //   read and written with plain indexed loads and stores: one warp per
 //   search in traversal (lane k = child slot k, warp reductions for the
@@ -42,15 +52,25 @@
 // - activations are (H, G) float32 tiles in shared memory; each dense layer
 //   is a hand-written FP32 product (FMAs for a float32 pack) in which 2H
 //   threads each own one output row and one half of the input range and
-//   read the activations as broadcast float2s. The resident kernel (H <= 256, 512 threads) reads the
-//   (in, out) weight matrix coalesced from global memory (shared across
-//   blocks through L2). The streamed kernel (H <= 512, 1,024 threads) brings
+//   read the activations as broadcast float2s. The bfloat16 resident kernel
+//   (H <= 256, 512 threads) reads the (in, out) weight matrix coalesced from
+//   global memory (shared across blocks through L2). The float32 resident
+//   kernel (H <= 256, 2H + 32 threads) takes each layer through a ring of
+//   three 64 KB shared-memory stages (T = 32 rows of each input half at
+//   H=256), filled in call order by 1-D bulk copies (cp.async.bulk, no
+//   tensor map) that one producer warp issues and that complete on
+//   mbarriers; the ring runs on across layers and simulations, so the next
+//   expansion's first tiles land during the heads, the backup and the
+//   traversal. Its 2H computing threads synchronise on a named barrier,
+//   each owns two adjacent outputs of one input half (float2 weights, float4
+//   activations of two rows), and a stalled pipeline traps instead of
+//   hanging. The streamed kernel (H <= 512, 1,024 threads) brings
 //   each layer into shared memory in 64 KB tiles of rows (T rows of each
 //   input half) with `cp.async`, double-buffered: the tile after the current
 //   one, in the next layer when this one ends, is in flight while the block
 //   computes, and the first tile of an expansion while it traverses, as the
-//   TPU kernel's chunk DMAs are. Every thread sums its rows in the same order
-//   in both kernels, so the two give bit-identical searches;
+//   TPU kernel's chunk DMAs are. Every output sums its rows in the same order
+//   in every kernel, so resident and streamed give bit-identical searches;
 // - a bfloat16 pack stores hh / win / wide / cat and the node embeddings in
 //   bfloat16; every dense and head product rounds its input activation to
 //   bfloat16 (`__float2bfloat16_rn`) and sums products of the widened values
@@ -79,7 +99,8 @@
 #include <type_traits>
 
 // Each library holds one variant (ops/_build.py builds the four in parallel):
-// the weights' type, and resident or streamed hh.
+// the weights' type, and resident or streamed hh. The float32 resident one
+// (WHOLE_SEARCH_BF16=0, WHOLE_SEARCH_STREAMED=0) runs the ring.
 #ifndef WHOLE_SEARCH_BF16
 #define WHOLE_SEARCH_BF16 0
 #endif
@@ -99,6 +120,13 @@ constexpr int kTileBytes = 64 * 1024;  // one streamed tile: T rows of both inpu
 // The float32 resident library feeds its dense layers through a ring of
 // weight tiles in shared memory (Ring below); the other three keep their feeds.
 constexpr bool kRing = !WHOLE_SEARCH_BF16 && !WHOLE_SEARCH_STREAMED;
+// The ring's shape, each the fastest measured on an NVIDIA H100 80GB HBM3 at
+// 700 W (PERF.md):
+// one block a cluster (C = 2 and 4 multicast each tile, but were no faster:
+// the blocks do not wait on L2 for most of their tiles, and at C = 4 only 30
+// clusters fit the card at once); three 64 KB stages (six of 32 KB pay more
+// per tile); two outputs a computing thread (one: more activation loads per
+// weight; four: too few warps); rows summed 4 at a time (8 spill).
 #ifndef WHOLE_SEARCH_CLUSTER
 #define WHOLE_SEARCH_CLUSTER 1
 #endif
@@ -106,42 +134,19 @@ constexpr bool kRing = !WHOLE_SEARCH_BF16 && !WHOLE_SEARCH_STREAMED;
 #define WHOLE_SEARCH_STAGES 3
 #endif
 #ifndef WHOLE_SEARCH_OUTS
-#define WHOLE_SEARCH_OUTS 1
+#define WHOLE_SEARCH_OUTS 2
 #endif
-constexpr int kOuts = WHOLE_SEARCH_OUTS;        // outputs per thread in the ring kernel's dense layers
-constexpr int kCluster = WHOLE_SEARCH_CLUSTER;  // C: blocks that one multicast copy of a tile feeds
-constexpr int kStages = WHOLE_SEARCH_STAGES;    // tiles of the ring, each at most kRingStageBytes
-constexpr int kRingStageBytes = 192 * 1024 / kStages;
-constexpr int kBarrierFloats = 32;              // 2 kStages mbarriers of 8 bytes after the stages
-static_assert(2 * kStages * 8 <= kBarrierFloats * 4, "the ring's barriers fit their slot");
-constexpr unsigned kMaxSpins = 1u << 24;        // a wait that spins longer traps: the pipeline stalled
 #ifndef WHOLE_SEARCH_ROWS
-#define WHOLE_SEARCH_ROWS 8
+#define WHOLE_SEARCH_ROWS 4
 #endif
-#ifndef WHOLE_SEARCH_HU
-#define WHOLE_SEARCH_HU 0
-#endif
-#define WS_STR(x) #x
-#if !WHOLE_SEARCH_BF16 && !WHOLE_SEARCH_STREAMED && WHOLE_SEARCH_HU
-#define RING_UNROLL(n) _Pragma(WS_STR(unroll n))
-#else
-#define RING_UNROLL(n)
-#endif
-#ifndef WHOLE_SEARCH_PROFILE
-#define WHOLE_SEARCH_PROFILE 0
-#endif
-#if WHOLE_SEARCH_PROFILE
-__device__ unsigned long long g_prof[12];
-__shared__ unsigned long long s_prof[12];
-#define PROF_START(v) long long v = clock64()
-#define PROF_ADD(k, v)                                   \
-  do {                                                   \
-    if (threadIdx.x == 0) s_prof[k] += clock64() - (v);  \
-  } while (0)
-#else
-#define PROF_START(v)
-#define PROF_ADD(k, v)
-#endif
+constexpr int kCluster = WHOLE_SEARCH_CLUSTER;
+constexpr int kStages = WHOLE_SEARCH_STAGES;
+constexpr int kRingStageBytes = 192 * 1024 / kStages;
+constexpr int kOuts = WHOLE_SEARCH_OUTS;
+constexpr int kRingRows = WHOLE_SEARCH_ROWS;
+constexpr int kBarrierFloats = 32;  // 2 kStages mbarriers of 8 bytes after the stages
+static_assert(2 * kStages * 8 <= kBarrierFloats * 4, "the ring's barriers fit their slot");
+constexpr unsigned kMaxSpins = 1u << 24;  // a wait that spins longer traps: the pipeline stalled
 
 struct Args {
   const float* root_h;  // (B, H)
@@ -320,7 +325,7 @@ __device__ __forceinline__ void cluster_sync() {
 }
 
 // The threads that compute, 2H: the whole block, but for the ring's producer warp.
-__device__ __forceinline__ int compute_threads() { return kRing ? (int)blockDim.x - 32 : (int)blockDim.x; }
+__device__ __forceinline__ unsigned compute_threads() { return kRing ? blockDim.x - 32 : blockDim.x; }
 
 // __syncthreads over the threads that compute (named barrier 1 beside the
 // ring's producer warp, which never waits with them).
@@ -332,8 +337,10 @@ __device__ __forceinline__ void block_sync() {
   }
 }
 
-// The warps that compute the ring kernel's dense layers: 2H / kOuts threads.
-__device__ __forceinline__ int dense_warps(int H) { return (2 * H / kOuts + 31) / 32; }
+// The warps that compute the ring kernel's dense layers: 2H / kOuts threads,
+// whole warps since H is a multiple of 32.
+static_assert(kOuts == 1 || kOuts == 2 || kOuts == 4, "2H / kOuts threads make whole warps (4: H % 64 == 0)");
+__device__ __forceinline__ int dense_warps(int H) { return 2 * H / kOuts / 32; }
 
 // The ring kernel's slot for the LayerNorm vectors (gamma, beta: 2H floats)
 // that the next layer norm takes, at the end of the ring's region.
@@ -597,19 +604,17 @@ __device__ __forceinline__ void load_vec(const float* p, float (&v)[U]) {
 // chain per search, as RowSum<G, float> does, so every output's bits are
 // those of one thread per output. A warp reads a row's weights as one
 // kOuts-float load per lane and the activations of 2 rows as one broadcast
-// float4 (G = 2). The epilogue's global loads, and the next layer norm's
-// vectors (ln_next: vectors iv + 1, iv + 2, which half 1 parks in shared
-// memory for it), are issued before the tiles.
+// float4 (G = 2), kRingRows rows at a time. The epilogue's global loads, and
+// the next layer norm's vectors (ln_next: vectors iv + 1, iv + 2, which
+// half 1 parks in shared memory for it), are issued before the tiles.
 template <int G>
 __device__ void dense_ring(const Args& a, Ring& st, int iv, const float* in, float* out, float* part,
                            const float* rows, const int* row_idx, bool residual, bool ln_next) {
   constexpr int U = kOuts;
   static_assert(G == 2, "activations are read as float4s of two rows");
-  PROF_START(td);
   const int H = a.H;
   const int per_half = H / U;
-  const bool active = (int)threadIdx.x < 2 * per_half;
-  const bool in_warp = (int)threadIdx.x < 32 * dense_warps(H);  // warp-uniform: takes part in the ring
+  const bool active = (int)threadIdx.x < 2 * per_half;  // whole warps
   const int half = threadIdx.x / per_half;
   const int o0 = (threadIdx.x % per_half) * U;
   const int i0 = half * (H / 2);
@@ -633,13 +638,11 @@ __device__ void dense_ring(const Args& a, Ring& st, int iv, const float* in, flo
     load_vec<U>(a.vecs + (size_t)(iv + 2) * H + o0, beta);
   }
   for (int t = 0; t < st.tpl; ++t, ++st.q) {
-    if (!in_warp) continue;
-    PROF_START(t3);
+    if (!active) continue;
     const float* w = st.ready() + (size_t)half * st.T * H + o0;
-    PROF_ADD(5, t3);
     const float* x = in + (i0 + t * st.T) * G;
-    constexpr int R = WHOLE_SEARCH_ROWS;
-    for (int u = 0; u < st.T && active; u += R) {
+    constexpr int R = kRingRows;
+    for (int u = 0; u < st.T; u += R) {
       float wr[R][U], xq[R * G / 4][4];
 #pragma unroll
       for (int v = 0; v < R; ++v) load_vec<U>(w + (size_t)(u + v) * H, wr[v]);
@@ -654,11 +657,8 @@ __device__ void dense_ring(const Args& a, Ring& st, int iv, const float* in, flo
         }
       }
     }
-    PROF_START(t2);
     st.release();
-    PROF_ADD(6, t2);
   }
-  PROF_START(t4);
   if (active && half == 1) {
 #pragma unroll
     for (int k = 0; k < U; ++k) {
@@ -685,8 +685,6 @@ __device__ void dense_ring(const Args& a, Ring& st, int iv, const float* in, flo
     }
   }
   block_sync();
-  PROF_ADD(8, t4);
-  PROF_ADD(4, td);
 }
 
 // out (H, G) = W[layer]^T in + vec[iv] (+ rows[row_idx[g]] | + out).
@@ -697,7 +695,7 @@ __device__ void dense_ring(const Args& a, Ring& st, int iv, const float* in, flo
 // Ring; either must stand at this layer's first tile.
 template <int G, typename W, bool kStream, typename Feed>
 __device__ void dense(const Args& a, Feed& st, int layer, int iv, const float* in, float* out, float* part,
-                      const W* rows, const int* row_idx, bool residual, bool ln_next = false) {
+                      const W* rows, const int* row_idx, bool residual) {
   const int H = a.H;
   const int o = threadIdx.x % H;
   const int half = threadIdx.x / H;
@@ -721,7 +719,7 @@ __device__ void dense(const Args& a, Feed& st, int layer, int iv, const float* i
       ++st.q;
     }
   } else if constexpr (kRing) {
-    dense_ring<G>(a, st, iv, in, out, part, rows, row_idx, residual, ln_next);
+    dense_ring<G>(a, st, iv, in, out, part, rows, row_idx, residual, false);
     return;
   } else {
     const W* __restrict__ w = static_cast<const W*>(a.hh) + ((size_t)layer * H + i0) * H + o;
@@ -788,7 +786,6 @@ __device__ __forceinline__ float lane_tree(const float* x, int g, int n, int lan
 // lane_tree, then the butterfly of warp_sum.
 template <int G, typename W>
 __device__ void layer_norm_relu(const Args& a, int iv, const float* in, float* out) {
-  PROF_START(tl);
   const int H = a.H;
   const int lane = threadIdx.x & 31;
   for (int g = threadIdx.x >> 5; g < G; g += compute_threads() >> 5) {
@@ -853,7 +850,18 @@ __device__ void layer_norm_relu(const Args& a, int iv, const float* in, float* o
     }
   }
   block_sync();
-  PROF_ADD(9, tl);
+}
+
+// A dense layer of a tower, which a layer norm follows: the ring kernel's
+// brings that layer norm's vectors along.
+template <int G, typename W, bool kStream, typename Feed>
+__device__ __forceinline__ void tower_dense(const Args& a, Feed& st, int layer, int iv, const float* in, float* out,
+                                            float* part, bool residual) {
+  if constexpr (kRing) {
+    dense_ring<G>(a, st, iv, in, out, part, nullptr, nullptr, residual, true);
+  } else {
+    dense<G, W, kStream>(a, st, layer, iv, in, out, part, nullptr, nullptr, residual);
+  }
 }
 
 // TowerWithHead: dense -> NB pre-LN residual blocks -> LN -> relu; result in x.
@@ -861,14 +869,14 @@ __device__ void layer_norm_relu(const Args& a, int iv, const float* in, float* o
 template <int G, typename W, bool kStream, typename Feed>
 __device__ void tower(const Args& a, Feed& st, int ihh, int iv, const float* in, float* x, float* t, float* u,
                       float* part) {
-  dense<G, W, kStream>(a, st, ihh, iv, in, x, part, nullptr, nullptr, false, true);
+  tower_dense<G, W, kStream>(a, st, ihh, iv, in, x, part, false);
   ihh += 1;
   iv += 1;
   for (int blk = 0; blk < a.NB; ++blk) {
     layer_norm_relu<G, W>(a, iv, x, t);
-    dense<G, W, kStream>(a, st, ihh, iv + 2, t, u, part, nullptr, nullptr, false, true);
+    tower_dense<G, W, kStream>(a, st, ihh, iv + 2, t, u, part, false);
     layer_norm_relu<G, W>(a, iv + 3, u, u);
-    dense<G, W, kStream>(a, st, ihh + 1, iv + 5, u, x, part, nullptr, nullptr, true, true);
+    tower_dense<G, W, kStream>(a, st, ihh + 1, iv + 5, u, x, part, true);
     ihh += 2;
     iv += 6;
   }
@@ -881,7 +889,6 @@ __device__ void head_scalar(const Args& a, int c, const float* x, float* out) {
   const int lane = threadIdx.x & 31;
   for (int g = threadIdx.x >> 5; g < G; g += compute_threads() >> 5) {
     float s = 0.f;
-    RING_UNROLL(WHOLE_SEARCH_HU)
     for (int i = lane; i < a.H; i += 32) s = fmaf(a.scal[i * 8 + c], x[i * G + g], s);
     s = warp_sum(s) + a.scal_b[c];
     if (lane == 0) out[g] = untransform(a, s);
@@ -904,7 +911,6 @@ __device__ void head_categorical(const Args& a, int off, int bins, float step, c
     float acc[G];
 #pragma unroll
     for (int g = 0; g < G; ++g) acc[g] = 0.f;
-    RING_UNROLL(WHOLE_SEARCH_HU)
     for (int i = i0; i < i1; ++i) {
       const float wv = load_w(w + (size_t)i * a.CB);
 #pragma unroll
@@ -943,32 +949,26 @@ __device__ void head_categorical(const Args& a, int off, int bins, float step, c
 // weights and activations, whatever W is) or categorical.
 template <int G, typename W>
 __device__ void head_value(const Args& a, int c, const float* x, float* out, float* psum, float* lg) {
-  PROF_START(th);
   const int bins = c == 2 ? a.reward_bins : a.value_bins;
   if (bins == 1) {
     head_scalar<G>(a, c, x, out);
-    PROF_ADD(10, th);
     return;
   }
   const int off = a.value_bins > 1 ? c * a.value_bins : 0;
   head_categorical<G, W>(a, off, bins, c == 2 ? a.reward_step : a.value_step, x, out, psum, lg);
-  PROF_ADD(10, th);
 }
 
 // logits (K, G) = wide[j]^T x + wide_b[:, j].
 template <int G, typename W>
 __device__ void head_logits(const Args& a, int j, const float* x, float* logits) {
-  PROF_START(th);
   for (int e = threadIdx.x; e < a.K * G; e += compute_threads()) {
     const int k = e / G, g = e % G;
     const W* w = static_cast<const W*>(a.wide) + (size_t)j * a.H * a.K + k;
     float s = 0.f;
-    RING_UNROLL(WHOLE_SEARCH_HU)
     for (int i = 0; i < a.H; ++i) s = fmaf(to_f(w[(size_t)i * a.K]), act<W>(x[i * G + g]), s);
     logits[e] = s + a.wide_b[k * 2 + j];
   }
   block_sync();
-  PROF_ADD(10, th);
 }
 
 // Floats of shared memory the categorical heads take beside the rest: partial
@@ -1024,7 +1024,7 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
   float* s_v = s_r + G;
   float* psum = s_v + G;  // categorical heads: partial sums, then the (bins, G) logits
   const int cat_bins = max(a.value_bins, a.reward_bins);
-  const int cat_floats = cat_bins > 1 ? (max(compute_threads(), cat_bins) + cat_bins) * G : 0;
+  const int cat_floats = cat_bins > 1 ? (max((int)compute_threads(), cat_bins) + cat_bins) * G : 0;
   float* lgt = psum + (cat_floats - cat_bins * G);
   int* s_parent = reinterpret_cast<int*>(s_v + G + cat_floats);
   int* s_edge = s_parent + G;
@@ -1036,11 +1036,6 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = compute_threads() >> 5;
   const int b0 = blockIdx.x * G;
-#if WHOLE_SEARCH_PROFILE
-  if (tid < 12) s_prof[tid] = 0;
-  __syncthreads();
-#endif
-  PROF_START(tk);
 
   // Offsets into the packed weights (mirror pack_search_params).
   const int tower_hh = 1 + 2 * a.NB, tower_vec = 3 + 6 * a.NB;
@@ -1057,7 +1052,7 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
   std::conditional_t<kRing, Ring, Stream<W>> st{};
   if constexpr (kRing) {
     st.start(a, smem, tower_hh);
-    if (tid >= compute_threads()) {  // the producer warp
+    if (tid >= (int)compute_threads()) {  // the producer warp
       if (lane == 0) st.produce(a);
       __syncwarp();
       if constexpr (kCluster > 1) cluster_sync();  // the teardown's cluster barrier, as the computing threads
@@ -1093,7 +1088,6 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
   block_sync();
 
   for (int sim = 0; sim < a.S; ++sim) {
-    PROF_START(ts);
     const int new_index = sim + 1;
     if constexpr (kStream) {  // the expansion's first tile lands while the block traverses
       st.q = 0;
@@ -1151,8 +1145,6 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
       pe[e] = b < a.B ? to_f(emb[((size_t)b * N + s_parent[g]) * H + i]) : 0.f;
     }
     block_sync();
-    PROF_ADD(1, ts);
-    PROF_START(te);
 
     // phi then psi (decision parent -> chance child)
     // (in call order: the streamed pack holds the layers in this order)
@@ -1172,8 +1164,6 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
     head_value<G, W>(a, 0, x, s_v, psum, lgt);
     head_logits<G, W>(a, 0, x, la);
 
-    PROF_ADD(2, te);
-    PROF_START(tb);
     // ---- install the new node at row new_index (unreachable when the
     // depth cap stopped on an expanded edge)
     for (int e = tid; e < HG; e += compute_threads()) {
@@ -1233,7 +1223,6 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
       }
     }
     block_sync();
-    PROF_ADD(3, tb);
   }
 
   // ---- root statistics
@@ -1247,11 +1236,6 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
   if (tid < G && b0 + tid < a.B) a.rootv[b0 + tid] = a.nval[(size_t)(b0 + tid) * N];
   // No block leaves while another can still arrive on its barriers or copy into its shared memory.
   if constexpr (kRing && kCluster > 1) cluster_sync();
-  PROF_ADD(0, tk);
-#if WHOLE_SEARCH_PROFILE
-  block_sync();
-  if (tid < 12) atomicAdd(&g_prof[tid], s_prof[tid]);
-#endif
 }
 
 // The ring's tile: T rows of each input half, the largest power of two times
@@ -1361,16 +1345,6 @@ size_t whole_search_workspace_bytes(int B, int H, int K, int S, int P) {
 }
 
 const char* whole_search_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
-
-#if WHOLE_SEARCH_PROFILE
-// Thread 0's clock64 cycles by region, summed over blocks since the last call; resets them.
-int whole_search_profile(unsigned long long* out) {
-  cudaError_t err = cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));
-  if (err != cudaSuccess) return (int)err;
-  unsigned long long zero[12] = {};
-  return (int)cudaMemcpyToSymbol(g_prof, zero, sizeof(zero));
-}
-#endif
 
 // How a launch of B searches at these widths runs: out[0..6] = blocks,
 // blocks per cluster, searches per block (G), weight stages in shared memory

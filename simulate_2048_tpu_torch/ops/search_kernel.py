@@ -4,7 +4,9 @@ Counterpart of the JAX package's ``ops/pallas_search.py`` (the Pallas TPU
 kernel ``_make_kernel`` / ``_run_packed``, ``pallas_search_plan`` and
 ``run_mcts_pallas``), all four variants: (a) scalar and (b) categorical
 value/Q/reward heads, (c) float32 or bfloat16 weight packs, and (d) weights
-resident (read straight from L2) or streamed through shared memory. The
+resident or streamed through shared memory (a resident float32 pack, too,
+reaches the dense layers through a ring of shared-memory tiles, copied in
+:func:`call_order`; a resident bfloat16 one is read straight from L2). The
 kernel itself is ``csrc/whole_search.cu``; its header comment says what
 bounds it on an H100 and how the design answers that.
 
@@ -63,7 +65,7 @@ LAUNCHES = {
     "whole_search_bf16_streamed": 0,
 }
 
-RESIDENT_MAX_H = 256  # the resident kernel: 2H threads under __launch_bounds__(512)
+RESIDENT_MAX_H = 256  # the resident kernels: 2H threads (float32: and a producer warp) under __launch_bounds__(512 or 544)
 STREAMED_MAX_H = 512  # the streamed kernel: 2H threads under __launch_bounds__(1024)
 STREAM_CHUNK = 8  # layers per unit of zero padding in a streamed pack (JAX's largest chunk)
 SEARCHES_PER_BLOCK = 2  # G in csrc/whole_search.cu
@@ -260,10 +262,11 @@ def search_plan(cfg: SearchConfig, hidden: int, weight_dtype: torch.dtype = torc
     """The pack layout the CUDA kernel takes for this network and search: 0
     (resident weights) or a ``stream_chunk`` > 0 (streamed weights). The
     counterpart of the JAX package's ``pallas_search_plan``, decided by the
-    CUDA kernel's own limits: a block has 2H threads, one output row and one
-    input half each; the resident kernel runs under ``__launch_bounds__(512)``
-    and reads every layer from L2, the streamed one under 1,024 and stages
-    64 KB tiles of rows through shared memory. Shared memory never binds
+    CUDA kernel's own limits: a block has 2H threads, one output row (float32
+    resident: two) and one input half each; the resident kernels run under
+    ``__launch_bounds__(512)`` (float32: 544, with the producer warp of its
+    ring of 64 KB tiles), the streamed one under 1,024 and stages 64 KB tiles
+    of rows through shared memory. Shared memory never binds
     below those thread limits (at H=512 with 512 bins, float32 tiles: 169 KB
     of 227 KB), nor do the batch (any size runs) or the tower depth (the
     tree tables and the pack live in device memory), which JAX's plan also
