@@ -29,17 +29,18 @@ from simulate_2048_tpu_torch.ops import search_kernel as sk
 
 # name -> (C, stages, outputs per thread in the dense layers, rows a batch); the first is the shipped design
 VARIANTS = {
-    "c1": (1, 3, 2, 4),
-    "c2": (2, 3, 2, 4),
-    "c4": (4, 3, 2, 4),
-    "c1_s6": (1, 6, 2, 4),
-    "c1_o1": (1, 3, 1, 4),
-    "c1_o4": (1, 3, 4, 4),
-    "c1_r8": (1, 3, 2, 8),
+    "c1": (1, 3, 2, 8),
+    "c2": (2, 3, 2, 8),
+    "c4": (4, 3, 2, 8),
+    "c1_s6": (1, 6, 2, 8),
+    "c1_o1": (1, 3, 1, 8),
+    "c1_o4": (1, 3, 4, 8),
+    "c1_r4": (1, 3, 2, 4),
+    "c2_r4": (2, 3, 2, 4),
 }
 # The parent commit's source, if present, built by hand as "whole_search_parent" (the L2-direct kernel).
 PARENT = Path("profiles/parent_whole_search.cu")
-ROUNDS = 5
+ROUNDS = 7
 
 
 def main() -> None:

@@ -137,7 +137,7 @@ constexpr bool kRing = !WHOLE_SEARCH_BF16 && !WHOLE_SEARCH_STREAMED;
 #define WHOLE_SEARCH_OUTS 2
 #endif
 #ifndef WHOLE_SEARCH_ROWS
-#define WHOLE_SEARCH_ROWS 4
+#define WHOLE_SEARCH_ROWS 8
 #endif
 constexpr int kCluster = WHOLE_SEARCH_CLUSTER;
 constexpr int kStages = WHOLE_SEARCH_STAGES;
