@@ -422,9 +422,10 @@ def check_whole_search(
         fail(f"{name}: the library's cluster of {shape.cluster} is not search_kernel.CLUSTER_BLOCKS")
     tile_kb = 2 * shape.tile_rows * h * packed.hh.element_size() / 1024
     print(
-        f"{name}: {timed} searches a launch: {shape.blocks} blocks of {2 * h} threads (G={shape.searches_per_block}) "
-        f"in clusters of C={shape.cluster}; {shape.stages} weight stages of T={shape.tile_rows} rows of each input "
-        f"half ({tile_kb:.0f} KB); {shape.smem_bytes} B of shared memory a block; "
+        f"{name}: {timed} searches a launch: {shape.blocks} blocks of {shape.threads} threads "
+        f"(G={shape.searches_per_block}) in clusters of C={shape.cluster}; {shape.stages} weight stages of "
+        f"T={shape.tile_rows} rows of each input half ({tile_kb:.0f} KB); {shape.smem_bytes} B of shared memory "
+        "a block; "
         f"{shape.resident} clusters resident at once (cudaOccupancyMaxActiveClusters; blocks when C=1): "
         f"{-(-(shape.blocks // shape.cluster) // shape.resident)} wave(s)"
     )

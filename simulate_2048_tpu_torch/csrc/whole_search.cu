@@ -121,29 +121,17 @@ constexpr int kTileBytes = 64 * 1024;  // one streamed tile: T rows of both inpu
 // weight tiles in shared memory (Ring below); the other three keep their feeds.
 constexpr bool kRing = !WHOLE_SEARCH_BF16 && !WHOLE_SEARCH_STREAMED;
 // The ring's shape, each the fastest measured on an NVIDIA H100 80GB HBM3 at
-// 700 W (PERF.md):
-// one block a cluster (C = 2 and 4 multicast each tile, but were no faster:
-// the blocks do not wait on L2 for most of their tiles, and at C = 4 only 30
-// clusters fit the card at once); three 64 KB stages (six of 32 KB pay more
-// per tile); two outputs a computing thread (one: more activation loads per
-// weight; four: too few warps); rows summed 4 at a time (8 spill).
-#ifndef WHOLE_SEARCH_CLUSTER
-#define WHOLE_SEARCH_CLUSTER 1
-#endif
-#ifndef WHOLE_SEARCH_STAGES
-#define WHOLE_SEARCH_STAGES 3
-#endif
-#ifndef WHOLE_SEARCH_OUTS
-#define WHOLE_SEARCH_OUTS 2
-#endif
-#ifndef WHOLE_SEARCH_ROWS
-#define WHOLE_SEARCH_ROWS 8
-#endif
-constexpr int kCluster = WHOLE_SEARCH_CLUSTER;
-constexpr int kStages = WHOLE_SEARCH_STAGES;
-constexpr int kRingStageBytes = 192 * 1024 / kStages;
-constexpr int kOuts = WHOLE_SEARCH_OUTS;
-constexpr int kRingRows = WHOLE_SEARCH_ROWS;
+// 700 W (PERF.md): one block a cluster (C = 2 multicasts each tile to two
+// blocks, and was no faster: the blocks seldom wait on L2 for a tile; at
+// C = 4 only 30 clusters fit the card at once); three 64 KB stages (six of
+// 32 KB pay more per tile); two outputs a computing thread (one: more
+// activation loads per weight; four: too few warps); rows taken 8 at a
+// time (at 4, ptxas spilled inside the tile loop).
+constexpr int kCluster = 1;
+constexpr int kStages = 3;
+constexpr int kRingStageBytes = 64 * 1024;
+constexpr int kOuts = 2;
+constexpr int kRingRows = 8;
 constexpr int kBarrierFloats = 32;  // 2 kStages mbarriers of 8 bytes after the stages
 static_assert(2 * kStages * 8 <= kBarrierFloats * 4, "the ring's barriers fit their slot");
 constexpr unsigned kMaxSpins = 1u << 24;  // a wait that spins longer traps: the pipeline stalled
@@ -304,8 +292,9 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
 }
 
 // Waits for the phase of parity `parity` of the mbarrier at `bar` to
-// complete; traps after kMaxSpins failed tries, so
-// that a stalled pipeline ends the launch with an error instead of hanging.
+// complete; traps after kMaxSpins failed tries, so that a stalled pipeline
+// ends the launch with an error (raised at the next synchronisation)
+// instead of hanging.
 __device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
   for (unsigned spin = 0;; ++spin) {
     unsigned done;
@@ -339,7 +328,7 @@ __device__ __forceinline__ void block_sync() {
 
 // The warps that compute the ring kernel's dense layers: 2H / kOuts threads,
 // whole warps since H is a multiple of 32.
-static_assert(kOuts == 1 || kOuts == 2 || kOuts == 4, "2H / kOuts threads make whole warps (4: H % 64 == 0)");
+static_assert(kOuts == 1 || kOuts == 2, "2H / kOuts threads make whole warps");
 __device__ __forceinline__ int dense_warps(int H) { return 2 * H / kOuts / 32; }
 
 // The ring kernel's slot for the LayerNorm vectors (gamma, beta: 2H floats)
@@ -1294,8 +1283,8 @@ int launch(Args a, cudaStream_t stream) {
   const Plan p = make_plan<G, W, kStream>(a.B, a.H, a.K, a.value_bins, a.reward_bins);
   a.tile_rows = p.tile_rows;
   a.tile_floats = p.tile_floats;
-  cudaError_t err =
-      cudaFuncSetAttribute(whole_search_kernel<G, W, kStream>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  cudaError_t err = cudaFuncSetAttribute(whole_search_kernel<G, W, kStream>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (err != cudaSuccess) return (int)err;
   if constexpr (kRing) {
     cudaLaunchAttribute attr;
@@ -1329,9 +1318,9 @@ int launch_shape(int B, int H, int K, int value_bins, int reward_bins, int* out)
     resident = per_sm * sms;
   }
   if (err != cudaSuccess) return (int)err;
-  const int values[7] = {p.blocks, p.cluster, G, kRing ? kStages : (kStream ? 2 : 0), p.tile_rows,
-                         resident, (int)p.smem};
-  for (int i = 0; i < 7; ++i) out[i] = values[i];
+  const int values[8] = {p.blocks, p.threads, p.cluster, G, kRing ? kStages : (kStream ? 2 : 0),
+                         p.tile_rows, resident, (int)p.smem};
+  for (int i = 0; i < 8; ++i) out[i] = values[i];
   return 0;
 }
 
@@ -1346,12 +1335,12 @@ size_t whole_search_workspace_bytes(int B, int H, int K, int S, int P) {
 
 const char* whole_search_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// How a launch of B searches at these widths runs: out[0..6] = blocks,
-// blocks per cluster, searches per block (G), weight stages in shared memory
-// (0: none, the bfloat16 resident kernel reads L2 directly), rows of each
-// input half per tile, clusters (blocks when the cluster is 1) resident on
-// the card at once, dynamic shared memory bytes per block. Returns 0 or a
-// CUDA error code.
+// How a launch of B searches at these widths runs: out[0..7] = blocks,
+// threads a block, blocks per cluster, searches per block (G), weight
+// stages in shared memory (0: none, the bfloat16 resident kernel reads L2
+// directly), rows of each input half per tile, clusters (blocks when the
+// cluster is 1) resident on the card at once, dynamic shared memory bytes
+// per block. Returns 0 or a CUDA error code.
 int whole_search_launch_shape(int B, int H, int K, int value_bins, int reward_bins, int* out) {
   return launch_shape<kSearchesPerBlock, Weight, kStreamed>(B, H, K, value_bins, reward_bins, out);
 }

@@ -65,7 +65,7 @@ LAUNCHES = {
     "whole_search_bf16_streamed": 0,
 }
 
-RESIDENT_MAX_H = 256  # the resident kernels: 2H threads (float32: and a producer warp) under __launch_bounds__(512 or 544)
+RESIDENT_MAX_H = 256  # the resident kernels: 2H threads (float32: and a producer warp), at most 512 (544)
 STREAMED_MAX_H = 512  # the streamed kernel: 2H threads under __launch_bounds__(1024)
 STREAM_CHUNK = 8  # layers per unit of zero padding in a streamed pack (JAX's largest chunk)
 SEARCHES_PER_BLOCK = 2  # G in csrc/whole_search.cu
@@ -532,6 +532,7 @@ class LaunchShape(NamedTuple):
     """How the CUDA kernel of one library runs a launch (``whole_search_launch_shape``)."""
 
     blocks: int  # thread blocks: kernel_blocks(batch, cluster)
+    threads: int  # threads a block: 2H (float32 resident: and a producer warp)
     cluster: int  # blocks per thread-block cluster
     searches_per_block: int
     stages: int  # weight tiles in shared memory (0: the bfloat16 resident kernel reads L2 directly)
