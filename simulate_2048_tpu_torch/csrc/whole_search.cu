@@ -41,9 +41,7 @@
 //   Each block streams the whole weight pack from L2 once per simulation
 //   whatever G is, so small G buys blocks (SMs) at the price of L2 traffic:
 //   at B=256 on an H100, G=2 (128 blocks) measured fastest, then 4, 8, 16
-//   (PERF.md). Only the float32 resident kernel's blocks may share their
-//   weight tiles, through a thread-block cluster (Ring below); at C = 1 they
-//   too never communicate;
+//   (PERF.md). Blocks never communicate;
 // - tree tables live in global memory (allocated by the wrapper) and are
 //   read and written with plain indexed loads and stores: one warp per
 //   search in traversal (lane k = child slot k, warp reductions for the
@@ -121,16 +119,14 @@ constexpr int kTileBytes = 64 * 1024;  // one streamed tile: T rows of both inpu
 // weight tiles in shared memory (Ring below); the other three keep their feeds.
 constexpr bool kRing = !WHOLE_SEARCH_BF16 && !WHOLE_SEARCH_STREAMED;
 // The ring's shape, each the fastest measured on an NVIDIA H100 80GB HBM3 at
-// 700 W (PERF.md): one block a cluster (C = 2 multicasts each tile to two
-// blocks, and was no faster: the blocks seldom wait on L2 for a tile; at
-// C = 4 only 30 clusters fit the card at once); three 64 KB stages (six of
-// 32 KB pay more per tile); two outputs a computing thread (one: more
-// activation loads per weight; four: too few warps); rows taken 8 at a
-// time (at 4, ptxas spilled inside the tile loop).
-constexpr int kCluster = 1;
+// 700 W (PERF.md): each block copies its own tiles (clusters of 2 blocks
+// sharing each tile by multicast were no faster, since the blocks seldom wait
+// on L2 for a tile; of 4, only 30 clusters fit the card at once); three 64 KB
+// stages (six of 32 KB pay more per tile); two outputs a computing thread
+// (dense_ring; one: more activation loads per weight; four: too few warps);
+// rows taken 8 at a time (at 4, ptxas spilled inside the tile loop).
 constexpr int kStages = 3;
 constexpr int kRingStageBytes = 64 * 1024;
-constexpr int kOuts = 2;
 constexpr int kRingRows = 8;
 constexpr int kBarrierFloats = 32;  // 2 kStages mbarriers of 8 bytes after the stages
 static_assert(2 * kStages * 8 <= kBarrierFloats * 4, "the ring's barriers fit their slot");
@@ -309,10 +305,6 @@ __device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
   }
 }
 
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
 // The threads that compute, 2H: the whole block, but for the ring's producer warp.
 __device__ __forceinline__ unsigned compute_threads() { return kRing ? blockDim.x - 32 : blockDim.x; }
 
@@ -326,10 +318,9 @@ __device__ __forceinline__ void block_sync() {
   }
 }
 
-// The warps that compute the ring kernel's dense layers: 2H / kOuts threads,
-// whole warps since H is a multiple of 32.
-static_assert(kOuts == 1 || kOuts == 2, "2H / kOuts threads make whole warps");
-__device__ __forceinline__ int dense_warps(int H) { return 2 * H / kOuts / 32; }
+// The warps that compute the ring kernel's dense layers: H threads of two
+// outputs each, whole warps since H is a multiple of 32.
+__device__ __forceinline__ int dense_warps(int H) { return H / 32; }
 
 // The ring kernel's slot for the LayerNorm vectors (gamma, beta: 2H floats)
 // that the next layer norm takes, at the end of the ring's region.
@@ -345,26 +336,21 @@ __device__ __forceinline__ float* ln_vectors(const Args& a) {
 // (that + rot) % n_real, in stage q % kStages: two 1-D bulk copies
 // (cp.async.bulk) land it and complete their bytes on the stage's full
 // mbarrier. A producer warp beside the 2H threads that compute does nothing
-// else (CUTLASS's PipelineTmaAsync, without its classes): in cluster rank 0
-// its lane 0 waits until every computing warp of the cluster has released
-// stage s, arms its block's full barrier for the stage's next tile and
-// issues the copies, multicast into all kCluster blocks; in the other ranks
-// it only arms its block's full barrier for a stage's next tile once the
-// last one has landed there. A computing warp waits on the full barrier of
-// tile q, reads it, and releases the stage with one arrive (lane 0) on rank
-// 0's empty barrier, which counts every computing warp of the cluster. The
-// phases come from q alone: stage q % kStages fills for the
+// else (CUTLASS's PipelineTmaAsync, without its classes): its lane 0 waits
+// until every computing warp has released stage s, arms the stage's full
+// barrier for its next tile and issues the copies. A computing warp waits on
+// the full barrier of tile q, reads it, and releases the stage with one
+// arrive (lane 0) on its empty barrier, which counts every computing warp.
+// The phases come from q alone: stage q % kStages fills for the
 // (q / kStages)-th time. Every thread keeps its own copy of the cursor.
 struct Ring {
   float* buf;          // kStages stages of (2, T, H): [half][row][out]
   unsigned bars;       // shared address of full[0]; full[s] at + 8 s, empty[s] at + 8 (kStages + s)
-  unsigned empty_r0;   // rank 0's empty[0] in the cluster's shared window
   int H, T, tpl;       // tpl: tiles per layer, H / 2 / T
   int n_real;          // layers of one expansion
   int rot;             // pack layer of call-order layer j: (j + rot) % n_real
   int total;           // tiles of the launch
   int q;               // the next tile to compute
-  unsigned rank;       // this block's rank in its cluster
 
   __device__ unsigned full(int s) const { return bars + 8 * s; }
   __device__ unsigned empty(int s) const { return bars + 8 * (kStages + s); }
@@ -382,22 +368,15 @@ struct Ring {
     q = 0;
     buf = smem;
     bars = smem_addr(smem + (size_t)kStages * 2 * T * H);
-    asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
-    empty_r0 = empty(0);
-    if constexpr (kCluster > 1) {
-      asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(empty_r0) : "r"(empty(0)), "r"(0));
-    }
     if (threadIdx.x == 0) {
       for (int s = 0; s < kStages; ++s) {
         asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(full(s)) : "memory");
-        asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(empty(s)), "r"(dense_warps(H) * kCluster)
-                     : "memory");
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(empty(s)), "r"(dense_warps(H)) : "memory");
       }
+      // The initialisation is visible to the copies' completions (CUTLASS's fence_barrier_init).
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
-    // Every block's barriers are initialised before any arrive or copy reaches them.
-    if constexpr (kCluster > 1) cluster_sync();
-    else __syncthreads();
+    __syncthreads();  // the barriers are initialised before any arrive or copy reaches them
   }
 
   // This block's full barrier of stage s expects one tile's bytes.
@@ -406,7 +385,7 @@ struct Ring {
                  : "memory");
   }
 
-  // Rank 0: tile r into stage r % kStages of every block of the cluster.
+  // Tile r into stage r % kStages.
   __device__ void issue(const Args& a, int r) const {
     const int j = (r / tpl) % n_real, t = r % tpl;
     const int layer = j + rot < n_real ? j + rot : j + rot - n_real;
@@ -416,19 +395,10 @@ struct Ring {
     const unsigned bytes = tile_bytes() / 2;  // one input half
     for (int half = 0; half < 2; ++half) {
       const float* from = src + (size_t)half * (H / 2) * H;
-      if constexpr (kCluster > 1) {
-        const unsigned short mask = (1u << kCluster) - 1;
-        asm volatile(
-            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
-            " [%0], [%1], %2, [%3], %4;\n" ::"r"(dst + half * bytes),
-            "l"(from), "r"(bytes), "r"(full(s)), "h"(mask)
-            : "memory");
-      } else {
-        asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-                         dst + half * bytes),
-                     "l"(from), "r"(bytes), "r"(full(s))
-                     : "memory");
-      }
+      asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                       dst + half * bytes),
+                   "l"(from), "r"(bytes), "r"(full(s))
+                   : "memory");
     }
   }
 
@@ -436,14 +406,9 @@ struct Ring {
   __device__ void produce(const Args& a) const {
     for (int r = 0; r < total; ++r) {
       const int s = r % kStages, k = r / kStages;
-      if (rank == 0) {
-        if (k > 0) mbar_wait(empty(s), (k - 1) & 1);  // the cluster is done with tile r - kStages
-        arm(s);
-        issue(a, r);
-      } else {
-        if (k > 0) mbar_wait(full(s), (k - 1) & 1);  // tile r - kStages landed: its phase is complete
-        arm(s);  // the multicast of tile r may land before this: the count of bytes goes below 0 meanwhile
-      }
+      if (k > 0) mbar_wait(empty(s), (k - 1) & 1);  // the block is done with tile r - kStages
+      arm(s);
+      issue(a, r);
     }
   }
 
@@ -454,16 +419,11 @@ struct Ring {
     return buf + (size_t)s * 2 * T * H;
   }
 
-  // A computing warp is done with tile q: its lane 0 releases the stage to rank 0's producer.
+  // A computing warp is done with tile q: its lane 0 releases the stage to the producer.
   __device__ void release() const {
     __syncwarp();
     if ((threadIdx.x & 31) != 0) return;
-    const unsigned bar = empty_r0 + 8 * (q % kStages);
-    if constexpr (kCluster > 1) {
-      asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(bar) : "memory");
-    } else {
-      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-    }
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(empty(q % kStages)) : "memory");
   }
 };
 
@@ -573,33 +533,32 @@ __device__ void pick(const Args& a, int b, int node, int lane, int& edge, int& n
   next = __shfl_sync(kFull, ci, idx);
 }
 
-// Float32 loads of U consecutive floats (U = 1, 2, 4), 4 U-byte aligned.
+// Float32 loads of U consecutive floats (U = 2, 4), 4 U-byte aligned.
 template <int U>
 __device__ __forceinline__ void load_vec(const float* p, float (&v)[U]) {
+  static_assert(U == 2 || U == 4, "float2 or float4 loads");
   if constexpr (U == 4) {
     const float4 f = *reinterpret_cast<const float4*>(p);
     v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
-  } else if constexpr (U == 2) {
+  } else {
     const float2 f = *reinterpret_cast<const float2*>(p);
     v[0] = f.x, v[1] = f.y;
-  } else {
-    v[0] = *p;
   }
 }
 
 // The float32 resident kernel's dense layer (dense's contract), on the tiles
-// of its Ring: 2H / kOuts threads, thread t owning outputs o0 .. o0 + kOuts - 1
-// of input half `half`; each output sums its half's rows in order, one FMA
+// of its Ring: H threads, thread t owning outputs o0 and o0 + 1 of input
+// half `half`; each output sums its half's rows in order, one FMA
 // chain per search, as RowSum<G, float> does, so every output's bits are
 // those of one thread per output. A warp reads a row's weights as one
-// kOuts-float load per lane and the activations of 2 rows as one broadcast
+// float2 load per lane and the activations of 2 rows as one broadcast
 // float4 (G = 2), kRingRows rows at a time. The epilogue's global loads, and
 // the next layer norm's vectors (ln_next: vectors iv + 1, iv + 2, which
 // half 1 parks in shared memory for it), are issued before the tiles.
 template <int G>
 __device__ void dense_ring(const Args& a, Ring& st, int iv, const float* in, float* out, float* part,
                            const float* rows, const int* row_idx, bool residual, bool ln_next) {
-  constexpr int U = kOuts;
+  constexpr int U = 2;  // outputs a thread
   static_assert(G == 2, "activations are read as float4s of two rows");
   const int H = a.H;
   const int per_half = H / U;
@@ -1043,8 +1002,6 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
     st.start(a, smem, tower_hh);
     if (tid >= (int)compute_threads()) {  // the producer warp
       if (lane == 0) st.produce(a);
-      __syncwarp();
-      if constexpr (kCluster > 1) cluster_sync();  // the teardown's cluster barrier, as the computing threads
       return;
     }
   } else {
@@ -1223,8 +1180,6 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
     }
   }
   if (tid < G && b0 + tid < a.B) a.rootv[b0 + tid] = a.nval[(size_t)(b0 + tid) * N];
-  // No block leaves while another can still arrive on its barriers or copy into its shared memory.
-  if constexpr (kRing && kCluster > 1) cluster_sync();
 }
 
 // The ring's tile: T rows of each input half, the largest power of two times
@@ -1235,26 +1190,23 @@ inline int ring_tile_rows(int H) {
   return T;
 }
 
-// How a launch of B searches runs: blocks (one per G searches, padded to a
-// multiple of the cluster; a block past the last search runs dummy searches
-// through the whole pipeline), blocks per cluster, the tile geometry and the
-// dynamic shared memory.
+// How a launch of B searches runs: blocks (one per G searches; the last
+// block's searches past B are dummies that run the whole pipeline), the tile
+// geometry and the dynamic shared memory.
 struct Plan {
-  int blocks, threads, cluster, tile_rows, tile_floats;
+  int blocks, threads, tile_rows, tile_floats;
   size_t smem;
 };
 
 template <int G, typename W, bool kStream>
 Plan make_plan(int B, int H, int K, int value_bins, int reward_bins) {
-  Plan p{(B + G - 1) / G, 2 * H, 1, 0, 0, 0};
+  Plan p{(B + G - 1) / G, 2 * H, 0, 0, 0};
   if (kStream) {
     p.tile_rows = stream_tile_rows(H, (int)sizeof(W));
     p.tile_floats = 2 * 2 * p.tile_rows * H * (int)sizeof(W) / (int)sizeof(float);
   }
   if (kRing) {
     p.threads = 2 * H + 32;  // and the producer warp
-    p.cluster = kCluster;
-    p.blocks = (p.blocks + kCluster - 1) / kCluster * kCluster;
     p.tile_rows = ring_tile_rows(H);
     p.tile_floats = kStages * 2 * p.tile_rows * H + kBarrierFloats + 2 * H;  // and the layer norm's vectors
   }
@@ -1262,7 +1214,8 @@ Plan make_plan(int B, int H, int K, int value_bins, int reward_bins) {
   return p;
 }
 
-// A cluster launch of `p` (kRing) on `stream`; `attr` must outlive the config.
+// A launch of `p` (kRing) on `stream` in thread-block clusters of one block;
+// `attr` must outlive the config.
 inline cudaLaunchConfig_t cluster_config(const Plan& p, cudaStream_t stream, cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg{};
   cfg.gridDim = dim3(p.blocks);
@@ -1270,7 +1223,7 @@ inline cudaLaunchConfig_t cluster_config(const Plan& p, cudaStream_t stream, cud
   cfg.dynamicSmemBytes = p.smem;
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = p.cluster;
+  attr->val.clusterDim.x = 1;
   attr->val.clusterDim.y = 1;
   attr->val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -1297,8 +1250,8 @@ int launch(Args a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// make_plan's numbers for this library's kernel, and how many of its
-// clusters (blocks, when not kRing) the card keeps resident at once.
+// make_plan's numbers for this library's kernel, and how many of its blocks
+// the card keeps resident at once (kRing: clusters of one block).
 template <int G, typename W, bool kStream>
 int launch_shape(int B, int H, int K, int value_bins, int reward_bins, int* out) {
   const Plan p = make_plan<G, W, kStream>(B, H, K, value_bins, reward_bins);
@@ -1318,7 +1271,7 @@ int launch_shape(int B, int H, int K, int value_bins, int reward_bins, int* out)
     resident = per_sm * sms;
   }
   if (err != cudaSuccess) return (int)err;
-  const int values[8] = {p.blocks, p.threads, p.cluster, G, kRing ? kStages : (kStream ? 2 : 0),
+  const int values[8] = {p.blocks, p.threads, 1, G, kRing ? kStages : (kStream ? 2 : 0),
                          p.tile_rows, resident, (int)p.smem};
   for (int i = 0; i < 8; ++i) out[i] = values[i];
   return 0;
@@ -1336,11 +1289,10 @@ size_t whole_search_workspace_bytes(int B, int H, int K, int S, int P) {
 const char* whole_search_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 // How a launch of B searches at these widths runs: out[0..7] = blocks,
-// threads a block, blocks per cluster, searches per block (G), weight
+// threads a block, blocks per cluster (1), searches per block (G), weight
 // stages in shared memory (0: none, the bfloat16 resident kernel reads L2
-// directly), rows of each input half per tile, clusters (blocks when the
-// cluster is 1) resident on the card at once, dynamic shared memory bytes
-// per block. Returns 0 or a CUDA error code.
+// directly), rows of each input half per tile, blocks resident on the card
+// at once, dynamic shared memory bytes per block. Returns 0 or a CUDA error code.
 int whole_search_launch_shape(int B, int H, int K, int value_bins, int reward_bins, int* out) {
   return launch_shape<kSearchesPerBlock, Weight, kStreamed>(B, H, K, value_bins, reward_bins, out);
 }

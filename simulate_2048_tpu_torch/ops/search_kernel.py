@@ -69,7 +69,6 @@ RESIDENT_MAX_H = 256  # the resident kernels: 2H threads (float32: and a produce
 STREAMED_MAX_H = 512  # the streamed kernel: 2H threads under __launch_bounds__(1024)
 STREAM_CHUNK = 8  # layers per unit of zero padding in a streamed pack (JAX's largest chunk)
 SEARCHES_PER_BLOCK = 2  # G in csrc/whole_search.cu
-CLUSTER_BLOCKS = 1  # C in csrc/whole_search.cu: the float32 resident kernel's blocks per thread-block cluster
 
 
 class PackedSearchParams(NamedTuple):
@@ -120,13 +119,11 @@ def call_order(num_blocks: int) -> list[int]:
     return [(j + tower_hh) % n_real for j in range(n_real)]
 
 
-def kernel_blocks(batch: int, cluster: int = CLUSTER_BLOCKS) -> int:
+def kernel_blocks(batch: int) -> int:
     """Thread blocks of a launch of ``batch`` searches: one per
-    SEARCHES_PER_BLOCK searches, padded to a multiple of ``cluster`` (the
-    float32 resident kernel's thread-block clusters; the padding blocks run
-    dummy searches through the whole pipeline)."""
-    blocks = -(-batch // SEARCHES_PER_BLOCK)
-    return -(-blocks // cluster) * cluster
+    SEARCHES_PER_BLOCK searches (the last block's searches past ``batch``
+    are dummies that run the whole pipeline)."""
+    return -(-batch // SEARCHES_PER_BLOCK)
 
 
 def pack_layer(packed_hh: torch.Tensor, ihh: int, num_blocks: int, streamed: bool) -> torch.Tensor:
@@ -531,13 +528,13 @@ def whole_search(
 class LaunchShape(NamedTuple):
     """How the CUDA kernel of one library runs a launch (``whole_search_launch_shape``)."""
 
-    blocks: int  # thread blocks: kernel_blocks(batch, cluster)
+    blocks: int  # thread blocks: kernel_blocks(batch)
     threads: int  # threads a block: 2H (float32 resident: and a producer warp)
-    cluster: int  # blocks per thread-block cluster
+    cluster: int  # blocks per thread-block cluster: 1 (the float32 resident kernel launches clusters of one)
     searches_per_block: int
     stages: int  # weight tiles in shared memory (0: the bfloat16 resident kernel reads L2 directly)
     tile_rows: int  # rows of each input half in a tile
-    resident: int  # clusters (blocks, when the cluster is 1) the card keeps resident at once
+    resident: int  # blocks (clusters of one) the card keeps resident at once
     smem_bytes: int  # dynamic shared memory per block
 
 

@@ -2,7 +2,7 @@
 
 The kernel (``csrc/whole_search.cu``, ``Ring``) copies a resident pack's
 ``hh`` layers into shared memory in the order one expansion calls them,
-``call_order(NB)``, and launches its blocks in thread-block clusters. These
+``call_order(NB)``, and launches one block per two searches. These
 tests hold the Python side of both against the plain version and the JAX
 package:
 
@@ -10,7 +10,7 @@ package:
   (``packed_transitions``) reads the pack's layers;
 - a streamed pack, the port's and the JAX package's, holds
   ``resident.hh[call_order(NB)]`` element for element, then zero padding;
-- ``kernel_blocks`` pads the grid to whole clusters, no more.
+- ``kernel_blocks`` gives every search a block, and no block only dummies.
 
 The kernel itself is held against the plain version, and bit for bit against
 the streamed float32 kernel, on the card by ``chip_smoke.py``.
@@ -81,12 +81,9 @@ def test_streamed_pack_is_resident_pack_in_call_order(num_blocks):
 
 
 @pytest.mark.parametrize("batch", [1, 127, 128, 256, 1023])
-def test_kernel_blocks_pads_to_whole_clusters(batch):
+def test_kernel_blocks_gives_every_search_a_block(batch):
     g = sk.SEARCHES_PER_BLOCK
-    for cluster in (1, 2, 4, sk.CLUSTER_BLOCKS):
-        blocks = sk.kernel_blocks(batch, cluster)
-        assert blocks % cluster == 0
-        assert blocks * g >= batch  # every search has a block
-        assert (blocks - cluster) * g < batch  # and no whole cluster is padding
-    assert sk.kernel_blocks(batch) == sk.kernel_blocks(batch, sk.CLUSTER_BLOCKS)
-    assert sk.kernel_blocks(batch, 1) == -(-batch // g)
+    blocks = sk.kernel_blocks(batch)
+    assert blocks * g >= batch  # every search has a block
+    assert (blocks - 1) * g < batch  # and no block holds only dummy searches
+    assert blocks == {1: 1, 127: 64, 128: 64, 256: 128, 1023: 512}[batch]
