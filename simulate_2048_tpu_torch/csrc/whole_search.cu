@@ -132,6 +132,25 @@ constexpr int kBarrierFloats = 32;  // 2 kStages mbarriers of 8 bytes after the 
 static_assert(2 * kStages * 8 <= kBarrierFloats * 4, "the ring's barriers fit their slot");
 constexpr unsigned kMaxSpins = 1u << 24;  // a wait that spins longer traps: the pipeline stalled
 
+// A profile build (-DWHOLE_SEARCH_PROFILE=1, scripts/search_mma_sweep.py)
+// sums thread 0's clock64 cycles by region: 0 the launch, 1 traversal, 2
+// expansion, 3 dense layers, 4 their tile waits, 5 layer norms, 6 heads,
+// 7 install and backup. Without it the macros are empty.
+#ifndef WHOLE_SEARCH_PROFILE
+#define WHOLE_SEARCH_PROFILE 0
+#endif
+#if WHOLE_SEARCH_PROFILE
+constexpr int kProfRegions = 8;
+__device__ unsigned long long g_prof[kProfRegions];
+__shared__ unsigned long long s_prof[kProfRegions];
+#define PROF_START(v) const long long v = clock64()
+#define PROF_ADD(k, v) \
+  if (threadIdx.x == 0) s_prof[k] += clock64() - (v)
+#else
+#define PROF_START(v)
+#define PROF_ADD(k, v)
+#endif
+
 struct Args {
   const float* root_h;  // (B, H)
   const float* root_p;  // (B, K) noised, masked, zero-padded priors
@@ -650,11 +669,14 @@ __device__ void dense(const Args& a, Feed& st, int layer, int iv, const float* i
   const int len = H / 2;
   const int i0 = half * len;
   static_assert(G % 2 == 0, "activations are read as float2s");
+  PROF_START(t_dense);
   RowSum<G, W> sum;
   if constexpr (kStream) {
     for (int t = 0; t < st.tpl; ++t) {
+      PROF_START(t_wait);
       st.wait();        // this thread's copies of tile st.q
       __syncthreads();  // everyone's; and the other buffer's last readers are done
+      PROF_ADD(4, t_wait);
       if (st.q + 1 < st.total) st.issue(a, st.q + 1);
       const W* w = st.buf + (size_t)(st.q & 1) * 2 * st.T * H + (size_t)half * st.T * H + o;
       const float* x = in + (i0 + t * st.T) * G;
@@ -702,6 +724,7 @@ __device__ void dense(const Args& a, Feed& st, int layer, int iv, const float* i
     }
   }
   block_sync();
+  PROF_ADD(3, t_dense);
 }
 
 // A balanced tree over this lane's values x[(lane + 32 j) G + g], j < n =
@@ -734,6 +757,7 @@ __device__ __forceinline__ float lane_tree(const float* x, int g, int n, int lan
 // lane_tree, then the butterfly of warp_sum.
 template <int G, typename W>
 __device__ void layer_norm_relu(const Args& a, int iv, const float* in, float* out) {
+  PROF_START(t_ln);
   const int H = a.H;
   const int lane = threadIdx.x & 31;
   for (int g = threadIdx.x >> 5; g < G; g += compute_threads() >> 5) {
@@ -798,6 +822,7 @@ __device__ void layer_norm_relu(const Args& a, int iv, const float* in, float* o
     }
   }
   block_sync();
+  PROF_ADD(5, t_ln);
 }
 
 // A dense layer of a tower, which a layer norm follows: the ring kernel's
@@ -897,18 +922,22 @@ __device__ void head_categorical(const Args& a, int off, int bins, float step, c
 // weights and activations, whatever W is) or categorical.
 template <int G, typename W>
 __device__ void head_value(const Args& a, int c, const float* x, float* out, float* psum, float* lg) {
+  PROF_START(t_head);
   const int bins = c == 2 ? a.reward_bins : a.value_bins;
   if (bins == 1) {
     head_scalar<G>(a, c, x, out);
+    PROF_ADD(6, t_head);
     return;
   }
   const int off = a.value_bins > 1 ? c * a.value_bins : 0;
   head_categorical<G, W>(a, off, bins, c == 2 ? a.reward_step : a.value_step, x, out, psum, lg);
+  PROF_ADD(6, t_head);
 }
 
 // logits (K, G) = wide[j]^T x + wide_b[:, j].
 template <int G, typename W>
 __device__ void head_logits(const Args& a, int j, const float* x, float* logits) {
+  PROF_START(t_head);
   for (int e = threadIdx.x; e < a.K * G; e += compute_threads()) {
     const int k = e / G, g = e % G;
     const W* w = static_cast<const W*>(a.wide) + (size_t)j * a.H * a.K + k;
@@ -917,6 +946,7 @@ __device__ void head_logits(const Args& a, int j, const float* x, float* logits)
     logits[e] = s + a.wide_b[k * 2 + j];
   }
   block_sync();
+  PROF_ADD(6, t_head);
 }
 
 // Floats of shared memory the categorical heads take beside the rest: partial
@@ -984,6 +1014,11 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = compute_threads() >> 5;
   const int b0 = blockIdx.x * G;
+#if WHOLE_SEARCH_PROFILE
+  if (tid < kProfRegions) s_prof[tid] = 0;
+  __syncthreads();
+#endif
+  PROF_START(t_launch);
 
   // Offsets into the packed weights (mirror pack_search_params).
   const int tower_hh = 1 + 2 * a.NB, tower_vec = 3 + 6 * a.NB;
@@ -1041,6 +1076,7 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
     }
 
     // ---- traversal: one warp per search
+    PROF_START(t_trav);
     for (int g = warp; g < G; g += nwarps) {
       const int b = b0 + g;
       if (b >= a.B) {
@@ -1084,6 +1120,8 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
       }
     }
     block_sync();
+    PROF_ADD(1, t_trav);
+    PROF_START(t_exp);
 
     // ---- expansion: both transition types at (parent, edge)
     for (int e = tid; e < HG; e += compute_threads()) {
@@ -1109,6 +1147,8 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
     tower<G, W, kStream>(a, st, F_HH, F_V, hnew, x, t, u, part);
     head_value<G, W>(a, 0, x, s_v, psum, lgt);
     head_logits<G, W>(a, 0, x, la);
+    PROF_ADD(2, t_exp);
+    PROF_START(t_back);
 
     // ---- install the new node at row new_index (unreachable when the
     // depth cap stopped on an expanded edge)
@@ -1169,6 +1209,7 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
       }
     }
     block_sync();
+    PROF_ADD(7, t_back);
   }
 
   // ---- root statistics
@@ -1180,6 +1221,10 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
     }
   }
   if (tid < G && b0 + tid < a.B) a.rootv[b0 + tid] = a.nval[(size_t)(b0 + tid) * N];
+  PROF_ADD(0, t_launch);
+#if WHOLE_SEARCH_PROFILE
+  if (tid < kProfRegions) atomicAdd(&g_prof[tid], s_prof[tid]);
+#endif
 }
 
 // The ring's tile: T rows of each input half, the largest power of two times
@@ -1287,6 +1332,16 @@ size_t whole_search_workspace_bytes(int B, int H, int K, int S, int P) {
 }
 
 const char* whole_search_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+
+#if WHOLE_SEARCH_PROFILE
+// Thread 0's clock64 cycles by region, summed over the blocks of every launch since the last call; resets them.
+int whole_search_profile(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));
+  if (err != cudaSuccess) return (int)err;
+  const unsigned long long zero[kProfRegions] = {};
+  return (int)cudaMemcpyToSymbol(g_prof, zero, sizeof(zero));
+}
+#endif
 
 // How a launch of B searches at these widths runs: out[0..7] = blocks,
 // threads a block, blocks per cluster (1), searches per block (G), weight
