@@ -108,6 +108,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -325,6 +326,51 @@ def search_flops(h: int, nb: int, a: int, k: int, searches: int, sims: int, vb: 
     return per_sim * searches * sims
 
 
+def bf16_differ(got, want) -> torch.Tensor:
+    """Per search: visits differ, or root Q or value outside rtol 1e-3 / atol
+    1e-2 (the bfloat16 agreement of ``tests/test_torch_search_variants.py``)."""
+    differ = (got[0] != want[0]).any(-1)
+    close = torch.isclose(got[1], want[1], rtol=1e-3, atol=1e-2).all(-1)
+    return differ | ~(close & torch.isclose(got[2], want[2], rtol=1e-3, atol=1e-2))
+
+
+def check_exact_invariants(name: str, out, root_p: torch.Tensor, sims: int, b: int) -> None:
+    """What every launch must give exactly: S visits a search, none where
+    the root prior is zero (masked actions), finite Q and root value."""
+    visits, qvals, value = out
+    if not (visits.sum(-1) == sims).all():
+        fail(f"{name}: visit totals {visits.sum(-1).unique().tolist()} != {sims} at {b} searches a launch")
+    if (visits[root_p[:, : visits.shape[1]] == 0] != 0).any():
+        fail(f"{name}: visits on an action whose root prior is zero at {b} searches a launch")
+    if not (torch.isfinite(qvals).all() and torch.isfinite(value).all()):
+        fail(f"{name}: non-finite Q or value at {b} searches a launch")
+
+
+def check_order_noise(name: str, out, tree, ksteps) -> None:
+    """The tensor-core kernel's rule (its products sum in an order and with
+    roundings no plain version repeats): it may disagree with the tree plain
+    version (``bf16_differ``) in at most max(2 n_order, ceil(B / 100))
+    searches, n_order being the searches in which the tree and the k-step
+    plain versions disagree with each other, the noise of another order of
+    sums; and it meets the JAX package's aggregate bfloat16 rule
+    (``tests/test_pallas_search.py`` TestBf16Weights): most-visited actions
+    agree in > 70% of the searches, mean |root value difference| < 0.15."""
+    b = out[0].shape[0]
+    n_order = int(bf16_differ(ksteps, tree).sum())
+    n_kernel = int(bf16_differ(out, tree).sum())
+    n_ksteps = int(bf16_differ(out, ksteps).sum())
+    limit = max(2 * n_order, -(-b // 100))
+    agree = float((out[0].argmax(-1) == tree[0].argmax(-1)).float().mean())
+    dv = float((out[2] - tree[2]).abs().mean())
+    print(
+        f"{name}: {b} searches a launch: n_order {n_order} (tree vs k-step plain versions), n_kernel {n_kernel} "
+        f"against the tree plain version (limit max(2 n_order, ceil(B/100)) = {limit}), {n_ksteps} against the "
+        f"k-step one; most-visited action agrees in {agree:.4f} (> 0.7), mean |value difference| {dv:.4g} (< 0.15)"
+    )
+    if n_kernel > limit or not agree > 0.7 or not dv < 0.15:
+        fail(f"{name}: the searches at {b} a launch break the order-noise rule")
+
+
 def check_whole_search(
     device,
     name: str = "whole_search",
@@ -341,18 +387,22 @@ def check_whole_search(
     version runs once, on the most roots, and a launch of b searches takes the
     first b); then the times and the bound: float32 packs at ``BATCH``
     searches, the size most launches have, a new variant at the largest size
-    compared, whose plain run the comparison times. Float32: visit counts
-    identical in >= 99% of the searches and every such search's root Q and
-    value within rtol 1e-4 / atol 1e-3. Bfloat16 (the rule of
+    compared, whose plain run the comparison times. Every launch:
+    ``check_exact_invariants``. Float32: visit counts identical in >= 99% of
+    the searches and every such search's root Q and value within rtol 1e-4 /
+    atol 1e-3. Resident bfloat16 (the rule of
     ``tests/test_torch_search_variants.py``): >= 99% of the searches agree,
-    identical visits and Q and value within rtol 1e-3 / atol 1e-2."""
+    identical visits and Q and value within rtol 1e-3 / atol 1e-2. Streamed
+    bfloat16, the tensor-core library: ``check_order_noise``."""
     config, cfg, network, packed, roots = full_width_inputs(device, value_bins, reward_bins, max(batches), hidden)
     bf16 = weight_dtype == torch.bfloat16
+    mma = bf16 and bool(stream_chunk)
     if bf16 or stream_chunk:
         packed = pack(network, config, weight_dtype, stream_chunk)
     rtol, atol = (1e-3, 1e-2) if bf16 else (1e-4, 1e-3)
     h, nb, s = config.hidden_size, config.num_residual_blocks, cfg.num_simulations
     reference, reference_ms = timed_once(lambda: sk.whole_search_reference(*roots, packed, cfg))
+    ksteps = sk.whole_search_reference(*roots, packed, cfg, "ksteps") if mma else None
     timed = max(batches) if bf16 or stream_chunk else BATCH  # searches a launch in the times
 
     max_err = 0.0
@@ -361,16 +411,15 @@ def check_whole_search(
         visits, qvals, value = sk.whole_search(*part, packed, cfg)
         torch.cuda.synchronize()
         ref_visits, ref_q, ref_value = (r[:b] for r in reference)
-        if not (visits.sum(-1) == s).all():
-            fail(f"{name}: visit totals {visits.sum(-1).unique().tolist()} != {s} at {b} searches a launch")
-        if not (torch.isfinite(qvals).all() and torch.isfinite(value).all()):
-            fail(f"{name}: non-finite Q or value at {b} searches a launch")
+        check_exact_invariants(name, (visits, qvals, value), part[1], s, b)
+        if mma:
+            check_order_noise(name, (visits, qvals, value), (ref_visits, ref_q, ref_value),
+                              tuple(r[:b] for r in ksteps))  # fmt: skip
         differ = (visits != ref_visits).any(-1)
         if bf16:
-            close = torch.isclose(qvals, ref_q, rtol=rtol, atol=atol).all(-1)
-            differ |= ~(close & torch.isclose(value, ref_value, rtol=rtol, atol=atol))
+            differ = bf16_differ((visits, qvals, value), (ref_visits, ref_q, ref_value))
         n_diff = int(differ.sum())
-        for i in differ.nonzero().flatten().tolist():
+        for i in differ.nonzero().flatten().tolist()[:8 if mma else b]:
             print(f"  search {i} differs: {root_gap(visits[i].int(), ref_visits[i].int(), qvals[i], ref_q[i])}")
         same = ~differ
         err = max(float((qvals[same] - ref_q[same]).abs().max()), float((value[same] - ref_value[same]).abs().max()))
@@ -379,7 +428,7 @@ def check_whole_search(
             f"{name}: {b} searches a launch: {b - n_diff}/{b} {'agree' if bf16 else 'with identical visit counts'}, "
             f"max |kernel - plain| over Q and root value = {err:.3g}"
         )
-        if n_diff > b // 100:
+        if n_diff > b // 100 and not mma:
             fail(f"{name}: {n_diff} of {b} searches differ from the plain version (limit {b // 100})")
         q_ok = torch.allclose(qvals[same], ref_q[same], rtol=rtol, atol=atol)
         v_ok = torch.allclose(value[same], ref_value[same], rtol=rtol, atol=atol)
@@ -415,15 +464,18 @@ def check_whole_search(
         f"B={timed} S={s} H={h} NB={nb} value_bins={value_bins} reward_bins={reward_bins} "
         f"weights {str(weight_dtype).removeprefix('torch.')} {layout}"
     )
-    library = f"whole_search{'_bf16' * bf16}{'_streamed' * bool(stream_chunk)}"
+    library = sk.library_name(weight_dtype, bool(stream_chunk))
     shape = sk.launch_shape(library, timed, h, max(cfg.num_actions, cfg.codebook_size), value_bins, reward_bins)
-    if shape.searches_per_block != sk.SEARCHES_PER_BLOCK or shape.blocks != sk.kernel_blocks(timed):
+    g = sk.SEARCHES_PER_BLOCK[library]
+    if shape.searches_per_block != g or shape.blocks != sk.kernel_blocks(timed, library):
         fail(f"{name}: the library's launch shape {shape} disagrees with search_kernel's G and kernel_blocks")
-    tile_kb = 2 * shape.tile_rows * h * packed.hh.element_size() / 1024
+    # A tile holds T rows of each input half (the tensor-core library: T input rows of every output).
+    tile_kb = (1 if mma else 2) * shape.tile_rows * h * packed.hh.element_size() / 1024
     print(
         f"{name}: {timed} searches a launch: {shape.blocks} blocks of {shape.threads} threads "
         f"(G={shape.searches_per_block}) in clusters of C={shape.cluster}; {shape.stages} weight stages of "
-        f"T={shape.tile_rows} rows of each input half ({tile_kb:.0f} KB); {shape.smem_bytes} B of shared memory "
+        f"T={shape.tile_rows} rows {'of every output' if mma else 'of each input half'} ({tile_kb:.0f} KB); "
+        f"{shape.smem_bytes} B of shared memory "
         "a block; "
         f"{shape.resident} blocks resident at once (the occupancy query; cudaOccupancyMaxActiveClusters for "
         "the float32 resident kernel's clusters of one): "
@@ -456,26 +508,47 @@ def check_whole_search(
 
 
 def check_streamed_equals_resident(device) -> None:
-    """At the paper preset (H=256, 256/128 bins) the streamed kernel must give
-    the resident kernel's searches bit for bit, in float32 and bfloat16:
-    every thread sums the same products in the same order. Then both are
-    timed at 256 and 1,024 searches a launch (self-play's size and a
-    reanalyze batch's), their calls interleaved: the resident kernel is the
-    one the plan picks up to H=256."""
+    """At the paper preset (H=256, 256/128 bins) the streamed float32 kernel
+    must give the resident one's searches bit for bit, chunks 2 and 8: every
+    thread sums the same products in the same order. In bfloat16 the two are
+    different kernels (the streamed one on the tensor cores), so each is held
+    to its own rule at 256 and 1,024 searches a launch: the resident one
+    >= 99% agreeing with the tree plain version, the streamed one
+    ``check_order_noise``. Then both layouts are timed at 256 and 1,024
+    searches a launch (self-play's size and a reanalyze batch's), their calls
+    interleaved: the resident kernel is the one the plan picks up to H=256."""
     config, cfg, network, _, roots = full_width_inputs(device, 256, 128, reanalyze.SEARCH_BATCH)
+    h, s = config.hidden_size, cfg.num_simulations
     for dtype in (torch.float32, torch.bfloat16):
         resident_pack = pack(network, config, dtype)
-        resident = sk.whole_search(*roots, resident_pack, cfg)
-        for chunk in (2, 8):
-            streamed = sk.whole_search(*roots, pack(network, config, dtype, chunk), cfg)
-            torch.cuda.synchronize()
-            for label, got, want in zip(("visits", "Q", "root value"), streamed, resident):
-                if not torch.equal(got, want):
-                    n = int((got != want).sum())
-                    fail(f"streamed (chunk {chunk}) vs resident, {dtype}: {label} differ in {n} entries")
-        h = config.hidden_size
-        print(f"streamed vs resident kernel, H={h}, {dtype}, chunks 2 and 8: visits, Q and root value bit-identical")
         streamed_pack = pack(network, config, dtype, sk.STREAM_CHUNK)
+        if dtype == torch.float32:
+            resident = sk.whole_search(*roots, resident_pack, cfg)
+            for chunk in (2, 8):
+                streamed = sk.whole_search(*roots, pack(network, config, dtype, chunk), cfg)
+                torch.cuda.synchronize()
+                for label, got, want in zip(("visits", "Q", "root value"), streamed, resident):
+                    if not torch.equal(got, want):
+                        n = int((got != want).sum())
+                        fail(f"streamed (chunk {chunk}) vs resident, {dtype}: {label} differ in {n} entries")
+            print(f"streamed vs resident kernel, H={h}, {dtype}, chunks 2 and 8: visits, Q and root value bit-identical")
+        else:
+            tree = sk.whole_search_reference(*roots, resident_pack, cfg)
+            ksteps = sk.whole_search_reference(*roots, resident_pack, cfg, "ksteps")
+            for b in (BATCH, reanalyze.SEARCH_BATCH):
+                part = tuple(r[:b].contiguous() for r in roots)
+                want, want_ks = tuple(r[:b] for r in tree), tuple(r[:b] for r in ksteps)
+                resident = sk.whole_search(*part, resident_pack, cfg)
+                streamed = sk.whole_search(*part, streamed_pack, cfg)
+                torch.cuda.synchronize()
+                check_exact_invariants("whole_search_bf16", resident, part[1], s, b)
+                check_exact_invariants("whole_search_bf16_streamed", streamed, part[1], s, b)
+                n_diff = int(bf16_differ(resident, want).sum())
+                print(f"whole_search_bf16 (resident), H={h}, {b} searches a launch: {b - n_diff}/{b} agree with the "
+                      "tree plain version")  # fmt: skip
+                if n_diff > b // 100:
+                    fail(f"whole_search_bf16: {n_diff} of {b} searches differ from the plain version (limit {b // 100})")
+                check_order_noise(f"whole_search_bf16_streamed, H={h}, chunk {sk.STREAM_CHUNK}", streamed, want, want_ks)
         for b in (BATCH, reanalyze.SEARCH_BATCH):
             part = tuple(r[:b].contiguous() for r in roots)
             times = {"resident": [], "streamed": []}
@@ -488,6 +561,45 @@ def check_streamed_equals_resident(device) -> None:
                 f"ms, streamed {ms['streamed']:.3f} ms (median of 5, interleaved): streamed/resident "
                 f"{ms['streamed'] / ms['resident']:.3f}"
             )
+
+
+PROBE_WIDTHS = (WIDE_HIDDEN, 96)  # the wide path's, and one that is a multiple of 32 but no power of two
+
+
+def check_dense_probe(device) -> float:
+    """The tensor-core library's dense layers alone (``sk.dense_probe``: the
+    kernel's own ring, ``mma.sync`` products and epilogue), on every layer of
+    a bfloat16 streamed pack of the wide recipe's towers (88 layers at 10
+    blocks) at each of PROBE_WIDTHS, on seeded activations (relu of normals,
+    G columns) and biases: every output within 2^-16 sum_i |w_i x_i| of the
+    plain value (the exact sum of the bfloat16 products, in float64, rounded
+    to float32, plus the bias in float32). Returns the largest ratio of
+    error to that bound."""
+    g = sk.SEARCHES_PER_BLOCK["whole_search_bf16_streamed"]
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    worst = 0.0
+    for h in PROBE_WIDTHS:
+        config = dataclasses.replace(wide_config(), hidden_size=h)
+        network = network_from_config(config, torch.Generator().manual_seed(SEED), device)
+        packed = pack(network, config, torch.bfloat16, sk.STREAM_CHUNK)
+        fragments = sk.SearchWorkspace(packed).fragments
+        n_layers = fragments.shape[0]
+        x = torch.relu(torch.randn(g, h, generator=gen, device=device))
+        bias = 0.1 * torch.randn(n_layers, h, generator=gen, device=device)
+        got = sk.dense_probe(fragments, bias, x)
+        torch.cuda.synchronize()
+        w = packed.hh[:n_layers].double()  # (L, in, out)
+        xb = x.to(torch.bfloat16).double()
+        exact = torch.einsum("gi,lio->lgo", xb, w)
+        magnitude = torch.einsum("gi,lio->lgo", xb.abs(), w.abs())
+        want = exact.float() + bias[:, None, :]
+        ratio = float(((got - want).abs().double() / (2.0**-16 * magnitude).clamp_min(1e-30)).max())
+        print(f"dense probe, H={h}, G={g}: {n_layers} layers of the wide recipe's bfloat16 pack, largest |kernel - "
+              f"plain| / (2^-16 sum |w x|) = {ratio:.4g} (limit 1)")  # fmt: skip
+        if not ratio <= 1.0:
+            fail(f"dense probe at H={h}: an output is further than 2^-16 sum |w x| from the plain value")
+        worst = max(worst, ratio)
+    return worst
 
 
 def max_sm_clock_hz() -> float:
@@ -938,19 +1050,34 @@ def gradient_length(config) -> int:
     return sum(p.numel() for p in network_from_config(config, torch.Generator().manual_seed(SEED), "cpu").parameters())
 
 
+# Libraries whose search kernel must neither spill nor keep a stack frame: their ring loops slow down when they do.
+NO_SPILL_LIBRARIES = ("whole_search", "whole_search_bf16_streamed")
+
+
 def whole_search_ptxas(library: str, log: str) -> str:
     """ptxas's registers, stack frame and spills of ``library``'s whole-search
-    kernel, from its build's report; fails on a stack frame or a spill in the
-    float32 resident library (``whole_search``), whose ring loop slows down
-    when it spills. The other three libraries' reports are only printed."""
-    chunk = log.split("Compiling entry function '")[-1]
+    kernel (the tensor-core library's: ``whole_search_mma_kernel``), from its
+    build's report; fails on a stack frame or a spill in NO_SPILL_LIBRARIES.
+    The other two libraries' reports are only printed."""
+    kernel = "whole_search_mma_kernel" if library.startswith("whole_search_bf16_streamed") else "whole_search_kernel"
+    chunks = [c for c in log.split("Compiling entry function '")[1:] if kernel in c.split("'", 1)[0]]
+    chunk = chunks[-1] if chunks else ""
     frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
     used = re.search(r"Used (\d+) registers", chunk)
-    if "whole_search_kernel" not in chunk or frame is None or used is None:
+    if frame is None or used is None:
         fail(f"{library}: no ptxas report of the whole-search kernel's frame or registers")
-    if library == "whole_search" and any(int(x) for x in frame.groups()):
-        fail(f"{library}: ptxas reports {frame[0]}; the ring kernel must neither spill nor keep a stack frame")
+    if library in NO_SPILL_LIBRARIES and any(int(x) for x in frame.groups()):
+        fail(f"{library}: ptxas reports {frame[0]}; its ring kernel must neither spill nor keep a stack frame")
     return f"{library} ptxas: {used[1]} registers a thread, {frame[0]}"
+
+
+def count_hmma(library: str) -> int:
+    """Tensor-core instructions (HMMA) in ``library``'s machine code, by ``cuobjdump -sass``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(_build.library_path(library))], capture_output=True, text=True)
+    if sass.returncode != 0:
+        fail(f"cuobjdump -sass failed on {library}: {sass.stderr.strip()}")
+    return len(re.findall(r"\bHMMA\.", sass.stdout))
 
 
 def check_ring_ptxas(log: str) -> None:
@@ -1309,6 +1436,10 @@ def main() -> None:
             print(_build.build_log(name))
         if name.startswith("whole_search"):
             print(whole_search_ptxas(name, _build.build_log(name)))
+    hmma = count_hmma("whole_search_bf16_streamed")
+    print(f"whole_search_bf16_streamed: {hmma} HMMA instructions in its machine code (cuobjdump -sass)")
+    if hmma == 0:
+        fail("whole_search_bf16_streamed: no tensor-core instruction in its machine code")
     check_ring_ptxas(_build.build_log("ring_all_reduce"))
     print(json.dumps({"kernels_built": list(seconds), "build_s": round(time.perf_counter() - t0, 3)}))
 
@@ -1328,6 +1459,12 @@ def main() -> None:
     }
     kernels["ring_all_reduce"] = check_ring_all_reduce(device)
     check_whole_search(device, "whole_search_streamed", 256, 128, hidden=WIDE_HIDDEN, stream_chunk=sk.STREAM_CHUNK)
+    check_dense_probe(device)
+    # A bfloat16 width that is no power of two: the plan streams it to the tensor-core library.
+    if sk.search_plan(search_config_from(default_config()), 96, torch.bfloat16) != sk.STREAM_CHUNK:
+        fail("the search plan does not stream a bfloat16 pack of H=96")
+    check_whole_search(device, "whole_search_bf16_streamed (H=96)", 256, 128, (BATCH,), 96, torch.bfloat16,
+                       sk.STREAM_CHUNK)  # fmt: skip
     check_streamed_equals_resident(device)
     check_small_evaluation(device)
     check_small_training(device)

@@ -2,15 +2,19 @@
 
 ``env PYTHONPATH=. python scripts/search_mma_sweep.py [--batches 256] [--rounds 3]``
 from the repo root. Builds ``csrc/whole_search.cu``'s streamed bfloat16
-library once per variant in ``VARIANTS`` (each a set of ``-D`` overrides;
-a name ending in ``_prof`` adds ``-DWHOLE_SEARCH_PROFILE=1``), prints
-ptxas's report and each variant's launch shape, runs each at H=512 (10
-blocks, 100 simulations, 256/128 bins: the wide path's recipe) at every
-size in ``--batches``, checks the invariants (visit totals, finite Q and
-value), counts the searches that differ from the plain version, and times
-the variants in turns (CUDA events, median of ``--rounds``). A profile
-variant prints thread 0's clock64 cycles by region, per block and
-simulation, and their shares.
+library once per variant in ``VARIANTS`` (each a set of ``-D`` overrides of
+the tensor-core kernel's G, consumer warps, stages and stage size; a name
+ending in ``prof`` adds ``-DWHOLE_SEARCH_PROFILE=1``), prints ptxas's report
+and each variant's launch shape, runs each at H=512 (10 blocks, 100
+simulations, 256/128 bins: the wide path's recipe) at every size in
+``--batches``, checks the invariants (visit totals, finite Q and value),
+counts the searches that differ from the tree plain version, and times the
+variants in turns (CUDA events, median of ``--rounds``), beside the parent
+commit's CUDA-core library when its source is at
+``profiles/parent_whole_search.cu`` (``git show
+<parent>:simulate_2048_tpu_torch/csrc/whole_search.cu``). A profile variant
+prints thread 0's clock64 cycles by region, per block and simulation, and
+their shares.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import ctypes
 import statistics
 import subprocess
 import sys
+from pathlib import Path
 
 import torch
 
@@ -29,10 +34,35 @@ from simulate_2048_tpu_torch.ops import search_kernel as sk
 
 LIBRARY = "whole_search_bf16_streamed"
 BASE = _build.LIBRARIES[LIBRARY][1]
+
+
+def shape(g: int, warps: int, stages: int, kb: int) -> tuple[str, ...]:
+    return (f"-DWHOLE_SEARCH_MMA_G={g}", f"-DWHOLE_SEARCH_MMA_WARPS={warps}", f"-DWHOLE_SEARCH_MMA_STAGES={stages}",
+            f"-DWHOLE_SEARCH_MMA_STAGE_KB={kb}")  # fmt: skip
+
+
 # name -> extra defines; the shipped library itself is always timed first.
 VARIANTS = {
-    "prof": (),
+    "w15": shape(8, 15, 4, 32),
+    "w8": shape(8, 8, 4, 32),
+    "w15_s3": shape(8, 15, 3, 32),
+    "w15_s8x16": shape(8, 15, 8, 16),
+    "w15_s2x64": shape(8, 15, 2, 64),
+    "g4_w15": shape(4, 15, 4, 32),
+    "g16_w16_s2": shape(16, 16, 2, 32),
+    "w15_prof": shape(8, 15, 4, 32),
 }
+PARENT = Path("profiles/parent_whole_search.cu")
+
+
+class ParentWorkspace(sk.SearchWorkspace):
+    """The parent's CUDA-core library reads the streamed pack itself, not fragments."""
+
+    @property
+    def fragments(self):
+        return self._packed.hh
+
+
 REGIONS = ("launch", "traversal", "expansion", "dense", "tile waits", "layer norms", "heads", "install+backup")
 
 
@@ -57,18 +87,40 @@ def main() -> None:
         names.append(name)
     seconds = _build.build_all(tuple(names))
     print(f"built {len(seconds)} libraries in {max(seconds.values()):.1f} s", flush=True)
+    cs.NO_SPILL_LIBRARIES = ()  # a variant that spills is timed all the same
     for name in names:
         print(cs.whole_search_ptxas(name, _build.build_log(name)), flush=True)
 
     load = sk._load
+    parent = None
+    if PARENT.exists():
+        out = _build.BUILD_DIR / "whole_search_bf16_streamed_parent.so"
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *BASE, "-o", str(out), str(PARENT)]
+        subprocess.run(cmd, check=True, capture_output=True)
+        parent = ctypes.CDLL(str(out))
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        parent.whole_search_workspace_bytes.argtypes = [i32] * 5
+        parent.whole_search_workspace_bytes.restype = ctypes.c_size_t
+        parent.whole_search_error_string.argtypes = [i32]
+        parent.whole_search_error_string.restype = ctypes.c_char_p
+        parent.whole_search_launch.argtypes = [ptr] * 16 + [i32] * 12 + [f32] * 6 + [i32] + [f32] * 3 + [ptr]
+        parent.whole_search_launch.restype = i32
+        parent.whole_search_launch_shape.argtypes = [i32] * 5 + [ptr]
+        parent.whole_search_launch_shape.restype = i32
+        parent._argtypes_set = True
+        names.append("parent")
 
     def use(library: str) -> ctypes.CDLL:
+        if library == "parent":
+            sk._load = lambda name: parent if name == LIBRARY else load(name)
+            return parent
         sk._load = lambda name: load(library if name == LIBRARY else name)
         return load(library)
 
     config, cfg, network, _, roots = cs.full_width_inputs(device, 256, 128, max(args.batches), cs.WIDE_HIDDEN)
     packed = cs.pack(network, config, torch.bfloat16, sk.STREAM_CHUNK)
     workspace = sk.SearchWorkspace(packed)
+    parent_workspace = ParentWorkspace(packed)
     k = max(cfg.num_actions, cfg.codebook_size)
     s = cfg.num_simulations
     reference = sk.whole_search_reference(*roots, packed, cfg)
@@ -78,15 +130,16 @@ def main() -> None:
         ref = tuple(r[:b] for r in reference)
         for name in names:
             lib = use(name)
-            shape = sk.launch_shape(name, b, config.hidden_size, k, 256, 128)
-            visits, qvals, value = sk.whole_search(*part, packed, cfg, workspace)
+            ws = parent_workspace if name == "parent" else workspace
+            launch = sk.launch_shape(LIBRARY if name == "parent" else name, b, config.hidden_size, k, 256, 128)
+            visits, qvals, value = sk.whole_search(*part, packed, cfg, ws)
             torch.cuda.synchronize()
             if not (visits.sum(-1) == s).all() or not (torch.isfinite(qvals).all() and torch.isfinite(value).all()):
                 cs.fail(f"{name}: visit totals or finite values fail at B={b}")
             differ = (visits != ref[0]).any(-1)
             differ |= ~torch.isclose(qvals, ref[1], rtol=1e-3, atol=1e-2).all(-1)
             differ |= ~torch.isclose(value, ref[2], rtol=1e-3, atol=1e-2)
-            print(f"{name} B={b}: {shape}; {int(differ.sum())} of {b} searches differ from the tree plain version",
+            print(f"{name} B={b}: {launch}; {int(differ.sum())} of {b} searches differ from the tree plain version",
                   flush=True)  # fmt: skip
             if name.endswith("prof"):
                 lib.whole_search_profile.argtypes = [ctypes.c_void_p]
@@ -95,14 +148,15 @@ def main() -> None:
                 sk.whole_search(*part, packed, cfg, workspace)
                 torch.cuda.synchronize()
                 lib.whole_search_profile(out)
-                per = [v / shape.blocks / s for v in out]
+                per = [v / launch.blocks / s for v in out]
                 print(f"profile {name} B={b}, thread 0's cycles per block and simulation: "
                       + ", ".join(f"{r} {p:.0f} ({p / per[0]:.3f})" for r, p in zip(REGIONS, per)), flush=True)  # fmt: skip
         times = {name: [] for name in names}
         for _ in range(args.rounds):
             for name in names:
                 use(name)
-                times[name].append(cs.timed_once(lambda: sk.whole_search(*part, packed, cfg, workspace))[1])
+                ws = parent_workspace if name == "parent" else workspace
+                times[name].append(cs.timed_once(lambda: sk.whole_search(*part, packed, cfg, ws))[1])
         line = ", ".join(f"{name} {statistics.median(t):.3f}" for name, t in times.items())
         print(f"times ms, B={b}, H={config.hidden_size}, median of {args.rounds} in turns: {line}", flush=True)
     use(LIBRARY)

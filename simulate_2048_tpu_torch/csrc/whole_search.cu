@@ -111,13 +111,17 @@ namespace {
 constexpr float kNegInf = -1e9f;
 constexpr int kUnvisited = -1;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kSearchesPerBlock = 2;  // G
 using Weight = std::conditional_t<WHOLE_SEARCH_BF16, __nv_bfloat16, float>;
 constexpr bool kStreamed = WHOLE_SEARCH_STREAMED;
+// The streamed bfloat16 library runs its dense layers on the tensor cores
+// (mma.sync) over a fragment-ordered copy of the weights (MmaRing below).
+constexpr bool kMma = WHOLE_SEARCH_BF16 && WHOLE_SEARCH_STREAMED;
 constexpr int kTileBytes = 64 * 1024;  // one streamed tile: T rows of both input halves
 // The float32 resident library feeds its dense layers through a ring of
 // weight tiles in shared memory (Ring below); the other three keep their feeds.
 constexpr bool kRing = !WHOLE_SEARCH_BF16 && !WHOLE_SEARCH_STREAMED;
+// The two libraries whose weight tiles a producer warp copies, beside the warps that compute.
+constexpr bool kProducerWarp = kRing || kMma;
 // The ring's shape, each the fastest measured on an NVIDIA H100 80GB HBM3 at
 // 700 W (PERF.md): each block copies its own tiles (clusters of 2 blocks
 // sharing each tile by multicast were no faster, since the blocks seldom wait
@@ -131,6 +135,30 @@ constexpr int kRingRows = 8;
 constexpr int kBarrierFloats = 32;  // 2 kStages mbarriers of 8 bytes after the stages
 static_assert(2 * kStages * 8 <= kBarrierFloats * 4, "the ring's barriers fit their slot");
 constexpr unsigned kMaxSpins = 1u << 24;  // a wait that spins longer traps: the pipeline stalled
+
+// The tensor-core library's shape (-D overrides for a sweep): G searches a
+// block, consumer warps beside the producer, and a ring of stages of at most
+// this many KB of fragments.
+#ifndef WHOLE_SEARCH_MMA_G
+#define WHOLE_SEARCH_MMA_G 8
+#endif
+#ifndef WHOLE_SEARCH_MMA_WARPS
+#define WHOLE_SEARCH_MMA_WARPS 16
+#endif
+#ifndef WHOLE_SEARCH_MMA_STAGES
+#define WHOLE_SEARCH_MMA_STAGES 4
+#endif
+#ifndef WHOLE_SEARCH_MMA_STAGE_KB
+#define WHOLE_SEARCH_MMA_STAGE_KB 32
+#endif
+constexpr int kSearchesPerBlock = kMma ? WHOLE_SEARCH_MMA_G : 2;  // G
+constexpr int kMmaWarps = WHOLE_SEARCH_MMA_WARPS;
+constexpr int kMmaStages = WHOLE_SEARCH_MMA_STAGES;
+constexpr int kMmaStageBytes = WHOLE_SEARCH_MMA_STAGE_KB * 1024;
+constexpr int kMmaMaxTiles = (512 / 16 + kMmaWarps - 1) / kMmaWarps;  // 16-row output tiles a warp at H <= 512
+constexpr int kActPad = 8;  // bfloat16 activations: (columns, H + kActPad), so that B fragments load without conflicts
+static_assert(2 * kMmaStages * 8 <= kBarrierFloats * 4, "the tensor-core ring's barriers fit their slot");
+static_assert(kSearchesPerBlock <= kMmaWarps, "traversal and layer norms take a warp per search");
 
 // A profile build (-DWHOLE_SEARCH_PROFILE=1, scripts/search_mma_sweep.py)
 // sums thread 0's clock64 cycles by region: 0 the launch, 1 traversal, 2
@@ -324,13 +352,13 @@ __device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
   }
 }
 
-// The threads that compute, 2H: the whole block, but for the ring's producer warp.
-__device__ __forceinline__ unsigned compute_threads() { return kRing ? blockDim.x - 32 : blockDim.x; }
+// The threads that compute: the whole block, but for a ring's producer warp.
+__device__ __forceinline__ unsigned compute_threads() { return kProducerWarp ? blockDim.x - 32 : blockDim.x; }
 
 // __syncthreads over the threads that compute (named barrier 1 beside the
 // ring's producer warp, which never waits with them).
 __device__ __forceinline__ void block_sync() {
-  if constexpr (kRing) {
+  if constexpr (kProducerWarp) {
     asm volatile("bar.sync 1, %0;\n" ::"r"(compute_threads()) : "memory");
   } else {
     __syncthreads();
@@ -445,6 +473,110 @@ struct Ring {
     asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(empty(q % kStages)) : "memory");
   }
 };
+
+// The tensor-core ring's tile: the most k-steps (16 input rows each, a
+// divisor of H / 16) whose fragments, (H / 16) m-tiles of 512 bytes each,
+// fit kMmaStageBytes.
+__host__ __device__ inline int mma_tile_ksteps(int H) {
+  const int n = H / 16;
+  int kt = 1;
+  for (int d = 1; d <= n; ++d) {
+    if (n % d == 0 && d * n * 512 <= kMmaStageBytes) kt = d;
+  }
+  return kt;
+}
+
+// Floats of shared memory the tensor-core ring takes: its stages, then its barriers.
+__host__ __device__ inline int mma_ring_floats(int H) {
+  return kMmaStages * mma_tile_ksteps(H) * (H / 16) * 512 / 4 + kBarrierFloats;
+}
+
+// The tensor-core library's ring of weight tiles. Its weights are a copy of
+// the streamed pack's real hh layers in mma.sync fragment order
+// (ops/search_kernel.py mma_fragments): layer, k-step (16 input rows),
+// m-tile (16 outputs), lane, and the lane's eight bfloat16 A values (its
+// four registers of m16n8k16) in 16 bytes. A tile is kt consecutive
+// k-steps of one layer for all its m-tiles: one contiguous run of bytes,
+// which one cp.async.bulk copies. Tile r of a launch is tile
+// (first + r) % period of the copy. The protocol is Ring's: the producer
+// warp's lane 0 waits until every reading warp has released stage s, arms
+// the stage's full barrier and issues the copy; a reading warp waits on the
+// full barrier, reads its fragments and releases the stage with one arrive
+// (lane 0). The phases come from the tile index alone.
+struct MmaRing {
+  const char* src;      // the fragment copy
+  char* buf;            // kMmaStages stages of tile_bytes
+  unsigned bars;        // full[s] at + 8 s, empty[s] at + 8 (kMmaStages + s)
+  unsigned tile_bytes;  // kt k-steps of H / 16 m-tiles of 512 bytes
+  int kt, tpl;          // k-steps a tile, tiles a layer
+  int first, period, total;
+  int q;                // the next tile to compute
+
+  __device__ unsigned full(int s) const { return bars + 8 * s; }
+  __device__ unsigned empty(int s) const { return bars + 8 * (kMmaStages + s); }
+
+  // Layer calls `calls` of the copy's layers first_layer, first_layer + 1, ...
+  // (modulo period_layers), read by `readers` warps. Every thread of the
+  // block, the producer warp's too, calls it.
+  __device__ void start(const void* frag, void* smem, int H, int first_layer, int period_layers, int calls,
+                        int readers) {
+    kt = mma_tile_ksteps(H);
+    tpl = H / 16 / kt;
+    tile_bytes = (unsigned)(kt * (H / 16) * 512);
+    src = static_cast<const char*>(frag);
+    buf = static_cast<char*>(smem);
+    bars = smem_addr(buf + (size_t)kMmaStages * tile_bytes);
+    first = first_layer * tpl;
+    period = period_layers * tpl;
+    total = calls * tpl;
+    q = 0;
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < kMmaStages; ++s) {
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(full(s)) : "memory");
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(empty(s)), "r"(readers) : "memory");
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+  }
+
+  // The producer warp's lane 0: every tile of the launch, in order.
+  __device__ void produce() const {
+    for (int r = 0; r < total; ++r) {
+      const int s = r % kMmaStages, k = r / kMmaStages;
+      if (k > 0) mbar_wait(empty(s), (k - 1) & 1);  // every reader is done with tile r - kMmaStages
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(full(s)), "r"(tile_bytes)
+                   : "memory");
+      const char* from = src + (size_t)((first + r) % period) * tile_bytes;
+      asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                       smem_addr(buf + (size_t)s * tile_bytes)),
+                   "l"(from), "r"(tile_bytes), "r"(full(s))
+                   : "memory");
+    }
+  }
+
+  // A reading warp: waits for tile q and returns its fragments.
+  __device__ const uint4* ready() const {
+    const int s = q % kMmaStages;
+    mbar_wait(full(s), (q / kMmaStages) & 1);
+    return reinterpret_cast<const uint4*>(buf + (size_t)s * tile_bytes);
+  }
+
+  // A reading warp is done with tile q: its lane 0 releases the stage.
+  __device__ void release() const {
+    __syncwarp();
+    if ((threadIdx.x & 31) != 0) return;
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(empty(q % kMmaStages)) : "memory");
+  }
+};
+
+// c (16 x 8, float32) += a (16 x 16, bfloat16, a lane's fragment) b (16 x 8, bfloat16, two registers).
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint4& a, unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
 
 // acc[g] += w * x[g] over one input row (x: G activations, read as float2s).
 template <int G, typename W>
@@ -856,6 +988,133 @@ __device__ void tower(const Args& a, Feed& st, int ihh, int iv, const float* in,
   layer_norm_relu<G, W>(a, iv, x, x);
 }
 
+// The tensor-core library's dense layer: out (H, G) float and/or xout
+// (columns, H + kActPad) bfloat16 = W[layer]^T x + vec[iv] (+ rows[row_idx[g]]
+// | + out), x being the bfloat16 activations `xin` (columns, H + kActPad),
+// on the tiles of `st`, which must stand at this layer's first tile. Reading
+// warp w owns the 16-output m-tiles w, w + kMmaWarps, ...: for each k-step
+// of a tile it loads the k-step's B fragments (two 4-byte loads a lane for
+// each 8 columns) and, for each of its m-tiles, the A fragment (one 16-byte
+// load a lane, conflict-free) into mma.sync m16n8k16, accumulating in float32
+// registers in ascending k-steps. The epilogue adds in dense's order: the
+// bias, then the input row, then the residual; it writes the float value
+// and/or its bfloat16 rounding, the next product's input (the TPU kernel's
+// x.astype(w.dtype), done once here instead of at every product). A layer
+// must not write the bfloat16 tile it reads.
+template <int G>
+__device__ void dense_mma(const Args& a, MmaRing& st, int iv, const __nv_bfloat16* xin, float* out,
+                          __nv_bfloat16* xout, const __nv_bfloat16* rows, const int* row_idx, bool residual) {
+  PROF_START(t_dense);
+  constexpr int NT = (G + 7) / 8;  // n-tiles of 8 columns
+  const int H = a.H, MT = H / 16, ld = H + kActPad;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+  const bool active = warp < min(kMmaWarps, MT);
+  float acc[kMmaMaxTiles][NT][4], bias[kMmaMaxTiles][2];
+#pragma unroll
+  for (int j = 0; j < kMmaMaxTiles; ++j) {
+    const int m = (warp + j * kMmaWarps) * 16 + gq;
+    bias[j][0] = active && m < H ? a.vecs[(size_t)iv * H + m] : 0.f;
+    bias[j][1] = active && m < H ? a.vecs[(size_t)iv * H + m + 8] : 0.f;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][nt][i] = 0.f;
+    }
+  }
+  if (!active) {
+    st.q += st.tpl;  // the cursor stays in step; this warp reads no tile
+  }
+  for (int t = 0; active && t < st.tpl; ++t, ++st.q) {
+    PROF_START(t_wait);
+    const uint4* w = st.ready();
+    PROF_ADD(4, t_wait);
+    for (int kk = 0; kk < st.kt; ++kk) {
+      const __nv_bfloat16* xk = xin + (size_t)gq * ld + (t * st.kt + kk) * 16 + 2 * tq;
+      unsigned b[NT][2];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        b[nt][0] = *reinterpret_cast<const unsigned*>(xk + (size_t)8 * nt * ld);
+        b[nt][1] = *reinterpret_cast<const unsigned*>(xk + (size_t)8 * nt * ld + 8);
+      }
+#pragma unroll
+      for (int j = 0; j < kMmaMaxTiles; ++j) {
+        const int mt = warp + j * kMmaWarps;
+        if (mt < MT) {
+          const uint4 f = w[((size_t)kk * MT + mt) * 32 + lane];
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[j][nt], f, b[nt][0], b[nt][1]);
+        }
+      }
+    }
+    st.release();
+  }
+#pragma unroll
+  for (int j = 0; j < kMmaMaxTiles; ++j) {
+    const int mt = warp + j * kMmaWarps;
+    if (!active || mt >= MT) continue;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int m = mt * 16 + gq + 8 * (i >> 1), n = 8 * nt + 2 * tq + (i & 1);
+        if (n >= G) continue;
+        float v = acc[j][nt][i] + bias[j][i >> 1];
+        if (rows != nullptr) v += __bfloat162float(rows[(size_t)row_idx[n] * H + m]);
+        if (residual) v += out[m * G + n];
+        if (out != nullptr) out[m * G + n] = v;
+        if (xout != nullptr) xout[(size_t)n * ld + m] = __float2bfloat16_rn(v);
+      }
+    }
+  }
+  block_sync();
+  PROF_ADD(3, t_dense);
+}
+
+// layer_norm_relu's arithmetic beside a bfloat16 pack, operation for
+// operation (one warp per column), writing the float result to `out`
+// (unless null) and its bfloat16 rounding to `xb` (columns, H + kActPad),
+// the next dense layer's input.
+template <int G>
+__device__ void layer_norm_mma(const Args& a, int iv, const float* in, float* out, __nv_bfloat16* xb) {
+  PROF_START(t_ln);
+  const int H = a.H, ld = H + kActPad;
+  const int lane = threadIdx.x & 31;
+  for (int g = threadIdx.x >> 5; g < G; g += compute_threads() >> 5) {
+    const float inv_h = __fdiv_rn(1.f, (float)H);
+    const float mean = __fmul_rn(warp_sum(lane_tree<G>(in, g, H / 32, lane, false, 0.f)), inv_h);
+    const float var = __fmul_rn(warp_sum(lane_tree<G>(in, g, H / 32, lane, true, mean)), inv_h);
+    const float r = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, 1e-6f)));
+    for (int i = lane; i < H; i += 32) {
+      const float y = __fmul_rn(__fsub_rn(in[i * G + g], mean), r);
+      const float z = __fadd_rn(__fmul_rn(y, a.vecs[(size_t)iv * H + i]), a.vecs[(size_t)(iv + 1) * H + i]);
+      const float v = fmaxf(z, 0.f);
+      if (out != nullptr) out[i * G + g] = v;
+      xb[(size_t)g * ld + i] = __float2bfloat16_rn(v);
+    }
+  }
+  block_sync();
+  PROF_ADD(5, t_ln);
+}
+
+// tower on the tensor cores: the input's bfloat16 tile in_b; the result in x
+// (float) and its bfloat16 rounding in xa. The blocks' layer norms write
+// only the bfloat16 tiles their dense layers read (xa, then xb); u holds the
+// first dense layer of a block.
+template <int G>
+__device__ void tower_mma(const Args& a, MmaRing& st, int iv, const __nv_bfloat16* in_b, float* x, float* u,
+                          __nv_bfloat16* xa, __nv_bfloat16* xb) {
+  dense_mma<G>(a, st, iv, in_b, x, nullptr, nullptr, nullptr, false);
+  iv += 1;
+  for (int blk = 0; blk < a.NB; ++blk) {
+    layer_norm_mma<G>(a, iv, x, nullptr, xa);
+    dense_mma<G>(a, st, iv + 2, xa, u, nullptr, nullptr, nullptr, false);
+    layer_norm_mma<G>(a, iv + 3, u, nullptr, xb);
+    dense_mma<G>(a, st, iv + 5, xb, x, nullptr, nullptr, nullptr, true);
+    iv += 6;
+  }
+  layer_norm_mma<G>(a, iv, x, x, xa);
+}
+
 // out[g] = untransform(scal[:, c] . x[:, g] + scal_b[c]), one warp per column.
 template <int G>
 __device__ void head_scalar(const Args& a, int c, const float* x, float* out) {
@@ -965,6 +1224,173 @@ size_t smem_bytes(int H, int K, int value_bins, int reward_bins, int tile_floats
          (size_t)7 * G * sizeof(int);
 }
 
+// Where a simulation's traversal leaves each of the block's G searches, for
+// the expansion and the backup: (G,) arrays in shared memory.
+struct Picks {
+  int *parent, *edge, *exist, *depth, *dec, *arow, *crow;
+};
+
+// Tree init: the root of search b0 + g is node 0, a decision node.
+template <int G, typename W>
+__device__ __forceinline__ void tree_init(const Args& a, int b0) {
+  const int H = a.H, K = a.K, N = a.S + 1;
+  const int tid = threadIdx.x;
+  W* emb = static_cast<W*>(a.emb);
+  for (int g = 0; g < G && b0 + g < a.B; ++g) {
+    const int b = b0 + g;
+    const size_t nk = (size_t)b * N * K, nn = (size_t)b * N;
+    for (int e = tid; e < N * K; e += compute_threads()) {
+      a.cidx[nk + e] = kUnvisited;
+      a.cvis[nk + e] = 0.f;
+      a.cval[nk + e] = 0.f;
+      a.prior[nk + e] = e < K ? a.root_p[(size_t)b * K + e] : 0.f;
+    }
+    for (int e = tid; e < N; e += compute_threads()) {
+      a.nvis[nn + e] = e == 0 ? 1.f : 0.f;
+      a.nval[nn + e] = e == 0 ? a.root_v[b] : 0.f;
+      a.nrew[nn + e] = 0.f;
+      a.ndis[nn + e] = 1.f;
+      a.ndec[nn + e] = e == 0 ? 1.f : 0.f;
+    }
+    for (int e = tid; e < H; e += compute_threads()) emb[nn * H + e] = from_f<W>(a.root_h[(size_t)b * H + e]);
+  }
+  block_sync();
+}
+
+// Traversal, one warp per search: the leaf each search expands, in `p`.
+template <int G>
+__device__ __forceinline__ void traverse(const Args& a, int b0, const Picks& p) {
+  const int K = a.K, A = a.A, N = a.S + 1, P = a.P;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = compute_threads() >> 5;
+  for (int g = warp; g < G; g += nwarps) {
+    const int b = b0 + g;
+    if (b >= a.B) {
+      if (lane == 0) {
+        p.parent[g] = 0;
+        p.edge[g] = 0;
+        p.exist[g] = 0;
+        p.depth[g] = 1;
+        p.dec[g] = 1;
+        p.arow[g] = 0;
+        p.crow[g] = 0;
+      }
+      continue;
+    }
+    int* pn = a.path_nodes + (size_t)b * P;
+    int* pe_ = a.path_edges + (size_t)b * P;
+    int node = 0, edge, next;
+    pick(a, b, node, lane, edge, next);
+    if (lane == 0) {
+      pn[0] = node;
+      pe_[0] = edge;
+    }
+    int depth = 1;
+    while (depth < P && next != kUnvisited) {
+      node = next;
+      pick(a, b, node, lane, edge, next);
+      if (lane == 0) {
+        pn[depth] = node;
+        pe_[depth] = edge;
+      }
+      ++depth;
+    }
+    if (lane == 0) {
+      p.parent[g] = node;
+      p.edge[g] = edge;
+      p.exist[g] = next;
+      p.depth[g] = depth;
+      p.dec[g] = a.ndec[(size_t)b * N + node] > 0.f ? 1 : 0;
+      p.arow[g] = min(edge, A - 1);
+      p.crow[g] = min(edge, K - 1);
+    }
+  }
+  block_sync();
+}
+
+// The new nodes' priors at row new_index: a softmax of the chance logits
+// (lc) after a decision parent, of the action logits (la) after a chance one.
+template <int G>
+__device__ __forceinline__ void priors(const Args& a, int b0, int new_index, const int* s_dec, const float* lc,
+                                       const float* la) {
+  const int K = a.K, A = a.A, N = a.S + 1;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = compute_threads() >> 5;
+  for (int g = warp; g < G; g += nwarps) {
+    const int b = b0 + g;
+    if (b >= a.B) continue;
+    const bool dec = s_dec[g];
+    const int width = dec ? K : A;
+    const float* logits = dec ? lc : la;
+    const float m = lane < width ? __fdiv_rn(logits[lane * G + g], a.temperature) : kNegInf;
+    const float mx = warp_max(m);
+    const float ev = lane < width ? expf(__fsub_rn(m, mx)) : 0.f;
+    const float sum = warp_sum(ev);
+    if (lane < K) a.prior[((size_t)b * N + new_index) * K + lane] = __fdiv_rn(ev, sum);
+  }
+}
+
+// The backup, one thread per search: the new node's statistics, then the
+// path's values, visits and edges.
+template <int G>
+__device__ __forceinline__ void backup(const Args& a, int b0, int new_index, const Picks& p, const float* s_q,
+                                       const float* s_r, const float* s_v) {
+  const int K = a.K, N = a.S + 1, P = a.P;
+  const int tid = threadIdx.x;
+  if (tid < G && b0 + tid < a.B) {
+    const int g = tid, b = b0 + g;
+    const size_t nb = (size_t)b * N;
+    const bool dec = p.dec[g];
+    a.nrew[nb + new_index] = dec ? 0.f : s_r[g];
+    a.ndis[nb + new_index] = dec ? 1.f : a.discount;
+    a.ndec[nb + new_index] = dec ? 0.f : 1.f;
+
+    const int exist = p.exist[g], parent = p.parent[g], edge = p.edge[g], depth = p.depth[g];
+    const bool needs_expand = exist == kUnvisited;
+    const int child = needs_expand ? new_index : exist;
+    if (needs_expand) a.cidx[(nb + parent) * K + edge] = child;
+    const float leaf_value = needs_expand ? (dec ? s_q[g] : s_v[g]) : a.nval[nb + max(exist, 0)];
+
+    const int* pn = a.path_nodes + (size_t)b * P;
+    const int* pe_ = a.path_edges + (size_t)b * P;
+    float* vb = a.vbuf + (size_t)b * (P + 1);
+    auto ext = [&](int j) { return j < depth ? pn[j] : (j == depth ? child : N); };
+
+    vb[depth] = leaf_value;
+    for (int j = depth - 1; j >= 0; --j) {
+      const int nd = ext(j + 1);
+      vb[j] = __fadd_rn(a.nrew[nb + nd], __fmul_rn(a.ndis[nb + nd], vb[j + 1]));
+    }
+    for (int j = 0; j <= depth; ++j) {
+      const int nd = ext(j);
+      const float vis = a.nvis[nb + nd];
+      const float val = a.nval[nb + nd];
+      a.nval[nb + nd] = __fdiv_rn(__fadd_rn(__fmul_rn(val, vis), vb[j]), __fadd_rn(vis, 1.f));
+      a.nvis[nb + nd] = vis + 1.f;
+    }
+    for (int j = 0; j < depth; ++j) {
+      const int nd = pn[j], cn = ext(j + 1);
+      const size_t ek = (nb + nd) * K + pe_[j];
+      a.cvis[ek] += 1.f;
+      a.cval[ek] = __fadd_rn(a.nrew[nb + cn], __fmul_rn(a.ndis[nb + cn], a.nval[nb + cn]));
+    }
+  }
+  block_sync();
+}
+
+// Root visits and Q of every action, and the root value.
+template <int G>
+__device__ __forceinline__ void root_stats(const Args& a, int b0) {
+  const int K = a.K, A = a.A, N = a.S + 1;
+  const int tid = threadIdx.x;
+  for (int e = tid; e < G * A; e += compute_threads()) {
+    const int g = e / A, act = e % A, b = b0 + g;
+    if (b < a.B) {
+      a.visits[(size_t)b * A + act] = a.cvis[(size_t)b * N * K + act];
+      a.qvals[(size_t)b * A + act] = a.cval[(size_t)b * N * K + act];
+    }
+  }
+  if (tid < G && b0 + tid < a.B) a.rootv[b0 + tid] = a.nval[(size_t)(b0 + tid) * N];
+}
+
 // The streamed kernel's tile: T rows of each input half, the largest power
 // of two times 16 that divides H / 2 with both halves in kTileBytes.
 inline int stream_tile_rows(int H, int wsize) {
@@ -985,7 +1411,7 @@ inline int stream_tile_rows(int H, int wsize) {
 template <int G, typename W, bool kStream>
 __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
   extern __shared__ __align__(16) float smem[];
-  const int H = a.H, K = a.K, A = a.A, N = a.S + 1, P = a.P;
+  const int H = a.H, K = a.K, N = a.S + 1;
   const int HG = H * G;
   W* emb = static_cast<W*>(a.emb);
   float* pe = smem + a.tile_floats;  // parent embeddings
@@ -1011,8 +1437,9 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
   int* s_dec = s_depth + G;
   int* s_arow = s_dec + G;
   int* s_crow = s_arow + G;
+  const Picks picks{s_parent, s_edge, s_exist, s_depth, s_dec, s_arow, s_crow};
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = compute_threads() >> 5;
+  const int tid = threadIdx.x, lane = tid & 31;
   const int b0 = blockIdx.x * G;
 #if WHOLE_SEARCH_PROFILE
   if (tid < kProfRegions) s_prof[tid] = 0;
@@ -1047,26 +1474,7 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
     }
   }
 
-  // ---- tree init: root = node 0, a decision node
-  for (int g = 0; g < G && b0 + g < a.B; ++g) {
-    const int b = b0 + g;
-    const size_t nk = (size_t)b * N * K, nn = (size_t)b * N;
-    for (int e = tid; e < N * K; e += compute_threads()) {
-      a.cidx[nk + e] = kUnvisited;
-      a.cvis[nk + e] = 0.f;
-      a.cval[nk + e] = 0.f;
-      a.prior[nk + e] = e < K ? a.root_p[(size_t)b * K + e] : 0.f;
-    }
-    for (int e = tid; e < N; e += compute_threads()) {
-      a.nvis[nn + e] = e == 0 ? 1.f : 0.f;
-      a.nval[nn + e] = e == 0 ? a.root_v[b] : 0.f;
-      a.nrew[nn + e] = 0.f;
-      a.ndis[nn + e] = 1.f;
-      a.ndec[nn + e] = e == 0 ? 1.f : 0.f;
-    }
-    for (int e = tid; e < H; e += compute_threads()) emb[nn * H + e] = from_f<W>(a.root_h[(size_t)b * H + e]);
-  }
-  block_sync();
+  tree_init<G, W>(a, b0);
 
   for (int sim = 0; sim < a.S; ++sim) {
     const int new_index = sim + 1;
@@ -1077,49 +1485,7 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
 
     // ---- traversal: one warp per search
     PROF_START(t_trav);
-    for (int g = warp; g < G; g += nwarps) {
-      const int b = b0 + g;
-      if (b >= a.B) {
-        if (lane == 0) {
-          s_parent[g] = 0;
-          s_edge[g] = 0;
-          s_exist[g] = 0;
-          s_depth[g] = 1;
-          s_dec[g] = 1;
-          s_arow[g] = 0;
-          s_crow[g] = 0;
-        }
-        continue;
-      }
-      int* pn = a.path_nodes + (size_t)b * P;
-      int* pe_ = a.path_edges + (size_t)b * P;
-      int node = 0, edge, next;
-      pick(a, b, node, lane, edge, next);
-      if (lane == 0) {
-        pn[0] = node;
-        pe_[0] = edge;
-      }
-      int depth = 1;
-      while (depth < P && next != kUnvisited) {
-        node = next;
-        pick(a, b, node, lane, edge, next);
-        if (lane == 0) {
-          pn[depth] = node;
-          pe_[depth] = edge;
-        }
-        ++depth;
-      }
-      if (lane == 0) {
-        s_parent[g] = node;
-        s_edge[g] = edge;
-        s_exist[g] = next;
-        s_depth[g] = depth;
-        s_dec[g] = a.ndec[(size_t)b * N + node] > 0.f ? 1 : 0;
-        s_arow[g] = min(edge, A - 1);
-        s_crow[g] = min(edge, K - 1);
-      }
-    }
-    block_sync();
+    traverse<G>(a, b0, picks);
     PROF_ADD(1, t_trav);
     PROF_START(t_exp);
 
@@ -1156,75 +1522,149 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
       const int i = e / G, g = e % G, b = b0 + g;
       if (b < a.B) emb[((size_t)b * N + new_index) * H + i] = from_f<W>(s_dec[g] ? after[e] : hnew[e]);
     }
-    for (int g = warp; g < G; g += nwarps) {
-      const int b = b0 + g;
-      if (b >= a.B) continue;
-      const bool dec = s_dec[g];
-      const int width = dec ? K : A;
-      const float* logits = dec ? lc : la;
-      const float m = lane < width ? __fdiv_rn(logits[lane * G + g], a.temperature) : kNegInf;
-      const float mx = warp_max(m);
-      const float ev = lane < width ? expf(__fsub_rn(m, mx)) : 0.f;
-      const float sum = warp_sum(ev);
-      if (lane < K) a.prior[((size_t)b * N + new_index) * K + lane] = __fdiv_rn(ev, sum);
-    }
-
-    // ---- backup, one thread per search
-    if (tid < G && b0 + tid < a.B) {
-      const int g = tid, b = b0 + g;
-      const size_t nb = (size_t)b * N;
-      const bool dec = s_dec[g];
-      a.nrew[nb + new_index] = dec ? 0.f : s_r[g];
-      a.ndis[nb + new_index] = dec ? 1.f : a.discount;
-      a.ndec[nb + new_index] = dec ? 0.f : 1.f;
-
-      const int exist = s_exist[g], parent = s_parent[g], edge = s_edge[g], depth = s_depth[g];
-      const bool needs_expand = exist == kUnvisited;
-      const int child = needs_expand ? new_index : exist;
-      if (needs_expand) a.cidx[(nb + parent) * K + edge] = child;
-      const float leaf_value = needs_expand ? (dec ? s_q[g] : s_v[g]) : a.nval[nb + max(exist, 0)];
-
-      const int* pn = a.path_nodes + (size_t)b * P;
-      const int* pe_ = a.path_edges + (size_t)b * P;
-      float* vb = a.vbuf + (size_t)b * (P + 1);
-      auto ext = [&](int j) { return j < depth ? pn[j] : (j == depth ? child : N); };
-
-      vb[depth] = leaf_value;
-      for (int j = depth - 1; j >= 0; --j) {
-        const int nd = ext(j + 1);
-        vb[j] = __fadd_rn(a.nrew[nb + nd], __fmul_rn(a.ndis[nb + nd], vb[j + 1]));
-      }
-      for (int j = 0; j <= depth; ++j) {
-        const int nd = ext(j);
-        const float vis = a.nvis[nb + nd];
-        const float val = a.nval[nb + nd];
-        a.nval[nb + nd] = __fdiv_rn(__fadd_rn(__fmul_rn(val, vis), vb[j]), __fadd_rn(vis, 1.f));
-        a.nvis[nb + nd] = vis + 1.f;
-      }
-      for (int j = 0; j < depth; ++j) {
-        const int nd = pn[j], cn = ext(j + 1);
-        const size_t ek = (nb + nd) * K + pe_[j];
-        a.cvis[ek] += 1.f;
-        a.cval[ek] = __fadd_rn(a.nrew[nb + cn], __fmul_rn(a.ndis[nb + cn], a.nval[nb + cn]));
-      }
-    }
-    block_sync();
+    priors<G>(a, b0, new_index, s_dec, lc, la);
+    backup<G>(a, b0, new_index, picks, s_q, s_r, s_v);
     PROF_ADD(7, t_back);
   }
 
-  // ---- root statistics
-  for (int e = tid; e < G * A; e += compute_threads()) {
-    const int g = e / A, act = e % A, b = b0 + g;
-    if (b < a.B) {
-      a.visits[(size_t)b * A + act] = a.cvis[(size_t)b * N * K + act];
-      a.qvals[(size_t)b * A + act] = a.cval[(size_t)b * N * K + act];
-    }
-  }
-  if (tid < G && b0 + tid < a.B) a.rootv[b0 + tid] = a.nval[(size_t)(b0 + tid) * N];
+  root_stats<G>(a, b0);
   PROF_ADD(0, t_launch);
 #if WHOLE_SEARCH_PROFILE
   if (tid < kProfRegions) atomicAdd(&g_prof[tid], s_prof[tid]);
 #endif
+}
+
+// The tensor-core library's kernel (variant (d), bfloat16): the search of
+// whole_search_kernel with its dense layers on the tensor cores, fed by an
+// MmaRing that runs across layers and simulations. kMmaWarps reading warps
+// compute; a producer warp copies the fragments. Shared memory, after the
+// ring: the tower activations x (H, G) float, the logits and head values,
+// the traversal's picks, the bfloat16 tiles (columns, H + kActPad) of the
+// parent embeddings, the afterstate and the next hidden state (what the
+// install copies to the table), then u (H, G) float and the bfloat16 tiles
+// xa and xb, over which the categorical heads keep their partial sums (none
+// of the three is live during a head).
+template <int G>
+__global__ void __launch_bounds__(32 * (kMmaWarps + 1), 1) whole_search_mma_kernel(Args a) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(16) float smem[];
+  const int H = a.H, K = a.K, N = a.S + 1;
+  const int HG = H * G, ld = H + kActPad, tile = 8 * ((G + 7) / 8) * ld;  // a bfloat16 tile's elements
+  bf16* emb = static_cast<bf16*>(a.emb);
+  float* x = smem + a.tile_floats;
+  float* lc = x + HG;      // (K, G) chance logits
+  float* la = lc + K * G;  // (K, G) action logits
+  float* s_q = la + K * G;
+  float* s_r = s_q + G;
+  float* s_v = s_r + G;
+  int* s_int = reinterpret_cast<int*>(s_v + G);
+  const Picks picks{s_int, s_int + G, s_int + 2 * G, s_int + 3 * G, s_int + 4 * G, s_int + 5 * G, s_int + 6 * G};
+  bf16* pe_b = reinterpret_cast<bf16*>(s_int + 7 * G);
+  bf16* after_b = pe_b + tile;
+  bf16* hnew_b = after_b + tile;
+  float* u = reinterpret_cast<float*>(hnew_b + tile);
+  bf16* xa = reinterpret_cast<bf16*>(u + HG);
+  bf16* xb = xa + tile;
+  float* psum = u;  // categorical heads: partial sums, then the (bins, G) logits
+  const int cat_bins = max(a.value_bins, a.reward_bins);
+  const int cat_floats = cat_bins > 1 ? (max((int)compute_threads(), cat_bins) + cat_bins) * G : 0;
+  float* lgt = psum + (cat_floats - cat_bins * G);
+
+  const int tid = threadIdx.x;
+  const int b0 = blockIdx.x * G;
+#if WHOLE_SEARCH_PROFILE
+  if (tid < kProfRegions) s_prof[tid] = 0;
+  __syncthreads();
+#endif
+  PROF_START(t_launch);
+
+  // Offsets into the bias / LayerNorm vectors (mirror pack_search_params).
+  const int tower_vec = 3 + 6 * a.NB, n_real = 4 * (1 + 2 * a.NB) + 4;
+  const int F_V = 0, PHI_FUSE_V = F_V + tower_vec, PHI_V = PHI_FUSE_V + 1, PHI_HEAD_V = PHI_V + tower_vec;
+  const int PSI_V = PHI_HEAD_V + 1, G_FUSE_V = PSI_V + tower_vec, G_V = G_FUSE_V + 1, G_HEAD_V = G_V + tower_vec;
+  const bf16* win = static_cast<const bf16*>(a.win);
+
+  MmaRing st;
+  st.start(a.hh, smem, H, 0, n_real, a.S * n_real, min(kMmaWarps, H / 16));
+  if (tid >= (int)compute_threads()) {  // the producer warp
+    if ((tid & 31) == 0) st.produce();
+    return;
+  }
+
+  tree_init<G, bf16>(a, b0);
+
+  for (int sim = 0; sim < a.S; ++sim) {
+    const int new_index = sim + 1;
+    PROF_START(t_trav);
+    traverse<G>(a, b0, picks);
+    PROF_ADD(1, t_trav);
+    PROF_START(t_exp);
+
+    // ---- expansion: both transition types at (parent, edge), the layers in call order
+    for (int e = tid; e < HG; e += compute_threads()) {
+      const int g = e / H, i = e % H, b = b0 + g;
+      pe_b[(size_t)g * ld + i] = b < a.B ? emb[((size_t)b * N + picks.parent[g]) * H + i] : __float2bfloat16_rn(0.f);
+    }
+    block_sync();
+
+    // phi then psi (decision parent -> chance child)
+    dense_mma<G>(a, st, PHI_FUSE_V, pe_b, nullptr, xa, win, picks.arow, false);
+    tower_mma<G>(a, st, PHI_V, xa, x, u, xa, xb);
+    dense_mma<G>(a, st, PHI_HEAD_V, xa, nullptr, after_b, nullptr, nullptr, false);
+    tower_mma<G>(a, st, PSI_V, after_b, x, u, xa, xb);
+    head_value<G, bf16>(a, 1, x, s_q, psum, lgt);
+    head_logits<G, bf16>(a, 1, x, lc);
+
+    // g then f (chance parent -> decision child)
+    dense_mma<G>(a, st, G_FUSE_V, pe_b, nullptr, xa, win + (size_t)K * H, picks.crow, false);
+    tower_mma<G>(a, st, G_V, xa, x, u, xa, xb);
+    dense_mma<G>(a, st, G_HEAD_V, xa, nullptr, hnew_b, nullptr, nullptr, false);
+    head_value<G, bf16>(a, 2, x, s_r, psum, lgt);
+    tower_mma<G>(a, st, F_V, hnew_b, x, u, xa, xb);
+    head_value<G, bf16>(a, 0, x, s_v, psum, lgt);
+    head_logits<G, bf16>(a, 0, x, la);
+    PROF_ADD(2, t_exp);
+    PROF_START(t_back);
+
+    // ---- install the new node at row new_index: the bfloat16 values the next products read
+    for (int e = tid; e < HG; e += compute_threads()) {
+      const int g = e / H, i = e % H, b = b0 + g;
+      if (b < a.B) emb[((size_t)b * N + new_index) * H + i] = (picks.dec[g] ? after_b : hnew_b)[(size_t)g * ld + i];
+    }
+    priors<G>(a, b0, new_index, picks.dec, lc, la);
+    backup<G>(a, b0, new_index, picks, s_q, s_r, s_v);
+    PROF_ADD(7, t_back);
+  }
+
+  root_stats<G>(a, b0);
+  PROF_ADD(0, t_launch);
+#if WHOLE_SEARCH_PROFILE
+  if (tid < kProfRegions) atomicAdd(&g_prof[tid], s_prof[tid]);
+#endif
+}
+
+// The dense probe: block l runs dense_mma on layer l of the fragment copy
+// `frag` (n_layers layers), with bias row l of `bias` (n_layers, H) and the
+// activations x (G, H) float rounded to bfloat16; out (n_layers, H, G).
+template <int G>
+__global__ void __launch_bounds__(32 * (kMmaWarps + 1), 1)
+    dense_probe_kernel(const void* frag, const float* bias, const float* x, float* out, int H, int n_layers) {
+  extern __shared__ __align__(16) float smem[];
+  Args a{};
+  a.H = H;
+  a.vecs = bias;
+  MmaRing st;
+  st.start(frag, smem, H, blockIdx.x, n_layers, 1, min(kMmaWarps, H / 16));
+  if (threadIdx.x >= compute_threads()) {
+    if ((threadIdx.x & 31) == 0) st.produce();
+    return;
+  }
+  __nv_bfloat16* xb = reinterpret_cast<__nv_bfloat16*>(smem + mma_ring_floats(H));
+  for (int e = threadIdx.x; e < G * H; e += compute_threads()) {
+    xb[(size_t)(e / H) * (H + kActPad) + e % H] = __float2bfloat16_rn(x[e]);
+  }
+  block_sync();
+  dense_mma<G>(a, st, blockIdx.x, xb, out + (size_t)blockIdx.x * H * G, nullptr, nullptr, nullptr, false);
 }
 
 // The ring's tile: T rows of each input half, the largest power of two times
@@ -1242,6 +1682,19 @@ struct Plan {
   int blocks, threads, tile_rows, tile_floats;
   size_t smem;
 };
+
+// The tensor-core kernel's plan (whole_search_mma_kernel's shared memory).
+template <int G>
+Plan make_mma_plan(int B, int H, int K, int value_bins, int reward_bins) {
+  const int threads = 32 * kMmaWarps, tile = 8 * ((G + 7) / 8) * (H + kActPad);
+  const int bins = value_bins > reward_bins ? value_bins : reward_bins;
+  const size_t cat = bins > 1 ? (size_t)((threads > bins ? threads : bins) + bins) * G * sizeof(float) : 0;
+  const size_t scratch = (size_t)H * G * sizeof(float) + 2 * (size_t)tile * sizeof(__nv_bfloat16);
+  Plan p{(B + G - 1) / G, threads + 32, 16 * mma_tile_ksteps(H), mma_ring_floats(H), 0};
+  p.smem = (size_t)(p.tile_floats + H * G + 2 * K * G + 3 * G) * sizeof(float) + (size_t)7 * G * sizeof(int) +
+           3 * (size_t)tile * sizeof(__nv_bfloat16) + (cat > scratch ? cat : scratch);
+  return p;
+}
 
 template <int G, typename W, bool kStream>
 Plan make_plan(int B, int H, int K, int value_bins, int reward_bins) {
@@ -1295,6 +1748,18 @@ int launch(Args a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <int G>
+int launch_mma(Args a, cudaStream_t stream) {
+  const Plan p = make_mma_plan<G>(a.B, a.H, a.K, a.value_bins, a.reward_bins);
+  a.tile_rows = p.tile_rows;
+  a.tile_floats = p.tile_floats;
+  cudaError_t err =
+      cudaFuncSetAttribute(whole_search_mma_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  if (err != cudaSuccess) return (int)err;
+  whole_search_mma_kernel<G><<<p.blocks, p.threads, p.smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 // make_plan's numbers for this library's kernel, and how many of its blocks
 // the card keeps resident at once (kRing: clusters of one block).
 template <int G, typename W, bool kStream>
@@ -1318,6 +1783,22 @@ int launch_shape(int B, int H, int K, int value_bins, int reward_bins, int* out)
   if (err != cudaSuccess) return (int)err;
   const int values[8] = {p.blocks, p.threads, 1, G, kRing ? kStages : (kStream ? 2 : 0),
                          p.tile_rows, resident, (int)p.smem};
+  for (int i = 0; i < 8; ++i) out[i] = values[i];
+  return 0;
+}
+
+// launch_shape's numbers for the tensor-core kernel (tile_rows: input rows a tile, of every output).
+template <int G>
+int launch_shape_mma(int B, int H, int K, int value_bins, int reward_bins, int* out) {
+  const Plan p = make_mma_plan<G>(B, H, K, value_bins, reward_bins);
+  auto kernel = whole_search_mma_kernel<G>;
+  int per_sm = 0, sms = 0, dev = 0;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, p.threads, p.smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int values[8] = {p.blocks, p.threads, 1, G, kMmaStages, p.tile_rows, per_sm * sms, (int)p.smem};
   for (int i = 0; i < 8; ++i) out[i] = values[i];
   return 0;
 }
@@ -1349,7 +1830,11 @@ int whole_search_profile(unsigned long long* out) {
 // directly), rows of each input half per tile, blocks resident on the card
 // at once, dynamic shared memory bytes per block. Returns 0 or a CUDA error code.
 int whole_search_launch_shape(int B, int H, int K, int value_bins, int reward_bins, int* out) {
+#if WHOLE_SEARCH_BF16 && WHOLE_SEARCH_STREAMED
+  return launch_shape_mma<kSearchesPerBlock>(B, H, K, value_bins, reward_bins, out);
+#else
   return launch_shape<kSearchesPerBlock, Weight, kStreamed>(B, H, K, value_bins, reward_bins, out);
+#endif
 }
 
 // Returns cudaGetLastError() after the launch (0 = launched), or
@@ -1424,7 +1909,31 @@ int whole_search_launch(const float* root_h, const float* root_p, const float* r
   a.eps = eps;
   a.four_eps = four_eps;
   a.two_eps = two_eps;
+#if WHOLE_SEARCH_BF16 && WHOLE_SEARCH_STREAMED
+  return launch_mma<kSearchesPerBlock>(a, static_cast<cudaStream_t>(stream));
+#else
   return launch<kSearchesPerBlock, Weight, kStreamed>(a, static_cast<cudaStream_t>(stream));
+#endif
 }
+
+#if WHOLE_SEARCH_BF16 && WHOLE_SEARCH_STREAMED
+// The dense probe (dense_probe_kernel): out (n_layers, H, G) = each layer of
+// the fragment copy `frag` applied to x (G, H), rounded to bfloat16, plus
+// its row of `bias` (n_layers, H), by the search kernel's own ring, mma.sync
+// products and epilogue, G = the library's searches a block. Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue.
+int whole_search_dense_probe(const void* frag, const float* bias, const float* x, float* out, int H, int n_layers,
+                             void* stream) {
+  if (H < 32 || H > 512 || H % 32 != 0 || n_layers < 1) return (int)cudaErrorInvalidValue;
+  constexpr int G = kSearchesPerBlock;
+  const size_t smem = (size_t)mma_ring_floats(H) * sizeof(float) +
+                      (size_t)8 * ((G + 7) / 8) * (H + kActPad) * sizeof(__nv_bfloat16);
+  cudaError_t err = cudaFuncSetAttribute(dense_probe_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dense_probe_kernel<G><<<n_layers, 32 * (kMmaWarps + 1), smem, static_cast<cudaStream_t>(stream)>>>(
+      frag, bias, x, out, H, n_layers);
+  return (int)cudaGetLastError();
+}
+#endif
 
 }  // extern "C"

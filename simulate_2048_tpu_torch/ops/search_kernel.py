@@ -8,7 +8,10 @@ resident or streamed through shared memory (a resident float32 pack, too,
 reaches the dense layers through a ring of shared-memory tiles, copied in
 :func:`call_order`; a resident bfloat16 one is read straight from L2). The
 kernel itself is ``csrc/whole_search.cu``; its header comment says what
-bounds it on an H100 and how the design answers that.
+bounds it on an H100 and how the design answers that. The streamed bfloat16
+library runs its dense layers on the tensor cores (``mma.sync``) over a copy
+of the pack's layers in fragment order (:func:`mma_fragments`), which a
+:class:`SearchWorkspace` makes once per pack.
 
 - :func:`pack_search_params` stacks the f/φ/ψ/g weights in exactly the JAX
   package's layout, so the two packs compare element by element: bfloat16
@@ -21,7 +24,8 @@ bounds it on an H100 and how the design answers that.
   the packed tensors as the kernel computes them (two-pass LayerNorm; a
   categorical head as max, exponentials, two sums and one division; with a
   bfloat16 pack, every product's input rounded to bfloat16, and the dense
-  layers and LayerNorms summed in the kernel's order, to the bit).
+  layers and LayerNorms summed in the CUDA-core kernels' order, to the bit,
+  or with ``order="ksteps"`` in the tensor cores' k-steps).
 - :func:`whole_search` is the wrapper: on CPU tensors it runs the plain
   version, on CUDA tensors it launches the kernel or raises. It counts its
   launches in ``LAUNCHES``, each launch once, under the library that ran it
@@ -66,9 +70,15 @@ LAUNCHES = {
 }
 
 RESIDENT_MAX_H = 256  # the resident kernels: 2H threads (float32: and a producer warp), at most 512 (544)
-STREAMED_MAX_H = 512  # the streamed kernel: 2H threads under __launch_bounds__(1024)
+STREAMED_MAX_H = 512  # the streamed kernels: 2H threads under __launch_bounds__(1024); the tensor-core one, 32 m-tiles
 STREAM_CHUNK = 8  # layers per unit of zero padding in a streamed pack (JAX's largest chunk)
-SEARCHES_PER_BLOCK = 2  # G in csrc/whole_search.cu
+# G, the searches one thread block runs, by library (kSearchesPerBlock in csrc/whole_search.cu).
+SEARCHES_PER_BLOCK = {
+    "whole_search": 2,
+    "whole_search_bf16": 2,
+    "whole_search_streamed": 2,
+    "whole_search_bf16_streamed": 8,
+}
 
 
 class PackedSearchParams(NamedTuple):
@@ -119,11 +129,43 @@ def call_order(num_blocks: int) -> list[int]:
     return [(j + tower_hh) % n_real for j in range(n_real)]
 
 
-def kernel_blocks(batch: int) -> int:
-    """Thread blocks of a launch of ``batch`` searches: one per
-    SEARCHES_PER_BLOCK searches (the last block's searches past ``batch``
-    are dummies that run the whole pipeline)."""
-    return -(-batch // SEARCHES_PER_BLOCK)
+def library_name(weight_dtype: torch.dtype, streamed: bool) -> str:
+    """The library (``_build.LIBRARIES``) whose kernel runs a pack of these weights and layout."""
+    return f"whole_search{'_bf16' * (weight_dtype == torch.bfloat16)}{'_streamed' * streamed}"
+
+
+def kernel_blocks(batch: int, library: str = "whole_search") -> int:
+    """Thread blocks of a launch of ``batch`` searches in ``library``: one per
+    ``SEARCHES_PER_BLOCK[library]`` searches (the last block's searches past
+    ``batch`` are dummies that run the whole pipeline)."""
+    return -(-batch // SEARCHES_PER_BLOCK[library])
+
+
+def fragment_index(h: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The m16n8k16 A fragment's layout (PTX ISA, ``mma.sync`` with bfloat16
+    A, row-major): for lane l and value e = 0..7 of its four 32-bit registers
+    (register e // 2, low half first), the row (output within the 16-output
+    m-tile) and the column (input within the 16-input k-step) it holds. With
+    group l // 4 and thread t = l % 4: rows group + 8 (r % 2), columns
+    2 t + e % 2 + 8 (r // 2) for register r. Returns (row, col), each (32, 8)."""
+    if h % 16:
+        raise ValueError(f"fragments take H % 16 == 0 (got H={h})")
+    lane, e = torch.arange(32)[:, None], torch.arange(8)[None]
+    reg = e // 2
+    return lane // 4 + 8 * (reg % 2), 2 * (lane % 4) + e % 2 + 8 * (reg // 2)
+
+
+def mma_fragments(hh: torch.Tensor) -> torch.Tensor:
+    """``hh`` (L, H, H) [layer][in][out] in ``mma.sync`` fragment order:
+    (L, H/16 k-steps, H/16 m-tiles, 32 lanes, 8), element [l, ks, mt, lane, e]
+    = ``hh[l][16 ks + col][16 mt + row]`` at :func:`fragment_index`'s (row,
+    col) of (lane, e), since A = W^T (outputs are the rows). Each lane's 8
+    values are its 16 bytes, each (k-step, m-tile) a warp's 512 contiguous
+    bytes, each k-step of a layer one run of H/16 x 512 bytes."""
+    n_layers, h, _ = hh.shape
+    row, col = fragment_index(h)
+    tiles = hh.reshape(n_layers, h // 16, 16, h // 16, 16).permute(0, 1, 3, 2, 4)  # [l, ks, mt, k, m]
+    return tiles[:, :, :, col.to(hh.device), row.to(hh.device)].contiguous()
 
 
 def pack_layer(packed_hh: torch.Tensor, ihh: int, num_blocks: int, streamed: bool) -> torch.Tensor:
@@ -250,9 +292,9 @@ def pack_search_params(
 
 
 def _check_tree_width(h: int) -> None:
-    """A bfloat16 pack's dense layers sum each input half as a balanced tree: H must be a power of two."""
+    """The resident bfloat16 kernel sums each input half as a balanced tree: H must be a power of two."""
     if h & (h - 1):
-        raise ValueError(f"bfloat16 search packs take a power-of-two hidden size (got H={h})")
+        raise ValueError(f"the resident bfloat16 kernel takes a power-of-two hidden size (got H={h})")
 
 
 def search_plan(cfg: SearchConfig, hidden: int, weight_dtype: torch.dtype = torch.float32) -> int:
@@ -263,7 +305,10 @@ def search_plan(cfg: SearchConfig, hidden: int, weight_dtype: torch.dtype = torc
     resident: two) and one input half each; the resident kernels run under
     ``__launch_bounds__(512)`` (float32: 544, with the producer warp of its
     ring of 64 KB tiles), the streamed one under 1,024 and stages 64 KB tiles
-    of rows through shared memory. Shared memory never binds
+    of rows through shared memory (bfloat16: fragments for the tensor cores,
+    by 16-row k-steps, so a bfloat16 pack whose H is no power of two, which
+    the resident kernel's balanced trees cannot sum, is streamed at any H).
+    Shared memory never binds
     below those thread limits (at H=512 with 512 bins, float32 tiles: 169 KB
     of 227 KB), nor do the batch (any size runs) or the tower depth (the
     tree tables and the pack live in device memory), which JAX's plan also
@@ -276,29 +321,67 @@ def search_plan(cfg: SearchConfig, hidden: int, weight_dtype: torch.dtype = torc
         raise NotImplementedError(f"{weight_dtype} weight packs are not ported (float32 and bfloat16 are)")
     if hidden > STREAMED_MAX_H:
         raise ValueError(f"the kernel takes H <= {STREAMED_MAX_H} (got H={hidden})")
-    if weight_dtype == torch.bfloat16:
-        _check_tree_width(hidden)
-    return 0 if hidden <= RESIDENT_MAX_H else STREAM_CHUNK
+    tree = weight_dtype == torch.float32 or not hidden & (hidden - 1)
+    return 0 if hidden <= RESIDENT_MAX_H and tree else STREAM_CHUNK
 
 
-def packed_transitions(packed: PackedSearchParams, cfg: SearchConfig):
+def _next_pow2(n: int) -> int:
+    return 1 << (n - 1).bit_length()
+
+
+def bf16_dense_sum(x: torch.Tensor, w: torch.Tensor, order: str = "tree") -> torch.Tensor:
+    """``x`` (B, H) rounded to bfloat16 times ``w`` (H, H) [in][out], products
+    exact in float32 (bfloat16 times bfloat16), summed in ``order``: "tree",
+    the CUDA-core kernels' balanced tree over consecutive pairs of each input
+    half (a half padded with zero products to a power of two, which leaves a
+    power-of-two H's sums as they were: x + 0 = x), then the two halves
+    added; "ksteps", the tensor cores' order as near as a plain version comes:
+    each 16-row k-step summed, then the k-steps added in ascending order."""
+    if order not in ("tree", "ksteps"):
+        raise ValueError(f"order is 'tree' or 'ksteps', not {order!r}")
+    b, h = x.shape
+    terms = x.to(torch.bfloat16).float()[:, :, None] * w.float()[None]  # (B, in, out), exact
+    if order == "ksteps":
+        if h % 16:
+            raise ValueError(f"k-steps take H % 16 == 0 (got H={h})")
+        steps = terms.view(b, h // 16, 16, h).sum(2)
+        total = steps[:, 0]
+        for j in range(1, h // 16):
+            total = total + steps[:, j]
+        return total
+    half = (h + 1) // 2
+    width = _next_pow2(half)
+    halves = []
+    for part in (terms[:, :half], terms[:, half:]):
+        if part.shape[1] < width:
+            part = torch.cat([part, part.new_zeros(b, width - part.shape[1], h)], 1)
+        while part.shape[1] > 1:  # consecutive pairs: 8-row blocks first, then blocks pairwise
+            part = part[:, 0::2] + part[:, 1::2]
+        halves.append(part[:, 0])
+    return halves[0] + halves[1]
+
+
+def packed_transitions(packed: PackedSearchParams, cfg: SearchConfig, order: str = "tree"):
     """Both transitions from the packed tensors, as the kernel computes them.
 
     With a bfloat16 pack, every value that a product rounds is computed here
-    bit for bit as the kernel computes it, so that no rounding turns the
-    other way: a dense layer sums its exact products (bfloat16 times
-    bfloat16 fits float32) as the kernel's balanced tree over each input
-    half, and LayerNorm takes the kernel's lane-strided sums, butterfly and
-    correctly rounded 1 / sqrt. With a float32 pack, dense layers are plain
-    matrix products and LayerNorm takes PyTorch's reductions: their sums
-    round in another order than the kernel's, within float32 noise."""
+    bit for bit as the CUDA-core kernels compute it, so that no rounding turns
+    the other way: a dense layer sums its exact products (bfloat16 times
+    bfloat16 fits float32) in :func:`bf16_dense_sum`'s ``order`` ("tree": the
+    resident bfloat16 kernel's balanced tree over each input half; "ksteps":
+    the tensor cores' 16-row k-steps, whose sums inside a step no plain
+    version repeats), and LayerNorm takes the kernels' lane-strided sums,
+    butterfly and correctly rounded 1 / sqrt. With a float32 pack, dense
+    layers are plain matrix products and LayerNorm takes PyTorch's
+    reductions: their sums round in another order than the kernel's, within
+    float32 noise."""
     vecs, num_blocks = packed.vecs, packed.num_blocks
     a, k = cfg.num_actions, max(cfg.num_actions, cfg.codebook_size)
     h = vecs.shape[0]
     tower_hh, tower_vec = 1 + 2 * num_blocks, 3 + 6 * num_blocks
     bf16 = packed.hh.dtype == torch.bfloat16
-    if bf16:
-        _check_tree_width(h)
+    if order not in ("tree", "ksteps"):
+        raise ValueError(f"order is 'tree' or 'ksteps', not {order!r}")
     hh = packed.hh.float()
     one = torch.ones((), dtype=torch.float32, device=vecs.device)
     inv_h = one / torch.full((), float(h), dtype=torch.float32, device=vecs.device)
@@ -321,17 +404,17 @@ def packed_transitions(packed: PackedSearchParams, cfg: SearchConfig):
     def dense(x, ihh, iv):
         if not bf16:
             return x @ layer(ihh) + vecs[:, iv]
-        terms = x.to(torch.bfloat16).float()[:, :, None] * layer(ihh)[None]  # (B, in, out), exact
-        terms = terms.view(x.shape[0], 2, h // 2, h)  # the two input halves
-        while terms.shape[2] > 1:  # consecutive pairs: 8-row blocks first, then blocks pairwise
-            terms = terms[:, :, 0::2] + terms[:, :, 1::2]
-        return (terms[:, 0, 0] + terms[:, 1, 0]) + vecs[:, iv]
+        return bf16_dense_sum(x, layer(ihh), order) + vecs[:, iv]
+
+    per_lane = _next_pow2(-(-h // 32))  # a lane's values, zero-padded to a power of two
 
     def warp_sum(v):
         """(B, H) → (B, 1) as the kernel's LayerNorm sums: a balanced tree over
-        each lane's every 32nd value, then the xor butterfly over the 32 lanes
-        (a balanced tree over them in bit-reversed order)."""
-        total = v.view(v.shape[0], h // 32, 32)
+        each lane's every 32nd value (zeros past H), then the xor butterfly
+        over the 32 lanes (a balanced tree over them in bit-reversed order)."""
+        if h < 32 * per_lane:
+            v = torch.cat([v, v.new_zeros(v.shape[0], 32 * per_lane - h)], 1)
+        total = v.view(v.shape[0], per_lane, 32)
         while total.shape[1] > 1:
             total = total[:, 0::2] + total[:, 1::2]
         total = total[:, 0, lanes]
@@ -401,11 +484,18 @@ def packed_transitions(packed: PackedSearchParams, cfg: SearchConfig):
 
 @torch.no_grad()
 def whole_search_reference(
-    root_h: torch.Tensor, root_p: torch.Tensor, root_v: torch.Tensor, packed: PackedSearchParams, cfg: SearchConfig
+    root_h: torch.Tensor,
+    root_p: torch.Tensor,
+    root_v: torch.Tensor,
+    packed: PackedSearchParams,
+    cfg: SearchConfig,
+    order: str = "tree",
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel: ``root_h`` (B, H), ``root_p``
-    (B, K), ``root_v`` (B,) → root visits (B, A), root Q (B, A), root value (B,)."""
-    return search_tree(root_h, root_p, root_v, cfg, packed_transitions(packed, cfg))
+    (B, K), ``root_v`` (B,) → root visits (B, A), root Q (B, A), root value
+    (B,); a bfloat16 pack's dense layers summed in ``order``
+    (:func:`packed_transitions`)."""
+    return search_tree(root_h, root_p, root_v, cfg, packed_transitions(packed, cfg, order))
 
 
 def _check_inputs(root_h, root_p, root_v, packed: PackedSearchParams, cfg: SearchConfig) -> None:
@@ -429,7 +519,7 @@ def _check_inputs(root_h, root_p, root_v, packed: PackedSearchParams, cfg: Searc
             "whole_search takes float32 roots, vectors and scalar heads, and hh / win / wide / cat all "
             "float32 or all bfloat16"
         )
-    if wdtype == torch.bfloat16:
+    if wdtype == torch.bfloat16 and not packed.stream_chunk:
         _check_tree_width(h)
     max_h = STREAMED_MAX_H if packed.stream_chunk else RESIDENT_MAX_H
     if h % 32 or not 32 <= h <= max_h or k > 32:
@@ -457,13 +547,26 @@ def _check_inputs(root_h, root_p, root_v, packed: PackedSearchParams, cfg: Searc
 
 class SearchWorkspace:
     """What the kernel reuses across the calls made with one pack (one
-    evaluation): the bias / LayerNorm vectors in its (n_vec, H) layout and
-    the device buffer of tree tables, grown on demand. Calls that share a
-    workspace must run on one stream."""
+    evaluation): the bias / LayerNorm vectors in its (n_vec, H) layout, the
+    device buffer of tree tables, grown on demand, and for a streamed
+    bfloat16 pack the copy of its real ``hh`` layers in fragment order that
+    the tensor-core kernel reads (made at the first call, on the pack's
+    device: 46.1 MB at H=512). Calls that share a workspace must run on one
+    stream."""
 
     def __init__(self, packed: PackedSearchParams):
         self.vecs = packed.vecs.t().contiguous()  # coalesced reads in the kernel
         self.tables: torch.Tensor | None = None
+        self._packed = packed
+        self._fragments: torch.Tensor | None = None
+
+    @property
+    def fragments(self) -> torch.Tensor:
+        """:func:`mma_fragments` of the pack's real ``hh`` layers (the padding is never read)."""
+        if self._fragments is None:
+            n_real = len(call_order(self._packed.num_blocks))
+            self._fragments = mma_fragments(self._packed.hh[:n_real])
+        return self._fragments
 
     def table_buffer(self, nbytes: int, device: torch.device) -> torch.Tensor:
         if self.tables is None or self.tables.numel() < nbytes or self.tables.device != device:
@@ -490,7 +593,7 @@ def whole_search(
         raise ValueError(f"whole_search runs on CUDA or CPU tensors, not {root_h.device}")
     _check_inputs(root_h, root_p, root_v, packed, cfg)
     bf16, streamed = packed.hh.dtype == torch.bfloat16, packed.stream_chunk > 0
-    library = f"whole_search{'_bf16' * bf16}{'_streamed' * streamed}"  # each library holds one kernel
+    library = library_name(packed.hh.dtype, streamed)  # each library holds one kernel
     lib = _load(library)
     b, h = root_h.shape
     s = cfg.num_simulations
@@ -506,7 +609,8 @@ def whole_search(
         rootv = torch.empty(b, dtype=torch.float32, device=dev)
         eps = cfg.value_transform_epsilon
         f32 = lambda x: float(np.float32(x))  # noqa: E731 — the float32 value the JAX package's constants take
-        weights = (packed.hh, workspace.vecs, *packed.tensors[2:])
+        hh = workspace.fragments if bf16 and streamed else packed.hh  # the tensor-core kernel's fragments
+        weights = (hh, workspace.vecs, *packed.tensors[2:])
         vb, rb = cfg.value_bins, cfg.reward_bins
         err = lib.whole_search_launch(
             *(t.data_ptr() for t in (root_h, root_p, root_v, *weights, visits, qvals, rootv, tables)),
@@ -528,12 +632,12 @@ def whole_search(
 class LaunchShape(NamedTuple):
     """How the CUDA kernel of one library runs a launch (``whole_search_launch_shape``)."""
 
-    blocks: int  # thread blocks: kernel_blocks(batch)
-    threads: int  # threads a block: 2H (float32 resident: and a producer warp)
+    blocks: int  # thread blocks: kernel_blocks(batch, library)
+    threads: int  # threads a block: 2H (float32 resident: and a producer warp; tensor cores: warps and a producer)
     cluster: int  # blocks per thread-block cluster: 1 (the float32 resident kernel launches clusters of one)
     searches_per_block: int
     stages: int  # weight tiles in shared memory (0: the bfloat16 resident kernel reads L2 directly)
-    tile_rows: int  # rows of each input half in a tile
+    tile_rows: int  # rows of each input half in a tile (tensor cores: input rows of every output)
     resident: int  # blocks (clusters of one) the card keeps resident at once
     smem_bytes: int  # dynamic shared memory per block
 
@@ -549,6 +653,30 @@ def launch_shape(library: str, batch: int, hidden: int, width: int, value_bins: 
     return LaunchShape(*out)
 
 
+def dense_probe(fragments: torch.Tensor, bias: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The tensor-core library's dense layers alone (``whole_search_dense_probe``):
+    each layer of ``fragments`` (L, H/16, H/16, 32, 8, :func:`mma_fragments`)
+    applied to ``x`` (G, H) float32, rounded to bfloat16, plus its row of
+    ``bias`` (L, H), by the search kernel's own ring, ``mma.sync`` products and
+    epilogue, with G the library's searches a block. Returns (L, G, H)
+    float32. For checking the kernel (``chip_smoke.py``); no path calls it."""
+    n_layers, h = bias.shape
+    g = SEARCHES_PER_BLOCK["whole_search_bf16_streamed"]
+    if fragments.shape != (n_layers, h // 16, h // 16, 32, 8) or x.shape != (g, h):
+        raise ValueError(f"dense_probe: fragments {tuple(fragments.shape)}, bias {tuple(bias.shape)}, x {tuple(x.shape)}")
+    for t, dtype in ((fragments, torch.bfloat16), (bias, torch.float32), (x, torch.float32)):
+        if t.device.type != "cuda" or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError("dense_probe takes contiguous CUDA tensors: bfloat16 fragments, float32 bias and x")
+    lib = _load("whole_search_bf16_streamed")
+    out = torch.empty(n_layers, h, g, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.whole_search_dense_probe(fragments.data_ptr(), bias.data_ptr(), x.data_ptr(), out.data_ptr(), h,
+                                           n_layers, torch.cuda.current_stream(x.device).cuda_stream)  # fmt: skip
+    if err != 0:
+        raise RuntimeError(f"whole_search_dense_probe failed: {lib.whole_search_error_string(err).decode()}")
+    return out.transpose(1, 2)
+
+
 def _load(library: str) -> ctypes.CDLL:
     """The loaded ``library``, with its functions' argument types set."""
     lib = _build.load(library)
@@ -562,6 +690,9 @@ def _load(library: str) -> ctypes.CDLL:
         lib.whole_search_launch.restype = i32
         lib.whole_search_launch_shape.argtypes = [i32] * 5 + [ptr]
         lib.whole_search_launch_shape.restype = i32
+        if hasattr(lib, "whole_search_dense_probe"):
+            lib.whole_search_dense_probe.argtypes = [ptr] * 4 + [i32] * 2 + [ptr]
+            lib.whole_search_dense_probe.restype = i32
         lib._argtypes_set = True
     return lib
 

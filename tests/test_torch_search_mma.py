@@ -1,0 +1,209 @@
+"""The tensor-core bfloat16 library of the whole-search kernel: what of it runs on the CPU.
+
+The streamed bfloat16 library (``csrc/whole_search.cu``,
+``whole_search_mma_kernel``) multiplies on the tensor cores (``mma.sync``
+m16n8k16) over a copy of the pack's layers in fragment order, sums each
+output by 16-row k-steps, and takes any H that is a multiple of 32. These
+tests hold the Python side of that against the PTX ISA's fragment layout and
+the JAX package:
+
+- (a) ``mma_fragments`` places ``hh[layer][k][m]`` where the PTX ISA's
+  m16n8k16 A fragment (row-major bfloat16, A = W^T) puts it, and the inverse
+  map rebuilds ``hh`` exactly;
+- (b) the plain version summed by k-steps (``order="ksteps"``) against JAX's
+  bfloat16 Pallas kernel in interpret mode, by ``bf16_rule``, with scalar and
+  categorical heads;
+- (c) at H=96, no power of two, the plain version's zero-padded trees
+  against JAX's bfloat16 kernel by ``bf16_rule`` (its tight count's
+  allowance grown with H, as ``meets_bf16_rule`` says why); at a
+  power-of-two H the padded sum is the unpadded tree bit for bit;
+- (d) ``search_plan`` sends a bfloat16 H that is no power of two to the
+  streamed (tensor-core) library, and ``kernel_blocks`` counts blocks of each
+  library's G, a last partial block included.
+
+The kernel itself, its dense probe and the parity rule for its searches run
+on the card in ``chip_smoke.py``.
+"""
+
+from dataclasses import replace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from test_torch_search_kernel import BLOCKS, CFG, make_inputs
+from test_torch_search_variants import HEADS, bf16_rule, head_nets, jax_search, meets_bf16_rule, port_search
+
+from simulate_2048_tpu.models.network import create_network
+from simulate_2048_tpu.ops import pallas_search as jps
+from simulate_2048_tpu_torch.convert import params_from_flax
+from simulate_2048_tpu_torch.ops import search_kernel as sk
+from simulate_2048_tpu_torch.search.mcts import SearchConfig, policy_output, root_inputs
+from simulate_2048_tpu_torch.training.config import TrainConfig
+
+torch.set_num_threads(1)
+
+
+def ptx_a_fragment(lane: int, e: int) -> tuple[int, int]:
+    """(row, col) of value a_e of lane ``lane`` in an m16n8k16 A fragment of
+    16-bit types, as the PTX ISA's table gives them (groupID = lane >> 2,
+    threadID_in_group = lane % 4)."""
+    group, thread = lane >> 2, lane % 4
+    row = group if e < 2 or 4 <= e < 6 else group + 8
+    col = thread * 2 + (e & 1) + (8 if e >= 4 else 0)
+    return row, col
+
+
+@pytest.mark.parametrize("h", [32, 96])
+def test_fragment_order_places_each_weight_where_the_ptx_layout_reads_it(h):
+    """Element [layer, k-step, m-tile, lane, e] is the A operand's (row, col)
+    of a_e: output 16 mt + row, input 16 ks + col of that layer."""
+    rs = np.random.RandomState(h)
+    hh = torch.from_numpy(rs.standard_normal((3, h, h)).astype(np.float32)).to(torch.bfloat16)
+    frags = sk.mma_fragments(hh)
+    n = h // 16
+    assert frags.shape == (3, n, n, 32, 8) and frags.dtype == torch.bfloat16 and frags.is_contiguous()
+    for lane in range(32):
+        for e in range(8):
+            row, col = ptx_a_fragment(lane, e)
+            want = hh[:, col::16, row::16]  # [layer, ks, mt] = hh[layer][16 ks + col][16 mt + row]
+            assert torch.equal(frags[:, :, :, lane, e], want), (lane, e)
+    # The inverse map rebuilds hh exactly.
+    rebuilt = torch.empty_like(hh)
+    for lane in range(32):
+        for e in range(8):
+            row, col = ptx_a_fragment(lane, e)
+            rebuilt[:, col::16, row::16] = frags[:, :, :, lane, e]
+    assert torch.equal(rebuilt, hh)
+
+
+def test_workspace_fragments_hold_the_streamed_packs_real_layers():
+    """A bfloat16 streamed pack's copy: its real layers in call order, the padding left out;
+    a k-step of a layer is one contiguous run of (H/16) x 512 bytes."""
+    _, tnet = head_nets("categorical")
+    packed = sk.pack_search_params(tnet, BLOCKS, 32, torch.bfloat16, 16, value_bins=16, reward_bins=8)
+    n_real = len(sk.call_order(BLOCKS))
+    assert packed.hh.shape[0] > n_real  # chunk 16 pads
+    frags = sk.SearchWorkspace(packed).fragments
+    h = packed.hh.shape[1]
+    assert torch.equal(frags, sk.mma_fragments(packed.hh[:n_real]))
+    assert frags.stride()[:2] == ((h // 16) ** 2 * 256, (h // 16) * 256)  # elements: 512 bytes a (k-step, m-tile)
+
+
+def ordered_search(tnet, obs, invalid, cfg, order: str, hidden: int = 32):
+    """The plain version on a bfloat16 pack (streamed when ``search_plan``
+    streams ``hidden``) with its dense layers summed in ``order``."""
+    vb, rb = cfg.get("value_bins", 1), cfg.get("reward_bins", 1)
+    chunk = sk.search_plan(SearchConfig(**cfg), hidden, torch.bfloat16) or None
+    packed = sk.pack_search_params(tnet, BLOCKS, 32, torch.bfloat16, chunk, value_bins=vb, reward_bins=rb)
+    scfg = SearchConfig(**cfg)
+    root_h, probs, value = root_inputs(tnet, torch.from_numpy(obs), scfg, torch.from_numpy(invalid))
+    return policy_output(*sk.whole_search_reference(root_h, probs, value, packed, scfg, order))
+
+
+@pytest.mark.parametrize("heads", ["scalar", "categorical"])
+def test_ksteps_reference_matches_jax_interpret(heads):
+    """Summed by 16-row k-steps, as the tensor cores sum, the bfloat16 plain
+    version is as near JAX's bfloat16 kernel as the tree order is: by
+    ``bf16_rule``, on 128 searches."""
+    jnet, tnet = head_nets(heads)
+    vb, rb = HEADS[heads]
+    cfg = {**CFG, "value_bins": vb, "reward_bins": rb}
+    obs, invalid = make_inputs(jps.BLOCK_G, seed=17)
+    ref = jax_search(jnet, obs, invalid, cfg, jnp.bfloat16)
+    out = ordered_search(tnet, obs, invalid, cfg, "ksteps")
+    assert (out.visit_counts.sum(-1) == cfg["num_simulations"]).all()
+    counts = bf16_rule(out, ref)
+    assert meets_bf16_rule(counts), f"{counts} of {jps.BLOCK_G} searches agree / lie close"
+
+
+def test_unknown_order_raises():
+    with pytest.raises(ValueError, match="ksteps"):
+        sk.bf16_dense_sum(torch.zeros(2, 32), torch.zeros(32, 32), "rows")
+
+
+@pytest.mark.parametrize("h", [32, 64, 512])
+def test_padded_tree_is_the_unpadded_tree_at_a_power_of_two(h):
+    """At a power-of-two H no zero product is added: the sum is the
+    balanced tree over each input half, as before the padding, bit for bit."""
+    rs = np.random.RandomState(h)
+    x = torch.from_numpy(rs.standard_normal((3, h)).astype(np.float32))
+    w = torch.from_numpy(rs.standard_normal((h, h)).astype(np.float32)).to(torch.bfloat16).float()
+    terms = x.to(torch.bfloat16).float()[:, :, None] * w[None]
+    terms = terms.view(3, 2, h // 2, h)
+    while terms.shape[2] > 1:
+        terms = terms[:, :, 0::2] + terms[:, :, 1::2]
+    assert torch.equal(sk.bf16_dense_sum(x, w), terms[:, 0, 0] + terms[:, 1, 0])
+    # k-steps: each 16-row step's sum, the steps added in ascending order
+    steps = [terms_k.sum(1) for terms_k in (x.to(torch.bfloat16).float()[:, :, None] * w[None]).split(16, 1)]
+    want = steps[0]
+    for s in steps[1:]:
+        want = want + s
+    assert torch.equal(sk.bf16_dense_sum(x, w, "ksteps"), want)
+
+
+def test_bf16_reference_at_h96_matches_jax_interpret():
+    """H=96 (a multiple of 32, no power of two): JAX's bfloat16 kernel takes
+    it, and so does the port now, each input half's tree padded with zero
+    products to 64 rows and each LayerNorm lane's values to 4. By
+    ``bf16_rule`` at H=96 on 128 searches, through the streamed pack the plan
+    picks; at a power-of-two width (128) the unpadded trees meet JAX's kernel
+    no closer (17 searches outside the tight tolerance, as here)."""
+    h = 96
+    jnet = create_network(jax.random.PRNGKey(5), hidden_size=h, num_blocks=BLOCKS)
+    tnet = params_from_flax(jax.tree.map(np.asarray, jnet.params),
+                            replace(TrainConfig(), hidden_size=h, num_residual_blocks=BLOCKS))  # fmt: skip
+    chunk = sk.search_plan(SearchConfig(**CFG), h, torch.bfloat16)
+    assert chunk == sk.STREAM_CHUNK
+    obs, invalid = make_inputs(jps.BLOCK_G, seed=23)
+    ref = jax_search(jnet, obs, invalid, CFG, jnp.bfloat16)
+    out = port_search(tnet, obs, invalid, CFG, torch.bfloat16, chunk)
+    assert (out.visit_counts.sum(-1) == CFG["num_simulations"]).all()
+    counts = bf16_rule(out, ref)
+    assert meets_bf16_rule(counts, h), f"{counts} of {jps.BLOCK_G} searches agree / lie close"
+    # The padded trees are as near the k-step order, which pads nothing, as JAX's kernel is.
+    ksteps = ordered_search(tnet, obs, invalid, CFG, "ksteps", h)
+    assert meets_bf16_rule(bf16_rule(ksteps, out), h)
+
+
+@pytest.mark.parametrize("h", [96, 160, 288, 480])
+def test_search_plan_streams_bf16_widths_that_are_no_power_of_two(h):
+    cfg = SearchConfig(num_simulations=100, max_depth=32)
+    assert sk.search_plan(cfg, h, torch.bfloat16) == sk.STREAM_CHUNK
+    assert sk.search_plan(cfg, h, torch.float32) == (0 if h <= sk.RESIDENT_MAX_H else sk.STREAM_CHUNK)
+    assert sk.search_plan(cfg, 128, torch.bfloat16) == 0  # a power of two stays resident up to 256
+
+
+def test_check_inputs_takes_a_streamed_bf16_pack_of_any_multiple_of_32():
+    """The CUDA path's input check: a streamed bfloat16 pack at H=96 passes,
+    a resident one raises (the resident kernel sums balanced trees)."""
+    h = 96
+    cfg = SearchConfig(**CFG)
+    roots = (torch.zeros(4, h), torch.zeros(4, 32), torch.zeros(4))
+    tnet = params_from_flax(
+        jax.tree.map(np.asarray, create_network(jax.random.PRNGKey(5), hidden_size=h, num_blocks=BLOCKS).params),
+        replace(TrainConfig(), hidden_size=h, num_residual_blocks=BLOCKS),
+    )
+    sk._check_inputs(*roots, sk.pack_search_params(tnet, BLOCKS, 32, torch.bfloat16, sk.STREAM_CHUNK), cfg)
+    with pytest.raises(ValueError, match="power-of-two"):
+        sk._check_inputs(*roots, sk.pack_search_params(tnet, BLOCKS, 32, torch.bfloat16), cfg)
+
+
+@pytest.mark.parametrize("library", list(sk.SEARCHES_PER_BLOCK))
+@pytest.mark.parametrize("batch", [1, 7, 8, 9, 128, 255, 256, 512, 1001])
+def test_kernel_blocks_by_library(library, batch):
+    g = sk.SEARCHES_PER_BLOCK[library]
+    blocks = sk.kernel_blocks(batch, library)
+    assert blocks * g >= batch and (blocks - 1) * g < batch  # the last block's searches past B are dummies
+    assert blocks == -(-batch // g)
+    assert sk.library_name(torch.bfloat16, True) == "whole_search_bf16_streamed"
+
+
+def test_tensor_core_library_runs_more_searches_a_block():
+    """G of the tensor-core library fills the m16n8k16 product's 8 columns;
+    the CUDA-core libraries keep 2."""
+    assert sk.SEARCHES_PER_BLOCK["whole_search_bf16_streamed"] == 8
+    assert {sk.SEARCHES_PER_BLOCK[k] for k in ("whole_search", "whole_search_bf16", "whole_search_streamed")} == {2}
+    assert sk.kernel_blocks(512, "whole_search_bf16_streamed") == 64
+    assert sk.kernel_blocks(100, "whole_search_bf16_streamed") == 13

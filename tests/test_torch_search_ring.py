@@ -82,7 +82,7 @@ def test_streamed_pack_is_resident_pack_in_call_order(num_blocks):
 
 @pytest.mark.parametrize("batch", [1, 127, 128, 256, 1023])
 def test_kernel_blocks_gives_every_search_a_block(batch):
-    g = sk.SEARCHES_PER_BLOCK
+    g = sk.SEARCHES_PER_BLOCK["whole_search"]
     blocks = sk.kernel_blocks(batch)
     assert blocks * g >= batch  # every search has a block
     assert (blocks - 1) * g < batch  # and no block holds only dummy searches
