@@ -22,12 +22,21 @@ code != 0, no final ``ok`` line) if any phase fails:
    S in every search; root Q and value agree within rtol 1e-4 / atol 1e-3 on
    the matching searches (float32 sums taken in another order). Then the
    bfloat16 kernel at the paper preset with 256/128 bins at 256 and 1,024
-   searches a launch, the streamed bfloat16 kernel (chunk 8) at hidden 512
-   at every launch size of the wide path (256, 512 and 128), and the
-   streamed float32 kernel there at 256: at least 99% of the searches agree
-   (bfloat16: identical visits, Q and value within rtol 1e-3 / atol 1e-2);
-   and the streamed kernel against the resident one at H=256, chunks 2 and
-   8, both types: bit for bit, with both timed at 256 and 1,024 searches;
+   searches a launch and the streamed float32 kernel at hidden 512 at 256:
+   at least 99% of the searches agree (bfloat16: identical visits, Q and
+   value within rtol 1e-3 / atol 1e-2). The streamed bfloat16 kernel (chunk
+   8), on the tensor cores, at hidden 512 at every launch size of the wide
+   path (256, 512 and 128), at hidden 96 (no power of two) at 256 and at
+   the paper preset at 256 and 1,024: exact invariants (S visits, none on a
+   zero prior, finite values) and the order-noise rule (``check_order_noise``:
+   no more searches disagree with the tree plain version than twice those in
+   which the tree and k-step plain versions disagree, or 1%; JAX's
+   aggregate bfloat16 rule); its dense layers alone (``sk.dense_probe``) on
+   every layer of hidden-512 and hidden-96 packs, each output within
+   2^-16 sum |w x| of the exact sum; HMMA instructions in its machine code,
+   no stack frame and no spill. The streamed float32 kernel against the
+   resident one at H=256, chunks 2 and 8: bit for bit, with both layouts
+   timed at 256 and 1,024 searches in both types;
    and the ring all-reduce kernel (one pass; ptxas must report no stack
    frame and no spills in any of its 45 instantiations, float32 / bf16 /
    fp16 x N = 2..16) at N = 2, 4 and 8 virtual ranks on the card, in
@@ -43,7 +52,8 @@ code != 0, no final ``ok`` line) if any phase fails:
    (cudaOccupancyMaxActiveClusters for the float32 resident kernel); the
    bytes the kernel reads from L2 per call; and ptxas's registers, stack
    frame and spills, printed after the build, where a stack frame or a
-   spill in the float32 resident library fails the run), the integer
+   spill in the float32 resident or the tensor-core library fails the
+   run), the integer
    operations a rollout's definition forces (beside it, what the rollout
    kernel's source spends, as its share of the INT32 instruction rate), and the
    bytes an all-reduce must move (which the one-pass kernel moves and no

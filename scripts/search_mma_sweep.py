@@ -43,14 +43,9 @@ def shape(g: int, warps: int, stages: int, kb: int) -> tuple[str, ...]:
 
 # name -> extra defines; the shipped library itself is always timed first.
 VARIANTS = {
-    "w15": shape(8, 15, 4, 32),
-    "w8": shape(8, 8, 4, 32),
-    "w15_s3": shape(8, 15, 3, 32),
-    "w15_s8x16": shape(8, 15, 8, 16),
-    "w15_s2x64": shape(8, 15, 2, 64),
-    "g4_w15": shape(4, 15, 4, 32),
-    "g16_w16_s2": shape(16, 16, 2, 32),
-    "w15_prof": shape(8, 15, 4, 32),
+    "w12": shape(8, 12, 4, 32),
+    "g4_w8": shape(4, 8, 4, 32),
+    "w16_prof": shape(8, 16, 4, 32),
 }
 PARENT = Path("profiles/parent_whole_search.cu")
 

@@ -20,8 +20,9 @@
 // 5.8 MFLOP per search and simulation at H=256, 23 at H=512); this kernel
 // computes both, as the TPU kernel does, so it does twice that work. In
 // float32 without tensor cores that is the 67 TFLOP/s FP32 rate; a bfloat16
-// pack does the same products that the tensor cores take at 989 TFLOP/s, but
-// this kernel still runs them as FP32 FMAs. Behind the FMA rate stands the
+// pack does the same products that the tensor cores take at 989 TFLOP/s,
+// which only the streamed bfloat16 library uses (mma.sync; the resident one
+// still runs them as FP32 FMAs). Behind the products' rate stands the
 // weight traffic: each block reads the whole pack once per simulation (23 MB
 // at H=256 in float32; 92 MB at H=512, 46 MB in bfloat16, more than or about
 // the 50 MB L2). 100 dependent simulations leave no parallelism but the batch.
@@ -32,16 +33,21 @@
 // written once by the copy and read once as weights, beside the activations'
 // broadcast reads (about 1,300 cycles a tile by a clock64 profile on an
 // NVIDIA H100 80GB HBM3 at 700 W), and then by the latency of the layer norms
-// and heads, which only G warps can work on (PERF.md).
+// and heads, which only G warps can work on (PERF.md). The streamed
+// bfloat16 library on the tensor cores is bound by each SM's feed: every
+// block takes the whole 46.1 MB of fragments a simulation through its
+// shared memory (written by the bulk copies, read once by the products),
+// then by its layer norms and heads, which one warp a column works on.
 //
 // Design. The TPU version keeps 128 searches' tree tables and all weights in
 // VMEM and reads rows by one-hot mask sums (no gather on the TPU). Neither
 // fits 227 KB of shared memory, so here:
-// - one thread block owns G = 2 searches and loops over all simulations.
-//   Each block streams the whole weight pack from L2 once per simulation
-//   whatever G is, so small G buys blocks (SMs) at the price of L2 traffic:
-//   at B=256 on an H100, G=2 (128 blocks) measured fastest, then 4, 8, 16
-//   (PERF.md). Blocks never communicate;
+// - one thread block owns G = 2 searches (the tensor-core library: 8) and
+//   loops over all simulations. Each block streams the whole weight pack
+//   from L2 once per simulation whatever G is, so small G buys blocks (SMs)
+//   at the price of L2 traffic: at B=256 on an H100, G=2 (128 blocks)
+//   measured fastest for the CUDA-core products, then 4, 8, 16; on the
+//   tensor cores 4 and 8 are within 4% (PERF.md). Blocks never communicate;
 // - tree tables live in global memory (allocated by the wrapper) and are
 //   read and written with plain indexed loads and stores: one warp per
 //   search in traversal (lane k = child slot k, warp reductions for the
@@ -68,16 +74,30 @@
 //   one, in the next layer when this one ends, is in flight while the block
 //   computes, and the first tile of an expansion while it traverses, as the
 //   TPU kernel's chunk DMAs are. Every output sums its rows in the same order
-//   in every kernel, so resident and streamed give bit-identical searches;
+//   in every CUDA-core kernel, so resident and streamed give bit-identical
+//   searches;
+// - the streamed bfloat16 library (whole_search_mma_kernel, G = 8 searches
+//   a block, kMmaWarps warps and a producer warp; any H % 32 == 0 up to 512)
+//   reads a copy of the pack's real hh layers in mma.sync m16n8k16
+//   A-fragment order (a lane's 8 weights in 16 bytes), through a ring of
+//   stages that one cp.async.bulk each fills (MmaRing, Ring's protocol),
+//   across layers and simulations. Each warp owns 16-output m-tiles; the
+//   tensor core sums each 16-input k-step, and one float32 add a k-step takes
+//   that into the warp's accumulator, k-steps in ascending order. The
+//   activations are (columns, H + pad) tiles: float for the residual stream
+//   and the layer norms, bfloat16 for the products, rounded once where the
+//   epilogue or the layer norm writes them. Its searches agree with the plain
+//   version to the noise of another order of sums (chip_smoke.py), not to
+//   the bit: no plain version repeats the tensor core's sums;
 // - a bfloat16 pack stores hh / win / wide / cat and the node embeddings in
 //   bfloat16; every dense and head product rounds its input activation to
 //   bfloat16 (`__float2bfloat16_rn`) and sums products of the widened values
 //   in float32, as the TPU kernel's `x.astype(w.dtype)` and f32 accumulation
 //   do. The scalar heads and every bias and LayerNorm vector stay float32.
-//   A dense layer's products are then exact, and it sums them as a balanced
-//   tree (RowSum), which the plain version repeats to the bit: with
-//   bfloat16 roundings in every layer, any other order would turn some of
-//   them the other way, and the searches apart;
+//   A dense layer's products are then exact, and the CUDA-core kernel sums
+//   them as a balanced tree (RowSum), which the plain version repeats to the
+//   bit: with bfloat16 roundings in every layer, any other order would turn
+//   some of them the other way, and the searches apart;
 // - a categorical head's logits are a (bins, G) tile in shared memory: the
 //   block's threads split bins x input ranges, a second pass adds the partial
 //   sums and the bias, and one warp per search takes the max, exponentials,
@@ -157,6 +177,7 @@ constexpr int kMmaStages = WHOLE_SEARCH_MMA_STAGES;
 constexpr int kMmaStageBytes = WHOLE_SEARCH_MMA_STAGE_KB * 1024;
 constexpr int kMmaMaxTiles = (512 / 16 + kMmaWarps - 1) / kMmaWarps;  // 16-row output tiles a warp at H <= 512
 constexpr int kActPad = 8;  // bfloat16 activations: (columns, H + kActPad), so that B fragments load without conflicts
+constexpr int kRowPad = 4;  // float activations: (columns, H + kRowPad), so that the epilogues store without conflicts
 static_assert(2 * kMmaStages * 8 <= kBarrierFloats * 4, "the tensor-core ring's barriers fit their slot");
 static_assert(kSearchesPerBlock <= kMmaWarps, "traversal and layer norms take a warp per search");
 
@@ -570,12 +591,17 @@ struct MmaRing {
   }
 };
 
-// c (16 x 8, float32) += a (16 x 16, bfloat16, a lane's fragment) b (16 x 8, bfloat16, two registers).
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint4& a, unsigned b0, unsigned b1) {
+// acc (16 x 8, float32) += a (16 x 16, bfloat16, a lane's fragment) b (16 x 8, bfloat16, two registers): the
+// tensor core sums the k-step's 16 products into a zero accumulator, and one rounded float32 add per value takes
+// that into acc (the k-step order of the plain version, bf16_dense_sum's "ksteps").
+__device__ __forceinline__ void mma_bf16(float (&acc)[4], const uint4& a, unsigned b0, unsigned b1) {
+  float d[4];
   asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+      "{%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1), "f"(0.f));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i] = __fadd_rn(acc[i], d[i]);
 }
 
 // acc[g] += w * x[g] over one input row (x: G activations, read as float2s).
@@ -859,6 +885,16 @@ __device__ void dense(const Args& a, Feed& st, int layer, int iv, const float* i
   PROF_ADD(3, t_dense);
 }
 
+// A balanced tree over v[0..15] (lane_tree's).
+__device__ __forceinline__ float tree16(float (&v)[16]) {
+#pragma unroll
+  for (int w = 1; w < 16; w *= 2) {
+#pragma unroll
+    for (int j = 0; j < 16; j += 2 * w) v[j] = __fadd_rn(v[j], v[j + w]);
+  }
+  return v[0];
+}
+
 // A balanced tree over this lane's values x[(lane + 32 j) G + g], j < n =
 // H / 32 (a power of two, at most 16), zeros beyond n: with `mean`, of
 // (x - mean)^2 instead of x. The plain version sums by halving, as here.
@@ -988,7 +1024,7 @@ __device__ void tower(const Args& a, Feed& st, int ihh, int iv, const float* in,
   layer_norm_relu<G, W>(a, iv, x, x);
 }
 
-// The tensor-core library's dense layer: out (H, G) float and/or xout
+// The tensor-core library's dense layer: out (columns, H + kRowPad) float and/or xout
 // (columns, H + kActPad) bfloat16 = W[layer]^T x + vec[iv] (+ rows[row_idx[g]]
 // | + out), x being the bfloat16 activations `xin` (columns, H + kActPad),
 // on the tiles of `st`, which must stand at this layer's first tile. Reading
@@ -996,7 +1032,7 @@ __device__ void tower(const Args& a, Feed& st, int ihh, int iv, const float* in,
 // of a tile it loads the k-step's B fragments (two 4-byte loads a lane for
 // each 8 columns) and, for each of its m-tiles, the A fragment (one 16-byte
 // load a lane, conflict-free) into mma.sync m16n8k16, accumulating in float32
-// registers in ascending k-steps. The epilogue adds in dense's order: the
+// registers in ascending k-steps (mma_bf16). The epilogue adds in dense's order: the
 // bias, then the input row, then the residual; it writes the float value
 // and/or its bfloat16 rounding, the next product's input (the TPU kernel's
 // x.astype(w.dtype), done once here instead of at every product). A layer
@@ -1006,7 +1042,7 @@ __device__ void dense_mma(const Args& a, MmaRing& st, int iv, const __nv_bfloat1
                           __nv_bfloat16* xout, const __nv_bfloat16* rows, const int* row_idx, bool residual) {
   PROF_START(t_dense);
   constexpr int NT = (G + 7) / 8;  // n-tiles of 8 columns
-  const int H = a.H, MT = H / 16, ld = H + kActPad;
+  const int H = a.H, MT = H / 16, ld = H + kActPad, ldf = H + kRowPad;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
   const bool active = warp < min(kMmaWarps, MT);
   float acc[kMmaMaxTiles][NT][4], bias[kMmaMaxTiles][2];
@@ -1060,8 +1096,8 @@ __device__ void dense_mma(const Args& a, MmaRing& st, int iv, const __nv_bfloat1
         if (n >= G) continue;
         float v = acc[j][nt][i] + bias[j][i >> 1];
         if (rows != nullptr) v += __bfloat162float(rows[(size_t)row_idx[n] * H + m]);
-        if (residual) v += out[m * G + n];
-        if (out != nullptr) out[m * G + n] = v;
+        if (residual) v += out[n * ldf + m];
+        if (out != nullptr) out[n * ldf + m] = v;
         if (xout != nullptr) xout[(size_t)n * ld + m] = __float2bfloat16_rn(v);
       }
     }
@@ -1071,38 +1107,58 @@ __device__ void dense_mma(const Args& a, MmaRing& st, int iv, const __nv_bfloat1
 }
 
 // layer_norm_relu's arithmetic beside a bfloat16 pack, operation for
-// operation (one warp per column), writing the float result to `out`
-// (unless null) and its bfloat16 rounding to `xb` (columns, H + kActPad),
-// the next dense layer's input.
+// operation (one warp per column: lane_tree's sums, then warp_sum's), on the
+// float activations `in` (columns, H + kRowPad), the LayerNorm vectors at
+// the lane's values loaded before the sums. Writes the
+// bfloat16 rounding of the result to `xb` (columns, H + kActPad), the next
+// dense layer's input, and, unless null, the float result to `heads` (H, G),
+// the heads' layout.
 template <int G>
-__device__ void layer_norm_mma(const Args& a, int iv, const float* in, float* out, __nv_bfloat16* xb) {
+__device__ void layer_norm_mma(const Args& a, int iv, const float* in, float* heads, __nv_bfloat16* xb) {
   PROF_START(t_ln);
-  const int H = a.H, ld = H + kActPad;
+  const int H = a.H, n = H / 32, ld = H + kActPad, ldf = H + kRowPad;
   const int lane = threadIdx.x & 31;
   for (int g = threadIdx.x >> 5; g < G; g += compute_threads() >> 5) {
+    const float* row = in + g * ldf;
+    float gamma[16], beta[16], t[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int i = lane + 32 * j;
+      t[j] = j < n ? row[i] : 0.f;
+      gamma[j] = j < n ? a.vecs[(size_t)iv * H + i] : 0.f;
+      beta[j] = j < n ? a.vecs[(size_t)(iv + 1) * H + i] : 0.f;
+    }
     const float inv_h = __fdiv_rn(1.f, (float)H);
-    const float mean = __fmul_rn(warp_sum(lane_tree<G>(in, g, H / 32, lane, false, 0.f)), inv_h);
-    const float var = __fmul_rn(warp_sum(lane_tree<G>(in, g, H / 32, lane, true, mean)), inv_h);
+    const float mean = __fmul_rn(warp_sum(tree16(t)), inv_h);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float d = j < n ? __fsub_rn(row[lane + 32 * j], mean) : 0.f;
+      t[j] = __fmul_rn(d, d);
+    }
+    const float var = __fmul_rn(warp_sum(tree16(t)), inv_h);
     const float r = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, 1e-6f)));
-    for (int i = lane; i < H; i += 32) {
-      const float y = __fmul_rn(__fsub_rn(in[i * G + g], mean), r);
-      const float z = __fadd_rn(__fmul_rn(y, a.vecs[(size_t)iv * H + i]), a.vecs[(size_t)(iv + 1) * H + i]);
-      const float v = fmaxf(z, 0.f);
-      if (out != nullptr) out[i * G + g] = v;
-      xb[(size_t)g * ld + i] = __float2bfloat16_rn(v);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      if (j >= n) break;
+      const int i = lane + 32 * j;
+      const float y = __fmul_rn(__fsub_rn(row[i], mean), r);
+      const float z = fmaxf(__fadd_rn(__fmul_rn(y, gamma[j]), beta[j]), 0.f);
+      if (heads != nullptr) heads[i * G + g] = z;
+      xb[(size_t)g * ld + i] = __float2bfloat16_rn(z);
     }
   }
   block_sync();
   PROF_ADD(5, t_ln);
 }
 
-// tower on the tensor cores: the input's bfloat16 tile in_b; the result in x
-// (float) and its bfloat16 rounding in xa. The blocks' layer norms write
-// only the bfloat16 tiles their dense layers read (xa, then xb); u holds the
-// first dense layer of a block.
+// tower on the tensor cores: the input's bfloat16 tile in_b; the result in
+// xh (H, G) float, the heads' layout, and its bfloat16 rounding in xa. x and
+// u (columns, H + kRowPad) hold the residual stream and a block's first
+// dense layer; the blocks' layer norms write only the bfloat16 tiles their
+// dense layers read (xa, then xb).
 template <int G>
 __device__ void tower_mma(const Args& a, MmaRing& st, int iv, const __nv_bfloat16* in_b, float* x, float* u,
-                          __nv_bfloat16* xa, __nv_bfloat16* xb) {
+                          float* xh, __nv_bfloat16* xa, __nv_bfloat16* xb) {
   dense_mma<G>(a, st, iv, in_b, x, nullptr, nullptr, nullptr, false);
   iv += 1;
   for (int blk = 0; blk < a.NB; ++blk) {
@@ -1112,7 +1168,7 @@ __device__ void tower_mma(const Args& a, MmaRing& st, int iv, const __nv_bfloat1
     dense_mma<G>(a, st, iv + 5, xb, x, nullptr, nullptr, nullptr, true);
     iv += 6;
   }
-  layer_norm_mma<G>(a, iv, x, x, xa);
+  layer_norm_mma<G>(a, iv, x, xh, xa);
 }
 
 // out[g] = untransform(scal[:, c] . x[:, g] + scal_b[c]), one warp per column.
@@ -1224,6 +1280,11 @@ size_t smem_bytes(int H, int K, int value_bins, int reward_bins, int tile_floats
          (size_t)7 * G * sizeof(int);
 }
 
+// The tensor-core kernel's steps around the expansion: tree init,
+// traversal, the new node's priors, backup and root statistics. They are
+// whole_search_kernel's own, statement for statement, which keeps its copy
+// inline so that its three libraries compile to the machine code they had.
+//
 // Where a simulation's traversal leaves each of the block's G searches, for
 // the expansion and the backup: (G,) arrays in shared memory.
 struct Picks {
@@ -1411,7 +1472,7 @@ inline int stream_tile_rows(int H, int wsize) {
 template <int G, typename W, bool kStream>
 __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
   extern __shared__ __align__(16) float smem[];
-  const int H = a.H, K = a.K, N = a.S + 1;
+  const int H = a.H, K = a.K, A = a.A, N = a.S + 1, P = a.P;
   const int HG = H * G;
   W* emb = static_cast<W*>(a.emb);
   float* pe = smem + a.tile_floats;  // parent embeddings
@@ -1437,9 +1498,8 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
   int* s_dec = s_depth + G;
   int* s_arow = s_dec + G;
   int* s_crow = s_arow + G;
-  const Picks picks{s_parent, s_edge, s_exist, s_depth, s_dec, s_arow, s_crow};
 
-  const int tid = threadIdx.x, lane = tid & 31;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = compute_threads() >> 5;
   const int b0 = blockIdx.x * G;
 #if WHOLE_SEARCH_PROFILE
   if (tid < kProfRegions) s_prof[tid] = 0;
@@ -1474,7 +1534,26 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
     }
   }
 
-  tree_init<G, W>(a, b0);
+  // ---- tree init: root = node 0, a decision node
+  for (int g = 0; g < G && b0 + g < a.B; ++g) {
+    const int b = b0 + g;
+    const size_t nk = (size_t)b * N * K, nn = (size_t)b * N;
+    for (int e = tid; e < N * K; e += compute_threads()) {
+      a.cidx[nk + e] = kUnvisited;
+      a.cvis[nk + e] = 0.f;
+      a.cval[nk + e] = 0.f;
+      a.prior[nk + e] = e < K ? a.root_p[(size_t)b * K + e] : 0.f;
+    }
+    for (int e = tid; e < N; e += compute_threads()) {
+      a.nvis[nn + e] = e == 0 ? 1.f : 0.f;
+      a.nval[nn + e] = e == 0 ? a.root_v[b] : 0.f;
+      a.nrew[nn + e] = 0.f;
+      a.ndis[nn + e] = 1.f;
+      a.ndec[nn + e] = e == 0 ? 1.f : 0.f;
+    }
+    for (int e = tid; e < H; e += compute_threads()) emb[nn * H + e] = from_f<W>(a.root_h[(size_t)b * H + e]);
+  }
+  block_sync();
 
   for (int sim = 0; sim < a.S; ++sim) {
     const int new_index = sim + 1;
@@ -1485,7 +1564,49 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
 
     // ---- traversal: one warp per search
     PROF_START(t_trav);
-    traverse<G>(a, b0, picks);
+    for (int g = warp; g < G; g += nwarps) {
+      const int b = b0 + g;
+      if (b >= a.B) {
+        if (lane == 0) {
+          s_parent[g] = 0;
+          s_edge[g] = 0;
+          s_exist[g] = 0;
+          s_depth[g] = 1;
+          s_dec[g] = 1;
+          s_arow[g] = 0;
+          s_crow[g] = 0;
+        }
+        continue;
+      }
+      int* pn = a.path_nodes + (size_t)b * P;
+      int* pe_ = a.path_edges + (size_t)b * P;
+      int node = 0, edge, next;
+      pick(a, b, node, lane, edge, next);
+      if (lane == 0) {
+        pn[0] = node;
+        pe_[0] = edge;
+      }
+      int depth = 1;
+      while (depth < P && next != kUnvisited) {
+        node = next;
+        pick(a, b, node, lane, edge, next);
+        if (lane == 0) {
+          pn[depth] = node;
+          pe_[depth] = edge;
+        }
+        ++depth;
+      }
+      if (lane == 0) {
+        s_parent[g] = node;
+        s_edge[g] = edge;
+        s_exist[g] = next;
+        s_depth[g] = depth;
+        s_dec[g] = a.ndec[(size_t)b * N + node] > 0.f ? 1 : 0;
+        s_arow[g] = min(edge, A - 1);
+        s_crow[g] = min(edge, K - 1);
+      }
+    }
+    block_sync();
     PROF_ADD(1, t_trav);
     PROF_START(t_exp);
 
@@ -1522,12 +1643,71 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
       const int i = e / G, g = e % G, b = b0 + g;
       if (b < a.B) emb[((size_t)b * N + new_index) * H + i] = from_f<W>(s_dec[g] ? after[e] : hnew[e]);
     }
-    priors<G>(a, b0, new_index, s_dec, lc, la);
-    backup<G>(a, b0, new_index, picks, s_q, s_r, s_v);
+    for (int g = warp; g < G; g += nwarps) {
+      const int b = b0 + g;
+      if (b >= a.B) continue;
+      const bool dec = s_dec[g];
+      const int width = dec ? K : A;
+      const float* logits = dec ? lc : la;
+      const float m = lane < width ? __fdiv_rn(logits[lane * G + g], a.temperature) : kNegInf;
+      const float mx = warp_max(m);
+      const float ev = lane < width ? expf(__fsub_rn(m, mx)) : 0.f;
+      const float sum = warp_sum(ev);
+      if (lane < K) a.prior[((size_t)b * N + new_index) * K + lane] = __fdiv_rn(ev, sum);
+    }
+
+    // ---- backup, one thread per search
+    if (tid < G && b0 + tid < a.B) {
+      const int g = tid, b = b0 + g;
+      const size_t nb = (size_t)b * N;
+      const bool dec = s_dec[g];
+      a.nrew[nb + new_index] = dec ? 0.f : s_r[g];
+      a.ndis[nb + new_index] = dec ? 1.f : a.discount;
+      a.ndec[nb + new_index] = dec ? 0.f : 1.f;
+
+      const int exist = s_exist[g], parent = s_parent[g], edge = s_edge[g], depth = s_depth[g];
+      const bool needs_expand = exist == kUnvisited;
+      const int child = needs_expand ? new_index : exist;
+      if (needs_expand) a.cidx[(nb + parent) * K + edge] = child;
+      const float leaf_value = needs_expand ? (dec ? s_q[g] : s_v[g]) : a.nval[nb + max(exist, 0)];
+
+      const int* pn = a.path_nodes + (size_t)b * P;
+      const int* pe_ = a.path_edges + (size_t)b * P;
+      float* vb = a.vbuf + (size_t)b * (P + 1);
+      auto ext = [&](int j) { return j < depth ? pn[j] : (j == depth ? child : N); };
+
+      vb[depth] = leaf_value;
+      for (int j = depth - 1; j >= 0; --j) {
+        const int nd = ext(j + 1);
+        vb[j] = __fadd_rn(a.nrew[nb + nd], __fmul_rn(a.ndis[nb + nd], vb[j + 1]));
+      }
+      for (int j = 0; j <= depth; ++j) {
+        const int nd = ext(j);
+        const float vis = a.nvis[nb + nd];
+        const float val = a.nval[nb + nd];
+        a.nval[nb + nd] = __fdiv_rn(__fadd_rn(__fmul_rn(val, vis), vb[j]), __fadd_rn(vis, 1.f));
+        a.nvis[nb + nd] = vis + 1.f;
+      }
+      for (int j = 0; j < depth; ++j) {
+        const int nd = pn[j], cn = ext(j + 1);
+        const size_t ek = (nb + nd) * K + pe_[j];
+        a.cvis[ek] += 1.f;
+        a.cval[ek] = __fadd_rn(a.nrew[nb + cn], __fmul_rn(a.ndis[nb + cn], a.nval[nb + cn]));
+      }
+    }
+    block_sync();
     PROF_ADD(7, t_back);
   }
 
-  root_stats<G>(a, b0);
+  // ---- root statistics
+  for (int e = tid; e < G * A; e += compute_threads()) {
+    const int g = e / A, act = e % A, b = b0 + g;
+    if (b < a.B) {
+      a.visits[(size_t)b * A + act] = a.cvis[(size_t)b * N * K + act];
+      a.qvals[(size_t)b * A + act] = a.cval[(size_t)b * N * K + act];
+    }
+  }
+  if (tid < G && b0 + tid < a.B) a.rootv[b0 + tid] = a.nval[(size_t)(b0 + tid) * N];
   PROF_ADD(0, t_launch);
 #if WHOLE_SEARCH_PROFILE
   if (tid < kProfRegions) atomicAdd(&g_prof[tid], s_prof[tid]);
@@ -1538,21 +1718,24 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
 // whole_search_kernel with its dense layers on the tensor cores, fed by an
 // MmaRing that runs across layers and simulations. kMmaWarps reading warps
 // compute; a producer warp copies the fragments. Shared memory, after the
-// ring: the tower activations x (H, G) float, the logits and head values,
-// the traversal's picks, the bfloat16 tiles (columns, H + kActPad) of the
+// ring: the residual stream x (columns, H + kRowPad) float, a tower's
+// output xh (H, G) float for the heads, the logits and head values, the
+// traversal's picks, the bfloat16 tiles (columns, H + kActPad) of the
 // parent embeddings, the afterstate and the next hidden state (what the
-// install copies to the table), then u (H, G) float and the bfloat16 tiles
-// xa and xb, over which the categorical heads keep their partial sums (none
-// of the three is live during a head).
+// install copies to the table), then u (columns, H + kRowPad) float and the
+// bfloat16 tiles xa and xb, over which the categorical heads keep their
+// partial sums (none of the three is live during a head).
 template <int G>
 __global__ void __launch_bounds__(32 * (kMmaWarps + 1), 1) whole_search_mma_kernel(Args a) {
   using bf16 = __nv_bfloat16;
   extern __shared__ __align__(16) float smem[];
   const int H = a.H, K = a.K, N = a.S + 1;
   const int HG = H * G, ld = H + kActPad, tile = 8 * ((G + 7) / 8) * ld;  // a bfloat16 tile's elements
+  const int rows = G * (H + kRowPad);                                      // a float tile's elements
   bf16* emb = static_cast<bf16*>(a.emb);
   float* x = smem + a.tile_floats;
-  float* lc = x + HG;      // (K, G) chance logits
+  float* xh = x + rows;
+  float* lc = xh + HG;     // (K, G) chance logits
   float* la = lc + K * G;  // (K, G) action logits
   float* s_q = la + K * G;
   float* s_r = s_q + G;
@@ -1563,7 +1746,7 @@ __global__ void __launch_bounds__(32 * (kMmaWarps + 1), 1) whole_search_mma_kern
   bf16* after_b = pe_b + tile;
   bf16* hnew_b = after_b + tile;
   float* u = reinterpret_cast<float*>(hnew_b + tile);
-  bf16* xa = reinterpret_cast<bf16*>(u + HG);
+  bf16* xa = reinterpret_cast<bf16*>(u + rows);
   bf16* xb = xa + tile;
   float* psum = u;  // categorical heads: partial sums, then the (bins, G) logits
   const int cat_bins = max(a.value_bins, a.reward_bins);
@@ -1609,20 +1792,20 @@ __global__ void __launch_bounds__(32 * (kMmaWarps + 1), 1) whole_search_mma_kern
 
     // phi then psi (decision parent -> chance child)
     dense_mma<G>(a, st, PHI_FUSE_V, pe_b, nullptr, xa, win, picks.arow, false);
-    tower_mma<G>(a, st, PHI_V, xa, x, u, xa, xb);
+    tower_mma<G>(a, st, PHI_V, xa, x, u, xh, xa, xb);
     dense_mma<G>(a, st, PHI_HEAD_V, xa, nullptr, after_b, nullptr, nullptr, false);
-    tower_mma<G>(a, st, PSI_V, after_b, x, u, xa, xb);
-    head_value<G, bf16>(a, 1, x, s_q, psum, lgt);
-    head_logits<G, bf16>(a, 1, x, lc);
+    tower_mma<G>(a, st, PSI_V, after_b, x, u, xh, xa, xb);
+    head_value<G, bf16>(a, 1, xh, s_q, psum, lgt);
+    head_logits<G, bf16>(a, 1, xh, lc);
 
     // g then f (chance parent -> decision child)
     dense_mma<G>(a, st, G_FUSE_V, pe_b, nullptr, xa, win + (size_t)K * H, picks.crow, false);
-    tower_mma<G>(a, st, G_V, xa, x, u, xa, xb);
+    tower_mma<G>(a, st, G_V, xa, x, u, xh, xa, xb);
     dense_mma<G>(a, st, G_HEAD_V, xa, nullptr, hnew_b, nullptr, nullptr, false);
-    head_value<G, bf16>(a, 2, x, s_r, psum, lgt);
-    tower_mma<G>(a, st, F_V, hnew_b, x, u, xa, xb);
-    head_value<G, bf16>(a, 0, x, s_v, psum, lgt);
-    head_logits<G, bf16>(a, 0, x, la);
+    head_value<G, bf16>(a, 2, xh, s_r, psum, lgt);
+    tower_mma<G>(a, st, F_V, hnew_b, x, u, xh, xa, xb);
+    head_value<G, bf16>(a, 0, xh, s_v, psum, lgt);
+    head_logits<G, bf16>(a, 0, xh, la);
     PROF_ADD(2, t_exp);
     PROF_START(t_back);
 
@@ -1645,7 +1828,7 @@ __global__ void __launch_bounds__(32 * (kMmaWarps + 1), 1) whole_search_mma_kern
 
 // The dense probe: block l runs dense_mma on layer l of the fragment copy
 // `frag` (n_layers layers), with bias row l of `bias` (n_layers, H) and the
-// activations x (G, H) float rounded to bfloat16; out (n_layers, H, G).
+// activations x (G, H) float rounded to bfloat16; out (n_layers, G, H + kRowPad).
 template <int G>
 __global__ void __launch_bounds__(32 * (kMmaWarps + 1), 1)
     dense_probe_kernel(const void* frag, const float* bias, const float* x, float* out, int H, int n_layers) {
@@ -1664,7 +1847,7 @@ __global__ void __launch_bounds__(32 * (kMmaWarps + 1), 1)
     xb[(size_t)(e / H) * (H + kActPad) + e % H] = __float2bfloat16_rn(x[e]);
   }
   block_sync();
-  dense_mma<G>(a, st, blockIdx.x, xb, out + (size_t)blockIdx.x * H * G, nullptr, nullptr, nullptr, false);
+  dense_mma<G>(a, st, blockIdx.x, xb, out + (size_t)blockIdx.x * G * (H + kRowPad), nullptr, nullptr, nullptr, false);
 }
 
 // The ring's tile: T rows of each input half, the largest power of two times
@@ -1689,9 +1872,10 @@ Plan make_mma_plan(int B, int H, int K, int value_bins, int reward_bins) {
   const int threads = 32 * kMmaWarps, tile = 8 * ((G + 7) / 8) * (H + kActPad);
   const int bins = value_bins > reward_bins ? value_bins : reward_bins;
   const size_t cat = bins > 1 ? (size_t)((threads > bins ? threads : bins) + bins) * G * sizeof(float) : 0;
-  const size_t scratch = (size_t)H * G * sizeof(float) + 2 * (size_t)tile * sizeof(__nv_bfloat16);
+  const int rows = G * (H + kRowPad);
+  const size_t scratch = (size_t)rows * sizeof(float) + 2 * (size_t)tile * sizeof(__nv_bfloat16);
   Plan p{(B + G - 1) / G, threads + 32, 16 * mma_tile_ksteps(H), mma_ring_floats(H), 0};
-  p.smem = (size_t)(p.tile_floats + H * G + 2 * K * G + 3 * G) * sizeof(float) + (size_t)7 * G * sizeof(int) +
+  p.smem = (size_t)(p.tile_floats + rows + H * G + 2 * K * G + 3 * G) * sizeof(float) + (size_t)7 * G * sizeof(int) +
            3 * (size_t)tile * sizeof(__nv_bfloat16) + (cat > scratch ? cat : scratch);
   return p;
 }
@@ -1917,7 +2101,7 @@ int whole_search_launch(const float* root_h, const float* root_p, const float* r
 }
 
 #if WHOLE_SEARCH_BF16 && WHOLE_SEARCH_STREAMED
-// The dense probe (dense_probe_kernel): out (n_layers, H, G) = each layer of
+// The dense probe (dense_probe_kernel): out (n_layers, G, H + kRowPad) = each layer of
 // the fragment copy `frag` applied to x (G, H), rounded to bfloat16, plus
 // its row of `bias` (n_layers, H), by the search kernel's own ring, mma.sync
 // products and epilogue, G = the library's searches a block. Returns

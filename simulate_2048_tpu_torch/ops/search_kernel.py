@@ -72,6 +72,7 @@ LAUNCHES = {
 RESIDENT_MAX_H = 256  # the resident kernels: 2H threads (float32: and a producer warp), at most 512 (544)
 STREAMED_MAX_H = 512  # the streamed kernels: 2H threads under __launch_bounds__(1024); the tensor-core one, 32 m-tiles
 STREAM_CHUNK = 8  # layers per unit of zero padding in a streamed pack (JAX's largest chunk)
+ROW_PAD = 4  # the tensor-core kernel's float activations are (columns, H + ROW_PAD): kRowPad in csrc/whole_search.cu
 # G, the searches one thread block runs, by library (kSearchesPerBlock in csrc/whole_search.cu).
 SEARCHES_PER_BLOCK = {
     "whole_search": 2,
@@ -668,13 +669,13 @@ def dense_probe(fragments: torch.Tensor, bias: torch.Tensor, x: torch.Tensor) ->
         if t.device.type != "cuda" or t.dtype != dtype or not t.is_contiguous():
             raise ValueError("dense_probe takes contiguous CUDA tensors: bfloat16 fragments, float32 bias and x")
     lib = _load("whole_search_bf16_streamed")
-    out = torch.empty(n_layers, h, g, dtype=torch.float32, device=x.device)
+    out = torch.empty(n_layers, g, h + ROW_PAD, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.whole_search_dense_probe(fragments.data_ptr(), bias.data_ptr(), x.data_ptr(), out.data_ptr(), h,
                                            n_layers, torch.cuda.current_stream(x.device).cuda_stream)  # fmt: skip
     if err != 0:
         raise RuntimeError(f"whole_search_dense_probe failed: {lib.whole_search_error_string(err).decode()}")
-    return out.transpose(1, 2)
+    return out[:, :, :h]
 
 
 def _load(library: str) -> ctypes.CDLL:
