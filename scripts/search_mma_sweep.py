@@ -43,9 +43,7 @@ def shape(g: int, warps: int, stages: int, kb: int) -> tuple[str, ...]:
 
 # name -> extra defines; the shipped library itself is always timed first.
 VARIANTS = {
-    "w12": shape(8, 12, 4, 32),
-    "g4_w8": shape(4, 8, 4, 32),
-    "w16_prof": shape(8, 16, 4, 32),
+    "prof": (),
 }
 PARENT = Path("profiles/parent_whole_search.cu")
 

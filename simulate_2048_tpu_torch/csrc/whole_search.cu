@@ -163,7 +163,7 @@ constexpr unsigned kMaxSpins = 1u << 24;  // a wait that spins longer traps: the
 #define WHOLE_SEARCH_MMA_G 8
 #endif
 #ifndef WHOLE_SEARCH_MMA_WARPS
-#define WHOLE_SEARCH_MMA_WARPS 16
+#define WHOLE_SEARCH_MMA_WARPS 12
 #endif
 #ifndef WHOLE_SEARCH_MMA_STAGES
 #define WHOLE_SEARCH_MMA_STAGES 4
