@@ -156,49 +156,21 @@ constexpr int kBarrierFloats = 32;  // 2 kStages mbarriers of 8 bytes after the 
 static_assert(2 * kStages * 8 <= kBarrierFloats * 4, "the ring's barriers fit their slot");
 constexpr unsigned kMaxSpins = 1u << 24;  // a wait that spins longer traps: the pipeline stalled
 
-// The tensor-core library's shape (-D overrides for a sweep): G searches a
-// block, consumer warps beside the producer, and a ring of stages of at most
-// this many KB of fragments.
-#ifndef WHOLE_SEARCH_MMA_G
-#define WHOLE_SEARCH_MMA_G 8
-#endif
-#ifndef WHOLE_SEARCH_MMA_WARPS
-#define WHOLE_SEARCH_MMA_WARPS 12
-#endif
-#ifndef WHOLE_SEARCH_MMA_STAGES
-#define WHOLE_SEARCH_MMA_STAGES 4
-#endif
-#ifndef WHOLE_SEARCH_MMA_STAGE_KB
-#define WHOLE_SEARCH_MMA_STAGE_KB 32
-#endif
-constexpr int kSearchesPerBlock = kMma ? WHOLE_SEARCH_MMA_G : 2;  // G
-constexpr int kMmaWarps = WHOLE_SEARCH_MMA_WARPS;
-constexpr int kMmaStages = WHOLE_SEARCH_MMA_STAGES;
-constexpr int kMmaStageBytes = WHOLE_SEARCH_MMA_STAGE_KB * 1024;
+// The tensor-core library's shape, the fastest without a spill on an NVIDIA
+// H100 80GB HBM3 at 700 W at 128 to 1,024 searches (PERF.md): G = 8
+// searches a block (4: within the noise at 128-512, two waves at 1,024; 16:
+// half again slower); 12 consumer warps beside the producer (16 were 1.6%
+// faster but spill under the 96 registers 17 warps leave; 8 and 15 slower);
+// 4 stages of 32 KB (3 stages, 2 of 64 KB, 8 of 16 KB slower).
+constexpr int kSearchesPerBlock = kMma ? 8 : 2;  // G
+constexpr int kMmaWarps = 12;
+constexpr int kMmaStages = 4;
+constexpr int kMmaStageBytes = 32 * 1024;
 constexpr int kMmaMaxTiles = (512 / 16 + kMmaWarps - 1) / kMmaWarps;  // 16-row output tiles a warp at H <= 512
 constexpr int kActPad = 8;  // bfloat16 activations: (columns, H + kActPad), so that B fragments load without conflicts
 constexpr int kRowPad = 4;  // float activations: (columns, H + kRowPad), so that the epilogues store without conflicts
 static_assert(2 * kMmaStages * 8 <= kBarrierFloats * 4, "the tensor-core ring's barriers fit their slot");
 static_assert(kSearchesPerBlock <= kMmaWarps, "traversal and layer norms take a warp per search");
-
-// A profile build (-DWHOLE_SEARCH_PROFILE=1, scripts/search_mma_sweep.py)
-// sums thread 0's clock64 cycles by region: 0 the launch, 1 traversal, 2
-// expansion, 3 dense layers, 4 their tile waits, 5 layer norms, 6 heads,
-// 7 install and backup. Without it the macros are empty.
-#ifndef WHOLE_SEARCH_PROFILE
-#define WHOLE_SEARCH_PROFILE 0
-#endif
-#if WHOLE_SEARCH_PROFILE
-constexpr int kProfRegions = 8;
-__device__ unsigned long long g_prof[kProfRegions];
-__shared__ unsigned long long s_prof[kProfRegions];
-#define PROF_START(v) const long long v = clock64()
-#define PROF_ADD(k, v) \
-  if (threadIdx.x == 0) s_prof[k] += clock64() - (v)
-#else
-#define PROF_START(v)
-#define PROF_ADD(k, v)
-#endif
 
 struct Args {
   const float* root_h;  // (B, H)
@@ -827,14 +799,11 @@ __device__ void dense(const Args& a, Feed& st, int layer, int iv, const float* i
   const int len = H / 2;
   const int i0 = half * len;
   static_assert(G % 2 == 0, "activations are read as float2s");
-  PROF_START(t_dense);
   RowSum<G, W> sum;
   if constexpr (kStream) {
     for (int t = 0; t < st.tpl; ++t) {
-      PROF_START(t_wait);
       st.wait();        // this thread's copies of tile st.q
       __syncthreads();  // everyone's; and the other buffer's last readers are done
-      PROF_ADD(4, t_wait);
       if (st.q + 1 < st.total) st.issue(a, st.q + 1);
       const W* w = st.buf + (size_t)(st.q & 1) * 2 * st.T * H + (size_t)half * st.T * H + o;
       const float* x = in + (i0 + t * st.T) * G;
@@ -882,7 +851,6 @@ __device__ void dense(const Args& a, Feed& st, int layer, int iv, const float* i
     }
   }
   block_sync();
-  PROF_ADD(3, t_dense);
 }
 
 // A balanced tree over v[0..15] (lane_tree's).
@@ -925,7 +893,6 @@ __device__ __forceinline__ float lane_tree(const float* x, int g, int n, int lan
 // lane_tree, then the butterfly of warp_sum.
 template <int G, typename W>
 __device__ void layer_norm_relu(const Args& a, int iv, const float* in, float* out) {
-  PROF_START(t_ln);
   const int H = a.H;
   const int lane = threadIdx.x & 31;
   for (int g = threadIdx.x >> 5; g < G; g += compute_threads() >> 5) {
@@ -990,7 +957,6 @@ __device__ void layer_norm_relu(const Args& a, int iv, const float* in, float* o
     }
   }
   block_sync();
-  PROF_ADD(5, t_ln);
 }
 
 // A dense layer of a tower, which a layer norm follows: the ring kernel's
@@ -1040,7 +1006,6 @@ __device__ void tower(const Args& a, Feed& st, int ihh, int iv, const float* in,
 template <int G>
 __device__ void dense_mma(const Args& a, MmaRing& st, int iv, const __nv_bfloat16* xin, float* out,
                           __nv_bfloat16* xout, const __nv_bfloat16* rows, const int* row_idx, bool residual) {
-  PROF_START(t_dense);
   constexpr int NT = (G + 7) / 8;  // n-tiles of 8 columns
   const int H = a.H, MT = H / 16, ld = H + kActPad, ldf = H + kRowPad;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
@@ -1061,9 +1026,7 @@ __device__ void dense_mma(const Args& a, MmaRing& st, int iv, const __nv_bfloat1
     st.q += st.tpl;  // the cursor stays in step; this warp reads no tile
   }
   for (int t = 0; active && t < st.tpl; ++t, ++st.q) {
-    PROF_START(t_wait);
     const uint4* w = st.ready();
-    PROF_ADD(4, t_wait);
     for (int kk = 0; kk < st.kt; ++kk) {
       const __nv_bfloat16* xk = xin + (size_t)gq * ld + (t * st.kt + kk) * 16 + 2 * tq;
       unsigned b[NT][2];
@@ -1103,7 +1066,6 @@ __device__ void dense_mma(const Args& a, MmaRing& st, int iv, const __nv_bfloat1
     }
   }
   block_sync();
-  PROF_ADD(3, t_dense);
 }
 
 // layer_norm_relu's arithmetic beside a bfloat16 pack, operation for
@@ -1115,7 +1077,6 @@ __device__ void dense_mma(const Args& a, MmaRing& st, int iv, const __nv_bfloat1
 // the heads' layout.
 template <int G>
 __device__ void layer_norm_mma(const Args& a, int iv, const float* in, float* heads, __nv_bfloat16* xb) {
-  PROF_START(t_ln);
   const int H = a.H, n = H / 32, ld = H + kActPad, ldf = H + kRowPad;
   const int lane = threadIdx.x & 31;
   for (int g = threadIdx.x >> 5; g < G; g += compute_threads() >> 5) {
@@ -1148,7 +1109,6 @@ __device__ void layer_norm_mma(const Args& a, int iv, const float* in, float* he
     }
   }
   block_sync();
-  PROF_ADD(5, t_ln);
 }
 
 // tower on the tensor cores: the input's bfloat16 tile in_b; the result in
@@ -1237,22 +1197,18 @@ __device__ void head_categorical(const Args& a, int off, int bins, float step, c
 // weights and activations, whatever W is) or categorical.
 template <int G, typename W>
 __device__ void head_value(const Args& a, int c, const float* x, float* out, float* psum, float* lg) {
-  PROF_START(t_head);
   const int bins = c == 2 ? a.reward_bins : a.value_bins;
   if (bins == 1) {
     head_scalar<G>(a, c, x, out);
-    PROF_ADD(6, t_head);
     return;
   }
   const int off = a.value_bins > 1 ? c * a.value_bins : 0;
   head_categorical<G, W>(a, off, bins, c == 2 ? a.reward_step : a.value_step, x, out, psum, lg);
-  PROF_ADD(6, t_head);
 }
 
 // logits (K, G) = wide[j]^T x + wide_b[:, j].
 template <int G, typename W>
 __device__ void head_logits(const Args& a, int j, const float* x, float* logits) {
-  PROF_START(t_head);
   for (int e = threadIdx.x; e < a.K * G; e += compute_threads()) {
     const int k = e / G, g = e % G;
     const W* w = static_cast<const W*>(a.wide) + (size_t)j * a.H * a.K + k;
@@ -1261,7 +1217,6 @@ __device__ void head_logits(const Args& a, int j, const float* x, float* logits)
     logits[e] = s + a.wide_b[k * 2 + j];
   }
   block_sync();
-  PROF_ADD(6, t_head);
 }
 
 // Floats of shared memory the categorical heads take beside the rest: partial
@@ -1501,11 +1456,6 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = compute_threads() >> 5;
   const int b0 = blockIdx.x * G;
-#if WHOLE_SEARCH_PROFILE
-  if (tid < kProfRegions) s_prof[tid] = 0;
-  __syncthreads();
-#endif
-  PROF_START(t_launch);
 
   // Offsets into the packed weights (mirror pack_search_params).
   const int tower_hh = 1 + 2 * a.NB, tower_vec = 3 + 6 * a.NB;
@@ -1563,7 +1513,6 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
     }
 
     // ---- traversal: one warp per search
-    PROF_START(t_trav);
     for (int g = warp; g < G; g += nwarps) {
       const int b = b0 + g;
       if (b >= a.B) {
@@ -1607,8 +1556,6 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
       }
     }
     block_sync();
-    PROF_ADD(1, t_trav);
-    PROF_START(t_exp);
 
     // ---- expansion: both transition types at (parent, edge)
     for (int e = tid; e < HG; e += compute_threads()) {
@@ -1634,8 +1581,6 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
     tower<G, W, kStream>(a, st, F_HH, F_V, hnew, x, t, u, part);
     head_value<G, W>(a, 0, x, s_v, psum, lgt);
     head_logits<G, W>(a, 0, x, la);
-    PROF_ADD(2, t_exp);
-    PROF_START(t_back);
 
     // ---- install the new node at row new_index (unreachable when the
     // depth cap stopped on an expanded edge)
@@ -1696,7 +1641,6 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
       }
     }
     block_sync();
-    PROF_ADD(7, t_back);
   }
 
   // ---- root statistics
@@ -1708,10 +1652,6 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
     }
   }
   if (tid < G && b0 + tid < a.B) a.rootv[b0 + tid] = a.nval[(size_t)(b0 + tid) * N];
-  PROF_ADD(0, t_launch);
-#if WHOLE_SEARCH_PROFILE
-  if (tid < kProfRegions) atomicAdd(&g_prof[tid], s_prof[tid]);
-#endif
 }
 
 // The tensor-core library's kernel (variant (d), bfloat16): the search of
@@ -1755,11 +1695,6 @@ __global__ void __launch_bounds__(32 * (kMmaWarps + 1), 1) whole_search_mma_kern
 
   const int tid = threadIdx.x;
   const int b0 = blockIdx.x * G;
-#if WHOLE_SEARCH_PROFILE
-  if (tid < kProfRegions) s_prof[tid] = 0;
-  __syncthreads();
-#endif
-  PROF_START(t_launch);
 
   // Offsets into the bias / LayerNorm vectors (mirror pack_search_params).
   const int tower_vec = 3 + 6 * a.NB, n_real = 4 * (1 + 2 * a.NB) + 4;
@@ -1778,10 +1713,7 @@ __global__ void __launch_bounds__(32 * (kMmaWarps + 1), 1) whole_search_mma_kern
 
   for (int sim = 0; sim < a.S; ++sim) {
     const int new_index = sim + 1;
-    PROF_START(t_trav);
     traverse<G>(a, b0, picks);
-    PROF_ADD(1, t_trav);
-    PROF_START(t_exp);
 
     // ---- expansion: both transition types at (parent, edge), the layers in call order
     for (int e = tid; e < HG; e += compute_threads()) {
@@ -1806,8 +1738,6 @@ __global__ void __launch_bounds__(32 * (kMmaWarps + 1), 1) whole_search_mma_kern
     tower_mma<G>(a, st, F_V, hnew_b, x, u, xh, xa, xb);
     head_value<G, bf16>(a, 0, xh, s_v, psum, lgt);
     head_logits<G, bf16>(a, 0, xh, la);
-    PROF_ADD(2, t_exp);
-    PROF_START(t_back);
 
     // ---- install the new node at row new_index: the bfloat16 values the next products read
     for (int e = tid; e < HG; e += compute_threads()) {
@@ -1816,14 +1746,9 @@ __global__ void __launch_bounds__(32 * (kMmaWarps + 1), 1) whole_search_mma_kern
     }
     priors<G>(a, b0, new_index, picks.dec, lc, la);
     backup<G>(a, b0, new_index, picks, s_q, s_r, s_v);
-    PROF_ADD(7, t_back);
   }
 
   root_stats<G>(a, b0);
-  PROF_ADD(0, t_launch);
-#if WHOLE_SEARCH_PROFILE
-  if (tid < kProfRegions) atomicAdd(&g_prof[tid], s_prof[tid]);
-#endif
 }
 
 // The dense probe: block l runs dense_mma on layer l of the fragment copy
@@ -1998,15 +1923,6 @@ size_t whole_search_workspace_bytes(int B, int H, int K, int S, int P) {
 
 const char* whole_search_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-#if WHOLE_SEARCH_PROFILE
-// Thread 0's clock64 cycles by region, summed over the blocks of every launch since the last call; resets them.
-int whole_search_profile(unsigned long long* out) {
-  cudaError_t err = cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));
-  if (err != cudaSuccess) return (int)err;
-  const unsigned long long zero[kProfRegions] = {};
-  return (int)cudaMemcpyToSymbol(g_prof, zero, sizeof(zero));
-}
-#endif
 
 // How a launch of B searches at these widths runs: out[0..7] = blocks,
 // threads a block, blocks per cluster (1), searches per block (G), weight
