@@ -1860,7 +1860,6 @@ int launch(Args a, cudaStream_t stream) {
 template <int G>
 int launch_mma(Args a, cudaStream_t stream) {
   const Plan p = make_mma_plan<G>(a.B, a.H, a.K, a.value_bins, a.reward_bins);
-  a.tile_rows = p.tile_rows;
   a.tile_floats = p.tile_floats;
   cudaError_t err =
       cudaFuncSetAttribute(whole_search_mma_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
