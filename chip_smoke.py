@@ -21,22 +21,24 @@ code != 0, no final ``ok`` line) if any phase fails:
    its root visits and the Q gap of its two most visited actions) and total
    S in every search; root Q and value agree within rtol 1e-4 / atol 1e-3 on
    the matching searches (float32 sums taken in another order). Then the
-   bfloat16 kernel at the paper preset with 256/128 bins at 256 and 1,024
-   searches a launch and the streamed float32 kernel at hidden 512 at 256:
-   at least 99% of the searches agree (bfloat16: identical visits, Q and
-   value within rtol 1e-3 / atol 1e-2). The streamed bfloat16 kernel (chunk
-   8), on the tensor cores, at hidden 512 at every launch size of the wide
-   path (256, 512 and 128), at hidden 96 (no power of two) at 256 and at
-   the paper preset at 256 and 1,024: exact invariants (S visits, none on a
-   zero prior, finite values) and the order-noise rule (``check_order_noise``:
-   no more searches disagree with the tree plain version than twice those in
-   which the tree and k-step plain versions disagree, or 1%; JAX's
-   aggregate bfloat16 rule); its dense layers alone (``sk.dense_probe``) on
-   every layer of hidden-512 and hidden-96 packs, each output within
-   2^-16 sum |w x| of the exact sum; HMMA instructions in its machine code,
-   no stack frame and no spill. The streamed float32 kernel against the
-   resident one at H=256, chunks 2 and 8: bit for bit, with both layouts
-   timed at 256 and 1,024 searches in both types;
+   streamed float32 kernel at hidden 512 at 256: at least 99% of the
+   searches agree. The two bfloat16 libraries, both on the tensor cores:
+   the resident one (c) at the paper preset with 256/128 bins at 256 and
+   1,024 searches a launch and at hidden 96 (no power of two, which the
+   plan keeps resident) at 256, the streamed one (d, chunk 8) at hidden 512
+   at every launch size of the wide path (256, 512 and 128): exact
+   invariants (S visits, none on a zero prior, finite values) and the
+   order-noise rule (``check_order_noise``: no more searches disagree with
+   the tree plain version than twice those in which the tree and k-step
+   plain versions disagree, or 1%; JAX's aggregate bfloat16 rule); (c) and
+   (d) on one network bit for bit in visits, Q and root value at H=256
+   (256 and 1,024 searches) and at H=96; each library's dense layers alone
+   (``sk.dense_probe``) on every layer of its packs (H=256 and 96; H=512
+   and 96), each output within 2^-16 sum |w x| of the exact sum; HMMA
+   instructions in each one's machine code, no stack frame and no spill.
+   The streamed float32 kernel against the resident one at H=256, chunks 2
+   and 8: bit for bit; both layouts timed in turns at 256 and 1,024
+   searches in both types;
    and the ring all-reduce kernel (one pass; ptxas must report no stack
    frame and no spills in any of its 45 instantiations, float32 / bf16 /
    fp16 x N = 2..16) at N = 2, 4 and 8 virtual ranks on the card, in
@@ -52,7 +54,7 @@ code != 0, no final ``ok`` line) if any phase fails:
    (cudaOccupancyMaxActiveClusters for the float32 resident kernel); the
    bytes the kernel reads from L2 per call; and ptxas's registers, stack
    frame and spills, printed after the build, where a stack frame or a
-   spill in the float32 resident or the tensor-core library fails the
+   spill in the float32 resident or a tensor-core library fails the
    run), the integer
    operations a rollout's definition forces (beside it, what the rollout
    kernel's source spends, as its share of the INT32 instruction rate), and the
@@ -84,7 +86,8 @@ code != 0, no final ``ok`` line) if any phase fails:
    full-capacity probe's recipe (bfloat16 search packs, 256/128 bins, its
    evaluation calibration) at its own width, H=256, whose weights the kernel
    keeps resident: 256 games of 8 moves, with the launch counts set to 0
-   just before: one resident bfloat16 launch per move;
+   just before: one resident bfloat16 launch per move; printed beside the
+   kernel's time, bound, launch shape and registers;
 10. drives the wide path, ``train_muzero`` at the same recipe with hidden
    512, which the kernel runs with streamed weights: two 8-move segments,
    three learner steps, one reanalyze pass, one evaluation and one deep
@@ -217,6 +220,8 @@ SLEEP_CYCLES = 1 << 25  # the device's sleep (~17 ms) behind which RING_CALLS ca
 # ptxas's mangling of the ring kernel's element types.
 RING_PTXAS_TYPES = {"f": "float32", "13__nv_bfloat16": "bfloat16", "6__half": "float16"}
 HBM_TBPS = {"H100 SXM": 3.35, "H100 NVL": 3.9, "H100 PCIe": 2.0, "H200": 4.8}
+# check_whole_search's times by check name and searches a launch: (kernel ms, bound ms).
+KERNEL_TIMES: dict[str, dict[int, tuple[float, float]]] = {}
 
 
 def fail(msg: str) -> None:
@@ -400,13 +405,12 @@ def check_whole_search(
     compared, whose plain run the comparison times. Every launch:
     ``check_exact_invariants``. Float32: visit counts identical in >= 99% of
     the searches and every such search's root Q and value within rtol 1e-4 /
-    atol 1e-3. Resident bfloat16 (the rule of
-    ``tests/test_torch_search_variants.py``): >= 99% of the searches agree,
-    identical visits and Q and value within rtol 1e-3 / atol 1e-2. Streamed
-    bfloat16, the tensor-core library: ``check_order_noise``."""
+    atol 1e-3. Bfloat16, resident or streamed, the tensor-core libraries:
+    ``check_order_noise``, and the searches that agree (identical visits, Q
+    and value within rtol 1e-3 / atol 1e-2) within that tolerance."""
     config, cfg, network, packed, roots = full_width_inputs(device, value_bins, reward_bins, max(batches), hidden)
     bf16 = weight_dtype == torch.bfloat16
-    mma = bf16 and bool(stream_chunk)
+    mma = bf16  # both bfloat16 libraries run on the tensor cores
     if bf16 or stream_chunk:
         packed = pack(network, config, weight_dtype, stream_chunk)
     rtol, atol = (1e-3, 1e-2) if bf16 else (1e-4, 1e-3)
@@ -414,7 +418,24 @@ def check_whole_search(
     reference, reference_ms = timed_once(lambda: sk.whole_search_reference(*roots, packed, cfg))
     ksteps = sk.whole_search_reference(*roots, packed, cfg, "ksteps") if mma else None
     timed = max(batches) if bf16 or stream_chunk else BATCH  # searches a launch in the times
+    card = sku(torch.cuda.get_device_name(0))
+    # bfloat16 products with float32 sums are what the tensor cores compute: their rate bounds a bfloat16 pack.
+    rate, unit = (BF16_TFLOPS[card], "bf16 tensor") if bf16 else (FP32_TFLOPS[card], "FP32")
+    pack_parts = dict(zip(sk.PackedSearchParams._fields, packed.tensors))
+    if value_bins == reward_bins == 1:
+        del pack_parts["cat"], pack_parts["cat_b"]  # the cat pack only when a head uses it
+    weight_bytes = sum(t.numel() * t.element_size() for t in pack_parts.values())
 
+    def bound(b: int) -> tuple[float, float, float, float, int]:
+        """The bound at b searches a launch: (ms, operations' ms, bytes' ms, operations, bytes)."""
+        flops = search_flops(h, nb, cfg.num_actions, max(cfg.num_actions, cfg.codebook_size), b, s, value_bins,
+                             reward_bins)  # fmt: skip
+        nbytes = weight_bytes + sum(r[0].numel() * 4 * b for r in roots) + (2 * cfg.num_actions + 1) * b * 4
+        op_ms = flops / (rate * 1e12) * 1e3
+        byte_ms = nbytes / (HBM_TBPS[card] * 1e12) * 1e3
+        return max(op_ms, byte_ms), op_ms, byte_ms, flops, nbytes
+
+    times = KERNEL_TIMES.setdefault(name, {})
     max_err = 0.0
     for b in batches:
         part = tuple(r[:b].contiguous() for r in roots)
@@ -446,7 +467,9 @@ def check_whole_search(
             fail(f"{name}: Q / root value outside rtol {rtol}, atol {atol} at {b} searches a launch")
         if b != timed:
             ms = cuda_ms(lambda: sk.whole_search(*part, packed, cfg), reps=3)
-            print(f"{name}: {b} searches a launch: kernel {ms:.3f} ms, {b / ms * 1e3:.0f} searches/s")
+            times[b] = (ms, bound(b)[0])
+            print(f"{name}: {b} searches a launch: kernel {ms:.3f} ms, {b / ms * 1e3:.0f} searches/s, bound "
+                  f"{times[b][1]:.3f} ms")  # fmt: skip
 
     roots = tuple(r[:timed].contiguous() for r in roots)
     ms = cuda_ms(lambda: sk.whole_search(*roots, packed, cfg), reps=5 if timed == BATCH else 3)
@@ -454,23 +477,12 @@ def check_whole_search(
         plain_ms = reference_ms
     else:
         plain_ms = timed_once(lambda: sk.whole_search_reference(*roots, packed, cfg))[1]
-    flops = search_flops(
-        h, nb, cfg.num_actions, max(cfg.num_actions, cfg.codebook_size), timed, s, value_bins, reward_bins
-    )
-    pack_parts = dict(zip(sk.PackedSearchParams._fields, packed.tensors))
-    if value_bins == reward_bins == 1:
-        del pack_parts["cat"], pack_parts["cat_b"]  # the cat pack only when a head uses it
-    weight_bytes = sum(t.numel() * t.element_size() for t in pack_parts.values())
-    io_bytes = sum(t.numel() * 4 for t in roots) + (2 * cfg.num_actions + 1) * timed * 4
-    card = sku(torch.cuda.get_device_name(0))
-    # bfloat16 products with float32 sums are what the tensor cores compute: their rate bounds a bfloat16 pack.
-    rate, unit = (BF16_TFLOPS[card], "bf16 tensor") if bf16 else (FP32_TFLOPS[card], "FP32")
-    op_ms = flops / (rate * 1e12) * 1e3
-    byte_ms = (weight_bytes + io_bytes) / (HBM_TBPS[card] * 1e12) * 1e3
+    bound_ms, op_ms, byte_ms, flops, nbytes = bound(timed)
+    times[timed] = (ms, bound_ms)
     layout = f"streamed, chunk {stream_chunk}" if stream_chunk else "resident"
     print(
-        f"{name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {max(op_ms, byte_ms):.3f} ms "
-        f"({flops:.3g} FLOP at {rate} TFLOP/s {unit} ({card}); {weight_bytes + io_bytes} B), "
+        f"{name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
+        f"({flops:.3g} FLOP at {rate} TFLOP/s {unit} ({card}); {nbytes} B), "
         f"B={timed} S={s} H={h} NB={nb} value_bins={value_bins} reward_bins={reward_bins} "
         f"weights {str(weight_dtype).removeprefix('torch.')} {layout}"
     )
@@ -511,22 +523,34 @@ def check_whole_search(
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(op_ms, byte_ms),
+        "bound_ms": bound_ms,
         "bound_by": "operations" if op_ms >= byte_ms else "bytes",
         "library_ms": None,
     }
 
 
+def check_bit_identical(label: str, streamed, resident, root_p: torch.Tensor, sims: int, b: int) -> None:
+    """The streamed library's searches equal the resident one's bit for bit in visits, Q and root value."""
+    for name, out in (("streamed", streamed), ("resident", resident)):
+        check_exact_invariants(f"{label} ({name})", out, root_p, sims, b)
+    for what, got, want in zip(("visits", "Q", "root value"), streamed, resident):
+        if not torch.equal(got, want):
+            fail(f"{label}: {what} differ in {int((got != want).sum())} entries at {b} searches a launch")
+    print(f"{label}, {b} searches a launch: visits, Q and root value bit-identical")
+
+
 def check_streamed_equals_resident(device) -> None:
-    """At the paper preset (H=256, 256/128 bins) the streamed float32 kernel
-    must give the resident one's searches bit for bit, chunks 2 and 8: every
-    thread sums the same products in the same order. In bfloat16 the two are
-    different kernels (the streamed one on the tensor cores), so each is held
-    to its own rule at 256 and 1,024 searches a launch: the resident one
-    >= 99% agreeing with the tree plain version, the streamed one
-    ``check_order_noise``. Then both layouts are timed at 256 and 1,024
+    """At the paper preset (H=256, 256/128 bins) the streamed kernel must give
+    the resident one's searches bit for bit, in both weight types. Float32,
+    chunks 2 and 8: every thread sums the same products in the same order.
+    Bfloat16, the two tensor-core libraries ((c) resident, (d) streamed), at
+    256 and 1,024 searches a launch, and at H=96 (no power of two) at 256:
+    every output sums its k-steps in one order whichever warp owns its
+    m-tile, each layer norm takes one warp a column and each categorical
+    head splits its sums alike. Then both layouts are timed at 256 and 1,024
     searches a launch (self-play's size and a reanalyze batch's), their calls
-    interleaved: the resident kernel is the one the plan picks up to H=256."""
+    in turns, median of 5: the resident kernel is the one the plan picks up
+    to H=256."""
     config, cfg, network, _, roots = full_width_inputs(device, 256, 128, reanalyze.SEARCH_BATCH)
     h, s = config.hidden_size, cfg.num_simulations
     for dtype in (torch.float32, torch.bfloat16):
@@ -543,22 +567,13 @@ def check_streamed_equals_resident(device) -> None:
                         fail(f"streamed (chunk {chunk}) vs resident, {dtype}: {label} differ in {n} entries")
             print(f"streamed vs resident kernel, H={h}, {dtype}, chunks 2 and 8: visits, Q and root value bit-identical")
         else:
-            tree = sk.whole_search_reference(*roots, resident_pack, cfg)
-            ksteps = sk.whole_search_reference(*roots, resident_pack, cfg, "ksteps")
             for b in (BATCH, reanalyze.SEARCH_BATCH):
                 part = tuple(r[:b].contiguous() for r in roots)
-                want, want_ks = tuple(r[:b] for r in tree), tuple(r[:b] for r in ksteps)
                 resident = sk.whole_search(*part, resident_pack, cfg)
                 streamed = sk.whole_search(*part, streamed_pack, cfg)
                 torch.cuda.synchronize()
-                check_exact_invariants("whole_search_bf16", resident, part[1], s, b)
-                check_exact_invariants("whole_search_bf16_streamed", streamed, part[1], s, b)
-                n_diff = int(bf16_differ(resident, want).sum())
-                print(f"whole_search_bf16 (resident), H={h}, {b} searches a launch: {b - n_diff}/{b} agree with the "
-                      "tree plain version")  # fmt: skip
-                if n_diff > b // 100:
-                    fail(f"whole_search_bf16: {n_diff} of {b} searches differ from the plain version (limit {b // 100})")
-                check_order_noise(f"whole_search_bf16_streamed, H={h}, chunk {sk.STREAM_CHUNK}", streamed, want, want_ks)
+                check_bit_identical(f"whole_search_bf16_streamed vs whole_search_bf16, H={h}", streamed, resident,
+                                    part[1], s, b)  # fmt: skip
         for b in (BATCH, reanalyze.SEARCH_BATCH):
             part = tuple(r[:b].contiguous() for r in roots)
             times = {"resident": [], "streamed": []}
@@ -568,46 +583,56 @@ def check_streamed_equals_resident(device) -> None:
             ms = {label: statistics.median(t) for label, t in times.items()}
             print(
                 f"streamed vs resident kernel, H={h}, {dtype}, {b} searches a launch: resident {ms['resident']:.3f} "
-                f"ms, streamed {ms['streamed']:.3f} ms (median of 5, interleaved): streamed/resident "
+                f"ms, streamed {ms['streamed']:.3f} ms (median of 5, in turns): streamed/resident "
                 f"{ms['streamed'] / ms['resident']:.3f}"
             )
+    config, cfg, network, _, roots = full_width_inputs(device, 256, 128, BATCH, 96)
+    resident = sk.whole_search(*roots, pack(network, config, torch.bfloat16), cfg)
+    streamed = sk.whole_search(*roots, pack(network, config, torch.bfloat16, sk.STREAM_CHUNK), cfg)
+    torch.cuda.synchronize()
+    check_bit_identical("whole_search_bf16_streamed vs whole_search_bf16, H=96", streamed, resident, roots[1],
+                        cfg.num_simulations, BATCH)  # fmt: skip
 
 
-PROBE_WIDTHS = (WIDE_HIDDEN, 96)  # the wide path's, and one that is a multiple of 32 but no power of two
+# Each tensor-core library's probe widths: its path's, and one that is a multiple of 32 but no power of two.
+PROBE_WIDTHS = {"whole_search_bf16": (256, 96), "whole_search_bf16_streamed": (WIDE_HIDDEN, 96)}
 
 
-def check_dense_probe(device) -> float:
-    """The tensor-core library's dense layers alone (``sk.dense_probe``: the
+def check_dense_probe(device, library: str) -> float:
+    """A tensor-core library's dense layers alone (``sk.dense_probe``: the
     kernel's own ring, ``mma.sync`` products and epilogue), on every layer of
-    a bfloat16 streamed pack of the wide recipe's towers (88 layers at 10
-    blocks) at each of PROBE_WIDTHS, on seeded activations (relu of normals,
-    G columns) and biases: every output within 2^-16 sum_i |w_i x_i| of the
-    plain value (the exact sum of the bfloat16 products, in float64, rounded
-    to float32, plus the bias in float32). Returns the largest ratio of
-    error to that bound."""
-    g = sk.SEARCHES_PER_BLOCK["whole_search_bf16_streamed"]
+    a bfloat16 pack of the wide recipe's towers (88 layers at 10 blocks; in
+    the library's layout, so its fragment copy) at each of its
+    PROBE_WIDTHS, on seeded activations (relu of normals, G columns) and
+    biases: every output within 2^-16 sum_i |w_i x_i| of the plain value
+    (the exact sum of the bfloat16 products, in float64, rounded to float32,
+    plus the bias in float32). Returns the largest ratio of error to that
+    bound."""
+    g = sk.SEARCHES_PER_BLOCK[library]
     gen = torch.Generator(device=device).manual_seed(SEED)
+    streamed = library.endswith("_streamed")
     worst = 0.0
-    for h in PROBE_WIDTHS:
+    for h in PROBE_WIDTHS[library]:
         config = dataclasses.replace(wide_config(), hidden_size=h)
         network = network_from_config(config, torch.Generator().manual_seed(SEED), device)
-        packed = pack(network, config, torch.bfloat16, sk.STREAM_CHUNK)
+        packed = pack(network, config, torch.bfloat16, sk.STREAM_CHUNK if streamed else None)
         fragments = sk.SearchWorkspace(packed).fragments
         n_layers = fragments.shape[0]
         x = torch.relu(torch.randn(g, h, generator=gen, device=device))
         bias = 0.1 * torch.randn(n_layers, h, generator=gen, device=device)
-        got = sk.dense_probe(fragments, bias, x)
+        got = sk.dense_probe(library, fragments, bias, x)
         torch.cuda.synchronize()
-        w = packed.hh[:n_layers].double()  # (L, in, out)
+        order = sk.call_order(config.num_residual_blocks)
+        w = (packed.hh[:n_layers] if streamed else packed.hh[order]).double()  # (L, in, out) in call order
         xb = x.to(torch.bfloat16).double()
         exact = torch.einsum("gi,lio->lgo", xb, w)
         magnitude = torch.einsum("gi,lio->lgo", xb.abs(), w.abs())
         want = exact.float() + bias[:, None, :]
         ratio = float(((got - want).abs().double() / (2.0**-16 * magnitude).clamp_min(1e-30)).max())
-        print(f"dense probe, H={h}, G={g}: {n_layers} layers of the wide recipe's bfloat16 pack, largest |kernel - "
-              f"plain| / (2^-16 sum |w x|) = {ratio:.4g} (limit 1)")  # fmt: skip
+        print(f"dense probe, {library}, H={h}, G={g}: {n_layers} layers of the wide recipe's bfloat16 pack, largest "
+              f"|kernel - plain| / (2^-16 sum |w x|) = {ratio:.4g} (limit 1)")  # fmt: skip
         if not ratio <= 1.0:
-            fail(f"dense probe at H={h}: an output is further than 2^-16 sum |w x| from the plain value")
+            fail(f"dense probe, {library} at H={h}: an output is further than 2^-16 sum |w x| from the plain value")
         worst = max(worst, ratio)
     return worst
 
@@ -849,11 +874,13 @@ def wide_config():
     )
 
 
-def drive_probe_evaluation(device) -> int:
+def drive_probe_evaluation(device, ptxas: str) -> int:
     """The full-capacity probe's evaluation at its own width (H=256, 10
     blocks, 256/128 bins, bfloat16 search packs, which the kernel keeps
     resident): ``evaluate_games`` on ``BATCH`` games of ``TRAIN_EVAL_MOVES``
-    moves. Returns the resident bfloat16 kernel's launches in that run."""
+    moves; printed beside the resident bfloat16 kernel's time and bound at
+    ``BATCH`` searches (``check_whole_search``'s), its launch shape and
+    ptxas's report (``ptxas``). Returns that kernel's launches in the run."""
     config = dataclasses.replace(wide_config(), hidden_size=default_config().hidden_size)
     if sk.search_plan(search_config_from(config, eval_mode=True), config.hidden_size, torch.bfloat16) != 0:
         fail("probe evaluation: the search plan streams hidden-256 weights")
@@ -875,10 +902,16 @@ def drive_probe_evaluation(device) -> int:
     rewards = torch.tensor(stats["per_game_rewards"])
     if not torch.isfinite(rewards).all() or moves_played > TRAIN_EVAL_MOVES or len(lengths) != BATCH:
         fail("probe evaluation: non-finite rewards or game lengths beyond the cap")
+    kernel_ms, bound_ms = KERNEL_TIMES["whole_search_bf16"][BATCH]
+    k = max(config.action_size, config.codebook_size)
+    shape = sk.launch_shape("whole_search_bf16", BATCH, config.hidden_size, k, config.value_bins, config.reward_bins)
     print(
         f"probe evaluation path (H={config.hidden_size}, NB={config.num_residual_blocks}, bins 256/128, bf16 search "
         f"packs resident): {BATCH} games, {moves_played} moves in {wall:.2f} s: {sum(lengths) / wall:.1f} "
-        f"game-moves/s, {1e3 * wall / moves_played:.2f} ms per move, {launches['whole_search_bf16']} launches"
+        f"game-moves/s, {1e3 * wall / moves_played:.2f} ms per move, {launches['whole_search_bf16']} launches; "
+        f"the kernel alone at B={BATCH} {kernel_ms:.3f} ms (bound {bound_ms:.3f} ms, timed above); {shape.blocks} "
+        f"blocks of {shape.threads} threads, G={shape.searches_per_block}, {shape.stages} stages, "
+        f"{shape.smem_bytes} B of shared memory, {shape.resident} blocks resident; {ptxas}"
     )
     return launches["whole_search_bf16"]
 
@@ -1061,15 +1094,16 @@ def gradient_length(config) -> int:
 
 
 # Libraries whose search kernel must neither spill nor keep a stack frame: their ring loops slow down when they do.
-NO_SPILL_LIBRARIES = ("whole_search", "whole_search_bf16_streamed")
+NO_SPILL_LIBRARIES = ("whole_search", "whole_search_bf16", "whole_search_bf16_streamed")
+TENSOR_CORE_LIBRARIES = ("whole_search_bf16", "whole_search_bf16_streamed")
 
 
 def whole_search_ptxas(library: str, log: str) -> str:
     """ptxas's registers, stack frame and spills of ``library``'s whole-search
-    kernel (the tensor-core library's: ``whole_search_mma_kernel``), from its
+    kernel (the tensor-core libraries': ``whole_search_mma_kernel``), from its
     build's report; fails on a stack frame or a spill in NO_SPILL_LIBRARIES.
-    The other two libraries' reports are only printed."""
-    kernel = "whole_search_mma_kernel" if library.startswith("whole_search_bf16_streamed") else "whole_search_kernel"
+    The float32 streamed library's report is only printed."""
+    kernel = "whole_search_mma_kernel" if library.startswith("whole_search_bf16") else "whole_search_kernel"
     chunks = [c for c in log.split("Compiling entry function '")[1:] if kernel in c.split("'", 1)[0]]
     chunk = chunks[-1] if chunks else ""
     frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
@@ -1441,15 +1475,18 @@ def main() -> None:
 
     t0 = time.perf_counter()
     seconds = _build.build_all()
+    ptxas = {}
     for name in seconds:
         if name != "ring_all_reduce":
             print(_build.build_log(name))
         if name.startswith("whole_search"):
-            print(whole_search_ptxas(name, _build.build_log(name)))
-    hmma = count_hmma("whole_search_bf16_streamed")
-    print(f"whole_search_bf16_streamed: {hmma} HMMA instructions in its machine code (cuobjdump -sass)")
-    if hmma == 0:
-        fail("whole_search_bf16_streamed: no tensor-core instruction in its machine code")
+            ptxas[name] = whole_search_ptxas(name, _build.build_log(name))
+            print(ptxas[name])
+    for name in TENSOR_CORE_LIBRARIES:
+        hmma = count_hmma(name)
+        print(f"{name}: {hmma} HMMA instructions in its machine code (cuobjdump -sass)")
+        if hmma == 0:
+            fail(f"{name}: no tensor-core instruction in its machine code")
     check_ring_ptxas(_build.build_log("ring_all_reduce"))
     print(json.dumps({"kernels_built": list(seconds), "build_s": round(time.perf_counter() - t0, 3)}))
 
@@ -1469,12 +1506,12 @@ def main() -> None:
     }
     kernels["ring_all_reduce"] = check_ring_all_reduce(device)
     check_whole_search(device, "whole_search_streamed", 256, 128, hidden=WIDE_HIDDEN, stream_chunk=sk.STREAM_CHUNK)
-    check_dense_probe(device)
-    # A bfloat16 width that is no power of two: the plan streams it to the tensor-core library.
-    if sk.search_plan(search_config_from(default_config()), 96, torch.bfloat16) != sk.STREAM_CHUNK:
-        fail("the search plan does not stream a bfloat16 pack of H=96")
-    check_whole_search(device, "whole_search_bf16_streamed (H=96)", 256, 128, (BATCH,), 96, torch.bfloat16,
-                       sk.STREAM_CHUNK)  # fmt: skip
+    for library in TENSOR_CORE_LIBRARIES:
+        check_dense_probe(device, library)
+    # A bfloat16 width that is no power of two: the plan keeps it resident, on the tensor cores.
+    if sk.search_plan(search_config_from(default_config()), 96, torch.bfloat16) != 0:
+        fail("the search plan does not keep a bfloat16 pack of H=96 resident")
+    check_whole_search(device, "whole_search_bf16 (H=96)", 256, 128, (BATCH,), 96, torch.bfloat16)
     check_streamed_equals_resident(device)
     check_small_evaluation(device)
     check_small_training(device)
@@ -1516,7 +1553,7 @@ def main() -> None:
     kernels["whole_search_categorical"]["launches"] = drive_training(device)["whole_search_categorical"]
 
     # ---- probe evaluation path: the full-capacity probe's recipe at H=256, bfloat16 search packs resident
-    kernels["whole_search_bf16"]["launches"] = drive_probe_evaluation(device)
+    kernels["whole_search_bf16"]["launches"] = drive_probe_evaluation(device, ptxas["whole_search_bf16"])
 
     # ---- wide path: the same recipe at hidden 512, bfloat16 search packs streamed
     kernels["whole_search_bf16_streamed"]["launches"] = drive_wide_training(device)["whole_search_bf16_streamed"]

@@ -21,28 +21,29 @@
 // computes both, as the TPU kernel does, so it does twice that work. In
 // float32 without tensor cores that is the 67 TFLOP/s FP32 rate; a bfloat16
 // pack does the same products that the tensor cores take at 989 TFLOP/s,
-// which only the streamed bfloat16 library uses (mma.sync; the resident one
-// still runs them as FP32 FMAs). Behind the products' rate stands the
-// weight traffic: each block reads the whole pack once per simulation (23 MB
-// at H=256 in float32; 92 MB at H=512, 46 MB in bfloat16, more than or about
-// the 50 MB L2). 100 dependent simulations leave no parallelism but the batch.
-// Read from L2 straight into registers (the bfloat16 resident kernel's way),
-// a float32 pack is bound by the loads' latency: 8 rows in flight a thread,
-// a restart at every layer. Staged through shared memory, the float32
+// which both bfloat16 libraries, resident and streamed, use (mma.sync).
+// Behind the products' rate stands the weight traffic: each block reads the
+// whole pack once per simulation (23 MB at H=256 in float32, 11.5 MB in
+// bfloat16; 92 MB at H=512, 46 MB in bfloat16, more than or about the 50 MB
+// L2). 100 dependent simulations leave no parallelism but the batch. Read
+// from L2 straight into registers (the first bfloat16 resident kernel's
+// way), a pack is bound by the loads' latency: 8 rows in flight a thread, a
+// restart at every layer. Staged through shared memory, the float32
 // resident kernel is bound by each SM's shared-memory pipe: a 64 KB tile is
 // written once by the copy and read once as weights, beside the activations'
 // broadcast reads (about 1,300 cycles a tile by a clock64 profile on an
 // NVIDIA H100 80GB HBM3 at 700 W), and then by the latency of the layer norms
-// and heads, which only G warps can work on (PERF.md). The streamed
-// bfloat16 library on the tensor cores is bound by each SM's feed: every
-// block takes the whole 46.1 MB of fragments a simulation through its
-// shared memory (written by the bulk copies, read once by the products),
-// then by its layer norms and heads, which one warp a column works on.
+// and heads, which only G warps can work on (PERF.md). The bfloat16
+// libraries on the tensor cores are bound by each SM's feed: every block
+// takes the whole pack's fragments a simulation (11.3 MB at H=256, 46.1 MB
+// at H=512) through its shared memory (written by the bulk copies, read
+// once by the products), then by their layer norms and heads, which one
+// warp a column works on.
 //
 // Design. The TPU version keeps 128 searches' tree tables and all weights in
 // VMEM and reads rows by one-hot mask sums (no gather on the TPU). Neither
 // fits 227 KB of shared memory, so here:
-// - one thread block owns G = 2 searches (the tensor-core library: 8) and
+// - one thread block owns G = 2 searches (the tensor-core libraries: 8) and
 //   loops over all simulations. Each block streams the whole weight pack
 //   from L2 once per simulation whatever G is, so small G buys blocks (SMs)
 //   at the price of L2 traffic: at B=256 on an H100, G=2 (128 blocks)
@@ -53,12 +54,10 @@
 //   search in traversal (lane k = child slot k, warp reductions for the
 //   min-max bounds and a first-index argmax), one thread per search in the
 //   backup;
-// - activations are (H, G) float32 tiles in shared memory; each dense layer
-//   is a hand-written FP32 product (FMAs for a float32 pack) in which 2H
+// - a float32 pack's activations are (H, G) float32 tiles in shared memory;
+//   each dense layer is a hand-written FP32 product (FMAs) in which 2H
 //   threads each own one output row and one half of the input range and
-//   read the activations as broadcast float2s. The bfloat16 resident kernel
-//   (H <= 256, 512 threads) reads the (in, out) weight matrix coalesced from
-//   global memory (shared across blocks through L2). The float32 resident
+//   read the activations as broadcast float2s. The float32 resident
 //   kernel (H <= 256, 2H + 32 threads) takes each layer through a ring of
 //   three 64 KB shared-memory stages (T = 32 rows of each input half at
 //   H=256), filled in call order by 1-D bulk copies (cp.async.bulk, no
@@ -74,30 +73,31 @@
 //   one, in the next layer when this one ends, is in flight while the block
 //   computes, and the first tile of an expansion while it traverses, as the
 //   TPU kernel's chunk DMAs are. Every output sums its rows in the same order
-//   in every CUDA-core kernel, so resident and streamed give bit-identical
+//   in both float32 kernels, so resident and streamed give bit-identical
 //   searches;
-// - the streamed bfloat16 library (whole_search_mma_kernel, G = 8 searches
-//   a block, kMmaWarps warps and a producer warp; any H % 32 == 0 up to 512)
-//   reads a copy of the pack's real hh layers in mma.sync m16n8k16
-//   A-fragment order (a lane's 8 weights in 16 bytes), through a ring of
-//   stages that one cp.async.bulk each fills (MmaRing, Ring's protocol),
-//   across layers and simulations. Each warp owns 16-output m-tiles; the
-//   tensor core sums each 16-input k-step, and one float32 add a k-step takes
-//   that into the warp's accumulator, k-steps in ascending order. The
-//   activations are (columns, H + pad) tiles: float for the residual stream
-//   and the layer norms, bfloat16 for the products, rounded once where the
-//   epilogue or the layer norm writes them. Its searches agree with the plain
-//   version to the noise of another order of sums (chip_smoke.py), not to
-//   the bit: no plain version repeats the tensor core's sums;
+// - both bfloat16 libraries run whole_search_mma_kernel (G = 8 searches a
+//   block, kMmaWarps warps and a producer warp; any H % 32 == 0 up to
+//   kMmaMaxH: resident 256, streamed 512), each with its own compile-time
+//   shape (the constants below). It reads a copy of the pack's real hh
+//   layers in call order (a resident pack's reordered, a streamed pack's as
+//   they are) in mma.sync m16n8k16 A-fragment order (a lane's 8 weights in
+//   16 bytes), through a ring of stages that one cp.async.bulk each fills
+//   (MmaRing, Ring's protocol), across layers and simulations. Each warp
+//   owns 16-output m-tiles; the tensor core sums each 16-input k-step, and
+//   one float32 add a k-step takes that into the warp's accumulator,
+//   k-steps in ascending order, whichever warp owns the m-tile, and the
+//   layer norms take one warp a column: the two libraries give bit-identical
+//   searches on one network. The activations are (columns, H + pad) tiles:
+//   float for the residual stream and the layer norms, bfloat16 for the
+//   products, rounded once where the epilogue or the layer norm writes them.
+//   Their searches agree with the plain version to the noise of another
+//   order of sums (chip_smoke.py), not to the bit: no plain version repeats
+//   the tensor core's sums;
 // - a bfloat16 pack stores hh / win / wide / cat and the node embeddings in
 //   bfloat16; every dense and head product rounds its input activation to
 //   bfloat16 (`__float2bfloat16_rn`) and sums products of the widened values
 //   in float32, as the TPU kernel's `x.astype(w.dtype)` and f32 accumulation
-//   do. The scalar heads and every bias and LayerNorm vector stay float32.
-//   A dense layer's products are then exact, and the CUDA-core kernel sums
-//   them as a balanced tree (RowSum), which the plain version repeats to the
-//   bit: with bfloat16 roundings in every layer, any other order would turn
-//   some of them the other way, and the searches apart;
+//   do. The scalar heads and every bias and LayerNorm vector stay float32;
 // - a categorical head's logits are a (bins, G) tile in shared memory: the
 //   block's threads split bins x input ranges, a second pass adds the partial
 //   sums and the bias, and one warp per search takes the max, exponentials,
@@ -133,16 +133,16 @@ constexpr int kUnvisited = -1;
 constexpr unsigned kFull = 0xffffffffu;
 using Weight = std::conditional_t<WHOLE_SEARCH_BF16, __nv_bfloat16, float>;
 constexpr bool kStreamed = WHOLE_SEARCH_STREAMED;
-// The streamed bfloat16 library runs its dense layers on the tensor cores
+// Both bfloat16 libraries run their dense layers on the tensor cores
 // (mma.sync) over a fragment-ordered copy of the weights (MmaRing below).
-constexpr bool kMma = WHOLE_SEARCH_BF16 && WHOLE_SEARCH_STREAMED;
+constexpr bool kMma = WHOLE_SEARCH_BF16;
 constexpr int kTileBytes = 64 * 1024;  // one streamed tile: T rows of both input halves
 // The float32 resident library feeds its dense layers through a ring of
 // weight tiles in shared memory (Ring below); the other three keep their feeds.
 constexpr bool kRing = !WHOLE_SEARCH_BF16 && !WHOLE_SEARCH_STREAMED;
 // The two libraries whose weight tiles a producer warp copies, beside the warps that compute.
 constexpr bool kProducerWarp = kRing || kMma;
-// The ring's shape, each the fastest measured on an NVIDIA H100 80GB HBM3 at
+// The float32 ring's shape, each the fastest measured on an NVIDIA H100 80GB HBM3 at
 // 700 W (PERF.md): each block copies its own tiles (clusters of 2 blocks
 // sharing each tile by multicast were no faster, since the blocks seldom wait
 // on L2 for a tile; of 4, only 30 clusters fit the card at once); three 64 KB
@@ -156,17 +156,24 @@ constexpr int kBarrierFloats = 32;  // 2 kStages mbarriers of 8 bytes after the 
 static_assert(2 * kStages * 8 <= kBarrierFloats * 4, "the ring's barriers fit their slot");
 constexpr unsigned kMaxSpins = 1u << 24;  // a wait that spins longer traps: the pipeline stalled
 
-// The tensor-core library's shape, the fastest without a spill on an NVIDIA
-// H100 80GB HBM3 at 700 W at 128 to 1,024 searches (PERF.md): G = 8
-// searches a block (4: within the noise at 128-512, two waves at 1,024; 16:
-// half again slower); 12 consumer warps beside the producer (16 were 1.6%
-// faster but spill under the 96 registers 17 warps leave; 8 and 15 slower);
-// 4 stages of 32 KB (3 stages, 2 of 64 KB, 8 of 16 KB slower).
+// The tensor-core libraries' shapes, each the fastest without a spill on an
+// NVIDIA H100 80GB HBM3 at 700 W (PERF.md). Both: G = 8 searches a block
+// (the m16n8k16 product's 8 columns; 4: within the noise at 128-512, two
+// waves at 1,024; 16: half again slower, measured streamed) and stages of
+// 32 KB. Streamed (H <= 512): 12 consumer warps beside the producer (16 were
+// 1.6% faster but spill under the 96 registers 17 warps leave; 8 and 15
+// slower); 4 stages (3 stages, 2 of 64 KB, 8 of 16 KB slower). Resident
+// (H <= 256): 16 consumer warps, one 16-output m-tile each at H=256, so a
+// lane keeps 4 accumulators, not 12; 4 stages, one whole H=256 layer; its
+// categorical heads split their sums as the streamed library's 12 warps do.
 constexpr int kSearchesPerBlock = kMma ? 8 : 2;  // G
-constexpr int kMmaWarps = 12;
+constexpr int kMmaMaxH = kStreamed ? 512 : 256;
+constexpr int kStreamedMmaWarps = 12;
+constexpr int kMmaWarps = kStreamed ? kStreamedMmaWarps : 16;
 constexpr int kMmaStages = 4;
 constexpr int kMmaStageBytes = 32 * 1024;
-constexpr int kMmaMaxTiles = (512 / 16 + kMmaWarps - 1) / kMmaWarps;  // 16-row output tiles a warp at H <= 512
+constexpr int kMmaMaxTiles = (kMmaMaxH / 16 + kMmaWarps - 1) / kMmaWarps;  // 16-row output tiles a warp
+constexpr int kLnValues = kMmaMaxH / 32;  // a lane's values in a tensor-core layer norm
 constexpr int kActPad = 8;  // bfloat16 activations: (columns, H + kActPad), so that B fragments load without conflicts
 constexpr int kRowPad = 4;  // float activations: (columns, H + kRowPad), so that the epilogues store without conflicts
 static_assert(2 * kMmaStages * 8 <= kBarrierFloats * 4, "the tensor-core ring's barriers fit their slot");
@@ -484,8 +491,8 @@ __host__ __device__ inline int mma_ring_floats(int H) {
   return kMmaStages * mma_tile_ksteps(H) * (H / 16) * 512 / 4 + kBarrierFloats;
 }
 
-// The tensor-core library's ring of weight tiles. Its weights are a copy of
-// the streamed pack's real hh layers in mma.sync fragment order
+// The tensor-core libraries' ring of weight tiles. Its weights are a copy of
+// the pack's real hh layers, in call order, in mma.sync fragment order
 // (ops/search_kernel.py mma_fragments): layer, k-step (16 input rows),
 // m-tile (16 outputs), lane, and the lane's eight bfloat16 A values (its
 // four registers of m16n8k16) in 16 bytes. A tile is kt consecutive
@@ -588,19 +595,11 @@ __device__ __forceinline__ void fma_row(float (&acc)[G], float w, const float* x
   }
 }
 
-constexpr int kTreeLevels = 6;  // 8-row blocks of one input half: at most 2^5 (H = 512)
-
-// How a thread sums the products of its input half, 8 rows at a time.
-// Float32 weights: one FMA chain, row after row. Bfloat16 weights: each
-// product is exact in float32, and the sum is a balanced tree over
-// consecutive pairs (within each 8-row block, then block with block through
-// a binary counter of partial sums), which the plain version repeats with
-// whole-tensor adds, so the two agree to the bit.
+// How a thread of the float32 streamed kernel sums the products of its input
+// half, 8 rows at a time: one FMA chain, row after row.
 template <int G, typename W>
 struct RowSum {
-  float acc[G];                 // float32: the chain; bfloat16: the last partial stored (the total, at the end)
-  float level[kTreeLevels][G];  // bfloat16: partial sums of 2^k blocks
-  int blocks = 0;
+  float acc[G];
 
   __device__ __forceinline__ RowSum() {
 #pragma unroll
@@ -609,32 +608,8 @@ struct RowSum {
 
   // Rows u = 0..7: weight w[u], activations x + u * G.
   __device__ __forceinline__ void add8(const float (&w)[8], const float* x) {
-    if constexpr (sizeof(W) == 4) {
 #pragma unroll
-      for (int u = 0; u < 8; ++u) fma_row<G, W>(acc, w[u], x + u * G);
-    } else {
-      float v[G];
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float p[8];
-#pragma unroll
-        for (int u = 0; u < 8; ++u) p[u] = __fmul_rn(w[u], act<W>(x[u * G + g]));
-        v[g] = __fadd_rn(__fadd_rn(__fadd_rn(p[0], p[1]), __fadd_rn(p[2], p[3])),
-                         __fadd_rn(__fadd_rn(p[4], p[5]), __fadd_rn(p[6], p[7])));
-      }
-#pragma unroll
-      for (int k = 0; k < kTreeLevels; ++k) {
-        if (blocks & (1 << k)) {
-#pragma unroll
-          for (int g = 0; g < G; ++g) v[g] = __fadd_rn(level[k][g], v[g]);
-        } else {
-#pragma unroll
-          for (int g = 0; g < G; ++g) level[k][g] = acc[g] = v[g];
-          break;
-        }
-      }
-      ++blocks;
-    }
+    for (int u = 0; u < 8; ++u) fma_row<G, W>(acc, w[u], x + u * G);
   }
 };
 
@@ -784,14 +759,13 @@ __device__ void dense_ring(const Args& a, Ring& st, int iv, const float* in, flo
   block_sync();
 }
 
-// out (H, G) = W[layer]^T in + vec[iv] (+ rows[row_idx[g]] | + out).
-// 2H threads: thread t owns output row t % H and input half t / H, and sums
-// its half's products as RowSum does, alike in every kernel. The bfloat16
-// resident kernel reads W from global memory (L2); the streamed ones compute
-// on the tiles of `st` (a Stream), the float32 resident one on those of its
-// Ring; either must stand at this layer's first tile.
+// out (H, G) = W[layer]^T in + vec[iv] (+ rows[row_idx[g]] | + out), a
+// float32 pack. 2H threads: thread t owns output row t % H and input half
+// t / H, and sums its half's products as RowSum does, alike in both kernels.
+// The streamed kernel computes on the tiles of `st` (a Stream), the resident
+// one on those of its Ring; either must stand at this layer's first tile.
 template <int G, typename W, bool kStream, typename Feed>
-__device__ void dense(const Args& a, Feed& st, int layer, int iv, const float* in, float* out, float* part,
+__device__ void dense(const Args& a, Feed& st, int iv, const float* in, float* out, float* part,
                       const W* rows, const int* row_idx, bool residual) {
   const int H = a.H;
   const int o = threadIdx.x % H;
@@ -818,22 +792,6 @@ __device__ void dense(const Args& a, Feed& st, int layer, int iv, const float* i
   } else if constexpr (kRing) {
     dense_ring<G>(a, st, iv, in, out, part, rows, row_idx, residual, false);
     return;
-  } else {
-    const W* __restrict__ w = static_cast<const W*>(a.hh) + ((size_t)layer * H + i0) * H + o;
-    // Weights for rows i..i+7 are in registers while rows i+8..i+15 load.
-    float wn[8];
-#pragma unroll
-    for (int u = 0; u < 8; ++u) wn[u] = load_w(w + (size_t)u * H);
-    for (int i = 0; i < len; i += 8) {
-      float wr[8];
-#pragma unroll
-      for (int u = 0; u < 8; ++u) wr[u] = wn[u];
-      if (i + 8 < len) {
-#pragma unroll
-        for (int u = 0; u < 8; ++u) wn[u] = load_w(w + (size_t)(i + 8 + u) * H);
-      }
-      sum.add8(wr, in + (i0 + i) * G);
-    }
   }
   if (half == 1) {
 #pragma unroll
@@ -853,44 +811,20 @@ __device__ void dense(const Args& a, Feed& st, int layer, int iv, const float* i
   block_sync();
 }
 
-// A balanced tree over v[0..15] (lane_tree's).
-__device__ __forceinline__ float tree16(float (&v)[16]) {
+// A balanced tree over v[0..N-1], N a power of two: halving, as the plain
+// version sums a lane's values.
+template <int N>
+__device__ __forceinline__ float tree(float (&v)[N]) {
 #pragma unroll
-  for (int w = 1; w < 16; w *= 2) {
+  for (int w = 1; w < N; w *= 2) {
 #pragma unroll
-    for (int j = 0; j < 16; j += 2 * w) v[j] = __fadd_rn(v[j], v[j + w]);
+    for (int j = 0; j < N; j += 2 * w) v[j] = __fadd_rn(v[j], v[j + w]);
   }
   return v[0];
 }
 
-// A balanced tree over this lane's values x[(lane + 32 j) G + g], j < n =
-// H / 32 (a power of two, at most 16), zeros beyond n: with `mean`, of
-// (x - mean)^2 instead of x. The plain version sums by halving, as here.
-template <int G>
-__device__ __forceinline__ float lane_tree(const float* x, int g, int n, int lane, bool squares, float mean) {
-  float v[16];
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    float xj = j < n ? x[(lane + 32 * j) * G + g] : 0.f;
-    if (squares && j < n) {
-      const float d = __fsub_rn(xj, mean);
-      xj = __fmul_rn(d, d);
-    }
-    v[j] = xj;
-  }
-#pragma unroll
-  for (int w = 1; w < 16; w *= 2) {
-#pragma unroll
-    for (int j = 0; j < 16; j += 2 * w) v[j] = __fadd_rn(v[j], v[j + w]);
-  }
-  return v[0];
-}
-
-// out = relu(LayerNorm(in) * vec[iv] + vec[iv + 1]), one warp per column;
-// `out` may alias `in`. Beside a bfloat16 pack (whose next layer rounds
-// these values) every operation is rounded on its own (no FMA contraction)
-// and 1 / sqrt is correctly rounded, in the order the plain version takes:
-// lane_tree, then the butterfly of warp_sum.
+// out = relu(LayerNorm(in) * vec[iv] + vec[iv + 1]) of a float32 pack, one
+// warp per column; `out` may alias `in`.
 template <int G, typename W>
 __device__ void layer_norm_relu(const Args& a, int iv, const float* in, float* out) {
   const int H = a.H;
@@ -928,7 +862,7 @@ __device__ void layer_norm_relu(const Args& a, int iv, const float* in, float* o
         const float z = y * gamma[j] + beta[j];
         if (lane + 32 * j < H) out[(lane + 32 * j) * G + g] = fmaxf(z, 0.f);
       }
-    } else if constexpr (sizeof(W) == 4) {
+    } else {
       const float inv_h = 1.f / (float)H;
       float s = 0.f;
       for (int i = lane; i < H; i += 32) s += in[i * G + g];
@@ -944,16 +878,6 @@ __device__ void layer_norm_relu(const Args& a, int iv, const float* in, float* o
         const float z = y * a.vecs[(size_t)iv * H + i] + a.vecs[(size_t)(iv + 1) * H + i];
         out[i * G + g] = fmaxf(z, 0.f);
       }
-    } else {
-      const float inv_h = __fdiv_rn(1.f, (float)H);
-      const float mean = __fmul_rn(warp_sum(lane_tree<G>(in, g, H / 32, lane, false, 0.f)), inv_h);
-      const float var = __fmul_rn(warp_sum(lane_tree<G>(in, g, H / 32, lane, true, mean)), inv_h);
-      const float r = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, 1e-6f)));
-      for (int i = lane; i < H; i += 32) {
-        const float y = __fmul_rn(__fsub_rn(in[i * G + g], mean), r);
-        const float z = __fadd_rn(__fmul_rn(y, a.vecs[(size_t)iv * H + i]), a.vecs[(size_t)(iv + 1) * H + i]);
-        out[i * G + g] = fmaxf(z, 0.f);
-      }
     }
   }
   block_sync();
@@ -962,35 +886,33 @@ __device__ void layer_norm_relu(const Args& a, int iv, const float* in, float* o
 // A dense layer of a tower, which a layer norm follows: the ring kernel's
 // brings that layer norm's vectors along.
 template <int G, typename W, bool kStream, typename Feed>
-__device__ __forceinline__ void tower_dense(const Args& a, Feed& st, int layer, int iv, const float* in, float* out,
+__device__ __forceinline__ void tower_dense(const Args& a, Feed& st, int iv, const float* in, float* out,
                                             float* part, bool residual) {
   if constexpr (kRing) {
     dense_ring<G>(a, st, iv, in, out, part, nullptr, nullptr, residual, true);
   } else {
-    dense<G, W, kStream>(a, st, layer, iv, in, out, part, nullptr, nullptr, residual);
+    dense<G, W, kStream>(a, st, iv, in, out, part, nullptr, nullptr, residual);
   }
 }
 
 // TowerWithHead: dense -> NB pre-LN residual blocks -> LN -> relu; result in x.
 // `in` may alias u (it is consumed by the first layer).
 template <int G, typename W, bool kStream, typename Feed>
-__device__ void tower(const Args& a, Feed& st, int ihh, int iv, const float* in, float* x, float* t, float* u,
+__device__ void tower(const Args& a, Feed& st, int iv, const float* in, float* x, float* t, float* u,
                       float* part) {
-  tower_dense<G, W, kStream>(a, st, ihh, iv, in, x, part, false);
-  ihh += 1;
+  tower_dense<G, W, kStream>(a, st, iv, in, x, part, false);
   iv += 1;
   for (int blk = 0; blk < a.NB; ++blk) {
     layer_norm_relu<G, W>(a, iv, x, t);
-    tower_dense<G, W, kStream>(a, st, ihh, iv + 2, t, u, part, false);
+    tower_dense<G, W, kStream>(a, st, iv + 2, t, u, part, false);
     layer_norm_relu<G, W>(a, iv + 3, u, u);
-    tower_dense<G, W, kStream>(a, st, ihh + 1, iv + 5, u, x, part, true);
-    ihh += 2;
+    tower_dense<G, W, kStream>(a, st, iv + 5, u, x, part, true);
     iv += 6;
   }
   layer_norm_relu<G, W>(a, iv, x, x);
 }
 
-// The tensor-core library's dense layer: out (columns, H + kRowPad) float and/or xout
+// The tensor-core libraries' dense layer: out (columns, H + kRowPad) float and/or xout
 // (columns, H + kActPad) bfloat16 = W[layer]^T x + vec[iv] (+ rows[row_idx[g]]
 // | + out), x being the bfloat16 activations `xin` (columns, H + kActPad),
 // on the tiles of `st`, which must stand at this layer's first tile. Reading
@@ -1068,8 +990,10 @@ __device__ void dense_mma(const Args& a, MmaRing& st, int iv, const __nv_bfloat1
   block_sync();
 }
 
-// layer_norm_relu's arithmetic beside a bfloat16 pack, operation for
-// operation (one warp per column: lane_tree's sums, then warp_sum's), on the
+// LayerNorm and relu beside a bfloat16 pack, every operation rounded on its
+// own (no FMA contraction) and 1 / sqrt correctly rounded, in the plain
+// version's order: one warp per column, each lane's kLnValues values (zeros
+// past H) summed as a balanced tree, then warp_sum's butterfly; on the
 // float activations `in` (columns, H + kRowPad), the LayerNorm vectors at
 // the lane's values loaded before the sums. Writes the
 // bfloat16 rounding of the result to `xb` (columns, H + kActPad), the next
@@ -1081,25 +1005,25 @@ __device__ void layer_norm_mma(const Args& a, int iv, const float* in, float* he
   const int lane = threadIdx.x & 31;
   for (int g = threadIdx.x >> 5; g < G; g += compute_threads() >> 5) {
     const float* row = in + g * ldf;
-    float gamma[16], beta[16], t[16];
+    float gamma[kLnValues], beta[kLnValues], t[kLnValues];
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < kLnValues; ++j) {
       const int i = lane + 32 * j;
       t[j] = j < n ? row[i] : 0.f;
       gamma[j] = j < n ? a.vecs[(size_t)iv * H + i] : 0.f;
       beta[j] = j < n ? a.vecs[(size_t)(iv + 1) * H + i] : 0.f;
     }
     const float inv_h = __fdiv_rn(1.f, (float)H);
-    const float mean = __fmul_rn(warp_sum(tree16(t)), inv_h);
+    const float mean = __fmul_rn(warp_sum(tree(t)), inv_h);
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < kLnValues; ++j) {
       const float d = j < n ? __fsub_rn(row[lane + 32 * j], mean) : 0.f;
       t[j] = __fmul_rn(d, d);
     }
-    const float var = __fmul_rn(warp_sum(tree16(t)), inv_h);
+    const float var = __fmul_rn(warp_sum(tree(t)), inv_h);
     const float r = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, 1e-6f)));
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < kLnValues; ++j) {
       if (j >= n) break;
       const int i = lane + 32 * j;
       const float y = __fmul_rn(__fsub_rn(row[i], mean), r);
@@ -1144,13 +1068,21 @@ __device__ void head_scalar(const Args& a, int c, const float* x, float* out) {
   block_sync();
 }
 
+// The threads a categorical head splits its input range over: every
+// computing thread, but in the resident tensor-core library as many as the
+// streamed one has, so that the two sum every logit in one order.
+__device__ __forceinline__ int head_split_threads() {
+  if constexpr (kMma && !kStreamed) return 32 * kStreamedMmaWarps;
+  return compute_threads();
+}
+
 // out[g] = untransform(sum_k softmax(cat[:, off:off+bins]^T x[:, g] + cat_b)[k] * k * step).
-// `psum` holds max(blockDim, bins) * G floats and `lg` bins * G floats.
+// `psum` holds max(head_split_threads(), bins) * G floats and `lg` bins * G floats.
 template <int G, typename W>
 __device__ void head_categorical(const Args& a, int off, int bins, float step, const float* x, float* out,
                                  float* psum, float* lg) {
-  const int H = a.H, T = compute_threads();
-  const int nparts = bins >= T ? 1 : T / bins;  // input ranges summed by separate threads
+  const int H = a.H, T = compute_threads(), split = head_split_threads();
+  const int nparts = bins >= split ? 1 : split / bins;  // input ranges summed by separate threads
   const int chunk = (H + nparts - 1) / nparts;
   for (int e = threadIdx.x; e < nparts * bins; e += T) {
     const int k = e % bins, part = e / bins;
@@ -1238,7 +1170,7 @@ size_t smem_bytes(int H, int K, int value_bins, int reward_bins, int tile_floats
 // The tensor-core kernel's steps around the expansion: tree init,
 // traversal, the new node's priors, backup and root statistics. They are
 // whole_search_kernel's own, statement for statement, which keeps its copy
-// inline so that its three libraries compile to the machine code they had.
+// inline so that its two libraries compile to the machine code they had.
 //
 // Where a simulation's traversal leaves each of the block's G searches, for
 // the expansion and the backup: (G,) arrays in shared memory.
@@ -1418,10 +1350,11 @@ inline int stream_tile_rows(int H, int wsize) {
 // The ring's kernel runs 2H <= 512 computing threads and a producer warp,
 // one block an SM (its stages take 192 KB of shared memory), so it may take
 // 65,536 / 544 registers a thread: without the 1, ptxas keeps 64 and spills.
-#if !WHOLE_SEARCH_BF16 && !WHOLE_SEARCH_STREAMED
+// The float32 streamed kernel runs 2H <= 1,024 threads.
+#if !WHOLE_SEARCH_STREAMED
 #define WHOLE_SEARCH_BOUNDS __launch_bounds__(544, 1)
 #else
-#define WHOLE_SEARCH_BOUNDS __launch_bounds__(kStream ? 1024 : 512)
+#define WHOLE_SEARCH_BOUNDS __launch_bounds__(1024)
 #endif
 
 template <int G, typename W, bool kStream>
@@ -1457,16 +1390,10 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = compute_threads() >> 5;
   const int b0 = blockIdx.x * G;
 
-  // Offsets into the packed weights (mirror pack_search_params).
+  // Offsets into the bias / LayerNorm vectors (mirror pack_search_params).
   const int tower_hh = 1 + 2 * a.NB, tower_vec = 3 + 6 * a.NB;
-  const int F_HH = 0, F_V = 0;
-  const int PHI_FUSE_HH = F_HH + tower_hh, PHI_FUSE_V = F_V + tower_vec;
-  const int PHI_HH = PHI_FUSE_HH + 1, PHI_V = PHI_FUSE_V + 1;
-  const int PHI_HEAD_HH = PHI_HH + tower_hh, PHI_HEAD_V = PHI_V + tower_vec;
-  const int PSI_HH = PHI_HEAD_HH + 1, PSI_V = PHI_HEAD_V + 1;
-  const int G_FUSE_HH = PSI_HH + tower_hh, G_FUSE_V = PSI_V + tower_vec;
-  const int G_HH = G_FUSE_HH + 1, G_V = G_FUSE_V + 1;
-  const int G_HEAD_HH = G_HH + tower_hh, G_HEAD_V = G_V + tower_vec;
+  const int F_V = 0, PHI_FUSE_V = F_V + tower_vec, PHI_V = PHI_FUSE_V + 1, PHI_HEAD_V = PHI_V + tower_vec;
+  const int PSI_V = PHI_HEAD_V + 1, G_FUSE_V = PSI_V + tower_vec, G_V = G_FUSE_V + 1, G_HEAD_V = G_V + tower_vec;
   const W* win = static_cast<const W*>(a.win);
 
   std::conditional_t<kRing, Ring, Stream<W>> st{};
@@ -1566,19 +1493,19 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
 
     // phi then psi (decision parent -> chance child)
     // (in call order: the streamed pack holds the layers in this order)
-    dense<G, W, kStream>(a, st, PHI_FUSE_HH, PHI_FUSE_V, pe, u, part, win, s_arow, false);
-    tower<G, W, kStream>(a, st, PHI_HH, PHI_V, u, x, t, u, part);
-    dense<G, W, kStream>(a, st, PHI_HEAD_HH, PHI_HEAD_V, x, after, part, nullptr, nullptr, false);
-    tower<G, W, kStream>(a, st, PSI_HH, PSI_V, after, x, t, u, part);
+    dense<G, W, kStream>(a, st, PHI_FUSE_V, pe, u, part, win, s_arow, false);
+    tower<G, W, kStream>(a, st, PHI_V, u, x, t, u, part);
+    dense<G, W, kStream>(a, st, PHI_HEAD_V, x, after, part, nullptr, nullptr, false);
+    tower<G, W, kStream>(a, st, PSI_V, after, x, t, u, part);
     head_value<G, W>(a, 1, x, s_q, psum, lgt);
     head_logits<G, W>(a, 1, x, lc);
 
     // g then f (chance parent -> decision child)
-    dense<G, W, kStream>(a, st, G_FUSE_HH, G_FUSE_V, pe, u, part, win + (size_t)K * H, s_crow, false);
-    tower<G, W, kStream>(a, st, G_HH, G_V, u, x, t, u, part);
-    dense<G, W, kStream>(a, st, G_HEAD_HH, G_HEAD_V, x, hnew, part, nullptr, nullptr, false);
+    dense<G, W, kStream>(a, st, G_FUSE_V, pe, u, part, win + (size_t)K * H, s_crow, false);
+    tower<G, W, kStream>(a, st, G_V, u, x, t, u, part);
+    dense<G, W, kStream>(a, st, G_HEAD_V, x, hnew, part, nullptr, nullptr, false);
     head_value<G, W>(a, 2, x, s_r, psum, lgt);
-    tower<G, W, kStream>(a, st, F_HH, F_V, hnew, x, t, u, part);
+    tower<G, W, kStream>(a, st, F_V, hnew, x, t, u, part);
     head_value<G, W>(a, 0, x, s_v, psum, lgt);
     head_logits<G, W>(a, 0, x, la);
 
@@ -1654,7 +1581,9 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
   if (tid < G && b0 + tid < a.B) a.rootv[b0 + tid] = a.nval[(size_t)(b0 + tid) * N];
 }
 
-// The tensor-core library's kernel (variant (d), bfloat16): the search of
+// The tensor-core libraries' kernel (bfloat16 packs, variants (c) resident
+// and (d) streamed, which differ only in their copy of the layers and their
+// compile-time shape): the search of
 // whole_search_kernel with its dense layers on the tensor cores, fed by an
 // MmaRing that runs across layers and simulations. kMmaWarps reading warps
 // compute; a producer warp copies the fragments. Shared memory, after the
@@ -1690,7 +1619,7 @@ __global__ void __launch_bounds__(32 * (kMmaWarps + 1), 1) whole_search_mma_kern
   bf16* xb = xa + tile;
   float* psum = u;  // categorical heads: partial sums, then the (bins, G) logits
   const int cat_bins = max(a.value_bins, a.reward_bins);
-  const int cat_floats = cat_bins > 1 ? (max((int)compute_threads(), cat_bins) + cat_bins) * G : 0;
+  const int cat_floats = cat_bins > 1 ? (max(head_split_threads(), cat_bins) + cat_bins) * G : 0;
   float* lgt = psum + (cat_floats - cat_bins * G);
 
   const int tid = threadIdx.x;
@@ -1795,8 +1724,9 @@ struct Plan {
 template <int G>
 Plan make_mma_plan(int B, int H, int K, int value_bins, int reward_bins) {
   const int threads = 32 * kMmaWarps, tile = 8 * ((G + 7) / 8) * (H + kActPad);
+  const int split = kStreamed ? threads : 32 * kStreamedMmaWarps;  // head_split_threads()
   const int bins = value_bins > reward_bins ? value_bins : reward_bins;
-  const size_t cat = bins > 1 ? (size_t)((threads > bins ? threads : bins) + bins) * G * sizeof(float) : 0;
+  const size_t cat = bins > 1 ? (size_t)((split > bins ? split : bins) + bins) * G * sizeof(float) : 0;
   const int rows = G * (H + kRowPad);
   const size_t scratch = (size_t)rows * sizeof(float) + 2 * (size_t)tile * sizeof(__nv_bfloat16);
   Plan p{(B + G - 1) / G, threads + 32, 16 * mma_tile_ksteps(H), mma_ring_floats(H), 0};
@@ -1889,8 +1819,7 @@ int launch_shape(int B, int H, int K, int value_bins, int reward_bins, int* out)
     resident = per_sm * sms;
   }
   if (err != cudaSuccess) return (int)err;
-  const int values[8] = {p.blocks, p.threads, 1, G, kRing ? kStages : (kStream ? 2 : 0),
-                         p.tile_rows, resident, (int)p.smem};
+  const int values[8] = {p.blocks, p.threads, 1, G, kRing ? kStages : 2, p.tile_rows, resident, (int)p.smem};
   for (int i = 0; i < 8; ++i) out[i] = values[i];
   return 0;
 }
@@ -1925,11 +1854,11 @@ const char* whole_search_error_string(int code) { return cudaGetErrorString((cud
 
 // How a launch of B searches at these widths runs: out[0..7] = blocks,
 // threads a block, blocks per cluster (1), searches per block (G), weight
-// stages in shared memory (0: none, the bfloat16 resident kernel reads L2
-// directly), rows of each input half per tile, blocks resident on the card
-// at once, dynamic shared memory bytes per block. Returns 0 or a CUDA error code.
+// stages in shared memory, rows of each input half per tile (the tensor-core
+// kernel: input rows of every output), blocks resident on the card at once,
+// dynamic shared memory bytes per block. Returns 0 or a CUDA error code.
 int whole_search_launch_shape(int B, int H, int K, int value_bins, int reward_bins, int* out) {
-#if WHOLE_SEARCH_BF16 && WHOLE_SEARCH_STREAMED
+#if WHOLE_SEARCH_BF16
   return launch_shape_mma<kSearchesPerBlock>(B, H, K, value_bins, reward_bins, out);
 #else
   return launch_shape<kSearchesPerBlock, Weight, kStreamed>(B, H, K, value_bins, reward_bins, out);
@@ -2008,14 +1937,14 @@ int whole_search_launch(const float* root_h, const float* root_p, const float* r
   a.eps = eps;
   a.four_eps = four_eps;
   a.two_eps = two_eps;
-#if WHOLE_SEARCH_BF16 && WHOLE_SEARCH_STREAMED
+#if WHOLE_SEARCH_BF16
   return launch_mma<kSearchesPerBlock>(a, static_cast<cudaStream_t>(stream));
 #else
   return launch<kSearchesPerBlock, Weight, kStreamed>(a, static_cast<cudaStream_t>(stream));
 #endif
 }
 
-#if WHOLE_SEARCH_BF16 && WHOLE_SEARCH_STREAMED
+#if WHOLE_SEARCH_BF16
 // The dense probe (dense_probe_kernel): out (n_layers, G, H + kRowPad) = each layer of
 // the fragment copy `frag` applied to x (G, H), rounded to bfloat16, plus
 // its row of `bias` (n_layers, H), by the search kernel's own ring, mma.sync
@@ -2023,7 +1952,7 @@ int whole_search_launch(const float* root_h, const float* root_p, const float* r
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue.
 int whole_search_dense_probe(const void* frag, const float* bias, const float* x, float* out, int H, int n_layers,
                              void* stream) {
-  if (H < 32 || H > 512 || H % 32 != 0 || n_layers < 1) return (int)cudaErrorInvalidValue;
+  if (H < 32 || H > kMmaMaxH || H % 32 != 0 || n_layers < 1) return (int)cudaErrorInvalidValue;
   constexpr int G = kSearchesPerBlock;
   const size_t smem = (size_t)mma_ring_floats(H) * sizeof(float) +
                       (size_t)8 * ((G + 7) / 8) * (H + kActPad) * sizeof(__nv_bfloat16);

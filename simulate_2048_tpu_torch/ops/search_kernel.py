@@ -6,11 +6,11 @@ kernel ``_make_kernel`` / ``_run_packed``, ``pallas_search_plan`` and
 value/Q/reward heads, (c) float32 or bfloat16 weight packs, and (d) weights
 resident or streamed through shared memory (a resident float32 pack, too,
 reaches the dense layers through a ring of shared-memory tiles, copied in
-:func:`call_order`; a resident bfloat16 one is read straight from L2). The
-kernel itself is ``csrc/whole_search.cu``; its header comment says what
-bounds it on an H100 and how the design answers that. The streamed bfloat16
-library runs its dense layers on the tensor cores (``mma.sync``) over a copy
-of the pack's layers in fragment order (:func:`mma_fragments`), which a
+:func:`call_order`). The kernel itself is ``csrc/whole_search.cu``; its
+header comment says what bounds it on an H100 and how the design answers
+that. Both bfloat16 libraries, resident and streamed, run their dense layers
+on the tensor cores (``mma.sync``) over a copy of the pack's layers in call
+order and fragment order (:func:`mma_fragments`), which a
 :class:`SearchWorkspace` makes once per pack.
 
 - :func:`pack_search_params` stacks the f/φ/ψ/g weights in exactly the JAX
@@ -18,14 +18,17 @@ of the pack's layers in fragment order (:func:`mma_fragments`), which a
   ``hh`` / ``win`` / ``wide`` / ``cat`` with ``weight_dtype=torch.bfloat16``,
   and ``hh`` in call order, zero-padded to a multiple of ``stream_chunk``,
   for the streamed kernel.
-- :func:`search_plan` picks the layout: resident up to H=256, streamed above.
+- :func:`kernel_limits` says why the CUDA kernel refuses a search config
+  and width, or nothing when it takes them; :func:`search_plan` picks the
+  layout (resident up to H=256, streamed above), the wrapper's input check
+  and the self-play backend dispatch read the same limits.
 - :func:`whole_search_reference` is the kernel's plain PyTorch version: the
   same search (``search.mcts.search_tree``) with transitions computed from
   the packed tensors as the kernel computes them (two-pass LayerNorm; a
   categorical head as max, exponentials, two sums and one division; with a
   bfloat16 pack, every product's input rounded to bfloat16, and the dense
-  layers and LayerNorms summed in the CUDA-core kernels' order, to the bit,
-  or with ``order="ksteps"`` in the tensor cores' k-steps).
+  layers and LayerNorms summed as balanced trees, or with
+  ``order="ksteps"`` in the tensor cores' k-steps).
 - :func:`whole_search` is the wrapper: on CPU tensors it runs the plain
   version, on CUDA tensors it launches the kernel or raises. It counts its
   launches in ``LAUNCHES``, each launch once, under the library that ran it
@@ -69,14 +72,15 @@ LAUNCHES = {
     "whole_search_bf16_streamed": 0,
 }
 
-RESIDENT_MAX_H = 256  # the resident kernels: 2H threads (float32: and a producer warp), at most 512 (544)
+RESIDENT_MAX_H = 256  # resident: float32 2H threads and a producer warp (at most 544), bfloat16 an m-tile a warp (16)
 STREAMED_MAX_H = 512  # the streamed kernels: 2H threads under __launch_bounds__(1024); the tensor-core one, 32 m-tiles
+MAX_WIDTH = 32  # K, the child slots of a node: one warp lane each
 STREAM_CHUNK = 8  # layers per unit of zero padding in a streamed pack (JAX's largest chunk)
 ROW_PAD = 4  # the tensor-core kernel's float activations are (columns, H + ROW_PAD): kRowPad in csrc/whole_search.cu
 # G, the searches one thread block runs, by library (kSearchesPerBlock in csrc/whole_search.cu).
 SEARCHES_PER_BLOCK = {
     "whole_search": 2,
-    "whole_search_bf16": 2,
+    "whole_search_bf16": 8,
     "whole_search_streamed": 2,
     "whole_search_bf16_streamed": 8,
 }
@@ -292,38 +296,61 @@ def pack_search_params(
     )
 
 
-def _check_tree_width(h: int) -> None:
-    """The resident bfloat16 kernel sums each input half as a balanced tree: H must be a power of two."""
-    if h & (h - 1):
-        raise ValueError(f"the resident bfloat16 kernel takes a power-of-two hidden size (got H={h})")
+def in_scope(cfg: SearchConfig) -> bool:
+    """The search variants the kernel runs (JAX's ``pallas_search._in_scope``
+    without its batch condition, the TPU kernel's lane width): PUCT root
+    selection, argmax chance selection and no progressive widening."""
+    return cfg.root_selection == "puct" and cfg.chance_selection == "argmax" and cfg.pw_c is None
+
+
+def kernel_limits(cfg: SearchConfig, hidden: int, weight_dtype: torch.dtype = torch.float32) -> str | None:
+    """Why the CUDA kernel refuses searches of ``cfg`` on a network of hidden
+    size ``hidden`` with ``weight_dtype`` packs, or None when it takes them
+    (resident up to H=256, streamed up to 512: :func:`search_plan`). The one
+    home of the kernel's limits: :func:`search_plan`, the wrapper's input
+    check and the self-play backend dispatch read them here. The plain
+    version takes any shape in the scope."""
+    k = max(cfg.num_actions, cfg.codebook_size)
+    if not in_scope(cfg):
+        return "the config is outside the kernel's scope (needs PUCT root selection, argmax chance selection and pw_c=None)"
+    if weight_dtype not in (torch.float32, torch.bfloat16):
+        return f"the kernel takes float32 or bfloat16 weight packs (got {weight_dtype})"
+    if hidden % 32 or not 32 <= hidden <= STREAMED_MAX_H:
+        return f"the kernel takes 32 <= H <= {STREAMED_MAX_H} with H % 32 == 0 (got H={hidden})"
+    if k > MAX_WIDTH:
+        return f"the kernel takes K <= {MAX_WIDTH} child slots (got K={k})"
+    if not (1 <= cfg.value_bins <= MAX_BINS and 1 <= cfg.reward_bins <= MAX_BINS):
+        return (
+            f"the kernel takes scalar heads (bins = 1) or 2 <= bins <= {MAX_BINS} "
+            f"(got value_bins={cfg.value_bins}, reward_bins={cfg.reward_bins})"
+        )
+    return None
 
 
 def search_plan(cfg: SearchConfig, hidden: int, weight_dtype: torch.dtype = torch.float32) -> int:
     """The pack layout the CUDA kernel takes for this network and search: 0
     (resident weights) or a ``stream_chunk`` > 0 (streamed weights). The
     counterpart of the JAX package's ``pallas_search_plan``, decided by the
-    CUDA kernel's own limits: a block has 2H threads, one output row (float32
-    resident: two) and one input half each; the resident kernels run under
-    ``__launch_bounds__(512)`` (float32: 544, with the producer warp of its
-    ring of 64 KB tiles), the streamed one under 1,024 and stages 64 KB tiles
-    of rows through shared memory (bfloat16: fragments for the tensor cores,
-    by 16-row k-steps, so a bfloat16 pack whose H is no power of two, which
-    the resident kernel's balanced trees cannot sum, is streamed at any H).
-    Shared memory never binds
-    below those thread limits (at H=512 with 512 bins, float32 tiles: 169 KB
-    of 227 KB), nor do the batch (any size runs) or the tower depth (the
-    tree tables and the pack live in device memory), which JAX's plan also
-    takes. The chunk only sets the pack's zero padding: the kernel streams
-    the real layers tile by tile. The kernel's other limits on H (a multiple
-    of 32, at least 32) are checked where it launches: the plain version
-    takes any H."""
+    CUDA kernel's own limits (:func:`kernel_limits`, raised as a
+    ``ValueError``; a variant the port lacks raises ``NotImplementedError``
+    first): the resident float32 kernel runs 2H threads and a producer warp
+    (at most 544), the streamed one 2H threads under 1,024 and stages 64 KB
+    tiles of rows through shared memory, and the bfloat16 libraries take
+    their tensor-core fragments by 16-row k-steps in m-tiles of 16 outputs,
+    a warp each (resident: 16 warps, H <= 256; streamed: H <= 512). So a
+    bfloat16 pack stays resident exactly where a float32 one does, as in
+    JAX's plan. Shared memory never binds below those limits (at H=512 with
+    512 bins, float32 tiles: 169 KB of 227 KB), nor do the batch (any size
+    runs) or the tower depth (the tree tables and the pack live in device
+    memory), which JAX's plan also takes. The chunk only sets the pack's
+    zero padding: the kernel streams the real layers tile by tile."""
     check_supported(cfg)
     if weight_dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(f"{weight_dtype} weight packs are not ported (float32 and bfloat16 are)")
-    if hidden > STREAMED_MAX_H:
-        raise ValueError(f"the kernel takes H <= {STREAMED_MAX_H} (got H={hidden})")
-    tree = weight_dtype == torch.float32 or not hidden & (hidden - 1)
-    return 0 if hidden <= RESIDENT_MAX_H and tree else STREAM_CHUNK
+    refused = kernel_limits(cfg, hidden, weight_dtype)
+    if refused is not None:
+        raise ValueError(refused)
+    return 0 if hidden <= RESIDENT_MAX_H else STREAM_CHUNK
 
 
 def _next_pow2(n: int) -> int:
@@ -333,11 +360,12 @@ def _next_pow2(n: int) -> int:
 def bf16_dense_sum(x: torch.Tensor, w: torch.Tensor, order: str = "tree") -> torch.Tensor:
     """``x`` (B, H) rounded to bfloat16 times ``w`` (H, H) [in][out], products
     exact in float32 (bfloat16 times bfloat16), summed in ``order``: "tree",
-    the CUDA-core kernels' balanced tree over consecutive pairs of each input
-    half (a half padded with zero products to a power of two, which leaves a
-    power-of-two H's sums as they were: x + 0 = x), then the two halves
-    added; "ksteps", the tensor cores' order as near as a plain version comes:
-    each 16-row k-step summed, then the k-steps added in ascending order."""
+    a balanced tree over consecutive pairs of each input half (a half padded
+    with zero products to a power of two, which leaves a power-of-two H's
+    sums as they were: x + 0 = x), then the two halves added, the order the
+    plain version is held to JAX's bfloat16 kernel in; "ksteps", the tensor
+    cores' order as near as a plain version comes: each 16-row k-step
+    summed, then the k-steps added in ascending order."""
     if order not in ("tree", "ksteps"):
         raise ValueError(f"order is 'tree' or 'ksteps', not {order!r}")
     b, h = x.shape
@@ -365,14 +393,13 @@ def bf16_dense_sum(x: torch.Tensor, w: torch.Tensor, order: str = "tree") -> tor
 def packed_transitions(packed: PackedSearchParams, cfg: SearchConfig, order: str = "tree"):
     """Both transitions from the packed tensors, as the kernel computes them.
 
-    With a bfloat16 pack, every value that a product rounds is computed here
-    bit for bit as the CUDA-core kernels compute it, so that no rounding turns
-    the other way: a dense layer sums its exact products (bfloat16 times
-    bfloat16 fits float32) in :func:`bf16_dense_sum`'s ``order`` ("tree": the
-    resident bfloat16 kernel's balanced tree over each input half; "ksteps":
-    the tensor cores' 16-row k-steps, whose sums inside a step no plain
-    version repeats), and LayerNorm takes the kernels' lane-strided sums,
-    butterfly and correctly rounded 1 / sqrt. With a float32 pack, dense
+    With a bfloat16 pack, every value that a product rounds is computed in
+    a fixed order of float32 sums: a dense layer sums its exact products
+    (bfloat16 times bfloat16 fits float32) in :func:`bf16_dense_sum`'s
+    ``order`` ("tree": a balanced tree over each input half; "ksteps": the
+    tensor cores' 16-row k-steps, whose sums inside a step no plain version
+    repeats), and LayerNorm takes the kernels' lane-strided sums, butterfly
+    and correctly rounded 1 / sqrt. With a float32 pack, dense
     layers are plain matrix products and LayerNorm takes PyTorch's
     reductions: their sums round in another order than the kernel's, within
     float32 noise."""
@@ -520,14 +547,11 @@ def _check_inputs(root_h, root_p, root_v, packed: PackedSearchParams, cfg: Searc
             "whole_search takes float32 roots, vectors and scalar heads, and hh / win / wide / cat all "
             "float32 or all bfloat16"
         )
-    if wdtype == torch.bfloat16 and not packed.stream_chunk:
-        _check_tree_width(h)
-    max_h = STREAMED_MAX_H if packed.stream_chunk else RESIDENT_MAX_H
-    if h % 32 or not 32 <= h <= max_h or k > 32:
-        raise ValueError(
-            f"the {'streamed' if packed.stream_chunk else 'resident'} kernel takes 32 <= H <= {max_h} with "
-            f"H % 32 == 0 and K <= 32 (got H={h}, K={k})"
-        )
+    refused = kernel_limits(cfg, h, wdtype)
+    if refused is not None:
+        raise ValueError(refused)
+    if not packed.stream_chunk and h > RESIDENT_MAX_H:
+        raise ValueError(f"the resident kernel takes 32 <= H <= {RESIDENT_MAX_H} (got H={h}): stream the pack")
     n_hh = 4 * (1 + 2 * packed.num_blocks) + 4
     if packed.stream_chunk:
         n_hh += -n_hh % packed.stream_chunk
@@ -535,11 +559,6 @@ def _check_inputs(root_h, root_p, root_v, packed: PackedSearchParams, cfg: Searc
         raise ValueError(
             f"hh holds {packed.hh.shape[0]} layers, not the {n_hh} of num_blocks={packed.num_blocks}, "
             f"stream_chunk={packed.stream_chunk}"
-        )
-    if not (1 <= cfg.value_bins <= MAX_BINS and 1 <= cfg.reward_bins <= MAX_BINS):
-        raise ValueError(
-            f"the kernel takes scalar heads (bins = 1) or 2 <= bins <= {MAX_BINS} "
-            f"(got value_bins={cfg.value_bins}, reward_bins={cfg.reward_bins})"
         )
     cb = cat_layout(cfg.value_bins, cfg.reward_bins)[3]
     if packed.cat.shape != (h, cb) or packed.cat_b.shape != (cb, 1):
@@ -549,11 +568,11 @@ def _check_inputs(root_h, root_p, root_v, packed: PackedSearchParams, cfg: Searc
 class SearchWorkspace:
     """What the kernel reuses across the calls made with one pack (one
     evaluation): the bias / LayerNorm vectors in its (n_vec, H) layout, the
-    device buffer of tree tables, grown on demand, and for a streamed
-    bfloat16 pack the copy of its real ``hh`` layers in fragment order that
-    the tensor-core kernel reads (made at the first call, on the pack's
-    device: 46.1 MB at H=512). Calls that share a workspace must run on one
-    stream."""
+    device buffer of tree tables, grown on demand, and for a bfloat16 pack
+    the copy of its real ``hh`` layers in call order and fragment order that
+    the tensor-core kernels read (made at the first call, on the pack's
+    device: 11.5 MB at H=256, 46.1 MB at H=512). Calls that share a
+    workspace must run on one stream."""
 
     def __init__(self, packed: PackedSearchParams):
         self.vecs = packed.vecs.t().contiguous()  # coalesced reads in the kernel
@@ -563,10 +582,13 @@ class SearchWorkspace:
 
     @property
     def fragments(self) -> torch.Tensor:
-        """:func:`mma_fragments` of the pack's real ``hh`` layers (the padding is never read)."""
+        """:func:`mma_fragments` of the pack's real ``hh`` layers in
+        :func:`call_order`, φ fuse first: a streamed pack's first layers (its
+        padding is never read), a resident pack's layers reordered."""
         if self._fragments is None:
-            n_real = len(call_order(self._packed.num_blocks))
-            self._fragments = mma_fragments(self._packed.hh[:n_real])
+            order = call_order(self._packed.num_blocks)
+            hh = self._packed.hh
+            self._fragments = mma_fragments(hh[: len(order)] if self._packed.stream_chunk else hh[order])
         return self._fragments
 
     def table_buffer(self, nbytes: int, device: torch.device) -> torch.Tensor:
@@ -610,7 +632,7 @@ def whole_search(
         rootv = torch.empty(b, dtype=torch.float32, device=dev)
         eps = cfg.value_transform_epsilon
         f32 = lambda x: float(np.float32(x))  # noqa: E731 — the float32 value the JAX package's constants take
-        hh = workspace.fragments if bf16 and streamed else packed.hh  # the tensor-core kernel's fragments
+        hh = workspace.fragments if bf16 else packed.hh  # the tensor-core kernels' fragments
         weights = (hh, workspace.vecs, *packed.tensors[2:])
         vb, rb = cfg.value_bins, cfg.reward_bins
         err = lib.whole_search_launch(
@@ -637,7 +659,7 @@ class LaunchShape(NamedTuple):
     threads: int  # threads a block: 2H (float32 resident: and a producer warp; tensor cores: warps and a producer)
     cluster: int  # blocks per thread-block cluster: 1 (the float32 resident kernel launches clusters of one)
     searches_per_block: int
-    stages: int  # weight tiles in shared memory (0: the bfloat16 resident kernel reads L2 directly)
+    stages: int  # weight tiles in shared memory
     tile_rows: int  # rows of each input half in a tile (tensor cores: input rows of every output)
     resident: int  # blocks (clusters of one) the card keeps resident at once
     smem_bytes: int  # dynamic shared memory per block
@@ -654,21 +676,24 @@ def launch_shape(library: str, batch: int, hidden: int, width: int, value_bins: 
     return LaunchShape(*out)
 
 
-def dense_probe(fragments: torch.Tensor, bias: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """The tensor-core library's dense layers alone (``whole_search_dense_probe``):
-    each layer of ``fragments`` (L, H/16, H/16, 32, 8, :func:`mma_fragments`)
-    applied to ``x`` (G, H) float32, rounded to bfloat16, plus its row of
-    ``bias`` (L, H), by the search kernel's own ring, ``mma.sync`` products and
-    epilogue, with G the library's searches a block. Returns (L, G, H)
-    float32. For checking the kernel (``chip_smoke.py``); no path calls it."""
+def dense_probe(library: str, fragments: torch.Tensor, bias: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The dense layers alone of a tensor-core ``library`` (a bfloat16 one;
+    ``whole_search_dense_probe``): each layer of ``fragments`` (L, H/16,
+    H/16, 32, 8, :func:`mma_fragments`) applied to ``x`` (G, H) float32,
+    rounded to bfloat16, plus its row of ``bias`` (L, H), by the search
+    kernel's own ring, ``mma.sync`` products and epilogue, with G the
+    library's searches a block. Returns (L, G, H) float32. For checking the
+    kernel (``chip_smoke.py``); no path calls it."""
     n_layers, h = bias.shape
-    g = SEARCHES_PER_BLOCK["whole_search_bf16_streamed"]
+    g = SEARCHES_PER_BLOCK[library]
+    if not library.startswith("whole_search_bf16"):
+        raise ValueError(f"dense_probe: {library} has no tensor-core dense layers")
     if fragments.shape != (n_layers, h // 16, h // 16, 32, 8) or x.shape != (g, h):
         raise ValueError(f"dense_probe: fragments {tuple(fragments.shape)}, bias {tuple(bias.shape)}, x {tuple(x.shape)}")
     for t, dtype in ((fragments, torch.bfloat16), (bias, torch.float32), (x, torch.float32)):
         if t.device.type != "cuda" or t.dtype != dtype or not t.is_contiguous():
             raise ValueError("dense_probe takes contiguous CUDA tensors: bfloat16 fragments, float32 bias and x")
-    lib = _load("whole_search_bf16_streamed")
+    lib = _load(library)
     out = torch.empty(n_layers, g, h + ROW_PAD, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.whole_search_dense_probe(fragments.data_ptr(), bias.data_ptr(), x.data_ptr(), out.data_ptr(), h,

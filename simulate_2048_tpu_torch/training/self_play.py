@@ -91,25 +91,30 @@ def search_config_from(config: TrainConfig, eval_mode: bool = False) -> SearchCo
     )
 
 
+def _search_weight_dtype(config: TrainConfig) -> torch.dtype:
+    return torch.bfloat16 if config.search_weight_dtype == "bfloat16" else torch.float32
+
+
 def _use_kernel(config: TrainConfig, cfg: SearchConfig, device: torch.device) -> bool:
     """The JAX package's backend dispatch (its ``training/self_play.py:150-171``),
-    read for the port: the kernel's scope is PUCT root selection, argmax
-    chance selection and no progressive widening (``pallas_search._in_scope``),
-    judged on the search config ``cfg`` (evaluation searches use the PUCT
-    root). "pallas" takes the kernel wrapper (the kernel on CUDA, its plain
-    version on the CPU) and raises outside the scope; "auto" takes the kernel
-    on CUDA inside the scope and the plain search otherwise."""
+    read for the port, decided by the kernel's own limits
+    (``search_kernel.kernel_limits``: its scope, PUCT root selection, argmax
+    chance selection and no progressive widening, judged on the search config
+    ``cfg``, as evaluation searches use the PUCT root; and the widths, bins
+    and weight types it takes). "pallas" takes the kernel wrapper (the kernel
+    on CUDA, its plain version on the CPU) and raises where the kernel
+    refuses the config: on CUDA for any limit, on the CPU, whose plain
+    version takes any shape, outside the scope. "auto" takes the kernel on
+    CUDA where the limits hold and the plain search otherwise, as JAX's
+    takes its kernel only where ``pallas_search_plan`` returns a plan."""
     if config.search_backend == "xla":
         return False
-    in_scope = cfg.root_selection == "puct" and cfg.chance_selection == "argmax" and cfg.pw_c is None
+    refused = search_kernel.kernel_limits(cfg, config.hidden_size, _search_weight_dtype(config))
     if config.search_backend == "pallas":
-        if not in_scope:
-            raise ValueError(
-                "search_backend='pallas' but the config is outside the kernel's scope (needs PUCT root selection, "
-                "argmax chance selection and pw_c=None)"
-            )
+        if refused is not None and (device.type == "cuda" or not search_kernel.in_scope(cfg)):
+            raise ValueError(f"search_backend='pallas' but {refused}")
         return True
-    return in_scope and device.type == "cuda"
+    return refused is None and device.type == "cuda"
 
 
 SearchFn = Callable[[torch.Tensor, torch.Tensor, "torch.Tensor | None"], PolicyOutput]
@@ -122,8 +127,10 @@ def _make_search(network, config: TrainConfig, cfg: SearchConfig, device: torch.
     in ``config.search_weight_dtype``), or the plain search."""
     if not _use_kernel(config, cfg, device):
         return lambda obs, invalid, noise=None: batched_run_mcts(network, obs, cfg, invalid, noise)
-    weight_dtype = torch.bfloat16 if config.search_weight_dtype == "bfloat16" else torch.float32
-    chunk = search_kernel.search_plan(cfg, config.hidden_size, weight_dtype)
+    weight_dtype = _search_weight_dtype(config)
+    # The kernel's layout; on the CPU the plain version also runs shapes the kernel refuses, resident.
+    fits = search_kernel.kernel_limits(cfg, config.hidden_size, weight_dtype) is None
+    chunk = search_kernel.search_plan(cfg, config.hidden_size, weight_dtype) if fits else 0
     packed = search_kernel.pack_search_params(
         network,
         config.num_residual_blocks,

@@ -1,11 +1,11 @@
-"""The tensor-core bfloat16 library of the whole-search kernel: what of it runs on the CPU.
+"""The tensor-core bfloat16 libraries of the whole-search kernel: what of them runs on the CPU.
 
-The streamed bfloat16 library (``csrc/whole_search.cu``,
-``whole_search_mma_kernel``) multiplies on the tensor cores (``mma.sync``
-m16n8k16) over a copy of the pack's layers in fragment order, sums each
-output by 16-row k-steps, and takes any H that is a multiple of 32. These
-tests hold the Python side of that against the PTX ISA's fragment layout and
-the JAX package:
+Both bfloat16 libraries, resident and streamed (``csrc/whole_search.cu``,
+``whole_search_mma_kernel``), multiply on the tensor cores (``mma.sync``
+m16n8k16) over a copy of the pack's layers in call order and fragment
+order, sum each output by 16-row k-steps, and take any H that is a multiple
+of 32 (resident up to 256, streamed up to 512). These tests hold the Python
+side of that against the PTX ISA's fragment layout and the JAX package:
 
 - (a) ``mma_fragments`` places ``hh[layer][k][m]`` where the PTX ISA's
   m16n8k16 A fragment (row-major bfloat16, A = W^T) puts it, and the inverse
@@ -17,9 +17,11 @@ the JAX package:
   against JAX's bfloat16 kernel by ``bf16_rule`` (its tight count's
   allowance grown with H, as ``meets_bf16_rule`` says why); at a
   power-of-two H the padded sum is the unpadded tree bit for bit;
-- (d) ``search_plan`` sends a bfloat16 H that is no power of two to the
-  streamed (tensor-core) library, and ``kernel_blocks`` counts blocks of each
-  library's G, a last partial block included.
+- (d) ``search_plan`` keeps a bfloat16 pack resident up to H=256 at any
+  multiple of 32, as a float32 one, and streams it above; a resident pack's
+  fragment copy is the streamed pack's, element for element; and
+  ``kernel_blocks`` counts blocks of each library's G, a last partial block
+  included.
 
 The kernel itself, its dense probe and the parity rule for its searches run
 on the card in ``chip_smoke.py``.
@@ -76,6 +78,23 @@ def test_fragment_order_places_each_weight_where_the_ptx_layout_reads_it(h):
             row, col = ptx_a_fragment(lane, e)
             rebuilt[:, col::16, row::16] = frags[:, :, :, lane, e]
     assert torch.equal(rebuilt, hh)
+
+
+@pytest.mark.parametrize("h", [32, 64, 96])
+def test_resident_and_streamed_packs_give_the_same_fragments(h):
+    """A resident bfloat16 pack's copy takes its layers in call order (φ fuse
+    first, the f tower last), so the resident library's ring reads what the
+    streamed one reads: the two copies are equal element for element."""
+    jnet = create_network(jax.random.PRNGKey(h), hidden_size=h, num_blocks=BLOCKS)
+    tnet = params_from_flax(jax.tree.map(np.asarray, jnet.params),
+                            replace(TrainConfig(), hidden_size=h, num_residual_blocks=BLOCKS))  # fmt: skip
+    resident = sk.pack_search_params(tnet, BLOCKS, 32, torch.bfloat16)
+    streamed = sk.pack_search_params(tnet, BLOCKS, 32, torch.bfloat16, sk.STREAM_CHUNK)
+    frags = sk.SearchWorkspace(resident).fragments
+    assert torch.equal(frags, sk.SearchWorkspace(streamed).fragments)
+    assert frags.shape == (len(sk.call_order(BLOCKS)), h // 16, h // 16, 32, 8) and frags.is_contiguous()
+    # Its first layer is the φ fuse layer, pack layer tower_hh of the resident pack.
+    assert torch.equal(frags[0], sk.mma_fragments(resident.hh[1 + 2 * BLOCKS][None])[0])
 
 
 def test_workspace_fragments_hold_the_streamed_packs_real_layers():
@@ -147,7 +166,7 @@ def test_bf16_reference_at_h96_matches_jax_interpret():
     """H=96 (a multiple of 32, no power of two): JAX's bfloat16 kernel takes
     it, and so does the port now, each input half's tree padded with zero
     products to 64 rows and each LayerNorm lane's values to 4. By
-    ``bf16_rule`` at H=96 on 128 searches, through the streamed pack the plan
+    ``bf16_rule`` at H=96 on 128 searches, through the resident pack the plan
     picks; at a power-of-two width (128) the unpadded trees meet JAX's kernel
     no closer (17 searches outside the tight tolerance, as here)."""
     h = 96
@@ -155,10 +174,10 @@ def test_bf16_reference_at_h96_matches_jax_interpret():
     tnet = params_from_flax(jax.tree.map(np.asarray, jnet.params),
                             replace(TrainConfig(), hidden_size=h, num_residual_blocks=BLOCKS))  # fmt: skip
     chunk = sk.search_plan(SearchConfig(**CFG), h, torch.bfloat16)
-    assert chunk == sk.STREAM_CHUNK
+    assert chunk == 0
     obs, invalid = make_inputs(jps.BLOCK_G, seed=23)
     ref = jax_search(jnet, obs, invalid, CFG, jnp.bfloat16)
-    out = port_search(tnet, obs, invalid, CFG, torch.bfloat16, chunk)
+    out = port_search(tnet, obs, invalid, CFG, torch.bfloat16, chunk or None)
     assert (out.visit_counts.sum(-1) == CFG["num_simulations"]).all()
     counts = bf16_rule(out, ref)
     assert meets_bf16_rule(counts, h), f"{counts} of {jps.BLOCK_G} searches agree / lie close"
@@ -169,15 +188,16 @@ def test_bf16_reference_at_h96_matches_jax_interpret():
 
 @pytest.mark.parametrize("h", [96, 160, 288, 480])
 def test_search_plan_streams_bf16_widths_that_are_no_power_of_two(h):
+    """No power of two: resident up to H=256 and streamed above, bfloat16 as float32."""
     cfg = SearchConfig(num_simulations=100, max_depth=32)
-    assert sk.search_plan(cfg, h, torch.bfloat16) == sk.STREAM_CHUNK
-    assert sk.search_plan(cfg, h, torch.float32) == (0 if h <= sk.RESIDENT_MAX_H else sk.STREAM_CHUNK)
+    want = 0 if h <= sk.RESIDENT_MAX_H else sk.STREAM_CHUNK
+    assert sk.search_plan(cfg, h, torch.bfloat16) == want == sk.search_plan(cfg, h, torch.float32)
     assert sk.search_plan(cfg, 128, torch.bfloat16) == 0  # a power of two stays resident up to 256
 
 
 def test_check_inputs_takes_a_streamed_bf16_pack_of_any_multiple_of_32():
-    """The CUDA path's input check: a streamed bfloat16 pack at H=96 passes,
-    a resident one raises (the resident kernel sums balanced trees)."""
+    """The CUDA path's input check: a bfloat16 pack at H=96 passes, streamed
+    and now resident too (the resident library runs on the tensor cores)."""
     h = 96
     cfg = SearchConfig(**CFG)
     roots = (torch.zeros(4, h), torch.zeros(4, 32), torch.zeros(4))
@@ -186,8 +206,7 @@ def test_check_inputs_takes_a_streamed_bf16_pack_of_any_multiple_of_32():
         replace(TrainConfig(), hidden_size=h, num_residual_blocks=BLOCKS),
     )
     sk._check_inputs(*roots, sk.pack_search_params(tnet, BLOCKS, 32, torch.bfloat16, sk.STREAM_CHUNK), cfg)
-    with pytest.raises(ValueError, match="power-of-two"):
-        sk._check_inputs(*roots, sk.pack_search_params(tnet, BLOCKS, 32, torch.bfloat16), cfg)
+    sk._check_inputs(*roots, sk.pack_search_params(tnet, BLOCKS, 32, torch.bfloat16), cfg)
 
 
 @pytest.mark.parametrize("library", list(sk.SEARCHES_PER_BLOCK))
@@ -201,9 +220,10 @@ def test_kernel_blocks_by_library(library, batch):
 
 
 def test_tensor_core_library_runs_more_searches_a_block():
-    """G of the tensor-core library fills the m16n8k16 product's 8 columns;
-    the CUDA-core libraries keep 2."""
-    assert sk.SEARCHES_PER_BLOCK["whole_search_bf16_streamed"] == 8
-    assert {sk.SEARCHES_PER_BLOCK[k] for k in ("whole_search", "whole_search_bf16", "whole_search_streamed")} == {2}
+    """G of both tensor-core libraries fills the m16n8k16 product's 8
+    columns; the float32 (CUDA-core) libraries keep 2."""
+    assert sk.SEARCHES_PER_BLOCK["whole_search_bf16_streamed"] == sk.SEARCHES_PER_BLOCK["whole_search_bf16"] == 8
+    assert {sk.SEARCHES_PER_BLOCK[k] for k in ("whole_search", "whole_search_streamed")} == {2}
     assert sk.kernel_blocks(512, "whole_search_bf16_streamed") == 64
     assert sk.kernel_blocks(100, "whole_search_bf16_streamed") == 13
+    assert sk.kernel_blocks(1024, "whole_search_bf16") == 128  # one wave of the card's 132 SMs

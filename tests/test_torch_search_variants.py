@@ -232,15 +232,81 @@ def test_search_plan_limits():
     cfg = SearchConfig(**FULL)
     with pytest.raises(ValueError, match="H <= 512"):
         sk.search_plan(cfg, 1024)
-    assert sk.search_plan(cfg, 16) == 0  # the plain version takes any H; the kernel checks its own at launch
+    # The kernel's own limits (kernel_limits), which the wrapper's input check reads too; the plain version
+    # behind the self-play dispatch on the CPU takes any H.
+    with pytest.raises(ValueError, match="H % 32 == 0"):
+        sk.search_plan(cfg, 16)
     with pytest.raises(NotImplementedError):
         sk.search_plan(cfg, 256, torch.float16)
     assert sk.search_plan(cfg, 288) == sk.STREAM_CHUNK  # float32 packs take any H % 32 == 0
-    # bfloat16 packs whose H is no power of two go to the tensor-core library, streamed, at any width
+    # bfloat16 packs stay resident where float32 ones do, at any multiple of 32 up to 256, and stream above
     assert sk.search_plan(cfg, 288, torch.bfloat16) == sk.STREAM_CHUNK
-    assert sk.search_plan(cfg, 96, torch.bfloat16) == sk.STREAM_CHUNK
+    assert sk.search_plan(cfg, 96, torch.bfloat16) == 0
     with pytest.raises(NotImplementedError, match="widening"):
         sk.search_plan(cfg._replace(pw_c=1.0), 256)
+
+
+def blank_pack(h: int, k: int, dtype: torch.dtype, chunk: int | None, value_bins: int, reward_bins: int):
+    """A pack of zeros of the shapes ``pack_search_params`` gives (no residual blocks)."""
+    n_hh = 8 + (-8 % chunk if chunk else 0)
+    cb = sk.cat_layout(value_bins, reward_bins)[3]
+
+    def zeros(*shape, dt=torch.float32):
+        return torch.zeros(shape, dtype=dt)
+
+    return sk.PackedSearchParams(
+        hh=zeros(n_hh, h, h, dt=dtype), vecs=zeros(h, 4 * 3 + 4), win=zeros(2, k, h, dt=dtype),
+        wide=zeros(2, h, k, dt=dtype), wide_b=zeros(k, 2), scal=zeros(h, 8), scal_b=zeros(1, 8),
+        cat=zeros(h, cb, dt=dtype), cat_b=zeros(cb, 1), num_blocks=0, stream_chunk=chunk or 0,
+    )  # fmt: skip
+
+
+LIMIT_CASES = [
+    *[(dict(), h, dtype) for h in (16, 48, 96, 256, 288, 512, 544, 1024) for dtype in ("float32", "bfloat16")],
+    (dict(codebook_size=48), 64, "bfloat16"),
+    (dict(value_bins=sk.MAX_BINS + 1), 64, "float32"),
+    (dict(reward_bins=sk.MAX_BINS + 1), 64, "bfloat16"),
+    (dict(value_bins=sk.MAX_BINS, reward_bins=sk.MAX_BINS), 64, "bfloat16"),
+    (dict(pw_c=1.0), 64, "float32"),
+    (dict(), 64, "float16"),
+]
+
+
+@pytest.mark.parametrize("case", LIMIT_CASES, ids=lambda c: f"{c[0]}-H{c[1]}-{c[2]}")
+def test_plan_and_input_check_refuse_what_kernel_limits_refuses(case):
+    """``search_plan`` and the wrapper's input check (on a pack of the plan's
+    layout, streamed above H=256) refuse exactly the configs and widths that
+    ``kernel_limits`` refuses."""
+    overrides, h, dtype = case
+    cfg = SearchConfig(**{**FULL, **overrides})
+    wdtype = getattr(torch, dtype)
+    refused = sk.kernel_limits(cfg, h, wdtype)
+
+    def refuses(fn) -> bool:
+        try:
+            fn()
+        except (ValueError, NotImplementedError):
+            return True
+        return False
+
+    k = max(cfg.num_actions, cfg.codebook_size)
+    packed = blank_pack(h, k, wdtype, sk.STREAM_CHUNK if h > sk.RESIDENT_MAX_H else None, cfg.value_bins,
+                        cfg.reward_bins)  # fmt: skip
+    roots = (torch.zeros(4, h), torch.zeros(4, k), torch.zeros(4))
+    assert refuses(lambda: sk.search_plan(cfg, h, wdtype)) == (refused is not None)
+    assert refuses(lambda: sk._check_inputs(*roots, packed, cfg)) == (refused is not None)
+    assert (refused is None) == (h % 32 == 0 and 32 <= h <= 512 and not overrides.get("pw_c") and dtype != "float16"
+                                 and k <= 32 and max(cfg.value_bins, cfg.reward_bins) <= sk.MAX_BINS)  # fmt: skip
+
+
+@pytest.mark.parametrize("hidden", range(32, 257, 32))
+def test_search_plan_keeps_bf16_resident_where_jax_does(hidden):
+    """Every multiple of 32 up to 256: JAX's plan keeps a bfloat16 pack in
+    VMEM (0) at the paper preset's depth and both head kinds, and so does
+    the port's, on the tensor cores."""
+    for overrides in (FULL, FULL_CAT):
+        jax_plan = jps.pallas_search_plan(JaxSearchConfig(**overrides), hidden, 10, 256, jnp.bfloat16)
+        assert jax_plan == 0 == sk.search_plan(SearchConfig(**overrides), hidden, torch.bfloat16)
 
 
 def test_wrapper_checks_variant_packs():
