@@ -171,7 +171,7 @@ constexpr int kMmaMaxH = kStreamed ? 512 : 256;
 constexpr int kStreamedMmaWarps = 12;
 // The resident shape's -D overrides for a sweep.
 #ifndef WHOLE_SEARCH_MMA_WARPS
-#define WHOLE_SEARCH_MMA_WARPS 16
+#define WHOLE_SEARCH_MMA_WARPS 8
 #endif
 #ifndef WHOLE_SEARCH_MMA_STAGES
 #define WHOLE_SEARCH_MMA_STAGES 4
@@ -181,6 +181,9 @@ constexpr int kMmaStages = kStreamed ? 4 : WHOLE_SEARCH_MMA_STAGES;
 constexpr int kMmaStageBytes = 32 * 1024;
 constexpr int kMmaMaxTiles = (kMmaMaxH / 16 + kMmaWarps - 1) / kMmaWarps;  // 16-row output tiles a warp
 constexpr int kLnValues = kMmaMaxH / 32;  // a lane's values in a tensor-core layer norm
+// The threads the resident library's categorical heads split their sums
+// over: the streamed library's, so that the two sum every logit in one order.
+constexpr int kHeadSplit = 32 * kStreamedMmaWarps;
 constexpr int kActPad = 8;  // bfloat16 activations: (columns, H + kActPad), so that B fragments load without conflicts
 constexpr int kRowPad = 4;  // float activations: (columns, H + kRowPad), so that the epilogues store without conflicts
 static_assert(2 * kMmaStages * 8 <= kBarrierFloats * 4, "the tensor-core ring's barriers fit their slot");
@@ -789,9 +792,11 @@ __device__ void dense_ring(const Args& a, Ring& st, int iv, const float* in, flo
 // float32 pack. 2H threads: thread t owns output row t % H and input half
 // t / H, and sums its half's products as RowSum does, alike in both kernels.
 // The streamed kernel computes on the tiles of `st` (a Stream), the resident
-// one on those of its Ring; either must stand at this layer's first tile.
+// one on those of its Ring; either must stand at this layer's first tile, so
+// `layer` is unread (kept, with tower's ihh, so that the float32 libraries
+// compile to the machine code they had).
 template <int G, typename W, bool kStream, typename Feed>
-__device__ void dense(const Args& a, Feed& st, int iv, const float* in, float* out, float* part,
+__device__ void dense(const Args& a, Feed& st, int layer, int iv, const float* in, float* out, float* part,
                       const W* rows, const int* row_idx, bool residual) {
   const int H = a.H;
   const int o = threadIdx.x % H;
@@ -912,27 +917,29 @@ __device__ void layer_norm_relu(const Args& a, int iv, const float* in, float* o
 // A dense layer of a tower, which a layer norm follows: the ring kernel's
 // brings that layer norm's vectors along.
 template <int G, typename W, bool kStream, typename Feed>
-__device__ __forceinline__ void tower_dense(const Args& a, Feed& st, int iv, const float* in, float* out,
+__device__ __forceinline__ void tower_dense(const Args& a, Feed& st, int layer, int iv, const float* in, float* out,
                                             float* part, bool residual) {
   if constexpr (kRing) {
     dense_ring<G>(a, st, iv, in, out, part, nullptr, nullptr, residual, true);
   } else {
-    dense<G, W, kStream>(a, st, iv, in, out, part, nullptr, nullptr, residual);
+    dense<G, W, kStream>(a, st, layer, iv, in, out, part, nullptr, nullptr, residual);
   }
 }
 
 // TowerWithHead: dense -> NB pre-LN residual blocks -> LN -> relu; result in x.
 // `in` may alias u (it is consumed by the first layer).
 template <int G, typename W, bool kStream, typename Feed>
-__device__ void tower(const Args& a, Feed& st, int iv, const float* in, float* x, float* t, float* u,
+__device__ void tower(const Args& a, Feed& st, int ihh, int iv, const float* in, float* x, float* t, float* u,
                       float* part) {
-  tower_dense<G, W, kStream>(a, st, iv, in, x, part, false);
+  tower_dense<G, W, kStream>(a, st, ihh, iv, in, x, part, false);
+  ihh += 1;
   iv += 1;
   for (int blk = 0; blk < a.NB; ++blk) {
     layer_norm_relu<G, W>(a, iv, x, t);
-    tower_dense<G, W, kStream>(a, st, iv + 2, t, u, part, false);
+    tower_dense<G, W, kStream>(a, st, ihh, iv + 2, t, u, part, false);
     layer_norm_relu<G, W>(a, iv + 3, u, u);
-    tower_dense<G, W, kStream>(a, st, iv + 5, u, x, part, true);
+    tower_dense<G, W, kStream>(a, st, ihh + 1, iv + 5, u, x, part, true);
+    ihh += 2;
     iv += 6;
   }
   layer_norm_relu<G, W>(a, iv, x, x);
@@ -1100,20 +1107,15 @@ __device__ void head_scalar(const Args& a, int c, const float* x, float* out) {
   block_sync();
 }
 
-// The threads a categorical head splits its input range over: every
-// computing thread, but in the resident tensor-core library as many as the
-// streamed one has, so that the two sum every logit in one order.
-__device__ __forceinline__ int head_split_threads() {
-  if constexpr (kMma && !kStreamed) return 32 * kStreamedMmaWarps;
-  return compute_threads();
-}
-
 // out[g] = untransform(sum_k softmax(cat[:, off:off+bins]^T x[:, g] + cat_b)[k] * k * step).
-// `psum` holds max(head_split_threads(), bins) * G floats and `lg` bins * G floats.
+// `psum` holds max(split, bins) * G floats and `lg` bins * G floats, split
+// the threads the input range is split over: every computing thread, but in
+// the resident tensor-core library kHeadSplit.
 template <int G, typename W>
 __device__ void head_categorical(const Args& a, int off, int bins, float step, const float* x, float* out,
                                  float* psum, float* lg) {
-  const int H = a.H, T = compute_threads(), split = head_split_threads();
+  const int H = a.H, T = compute_threads();
+  const int split = kMma && !kStreamed ? kHeadSplit : T;
   const int nparts = bins >= split ? 1 : split / bins;  // input ranges summed by separate threads
   const int chunk = (H + nparts - 1) / nparts;
   for (int e = threadIdx.x; e < nparts * bins; e += T) {
@@ -1427,10 +1429,16 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = compute_threads() >> 5;
   const int b0 = blockIdx.x * G;
 
-  // Offsets into the bias / LayerNorm vectors (mirror pack_search_params).
+  // Offsets into the packed weights (mirror pack_search_params).
   const int tower_hh = 1 + 2 * a.NB, tower_vec = 3 + 6 * a.NB;
-  const int F_V = 0, PHI_FUSE_V = F_V + tower_vec, PHI_V = PHI_FUSE_V + 1, PHI_HEAD_V = PHI_V + tower_vec;
-  const int PSI_V = PHI_HEAD_V + 1, G_FUSE_V = PSI_V + tower_vec, G_V = G_FUSE_V + 1, G_HEAD_V = G_V + tower_vec;
+  const int F_HH = 0, F_V = 0;
+  const int PHI_FUSE_HH = F_HH + tower_hh, PHI_FUSE_V = F_V + tower_vec;
+  const int PHI_HH = PHI_FUSE_HH + 1, PHI_V = PHI_FUSE_V + 1;
+  const int PHI_HEAD_HH = PHI_HH + tower_hh, PHI_HEAD_V = PHI_V + tower_vec;
+  const int PSI_HH = PHI_HEAD_HH + 1, PSI_V = PHI_HEAD_V + 1;
+  const int G_FUSE_HH = PSI_HH + tower_hh, G_FUSE_V = PSI_V + tower_vec;
+  const int G_HH = G_FUSE_HH + 1, G_V = G_FUSE_V + 1;
+  const int G_HEAD_HH = G_HH + tower_hh, G_HEAD_V = G_V + tower_vec;
   const W* win = static_cast<const W*>(a.win);
 
   std::conditional_t<kRing, Ring, Stream<W>> st{};
@@ -1530,19 +1538,19 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
 
     // phi then psi (decision parent -> chance child)
     // (in call order: the streamed pack holds the layers in this order)
-    dense<G, W, kStream>(a, st, PHI_FUSE_V, pe, u, part, win, s_arow, false);
-    tower<G, W, kStream>(a, st, PHI_V, u, x, t, u, part);
-    dense<G, W, kStream>(a, st, PHI_HEAD_V, x, after, part, nullptr, nullptr, false);
-    tower<G, W, kStream>(a, st, PSI_V, after, x, t, u, part);
+    dense<G, W, kStream>(a, st, PHI_FUSE_HH, PHI_FUSE_V, pe, u, part, win, s_arow, false);
+    tower<G, W, kStream>(a, st, PHI_HH, PHI_V, u, x, t, u, part);
+    dense<G, W, kStream>(a, st, PHI_HEAD_HH, PHI_HEAD_V, x, after, part, nullptr, nullptr, false);
+    tower<G, W, kStream>(a, st, PSI_HH, PSI_V, after, x, t, u, part);
     head_value<G, W>(a, 1, x, s_q, psum, lgt);
     head_logits<G, W>(a, 1, x, lc);
 
     // g then f (chance parent -> decision child)
-    dense<G, W, kStream>(a, st, G_FUSE_V, pe, u, part, win + (size_t)K * H, s_crow, false);
-    tower<G, W, kStream>(a, st, G_V, u, x, t, u, part);
-    dense<G, W, kStream>(a, st, G_HEAD_V, x, hnew, part, nullptr, nullptr, false);
+    dense<G, W, kStream>(a, st, G_FUSE_HH, G_FUSE_V, pe, u, part, win + (size_t)K * H, s_crow, false);
+    tower<G, W, kStream>(a, st, G_HH, G_V, u, x, t, u, part);
+    dense<G, W, kStream>(a, st, G_HEAD_HH, G_HEAD_V, x, hnew, part, nullptr, nullptr, false);
     head_value<G, W>(a, 2, x, s_r, psum, lgt);
-    tower<G, W, kStream>(a, st, F_V, hnew, x, t, u, part);
+    tower<G, W, kStream>(a, st, F_HH, F_V, hnew, x, t, u, part);
     head_value<G, W>(a, 0, x, s_v, psum, lgt);
     head_logits<G, W>(a, 0, x, la);
 
@@ -1656,7 +1664,8 @@ __global__ void __launch_bounds__(32 * (kMmaWarps + 1), 1) whole_search_mma_kern
   bf16* xb = xa + tile;
   float* psum = u;  // categorical heads: partial sums, then the (bins, G) logits
   const int cat_bins = max(a.value_bins, a.reward_bins);
-  const int cat_floats = cat_bins > 1 ? (max(head_split_threads(), cat_bins) + cat_bins) * G : 0;
+  const int split = kMma && !kStreamed ? kHeadSplit : (int)compute_threads();
+  const int cat_floats = cat_bins > 1 ? (max(split, cat_bins) + cat_bins) * G : 0;
   float* lgt = psum + (cat_floats - cat_bins * G);
 
   const int tid = threadIdx.x;
@@ -1777,7 +1786,7 @@ struct Plan {
 template <int G>
 Plan make_mma_plan(int B, int H, int K, int value_bins, int reward_bins) {
   const int threads = 32 * kMmaWarps, tile = 8 * ((G + 7) / 8) * (H + kActPad);
-  const int split = kStreamed ? threads : 32 * kStreamedMmaWarps;  // head_split_threads()
+  const int split = kStreamed ? threads : kHeadSplit;
   const int bins = value_bins > reward_bins ? value_bins : reward_bins;
   const size_t cat = bins > 1 ? (size_t)((split > bins ? split : bins) + bins) * G * sizeof(float) : 0;
   const int rows = G * (H + kRowPad);

@@ -48,9 +48,8 @@ def shape(warps: int, stages: int) -> tuple[str, ...]:
 
 # name -> extra defines; the shipped library itself is always timed first.
 VARIANTS = {
-    "w16s5": shape(16, 5),
+    "w16s4": shape(16, 4),
     "w12s4": shape(12, 4),
-    "w8s4": shape(8, 4),
     "w8s5": shape(8, 5),
     "prof": (),
 }
@@ -66,11 +65,13 @@ class ParentWorkspace(sk.SearchWorkspace):
 
 
 def sass(path: Path) -> list[str]:
-    """The instructions of every function in ``path``'s machine code, addresses and encodings left out."""
+    """The instructions of every function in ``path``'s machine code, addresses and encodings left out, and the
+    anonymous namespace's name (from the source's path) made one."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True, check=True).stdout
     lines = []
     for line in out.splitlines():
+        line = re.sub(r"\d+_GLOBAL__N__\w+?_cu_[0-9a-f]+", "ANON", line)
         if "Function :" in line:
             lines.append(line.strip())
             continue
@@ -113,8 +114,12 @@ def main() -> int:
         print(f"{name}: {cs.count_hmma(name)} HMMA", flush=True)
     for lib in SAME_SASS if parents else ():
         new, old = sass(_build.library_path(lib)), sass(_build.library_path(f"parent_{lib}"))
-        print(f"SASS {lib}: {len(new)} lines, the parent's {len(old)}: {'identical' if new == old else 'DIFFERENT'}",
-              flush=True)  # fmt: skip
+        hmma = sum(line.startswith("HMMA") for line in old)
+        print(f"SASS {lib}: {len(new)} lines, the parent's {len(old)} ({hmma} HMMA): "
+              f"{'identical' if new == old else 'DIFFERENT'}", flush=True)  # fmt: skip
+        if new != old:
+            for label, lines in (("new", new), ("parent", old)):
+                Path(f"chiprun_out/sass_{lib}_{label}.txt").write_text("\n".join(lines))
 
     load = sk._load
     if parents:
