@@ -629,6 +629,10 @@ __device__ __forceinline__ void fma_row(float (&acc)[G], float w, const float* x
 template <int G, typename W>
 struct RowSum {
   float acc[G];
+  // Unread since the bfloat16 CUDA-core kernel went (its balanced trees' partial sums and block count): they keep
+  // the object's layout, and with it the float32 streamed library's machine code (cuobjdump -sass).
+  float level[6][G];
+  int blocks = 0;
 
   __device__ __forceinline__ RowSum() {
 #pragma unroll
