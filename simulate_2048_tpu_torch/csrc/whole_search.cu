@@ -163,21 +163,16 @@ constexpr unsigned kMaxSpins = 1u << 24;  // a wait that spins longer traps: the
 // 32 KB. Streamed (H <= 512): 12 consumer warps beside the producer (16 were
 // 1.6% faster but spill under the 96 registers 17 warps leave; 8 and 15
 // slower); 4 stages (3 stages, 2 of 64 KB, 8 of 16 KB slower). Resident
-// (H <= 256): 16 consumer warps, one 16-output m-tile each at H=256, so a
-// lane keeps 4 accumulators, not 12; 4 stages, one whole H=256 layer; its
+// (H <= 256): 8 consumer warps, two 16-output m-tiles each at H=256, 128
+// registers (16 warps, one m-tile each and 92 registers, were 2-5% slower
+// at 256 and 1,024 searches; 12 within 1%, 1-2% slower at 1,024); 4 stages,
+// one whole H=256 layer (5: within 1%, 33 KB more shared memory); its
 // categorical heads split their sums as the streamed library's 12 warps do.
 constexpr int kSearchesPerBlock = kMma ? 8 : 2;  // G
 constexpr int kMmaMaxH = kStreamed ? 512 : 256;
 constexpr int kStreamedMmaWarps = 12;
-// The resident shape's -D overrides for a sweep.
-#ifndef WHOLE_SEARCH_MMA_WARPS
-#define WHOLE_SEARCH_MMA_WARPS 8
-#endif
-#ifndef WHOLE_SEARCH_MMA_STAGES
-#define WHOLE_SEARCH_MMA_STAGES 4
-#endif
-constexpr int kMmaWarps = kStreamed ? kStreamedMmaWarps : WHOLE_SEARCH_MMA_WARPS;
-constexpr int kMmaStages = kStreamed ? 4 : WHOLE_SEARCH_MMA_STAGES;
+constexpr int kMmaWarps = kStreamed ? kStreamedMmaWarps : 8;
+constexpr int kMmaStages = 4;
 constexpr int kMmaStageBytes = 32 * 1024;
 constexpr int kMmaMaxTiles = (kMmaMaxH / 16 + kMmaWarps - 1) / kMmaWarps;  // 16-row output tiles a warp
 constexpr int kLnValues = kMmaMaxH / 32;  // a lane's values in a tensor-core layer norm
@@ -188,25 +183,6 @@ constexpr int kActPad = 8;  // bfloat16 activations: (columns, H + kActPad), so 
 constexpr int kRowPad = 4;  // float activations: (columns, H + kRowPad), so that the epilogues store without conflicts
 static_assert(2 * kMmaStages * 8 <= kBarrierFloats * 4, "the tensor-core ring's barriers fit their slot");
 static_assert(kSearchesPerBlock <= kMmaWarps, "traversal and layer norms take a warp per search");
-
-// A profile build (-DWHOLE_SEARCH_PROFILE=1, simulate_2048_tpu_torch/search_mma_sweep.py)
-// sums thread 0's clock64 cycles by region: 0 the launch, 1 traversal, 2
-// expansion, 3 dense layers, 4 their tile waits, 5 layer norms, 6 heads,
-// 7 install and backup. Without it the macros are empty.
-#ifndef WHOLE_SEARCH_PROFILE
-#define WHOLE_SEARCH_PROFILE 0
-#endif
-#if WHOLE_SEARCH_PROFILE
-constexpr int kProfRegions = 8;
-__device__ unsigned long long g_prof[kProfRegions];
-__shared__ unsigned long long s_prof[kProfRegions];
-#define PROF_START(v) const long long v = clock64()
-#define PROF_ADD(k, v) \
-  if (threadIdx.x == 0) s_prof[k] += clock64() - (v)
-#else
-#define PROF_START(v)
-#define PROF_ADD(k, v)
-#endif
 
 struct Args {
   const float* root_h;  // (B, H)
@@ -965,7 +941,6 @@ __device__ void tower(const Args& a, Feed& st, int ihh, int iv, const float* in,
 template <int G>
 __device__ void dense_mma(const Args& a, MmaRing& st, int iv, const __nv_bfloat16* xin, float* out,
                           __nv_bfloat16* xout, const __nv_bfloat16* rows, const int* row_idx, bool residual) {
-  PROF_START(t_dense);
   constexpr int NT = (G + 7) / 8;  // n-tiles of 8 columns
   const int H = a.H, MT = H / 16, ld = H + kActPad, ldf = H + kRowPad;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
@@ -986,9 +961,7 @@ __device__ void dense_mma(const Args& a, MmaRing& st, int iv, const __nv_bfloat1
     st.q += st.tpl;  // the cursor stays in step; this warp reads no tile
   }
   for (int t = 0; active && t < st.tpl; ++t, ++st.q) {
-    PROF_START(t_wait);
     const uint4* w = st.ready();
-    PROF_ADD(4, t_wait);
     for (int kk = 0; kk < st.kt; ++kk) {
       const __nv_bfloat16* xk = xin + (size_t)gq * ld + (t * st.kt + kk) * 16 + 2 * tq;
       unsigned b[NT][2];
@@ -1028,7 +1001,6 @@ __device__ void dense_mma(const Args& a, MmaRing& st, int iv, const __nv_bfloat1
     }
   }
   block_sync();
-  PROF_ADD(3, t_dense);
 }
 
 // LayerNorm and relu beside a bfloat16 pack, every operation rounded on its
@@ -1042,7 +1014,6 @@ __device__ void dense_mma(const Args& a, MmaRing& st, int iv, const __nv_bfloat1
 // the heads' layout.
 template <int G>
 __device__ void layer_norm_mma(const Args& a, int iv, const float* in, float* heads, __nv_bfloat16* xb) {
-  PROF_START(t_ln);
   const int H = a.H, n = H / 32, ld = H + kActPad, ldf = H + kRowPad;
   const int lane = threadIdx.x & 31;
   for (int g = threadIdx.x >> 5; g < G; g += compute_threads() >> 5) {
@@ -1075,7 +1046,6 @@ __device__ void layer_norm_mma(const Args& a, int iv, const float* in, float* he
     }
   }
   block_sync();
-  PROF_ADD(5, t_ln);
 }
 
 // tower on the tensor cores: the input's bfloat16 tile in_b; the result in
@@ -1167,22 +1137,18 @@ __device__ void head_categorical(const Args& a, int off, int bins, float step, c
 // weights and activations, whatever W is) or categorical.
 template <int G, typename W>
 __device__ void head_value(const Args& a, int c, const float* x, float* out, float* psum, float* lg) {
-  PROF_START(t_head);
   const int bins = c == 2 ? a.reward_bins : a.value_bins;
   if (bins == 1) {
     head_scalar<G>(a, c, x, out);
-    PROF_ADD(6, t_head);
     return;
   }
   const int off = a.value_bins > 1 ? c * a.value_bins : 0;
   head_categorical<G, W>(a, off, bins, c == 2 ? a.reward_step : a.value_step, x, out, psum, lg);
-  PROF_ADD(6, t_head);
 }
 
 // logits (K, G) = wide[j]^T x + wide_b[:, j].
 template <int G, typename W>
 __device__ void head_logits(const Args& a, int j, const float* x, float* logits) {
-  PROF_START(t_head);
   for (int e = threadIdx.x; e < a.K * G; e += compute_threads()) {
     const int k = e / G, g = e % G;
     const W* w = static_cast<const W*>(a.wide) + (size_t)j * a.H * a.K + k;
@@ -1191,7 +1157,6 @@ __device__ void head_logits(const Args& a, int j, const float* x, float* logits)
     logits[e] = s + a.wide_b[k * 2 + j];
   }
   block_sync();
-  PROF_ADD(6, t_head);
 }
 
 // Floats of shared memory the categorical heads take beside the rest: partial
@@ -1688,19 +1653,11 @@ __global__ void __launch_bounds__(32 * (kMmaWarps + 1), 1) whole_search_mma_kern
     return;
   }
 
-#if WHOLE_SEARCH_PROFILE
-  if (tid < kProfRegions) s_prof[tid] = 0;
-  block_sync();
-#endif
-  PROF_START(t_launch);
   tree_init<G, bf16>(a, b0);
 
   for (int sim = 0; sim < a.S; ++sim) {
     const int new_index = sim + 1;
-    PROF_START(t_trav);
     traverse<G>(a, b0, picks);
-    PROF_ADD(1, t_trav);
-    PROF_START(t_exp);
 
     // ---- expansion: both transition types at (parent, edge), the layers in call order
     for (int e = tid; e < HG; e += compute_threads()) {
@@ -1725,8 +1682,6 @@ __global__ void __launch_bounds__(32 * (kMmaWarps + 1), 1) whole_search_mma_kern
     tower_mma<G>(a, st, F_V, hnew_b, x, u, xh, xa, xb);
     head_value<G, bf16>(a, 0, xh, s_v, psum, lgt);
     head_logits<G, bf16>(a, 0, xh, la);
-    PROF_ADD(2, t_exp);
-    PROF_START(t_back);
 
     // ---- install the new node at row new_index: the bfloat16 values the next products read
     for (int e = tid; e < HG; e += compute_threads()) {
@@ -1735,15 +1690,9 @@ __global__ void __launch_bounds__(32 * (kMmaWarps + 1), 1) whole_search_mma_kern
     }
     priors<G>(a, b0, new_index, picks.dec, lc, la);
     backup<G>(a, b0, new_index, picks, s_q, s_r, s_v);
-    PROF_ADD(7, t_back);
   }
 
   root_stats<G>(a, b0);
-  PROF_ADD(0, t_launch);
-#if WHOLE_SEARCH_PROFILE
-  __syncwarp();
-  if (tid < kProfRegions) atomicAdd(&g_prof[tid], s_prof[tid]);
-#endif
 }
 
 // The dense probe: block l runs dense_mma on layer l of the fragment copy
@@ -1916,16 +1865,6 @@ size_t whole_search_workspace_bytes(int B, int H, int K, int S, int P) {
 }
 
 const char* whole_search_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
-
-#if WHOLE_SEARCH_PROFILE
-// Thread 0's clock64 cycles by region, summed over the blocks of every launch since the last call; resets them.
-int whole_search_profile(unsigned long long* out) {
-  cudaError_t err = cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));
-  if (err != cudaSuccess) return (int)err;
-  const unsigned long long zero[kProfRegions] = {};
-  return (int)cudaMemcpyToSymbol(g_prof, zero, sizeof(zero));
-}
-#endif
 
 
 // How a launch of B searches at these widths runs: out[0..7] = blocks,
