@@ -72,7 +72,7 @@ LAUNCHES = {
     "whole_search_bf16_streamed": 0,
 }
 
-RESIDENT_MAX_H = 256  # resident: float32 2H threads and a producer warp (at most 544), bfloat16 an m-tile a warp (16)
+RESIDENT_MAX_H = 256  # resident: float32 2H threads and a producer warp (at most 544); bfloat16 16 m-tiles
 STREAMED_MAX_H = 512  # the streamed kernels: 2H threads under __launch_bounds__(1024); the tensor-core one, 32 m-tiles
 MAX_WIDTH = 32  # K, the child slots of a node: one warp lane each
 STREAM_CHUNK = 8  # layers per unit of zero padding in a streamed pack (JAX's largest chunk)
@@ -337,7 +337,8 @@ def search_plan(cfg: SearchConfig, hidden: int, weight_dtype: torch.dtype = torc
     (at most 544), the streamed one 2H threads under 1,024 and stages 64 KB
     tiles of rows through shared memory, and the bfloat16 libraries take
     their tensor-core fragments by 16-row k-steps in m-tiles of 16 outputs,
-    a warp each (resident: 16 warps, H <= 256; streamed: H <= 512). So a
+    at most 2 a warp (resident: 8 warps, H <= 256) or 3 (streamed: 12
+    warps, H <= 512). So a
     bfloat16 pack stays resident exactly where a float32 one does, as in
     JAX's plan. Shared memory never binds below those limits (at H=512 with
     512 bins, float32 tiles: 169 KB of 227 KB), nor do the batch (any size

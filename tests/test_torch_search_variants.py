@@ -10,7 +10,9 @@ kernel module, against the JAX package on the CPU.
 - Streamed packs give bit-identical searches to resident ones in the plain
   version, and agree with JAX's streamed interpret kernel.
 - ``search_plan`` makes JAX ``pallas_search_plan``'s resident / streamed
-  decisions (``tests/test_pallas_search.py``'s configs and the hidden-512 ones).
+  decisions (``tests/test_pallas_search.py``'s configs and the hidden-512
+  ones; bfloat16 resident at every multiple of 32 up to 256), and it and the
+  wrapper's input check refuse exactly what ``kernel_limits`` refuses.
 - A greedy segment through ``self_play._make_search`` with
   ``search_weight_dtype="bfloat16"`` runs the bfloat16 plain version.
 
