@@ -312,7 +312,10 @@ def kernel_limits(cfg: SearchConfig, hidden: int, weight_dtype: torch.dtype = to
     version takes any shape in the scope."""
     k = max(cfg.num_actions, cfg.codebook_size)
     if not in_scope(cfg):
-        return "the config is outside the kernel's scope (needs PUCT root selection, argmax chance selection and pw_c=None)"
+        return (
+            "the config is outside the kernel's scope (needs PUCT root selection, argmax chance selection and "
+            "pw_c=None)"
+        )
     if weight_dtype not in (torch.float32, torch.bfloat16):
         return f"the kernel takes float32 or bfloat16 weight packs (got {weight_dtype})"
     if hidden % 32 or not 32 <= hidden <= STREAMED_MAX_H:
