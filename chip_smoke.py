@@ -191,18 +191,28 @@ WIDE_SEARCH_BATCHES = (BATCH, REANALYZE_EPISODES * WIDE_SEGMENT_MOVES, DEEP_EVAL
 # A reset: the reseed's Threefry 69, two spawns of 72 + 8 + 1 + 2 + 3, episode
 # and spawn counters 2. The largest tile can wait for a reset or the end.
 ROLLOUT_MIN_OPS = {"step": 89, "moved": 89, "reset": 243}
+# A launch that derives its boards' seeds: one more Threefry of which only word 0 is used, a board.
+ROLLOUT_SEED_MIN_OPS = 69
 # What csrc/random_rollout.cu spends, one per C operator of its source: not a
-# bound, but the work whose rate says how well the kernel issues.
-# A Threefry-2x32 is 79 (2 for the third key word, 2 to add the key, 20 rounds
-# of add / rotate / xor, 5 key injections of 3 adds).
-# Every step: the action's Threefry and its mask 80; orient 22 and orient back
-# 22 (8 byte permutes to transpose, 4 to mirror, 8 selects, 2 bit tests); the
-# slide 112 (4 rows of 4 cells: extract 2, two compares, place or merge 3);
-# moved 8; per-byte maximum 4; end-of-game test 49; loop 2.
-# A step that moved the board: the spawn's Threefry 79, the spawn 147 (count
-# the empty cells 16, rank and tile 3, 16 cells of 8), reward and counter 3.
-# A reset: the reseed's Threefry 79, two spawns of 79 + 147, bookkeeping 5.
-ROLLOUT_SOURCE_OPS = {"step": 299, "moved": 229, "reset": 536}
+# bound, but the work whose rate says how well the kernel issues. A Threefry-2x32
+# is 79 (2 for the third key word, 2 to add the key, 20 rounds of add / rotate /
+# xor, 5 key injections of 3 adds); a table read 3 (index, address, load); a
+# transpose of the 4-bit board 14 (2 byte permutes, 2 nibble swaps of 6).
+# Every step 123: the action's Threefry and its mask 80; the loop 2; the path
+# test 1; the move 35 (transpose 14, bit test 2, 2 selects, the table's offset
+# 3, four table reads 12, 2 byte permutes to join the rows); moved 4; the reset
+# test 1.
+# A step that moved the board 154: the spawn's Threefry 79; settling the move
+# 30 (transpose back 14, bit test 2, 2 selects, 2 byte permutes for the scores,
+# the 15 flag 3, the score 7); the spawn 39 (empty-cell masks 12, prefix
+# counts 2, counts 3, rank 1, word 2, want 2, its zero-nibble test 7, the tile
+# 6, placing it 4); reward and counter 3; the empty-cell test 1; the exact
+# path's test 2.
+# A step whose spawn filled the last empty cell 34: the neighbour test.
+# A reset 333: the largest cell 16, counters 2, the reseed's Threefry 79, two
+# spawns of 79 + 39.
+ROLLOUT_SOURCE_OPS = {"step": 123, "moved": 154, "full": 34, "reset": 333}
+ROLLOUT_SEED_OPS = 79  # a launch that derives its seeds: the derivation's Threefry, a board
 INT32_LANES_PER_SM = 64  # Hopper: 4 partitions of 16 INT32 lanes
 # FP32 (non-tensor-core) and dense bf16 tensor-core peaks by SKU, NVIDIA data sheets (at the full power limit).
 FP32_TFLOPS = {"H100 SXM": 67.0, "H100 NVL": 60.0, "H100 PCIe": 51.0, "H200": 67.0}
@@ -653,53 +663,72 @@ def rollout_seeds(device) -> torch.Tensor:
 
 
 def check_random_rollout(device) -> dict:
-    """The rollout kernel vs its plain version at the benchmark's size, then their times and the bound."""
+    """The rollout kernel in both launch modes (given seeds, seeds derived in
+    the launch) vs its plain version at the benchmark's size, then their times
+    and the bound."""
     seeds = rollout_seeds(device)
-    out = rk.rollout_kernel(seeds, ROLLOUT_STEPS)
+    outs = {
+        "given seeds": rk.rollout_kernel(seeds, ROLLOUT_STEPS),
+        "derived seeds": rk.rollout_kernel_from_run_seed(SEED, ROLLOUT_BOARDS, ROLLOUT_STEPS, device),
+    }
     torch.cuda.synchronize()
-    ref, moved = rk.random_rollout_reference_counted(seeds, ROLLOUT_STEPS)
+    ref, counts = rk.random_rollout_reference_counted(seeds, ROLLOUT_STEPS)
     torch.cuda.synchronize()
     max_err = 0.0
-    for name, got, want in zip(("boards", "episodes", "reward_sum", "max_tile"), out, ref):
-        if got.shape != want.shape or got.dtype != want.dtype:
-            fail(f"random_rollout: {name} is {got.dtype} {tuple(got.shape)}, not {want.dtype} {tuple(want.shape)}")
-        max_err = max(max_err, float((got.double() - want.double()).abs().max()))
-        if not torch.equal(got, want):
-            n_diff = int((got != want).sum())
-            fail(f"random_rollout: {name} differs from the plain version on {n_diff} of {got.numel()} entries")
+    for mode, out in outs.items():
+        for name, got, want in zip(("boards", "episodes", "reward_sum", "max_tile"), out, ref):
+            if got.shape != want.shape or got.dtype != want.dtype:
+                fail(f"random_rollout ({mode}): {name} is {got.dtype} {tuple(got.shape)}, not {want.dtype} "
+                     f"{tuple(want.shape)}")  # fmt: skip
+            max_err = max(max_err, float((got.double() - want.double()).abs().max()))
+            if not torch.equal(got, want):
+                n_diff = int((got != want).sum())
+                fail(f"random_rollout ({mode}): {name} differs from the plain version on {n_diff} of {got.numel()} "
+                     "entries")  # fmt: skip
+    out = outs["derived seeds"]
     episodes = int(out[1].sum())
     print(
         f"random_rollout: boards, episodes, reward sums and max tiles equal to the plain version on {ROLLOUT_BOARDS} "
-        f"boards x {ROLLOUT_STEPS} steps; {episodes} games ended, mean reward sum {float(out[2].mean()):.1f}, "
-        f"largest tile {int(out[3].max())}"
+        f"boards x {ROLLOUT_STEPS} steps, with seeds given and with seeds derived in the launch; {episodes} games "
+        f"ended, mean reward sum {float(out[2].mean()):.1f}, largest tile {int(out[3].max())}"
     )
     if episodes == 0:
         fail("random_rollout: no game ended, so the reset branch was not compared")
 
-    ms = cuda_ms(lambda: rk.rollout_kernel(seeds, ROLLOUT_STEPS), reps=5)
+    given_ms = cuda_ms(lambda: rk.rollout_kernel(seeds, ROLLOUT_STEPS), reps=5)
+    ms = cuda_ms(lambda: rk.rollout_kernel_from_run_seed(SEED, ROLLOUT_BOARDS, ROLLOUT_STEPS, device), reps=5)
     plain_ms = cuda_ms(lambda: rk.random_rollout_reference(seeds, ROLLOUT_STEPS), reps=3, warmup=0)
     steps = ROLLOUT_BOARDS * ROLLOUT_STEPS
-    work = {"step": steps, "moved": moved, "reset": episodes}  # what this run's data asked of each branch
-    ops = sum(ROLLOUT_MIN_OPS[k] * n for k, n in work.items())
-    source_ops = sum(ROLLOUT_SOURCE_OPS[k] * n for k, n in work.items())
+    work = {"step": steps, "moved": counts["moved"], "full": counts["full"], "reset": episodes}  # this run's data
     sms, clock = torch.cuda.get_device_properties(0).multi_processor_count, max_sm_clock_hz()
     int_rate = sms * INT32_LANES_PER_SM * clock
-    op_ms = ops / int_rate * 1e3
-    io_bytes = seeds.numel() * seeds.element_size() + sum(t.numel() * t.element_size() for t in out)
-    byte_ms = io_bytes / (HBM_TBPS[sku(torch.cuda.get_device_name(0))] * 1e12) * 1e3
-    bound_ms = max(op_ms, byte_ms)
+    out_bytes = sum(t.numel() * t.element_size() for t in out)
+    hbm = HBM_TBPS[sku(torch.cuda.get_device_name(0))] * 1e12
+    bounds = {}
+    for mode, derived in (("given seeds", False), ("derived seeds", True)):
+        ops = sum(ROLLOUT_MIN_OPS[k] * work[k] for k in ROLLOUT_MIN_OPS) + derived * ROLLOUT_SEED_MIN_OPS * ROLLOUT_BOARDS
+        source_ops = sum(ROLLOUT_SOURCE_OPS[k] * n for k, n in work.items()) + derived * ROLLOUT_SEED_OPS * ROLLOUT_BOARDS
+        io_bytes = out_bytes + (0 if derived else seeds.numel() * seeds.element_size())
+        op_ms, byte_ms = ops / int_rate * 1e3, io_bytes / hbm * 1e3
+        bounds[mode] = (max(op_ms, byte_ms), op_ms >= byte_ms)
+        kernel_ms = ms if derived else given_ms
+        print(
+            f"random_rollout ({mode}): kernel {kernel_ms:.4f} ms ({steps / kernel_ms * 1e3:.4g} env-steps/s), bound "
+            f"{bounds[mode][0]:.4f} ms (the kernel takes {kernel_ms / bounds[mode][0]:.2f}x that): {ops / steps:.1f} "
+            f"integer operations per step that the rollout's definition forces over {sms} SMs x {INT32_LANES_PER_SM} "
+            f"INT32 lanes x {clock / 1e6:.0f} MHz (nvidia-smi clocks.max.sm) = {int_rate:.4g} op/s; {io_bytes} B take "
+            f"{byte_ms:.5f} ms"
+        )
+        source_ms = source_ops / int_rate * 1e3
+        print(
+            f"random_rollout ({mode}): its source spends {source_ops / steps:.1f} operations per step, "
+            f"{source_ms:.4f} ms at that rate: the kernel issues them at {source_ms / kernel_ms:.2f} of the INT32 rate "
+            f"(no bound: three-input instructions do some pairs in one)"
+        )
     print(
-        f"random_rollout: kernel {ms:.4f} ms ({steps / ms * 1e3:.4g} env-steps/s), plain {plain_ms:.1f} ms, "
-        f"bound {bound_ms:.4f} ms (the kernel takes {ms / bound_ms:.2f}x that): {ops / steps:.1f} integer operations "
-        f"per step that the rollout's definition forces ({moved / steps:.3f} of the steps moved a board, {episodes} "
-        f"resets) over {sms} SMs x {INT32_LANES_PER_SM} INT32 lanes x {clock / 1e6:.0f} MHz (nvidia-smi "
-        f"clocks.max.sm) = {int_rate:.4g} op/s; {io_bytes} B take {byte_ms:.5f} ms"
-    )
-    source_ms = source_ops / int_rate * 1e3
-    print(
-        f"random_rollout: its source spends {source_ops / steps:.1f} operations per step, {source_ms:.4f} ms at that "
-        f"rate: the kernel issues them at {source_ms / ms:.2f} of the INT32 rate (no bound: three-input instructions "
-        f"do some pairs in one)"
+        f"random_rollout: the data asked {counts['moved'] / steps:.3f} of the steps to spawn, "
+        f"{counts['full'] / steps:.4f} to test neighbours and {episodes / steps:.5f} to reset; plain version "
+        f"{plain_ms:.1f} ms"
     )
     return {
         "name": "random_rollout",
@@ -707,12 +736,75 @@ def check_random_rollout(device) -> dict:
         "source": "simulate_2048_tpu_torch/csrc/random_rollout.cu",
         "replaces": "simulate_2048_tpu/ops/pallas_rollout.py:188",
         "max_abs_err": max_err,
-        "ms": ms,
+        "ms": ms,  # the launch mode of the rollout path (bench): seeds derived in the launch
         "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+        "bound_ms": bounds["derived seeds"][0],
+        "bound_by": "operations" if bounds["derived seeds"][1] else "bytes",
         "library_ms": None,  # no PyTorch call plays 2048
     }
+
+
+def board_ops_boards(gen: torch.Generator) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
+    """Boards for ``check_rollout_board_ops`` (CPU): every 16-bit row of 4-bit
+    cells as each row of a board whose other rows have cells below 15 (for
+    left and right) and as each column (for up and down), and boards of
+    exponents 13-17 beside empty cells and small tiles. Returns the boards by
+    set and the action of each."""
+    rows = torch.arange(1 << 16, dtype=torch.int64)
+    cells = ((rows[:, None] >> torch.arange(0, 16, 4)) & 0xF).to(torch.int32)  # (65536, 4)
+    sets, actions = {}, []
+    for action in range(4):
+        boards = []
+        for pos in range(4):
+            board = torch.randint(0, 15, (rows.numel(), 4, 4), generator=gen, dtype=torch.int32)
+            board *= torch.rand(board.shape, generator=gen) < torch.rand(rows.numel(), 1, 1, generator=gen) * 1.3
+            board[:, pos] = cells
+            boards.append(board.transpose(1, 2) if action % 2 else board)  # up and down slide columns
+        sets[f"every row, action {action}"] = torch.cat(boards)
+        actions.append(torch.full((4 * rows.numel(),), action, dtype=torch.int32))
+    n = 1 << 16
+    values = torch.tensor([0, 1, 2, 13, 14, 15, 16, 17], dtype=torch.int32)
+    high = values[torch.multinomial(torch.tensor([3.0, 1, 1, 2, 2, 2, 2, 2]), n * 16, True, generator=gen)]
+    sets["exponents 13-17"] = high.reshape(n, 4, 4)
+    sets["exponents 13-14"] = torch.randint(13, 15, (n, 4, 4), generator=gen, dtype=torch.int32) * (
+        torch.rand(n, 4, 4, generator=gen) < 0.8
+    )  # below 15 (the table's path): their merges make 15s
+    actions += [torch.randint(0, 4, (n,), generator=gen, dtype=torch.int32) for _ in range(2)]
+    return sets, torch.cat(actions)
+
+
+def check_rollout_board_ops(device) -> None:
+    """The rollout kernel's own move, spawn and end test (``rk.board_ops_kernel``,
+    the kernel's device functions in a launch of their own) against
+    ``ops/board.py`` ``apply_action`` / ``spawn_tile`` / ``is_done`` and the
+    exact path's rule (a board with a cell of 15 or more), on every 16-bit row
+    in every direction and on boards that reach exponents 15-17."""
+    gen = torch.Generator().manual_seed(SEED)
+    sets, actions = board_ops_boards(gen)
+    boards = torch.cat(list(sets.values())).to(device)
+    actions = actions.to(device)
+    bits = torch.randint(0, 1 << 32, (2, boards.shape[0]), generator=gen, dtype=torch.int64).to(device)
+    got = rk.board_ops_kernel(boards, actions, bits[0], bits[1])
+    want = rk.board_ops_reference(boards, actions, bits[0], bits[1])
+    torch.cuda.synchronize()
+    for name, g, w in zip(("slid boards", "scores", "spawned boards", "finished", "exact"), got, want):
+        if not torch.equal(g.to(w.dtype), w):
+            fail(f"random_rollout board ops: {name} differ from ops/board.py on {int((g.to(w.dtype) != w).sum())} "
+                 f"of {w.numel()} entries")  # fmt: skip
+    start = 0
+    for name, b in sets.items():
+        part = slice(start, start + b.shape[0])
+        start += b.shape[0]
+        on_table = int((b.flatten(1).amax(1) < 15).sum())
+        print(
+            f"random_rollout board ops ({name}): {b.shape[0]} boards equal to ops/board.py (slid board, score, "
+            f"spawned board, finished, exact path); {on_table} slid by the table, {int(got[4][part].sum())} left on "
+            f"the exact path, {int(got[3][part].sum())} finished, largest exponent after the spawn "
+            f"{int(got[2][part].max())}"
+        )
+    high = slice(start - 2 * (1 << 16), start)
+    if int(got[2][high].max()) < 17 or not bool(got[4][start - (1 << 16):].any()):
+        fail("random_rollout board ops: the exact path or a 15 made by the table was not reached")
 
 
 def drive_rollout_path() -> int:
@@ -729,7 +821,7 @@ def drive_rollout_path() -> int:
         fail(f"rollout path: env-steps/s is {result['value']}, the kernel's ms {result['kernel_ms']}")
     print(
         f"rollout path: {result['value']:.4g} env-steps/s, best of {result['reps']} repetitions "
-        f"({1e3 * min(result['times_s']):.3f} ms: seeds, one kernel launch and the fetch of the episode count; "
+        f"({1e3 * min(result['times_s']):.3f} ms: one kernel launch deriving its seeds, the episode sum and its fetch; "
         f"the kernel alone {result['kernel_ms']:.4f} ms)"
     )
     return launches
@@ -1505,6 +1597,7 @@ def main() -> None:
         ),  # fmt: skip
     }
     kernels["ring_all_reduce"] = check_ring_all_reduce(device)
+    check_rollout_board_ops(device)
     check_whole_search(device, "whole_search_streamed", 256, 128, hidden=WIDE_HIDDEN, stream_chunk=sk.STREAM_CHUNK)
     for library in TENSOR_CORE_LIBRARIES:
         check_dense_probe(device, library)
