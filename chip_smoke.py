@@ -9,8 +9,12 @@ code != 0, no final ``ok`` line) if any phase fails:
    per weight variant) and prints the build seconds;
 3. holds each kernel against its plain PyTorch version at the shapes the
    main paths give it: the random-rollout kernel at 65,536 boards x 128
-   steps (all four outputs equal, and games must have ended so that the
-   reset branch ran), and the whole-search kernel at the full preset (H=256,
+   steps, with the seeds given and with the seeds derived in the launch (all
+   four outputs equal, and games must have ended so that the reset branch
+   ran), and its own move, spawn and end test (``rk.board_ops_kernel``)
+   against ``ops/board.py`` on every 16-bit row of 4-bit cells in every
+   direction and on boards of exponents 13-17, which take its exact path;
+   and the whole-search kernel at the full preset (H=256,
    10 residual blocks, 100 simulations, depth cap 32) with seeded random
    weights: with scalar heads on B=256 searches a launch (the evaluation
    path), and with categorical heads of 256 value and 128 reward bins at
@@ -57,7 +61,8 @@ code != 0, no final ``ok`` line) if any phase fails:
    spill in the float32 resident or a tensor-core library fails the
    run), the integer
    operations a rollout's definition forces (beside it, what the rollout
-   kernel's source spends, as its share of the INT32 instruction rate), and the
+   kernel's source spends, as its share of the INT32 instruction rate; the
+   rollout kernel timed over 10 launches enqueued behind a sleep), and the
    bytes an all-reduce must move (which the one-pass kernel moves and no
    more; float32 at N = 2, 4, 8 and bf16 at N = 4, the kernel and the
    PyTorch call that computes the same sum timed over 20 calls enqueued
@@ -68,7 +73,7 @@ code != 0, no final ``ok`` line) if any phase fails:
    game and position for position;
 6. drives the rollout path, ``simulate_2048_tpu_torch.bench`` on the card
    (65,536 boards x 128 steps, a warm-up and five repetitions: six kernel
-   launches), and prints its JSON line;
+   launches, each deriving its seeds), and prints its JSON line;
 7. drives the evaluation path, ``evaluate_games`` at ``default_config()`` on
    256 games with ``eval_max_moves`` capped, with the launch counts set to 0
    just before; the kernel must have launched once per move played;
@@ -158,6 +163,7 @@ BATCH = 256
 MAIN_PATH_MAX_MOVES = 100  # evaluation path: moves per game
 # Rollout path: the benchmark's own size.
 ROLLOUT_BOARDS, ROLLOUT_STEPS = 65_536, 128
+ROLLOUT_CALLS = 10  # launches per CUDA-event timing of the rollout kernel, enqueued behind a sleep
 # Training path, depth cut (widths, games, batch and unroll are the preset's):
 TRAIN_SEGMENT_MOVES = 24  # max_trajectory_length
 TRAIN_STEPS = 12  # the first has learning rate 0 (warm-up starts there)
@@ -695,8 +701,11 @@ def check_random_rollout(device) -> dict:
     if episodes == 0:
         fail("random_rollout: no game ended, so the reset branch was not compared")
 
-    given_ms = cuda_ms(lambda: rk.rollout_kernel(seeds, ROLLOUT_STEPS), reps=5)
-    ms = cuda_ms(lambda: rk.rollout_kernel_from_run_seed(SEED, ROLLOUT_BOARDS, ROLLOUT_STEPS, device), reps=5)
+    # Device time alone: the wrapper's host work (~0.02 ms) is as long as a tenth of the kernel.
+    given_ms = cuda_ms(lambda: rk.rollout_kernel(seeds, ROLLOUT_STEPS), reps=5, calls=ROLLOUT_CALLS)
+    ms = cuda_ms(
+        lambda: rk.rollout_kernel_from_run_seed(SEED, ROLLOUT_BOARDS, ROLLOUT_STEPS, device), reps=5, calls=ROLLOUT_CALLS
+    )
     plain_ms = cuda_ms(lambda: rk.random_rollout_reference(seeds, ROLLOUT_STEPS), reps=3, warmup=0)
     steps = ROLLOUT_BOARDS * ROLLOUT_STEPS
     work = {"step": steps, "moved": counts["moved"], "full": counts["full"], "reset": episodes}  # this run's data

@@ -6,9 +6,9 @@ env-steps per second.
 
 - On the GPU (the default; raises when there is none): 65,536 boards x 128
   steps through the CUDA rollout kernel (``ops/rollout_kernel.py``). A timed
-  repetition is everything a caller pays for: the per-board seeds derived
-  from the run seed, one kernel launch, and the fetch of the number of
-  finished episodes to the host, which ends the repetition.
+  repetition is everything a caller pays for: one kernel launch, which
+  derives the per-board seeds from the run seed itself, the sum of the
+  finished episodes, and its fetch to the host, which ends the repetition.
 - On the CPU (``--device cpu``): 4,096 boards x 32 steps through the plain
   stepwise rollout (``ops.rollout.random_rollout``).
 
@@ -42,20 +42,17 @@ def _power_limit_w() -> float | None:
 
 
 def gpu_repetition(seed: int, num_envs: int, num_steps: int, device) -> tuple[int, float]:
-    """One repetition on the card: the seeds of ``num_envs`` boards from the
-    run ``seed``, one kernel launch of ``num_steps`` steps, and the fetch of
-    the episode count, which waits for the device. Returns ``(episodes
-    finished, ms of the kernel alone by CUDA events)``."""
+    """One repetition on the card: one kernel launch of ``num_steps`` steps of
+    ``num_envs`` boards whose seeds it derives from the run ``seed``, and the
+    fetch of the episode count, which waits for the device. Returns
+    ``(episodes finished, ms of the kernel alone by CUDA events)``."""
     import torch
 
-    from simulate_2048_tpu_torch.ops import rng as tfrng
-    from simulate_2048_tpu_torch.ops.rollout_kernel import rollout_kernel
+    from simulate_2048_tpu_torch.ops.rollout_kernel import rollout_kernel_from_run_seed
 
-    index = torch.arange(num_envs, dtype=torch.int64, device=device)
-    seeds = tfrng.derive_game_seeds(seed, index, torch.zeros_like(index))
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    _, episodes, _, _ = rollout_kernel(seeds, num_steps)
+    _, episodes, _, _ = rollout_kernel_from_run_seed(seed, num_envs, num_steps, device)
     end.record()
     finished = int(episodes.sum())
     return finished, start.elapsed_time(end)

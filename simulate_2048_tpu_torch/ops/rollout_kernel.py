@@ -14,7 +14,7 @@ Counterpart of the JAX package's ``ops/pallas_rollout.py``
   with, built by the port's own ``ops/board.py`` ``slide_rows_left``, and
   :func:`board_ops_kernel`, the kernel's own move, spawn and end test on
   given boards, for checks;
-- ``LAUNCHES``, the count of kernel launches.
+- ``LAUNCHES`` and ``CHECK_LAUNCHES``, the counts of kernel launches.
 
 Both return, per board: the final board, the episodes finished, the reward
 sum (float32, added in step order) and the largest tile seen. The largest
@@ -36,9 +36,10 @@ from simulate_2048_tpu_torch.ops import board as board_ops
 from simulate_2048_tpu_torch.ops import rng as tfrng
 from simulate_2048_tpu_torch.ops.rollout import random_actions
 
-# Launches of the CUDA kernels by the wrappers (and nowhere else): the rollout,
-# and the check entry that applies its board ops to given boards.
-LAUNCHES = {"random_rollout": 0, "random_rollout_board_ops": 0}
+# Launches of the CUDA kernel by the wrappers (and nowhere else).
+LAUNCHES = {"random_rollout": 0}
+# Launches of the check entry that applies the kernel's board ops to given boards.
+CHECK_LAUNCHES = {"random_rollout_board_ops": 0}
 
 # The table of slid rows: a row of four 4-bit cells (cell c at bits 4c) is an
 # index; its entry holds the slid row in bits 0-15, a quarter of the slide's
@@ -224,7 +225,7 @@ def board_ops_kernel(
         )  # fmt: skip
     if err != 0:
         raise RuntimeError(f"random_rollout board ops launch failed: {lib.random_rollout_error_string(err).decode()}")
-    LAUNCHES["random_rollout_board_ops"] += 1
+    CHECK_LAUNCHES["random_rollout_board_ops"] += 1
     return slid, score, spawned, done.bool(), exact.bool()
 
 
