@@ -112,8 +112,8 @@ code != 0, no final ``ok`` line) if any phase fails:
    ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--profile`` also prints the device time by kernel, the device kernels
-launched and the device's idle share over a few evaluation moves, self-play
-moves and learner steps, one reanalyze pass and one ``bench`` repetition at
+launched and the device's idle share over 20 ``bench`` repetitions, a few
+evaluation moves, self-play moves and learner steps and one reanalyze pass at
 full width, and the whole-search kernel's rate at 256 to 2,048 searches a launch.
 Exits non-zero when CUDA is unavailable.
 """
@@ -1520,7 +1520,14 @@ def profile_device(label: str, fn, units: int, unit: str) -> None:
 
 
 def profile_paths(device, moves: int = 5, steps: int = 3) -> None:
-    """Profiles of a few evaluation moves, self-play moves and learner steps at full width."""
+    """Profiles of 20 ``bench`` repetitions, a few evaluation moves, self-play moves and learner steps at full width."""
+    reps = 20
+    profile_device(
+        "rollout",
+        lambda: [bench.gpu_repetition(SEED, ROLLOUT_BOARDS, ROLLOUT_STEPS, device) for _ in range(reps)],
+        reps,
+        "repetition",
+    )
     config = dataclasses.replace(default_config(), eval_max_moves=moves)
     network = network_from_config(config, torch.Generator().manual_seed(SEED), device)
     profile_device("evaluation", lambda: _evaluate_rollout(network, SEED, config, BATCH, device), moves, "move")
@@ -1544,10 +1551,6 @@ def profile_paths(device, moves: int = 5, steps: int = 3) -> None:
         reanalyze.reanalyze_pass(trainer.buffer, trainer.network, 0, train_config, gen)
 
     profile_device("reanalyze", one_pass, 1, "pass")
-
-    profile_device(
-        "rollout", lambda: bench.gpu_repetition(SEED, ROLLOUT_BOARDS, ROLLOUT_STEPS, device), 1, "repetition"
-    )
 
     # The whole-search kernel's rate against the searches in one launch (reanalyze.SEARCH_BATCH is one of them).
     _, cfg, _, packed, roots = full_width_inputs(device, 256, 128)

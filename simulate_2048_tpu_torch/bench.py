@@ -54,7 +54,7 @@ def gpu_repetition(seed: int, num_envs: int, num_steps: int, device) -> tuple[in
     start.record()
     _, episodes, _, _ = rollout_kernel_from_run_seed(seed, num_envs, num_steps, device)
     end.record()
-    finished = int(episodes.sum())
+    finished = int(episodes.sum(dtype=torch.int32))  # in int32: no cast kernel before the sum
     return finished, start.elapsed_time(end)
 
 
