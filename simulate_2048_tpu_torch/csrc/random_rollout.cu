@@ -32,9 +32,8 @@
 //   tiles never shrink within an episode.
 // A 15 cannot be slid by a 4-bit table (two 15s make 16), so a board that
 // reaches 15 is carried exactly for the rest of its episode as four words of
-// byte cells, slid and spawned cell by cell (the design of the kernel's first
-// version). Random play rarely gets there; board_ops_kernel below lets a
-// check reach that path.
+// byte cells, slid and spawned cell by cell. Random play rarely gets there;
+// board_ops_kernel below lets a check reach that path.
 //
 // With no seeds given, thread i derives its board's seed from the run seed,
 // derive_game_seeds(run_seed, i, 0) of ops/rng.py, inside the launch.
@@ -53,23 +52,6 @@ constexpr uint32_t kFourThreshold = 429496730u;  // P(spawn a 4) = 0.1 as a uint
 constexpr uint32_t kParity = 0x1BD11BDAu;
 constexpr int kThreads = 128;
 constexpr uint32_t kTableRows = 1u << 16;  // entries a direction
-
-#ifndef RANDOM_ROLLOUT_PROFILE
-#define RANDOM_ROLLOUT_PROFILE 0
-#endif
-#if RANDOM_ROLLOUT_PROFILE
-// Thread 0's clock64 by region: action Threefry, move, spawn, end test, reset;
-// then the whole loop.
-__device__ long long g_profile[6];
-#define PROF_MARK(region)                 \
-  if (idx == 0) {                         \
-    const long long now_ = clock64();     \
-    prof[region] += now_ - prof_t;        \
-    prof_t = now_;                        \
-  }
-#else
-#define PROF_MARK(region)
-#endif
 
 #define TF_ROUND(d)                 \
   x0 += x1;                         \
@@ -366,10 +348,6 @@ random_rollout_kernel(const long long* __restrict__ seeds, uint32_t run_seed, co
                       int* __restrict__ max_tile, int B, int num_steps) {
   const int idx = blockIdx.x * kThreads + threadIdx.x;
   if (idx >= B) return;
-#if RANDOM_ROLLOUT_PROFILE
-  long long prof[6] = {0, 0, 0, 0, 0, 0};
-  long long prof_t = clock64();
-#endif
 
   uint32_t game_seed, unused;
   if (seeds != nullptr) {
@@ -386,21 +364,15 @@ random_rollout_kernel(const long long* __restrict__ seeds, uint32_t run_seed, co
   int last_reset = -1;  // the step of the last reset
   float reward = 0.f;
   uint32_t max_exp = 0u;  // the largest cell of the boards that ended
-#if RANDOM_ROLLOUT_PROFILE
-  const long long loop_start = clock64();
-  prof_t = loop_start;
-#endif
 
   for (int t = 0; t < num_steps; ++t) {
     uint32_t a0, a1;
     threefry2x32(kActionStream, game_seed, (uint32_t)t, spawn_count, a0, a1);
     const uint32_t action = a0 & 3u;
-    PROF_MARK(0)
 
     bool done = false;
     if (!exact) {
       const Slide s = slide(board, action, table);
-      PROF_MARK(1)
       if (moved(s)) {
         uint32_t b0, b1, score;
         bool reaches_15;
@@ -409,13 +381,11 @@ random_rollout_kernel(const long long* __restrict__ seeds, uint32_t run_seed, co
         const uint32_t num_empty = spawn(board, b0, b1);
         reward += (float)score;
         spawn_count += 1u;
-        PROF_MARK(2)
         done = finished(board, num_empty);
         if (!done && reaches_15) {
           wide = widen(board);
           exact = true;
         }
-        PROF_MARK(3)
       }
     } else {
       uint32_t score;
@@ -444,12 +414,8 @@ random_rollout_kernel(const long long* __restrict__ seeds, uint32_t run_seed, co
       exact = false;
       spawn_count = 2u;
       last_reset = t;
-      PROF_MARK(4)
     }
   }
-#if RANDOM_ROLLOUT_PROFILE
-  prof[5] = clock64() - loop_start;
-#endif
 
   // Tiles never shrink within an episode: the board's own largest cell is the
   // largest it has had, unless no step has seen this board yet.
@@ -462,12 +428,6 @@ random_rollout_kernel(const long long* __restrict__ seeds, uint32_t run_seed, co
   episodes[idx] = finished_games;
   reward_sum[idx] = reward;
   max_tile[idx] = max_exp > 0u ? (1 << max_exp) : 0;
-#if RANDOM_ROLLOUT_PROFILE
-  if (idx == 0) {
-#pragma unroll
-    for (int i = 0; i < 6; ++i) g_profile[i] = prof[i];
-  }
-#endif
 }
 
 // The rollout kernel's own move, spawn and end test on given boards, as one
@@ -497,9 +457,13 @@ board_ops_kernel(const int* __restrict__ boards, const int* __restrict__ actions
     b = settle(s, action, score, reaches_15);
     store(b, slid_out + (size_t)idx * 16);
     const uint32_t num_empty = spawn(b, b0, b1);
-    store(b, spawned_out + (size_t)idx * 16);
     done = finished(b, num_empty);
     exact = reaches_15;
+    if (exact) {
+      store(widen(b), spawned_out + (size_t)idx * 16);  // as the rollout carries it from here
+    } else {
+      store(b, spawned_out + (size_t)idx * 16);
+    }
   } else {
     Bytes b;
     for (int r = 0; r < 4; ++r) {
@@ -550,13 +514,5 @@ int random_rollout_board_ops_launch(const int* boards, const int* actions, const
                                                     exact, N);
   return (int)cudaGetLastError();
 }
-
-#if RANDOM_ROLLOUT_PROFILE
-// Thread 0's clock64 by region of the last launch (6 values), copied to host.
-int random_rollout_profile_read(long long* host) {
-  cudaDeviceSynchronize();
-  return (int)cudaMemcpyFromSymbol(host, g_profile, sizeof(long long) * 6);
-}
-#endif
 
 }  // extern "C"

@@ -27,6 +27,7 @@ makes is seen here and not there.
 from __future__ import annotations
 
 import ctypes
+from functools import cache
 
 import torch
 
@@ -91,7 +92,7 @@ def rollout_kernel(seeds: torch.Tensor, num_steps: int) -> RolloutOutputs:
     any batch size."""
     if seeds.device.type == "cpu":
         return random_rollout_reference(seeds, num_steps)
-    _check_cuda("rollout_kernel", seeds.device, num_steps)
+    _require_cuda("rollout_kernel", seeds.device)
     if seeds.dim() != 1 or seeds.dtype != torch.int64 or not seeds.is_contiguous():
         raise ValueError("rollout_kernel takes a contiguous (B,) int64 tensor of uint32 seeds")
     return _launch_rollout(seeds, 0, seeds.shape[0], num_steps, seeds.device)
@@ -107,22 +108,22 @@ def rollout_kernel_from_run_seed(
     if device.type == "cpu":
         index = torch.arange(num_envs, dtype=torch.int64)
         return random_rollout_reference(tfrng.derive_game_seeds(run_seed, index, torch.zeros_like(index)), num_steps)
-    _check_cuda("rollout_kernel_from_run_seed", device, num_steps)
+    _require_cuda("rollout_kernel_from_run_seed", device)
     if num_envs < 0:
         raise ValueError(f"num_envs must not be negative (got {num_envs})")
     return _launch_rollout(None, int(run_seed) & tfrng.MASK32, num_envs, num_steps, device)
 
 
-def _check_cuda(name: str, device: torch.device, num_steps: int) -> None:
+def _require_cuda(name: str, device: torch.device) -> None:
     if device.type != "cuda":
         raise ValueError(f"{name} runs on CUDA or CPU tensors, not {device}")
-    if num_steps < 0:
-        raise ValueError(f"num_steps must not be negative (got {num_steps})")
 
 
 def _launch_rollout(
     seeds: torch.Tensor | None, run_seed: int, b: int, num_steps: int, dev: torch.device
 ) -> RolloutOutputs:
+    if num_steps < 0:
+        raise ValueError(f"num_steps must not be negative (got {num_steps})")
     lib = _load()
     table = device_table(dev)
     boards = torch.empty(b, 4, 4, dtype=torch.int32, device=dev)
@@ -168,14 +169,10 @@ def decode_table(table: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch
     return slid, ((entries >> 16 & 0x7FFF) << 2).to(torch.int32), entries >> 31 == 1
 
 
-_TABLES: dict[torch.device, torch.Tensor] = {}
-
-
+@cache
 def device_table(device: torch.device) -> torch.Tensor:
     """:func:`slide_table` on ``device``, built and copied there once."""
-    if device not in _TABLES:
-        _TABLES[device] = slide_table().to(device).contiguous()
-    return _TABLES[device]
+    return slide_table().to(device).contiguous()
 
 
 BoardOpsOutputs = tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -204,7 +201,7 @@ def board_ops_kernel(
     move, and its exact path is taken by boards random play rarely makes."""
     if boards.device.type == "cpu":
         return board_ops_reference(boards, actions, bits0, bits1)
-    _check_cuda("board_ops_kernel", boards.device, 0)
+    _require_cuda("board_ops_kernel", boards.device)
     n, dev = boards.shape[0], boards.device
     if boards.shape != (n, 4, 4) or boards.dtype != torch.int32 or not boards.is_contiguous():
         raise ValueError("board_ops_kernel takes a contiguous (N, 4, 4) int32 tensor of exponents")
