@@ -108,13 +108,34 @@ code != 0, no final ``ok`` line) if any phase fails:
    copy of the state against the single-device step on the same batch
    (loss rtol 1e-5, priorities rtol 1e-4, the applied gradient within 2^-8
    relative L2, each parameter within two Adam steps);
-12. prints one JSON line with every kernel's numbers, then
+12. runs the plain search's variants on the card: at the paper preset
+   (256/128 bins, 256 searches) PUCT, the Gumbel root, sampled chance
+   selection and argmax chance selection under progressive widening
+   (pw_c=1.0), each timed (CUDA events, median of 3) beside the kernel's
+   PUCT time, S visits, none on a zero prior, finite values; at H=64, 2
+   blocks, 16 simulations, 256 searches, each variant (and all three at
+   once) on CUDA and on the CPU from the same roots and fed draws: visit
+   counts identical in >= 99% of the searches, the CUDA call timed by
+   ``utils.profiling.time_fn``;
+13. drives the variant path, ``train_muzero`` at the training recipe's widths
+   with the Gumbel root, sampled chance selection and widening, backend
+   "auto": two 4-move segments of 256 games, two learner steps, one
+   search-mode reanalyze pass of 1,024 searches and one 4-move evaluation,
+   with the launch counts set to 0 just before: no kernel launch (the
+   evaluation search keeps sampled chance selection and widening, as in
+   the JAX package, so it is the plain search's too), finite losses,
+   changed parameters, stored policy targets (the improved policy) that
+   sum to 1 and are positive on every legal action, the ms per self-play
+   move; then the network's evaluation under the Gumbel root alone: one
+   ``whole_search_categorical`` launch per move;
+14. prints one JSON line with every kernel's numbers, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--profile`` also prints the device time by kernel, the device kernels
 launched and the device's idle share over 20 ``bench`` repetitions, a few
-evaluation moves, self-play moves and learner steps and one reanalyze pass at
-full width, and the whole-search kernel's rate at 256 to 2,048 searches a launch.
+evaluation moves, self-play moves and learner steps, one reanalyze pass and
+one call of the plain search under the Gumbel root at full width, and the
+whole-search kernel's rate at 256 to 2,048 searches a launch.
 Exits non-zero when CUDA is unavailable.
 """
 
@@ -139,11 +160,13 @@ from simulate_2048_tpu_torch import bench
 from simulate_2048_tpu_torch.env import env as envlib
 from simulate_2048_tpu_torch.models.network import network_from_config
 from simulate_2048_tpu_torch.ops import _build
+from simulate_2048_tpu_torch.ops import board as board_ops
 from simulate_2048_tpu_torch.ops import rng as tfrng
 from simulate_2048_tpu_torch.ops import rollout_kernel as rk
 from simulate_2048_tpu_torch.ops import search_kernel as sk
 from simulate_2048_tpu_torch.parallel import make_dp_train_step, make_mesh
 from simulate_2048_tpu_torch.parallel import ring
+from simulate_2048_tpu_torch.search import mcts
 from simulate_2048_tpu_torch.search.mcts import root_inputs
 from simulate_2048_tpu_torch.training.checkpoint import CheckpointManager
 from simulate_2048_tpu_torch.training.config import default_config, tiny_config
@@ -152,11 +175,13 @@ from simulate_2048_tpu_torch.training import replay as replay_lib
 from simulate_2048_tpu_torch.training.learner import TrainState, create_optimizer, learning_rate, train_step
 from simulate_2048_tpu_torch.training.self_play import (
     _evaluate_rollout,
+    _use_kernel,
     evaluate_games,
     play_segment,
     search_config_from,
 )
 from simulate_2048_tpu_torch.training.trainer import Trainer, train_muzero
+from simulate_2048_tpu_torch.utils.profiling import time_fn
 
 SEED = 2048
 BATCH = 256
@@ -1489,6 +1514,186 @@ def drive_dp_training(device, ring_ms: float) -> int:
     return launches
 
 
+VARIANT_SEARCHES = {  # the plain search's variants: SearchConfig overrides
+    "PUCT (xla)": {},
+    "Gumbel root": dict(root_selection="gumbel"),
+    "sampled chance": dict(chance_selection="sample"),
+    "argmax + widening": dict(pw_c=1.0),
+}
+VARIANT_SEGMENT_MOVES = 4
+VARIANT_STEPS = 2
+VARIANT_REANALYZE_EPISODES = reanalyze.SEARCH_BATCH // VARIANT_SEGMENT_MOVES  # one batch of 1,024 searches
+
+
+def check_variant_searches(device, kernel_ms: float) -> dict[str, float]:
+    """The plain search's variants on the card. At the paper preset (H=256,
+    10 blocks, 100 simulations, depth cap 32, 256/128 bins, 256 searches):
+    each variant's ms per call (CUDA events, median of 3) beside the
+    kernel's PUCT time ``kernel_ms``, and the exact invariants. At H=64, 2
+    blocks, 16 simulations, 256 searches: each variant on CUDA and on the
+    CPU from the same roots and the same draws (root Gumbel (B, A), chance
+    Gumbel (B, S, S + 1, K)): visit counts identical in >= 99% of the
+    searches (each differing one printed), the invariants on both, the CUDA
+    run timed by ``utils.profiling.time_fn``. Returns the full-width ms."""
+    _, cfg, network, _, roots = full_width_inputs(device, 256, 128)
+    s, b = cfg.num_simulations, roots[0].shape[0]
+    times = {}
+    for name, overrides in VARIANT_SEARCHES.items():
+        vcfg = cfg._replace(**overrides)
+        transitions = mcts.network_transitions(network, vcfg)
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        gumbel = mcts.draw_root_noise(vcfg, b, gen, device)  # None under the PUCT root (no Dirichlet noise here)
+        with torch.no_grad():
+            out = mcts.search_tree(*roots, vcfg, transitions, gumbel, generator=gen)
+            check_exact_invariants(f"plain search, {name}", out, roots[1], s, b)
+            times[name] = cuda_ms(lambda: mcts.search_tree(*roots, vcfg, transitions, gumbel, generator=gen), reps=3,
+                                  warmup=0)  # fmt: skip
+        print(f"plain search, {name}: {times[name]:.2f} ms per call of {b} searches x {s} simulations at "
+              f"H={network.hidden_size}, NB={network.num_blocks}, bins 256/128, depth cap "
+              f"{cfg.max_depth} (the kernel, PUCT: {kernel_ms:.2f} ms)")  # fmt: skip
+
+    config = dataclasses.replace(tiny_config(), num_simulations=16)
+    cpu_net = network_from_config(config, torch.Generator().manual_seed(SEED), "cpu")
+    gpu_net = copy.deepcopy(cpu_net).to(device)
+    gen = torch.Generator().manual_seed(SEED)
+    state = envlib.reset_batch(SEED, BATCH, "cpu")
+    for t in range(30):
+        state, _, _, _ = envlib.step(state, torch.randint(0, 4, (BATCH,), generator=gen))
+    obs, invalid = envlib.get_observation(state), ~envlib.get_legal_actions(state)
+    invalid[invalid.all(-1)] = False
+    base = search_config_from(config, eval_mode=True)._replace(dirichlet_fraction=0.0)
+    k = max(base.num_actions, base.codebook_size)
+    gumbel = mcts.gumbel_draws((BATCH, base.num_actions), gen, "cpu")
+    chance = mcts.gumbel_draws((BATCH, base.num_simulations, base.num_simulations + 1, k), gen, "cpu")
+    variants = {**{n: o for n, o in VARIANT_SEARCHES.items() if o}, "all three": dict(
+        root_selection="gumbel", chance_selection="sample", pw_c=1.0)}  # fmt: skip
+    prior = torch.nn.functional.pad((~invalid).float(), (0, k - base.num_actions))  # zero where the root masks
+    for name, overrides in variants.items():
+        vcfg = base._replace(**overrides)
+        cpu = mcts.batched_run_mcts(cpu_net, obs, vcfg, invalid, gumbel, chance)
+        gpu_args = (gpu_net, obs.to(device), vcfg, invalid.to(device), gumbel.to(device), chance.to(device))
+        gpu = type(cpu)(*(x.cpu() for x in mcts.batched_run_mcts(*gpu_args)))
+        stats = time_fn(lambda: mcts.batched_run_mcts(*gpu_args), warmup=1, reps=3)
+        for label, o in (("CPU", cpu), ("CUDA", gpu)):
+            check_exact_invariants(f"H=64 {name} ({label})", (o.visit_counts, o.qvalues, o.search_value), prior,
+                                   vcfg.num_simulations, BATCH)  # fmt: skip
+        differ = (cpu.visit_counts != gpu.visit_counts).any(-1)
+        for i in differ.nonzero().flatten().tolist():
+            print(f"  search {i} differs: CUDA {gpu.visit_counts[i].tolist()} CPU {cpu.visit_counts[i].tolist()}; "
+                  f"root Q CUDA {gpu.qvalues[i].tolist()} CPU {cpu.qvalues[i].tolist()}")  # fmt: skip
+        n_same = BATCH - int(differ.sum())
+        same = ~differ
+        err = float((gpu.search_value[same] - cpu.search_value[same]).abs().max())
+        print(f"plain search, {name} at H=64, NB=2, S=16, {BATCH} searches, fed draws: CUDA vs CPU {n_same}/{BATCH} "
+              f"with identical visit counts, max |root value difference| {err:.3g}; CUDA {stats['median_ms']:.2f} ms "
+              f"per call (time_fn median of 3)")  # fmt: skip
+        if n_same < BATCH - BATCH // 100:
+            fail(f"plain search, {name}: CUDA and CPU disagree in {BATCH - n_same} of {BATCH} searches")
+    return times
+
+
+def variant_config():
+    """The training recipe's widths (``training_config()``) with the three
+    search variants, backend "auto"; depth cut: two 4-move segments of 256
+    games, two learner steps, one search-mode reanalyze pass of 1,024
+    searches, one 4-move evaluation."""
+    return dataclasses.replace(
+        training_config(),
+        root_selection="gumbel",
+        chance_selection="sample",
+        pw_c=1.0,
+        search_backend="auto",
+        max_trajectory_length=VARIANT_SEGMENT_MOVES,
+        min_buffer_size=BATCH,
+        replay_buffer_size=4 * BATCH,
+        generation_interval=VARIANT_STEPS,
+        checkpoint_interval=VARIANT_STEPS,
+        eval_interval=VARIANT_STEPS,
+        eval_max_moves=VARIANT_SEGMENT_MOVES,
+        reanalyze_interval=VARIANT_STEPS - 1,
+        reanalyze_episodes=VARIANT_REANALYZE_EPISODES,
+        deep_eval_interval=None,
+    )
+
+
+def drive_variant_path(device) -> int:
+    """The variant path through ``train_muzero``: every collection and
+    reanalyze search, and the evaluation's too (its root turns to PUCT, its
+    sampled chance selection and widening stay, as in the JAX package), run
+    the plain search, so no kernel launches; then the same network's
+    evaluation under the Gumbel root alone, whose PUCT evaluation search the
+    kernel takes: one ``whole_search_categorical`` launch per move. Returns
+    that evaluation's launches."""
+    config = variant_config()
+    eval_cfg = search_config_from(config, eval_mode=True)._replace(dirichlet_fraction=0.0)
+    if _use_kernel(config, search_config_from(config), device) or _use_kernel(config, eval_cfg, device):
+        fail("variant path: the dispatch sends a variant search to the kernel")
+    for name in sk.LAUNCHES:
+        sk.LAUNCHES[name] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer = train_muzero(config, num_steps=VARIANT_STEPS, seed=SEED, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(sk.LAUNCHES)
+    if sum(launches.values()):
+        fail(f"variant path: kernel launches {launches} where every search is the plain search's")
+
+    history = trainer.get_metrics_history()
+    gens = [r for r in history if "gen/positions" in r]
+    steps = [r for r in history if "total_loss" in r]
+    evals = [r for r in history if "eval/mean_reward" in r]
+    passes = [r for r in history if "reanalyze/seconds" in r]
+    if len(gens) != 2 or len(steps) != VARIANT_STEPS or len(evals) != 1 or len(passes) != 1:
+        fail(f"variant path: {len(gens)} segments, {len(steps)} steps, {len(evals)} evaluations, {len(passes)} passes")
+    loss_terms = [k for k in steps[0] if k.endswith("_loss") or k == "codebook_entropy"]
+    if not all(torch.isfinite(torch.tensor([r[k] for k in loss_terms])).all() for r in steps):
+        fail("variant path: a loss term is not finite")
+    initial = network_from_config(config, torch.Generator().manual_seed(SEED), device)
+    changed = sum(not torch.equal(a, b) for a, b in zip(initial.parameters(), trainer.state.params))
+    if changed < len(trainer.state.params) // 2:
+        fail(f"variant path: only {changed} of {len(trainer.state.params)} parameter tensors changed")
+
+    # Stored policy targets (the improved policy, reanalysed or as collected): sum 1, positive on every legal action.
+    buffer = trainer.buffer
+    rows = slice(0, int(buffer.size))
+    t = VARIANT_SEGMENT_MOVES
+    in_ep = torch.arange(t, device=device)[None] < buffer.length[rows, None]
+    policies = buffer.policies[rows].float()
+    legal = board_ops.legal_actions_mask(buffer.boards[rows, :t].reshape(-1, t, 4, 4).to(torch.int32))
+    if not torch.allclose(policies.sum(-1), in_ep.float(), atol=2e-3):  # float16 probabilities
+        fail("variant path: stored policy targets do not sum to 1 inside the episodes and 0 outside")
+    if not (policies[legal & in_ep[..., None]] > 0).all():
+        fail("variant path: a stored policy target is zero on a legal action")
+
+    moves = len(gens) * t
+    gen_s = sum(r["gen/seconds"] for r in gens)
+    searches = min(VARIANT_REANALYZE_EPISODES, int(buffer.size)) * t
+    print(
+        f"variant path (Gumbel root, sampled chance, widening pw_c=1.0; H={config.hidden_size}, "
+        f"NB={config.num_residual_blocks}, S={config.num_simulations}, bins 256/128, backend auto): {len(gens)} "
+        f"segments of {t} moves x {BATCH} games in {gen_s:.2f} s: {1e3 * gen_s / moves:.1f} ms per self-play move "
+        f"(plain search); one search-mode reanalyze pass of {searches} searches in "
+        f"{passes[0]['reanalyze/seconds']:.3f} s; {len(steps)} learner steps; whole run {wall:.1f} s; launches "
+        f"{launches}; {changed}/{len(trainer.state.params)} parameter tensors changed"
+    )
+    print("variant path: last step " + " ".join(f"{k}={steps[-1][k]:.4f}" for k in loss_terms))
+
+    gumbel_only = dataclasses.replace(config, chance_selection="argmax", pw_c=None)
+    for name in sk.LAUNCHES:
+        sk.LAUNCHES[name] = 0
+    stats = evaluate_games(trainer.network, torch.Generator().manual_seed(SEED + 3), gumbel_only, BATCH,
+                           include_per_game=True)  # fmt: skip
+    torch.cuda.synchronize()
+    launches = dict(sk.LAUNCHES)
+    moves_played = max(stats["per_game_lengths"])
+    if launches["whole_search_categorical"] != moves_played or sum(launches.values()) != moves_played:
+        fail(f"variant path: the Gumbel-root config's evaluation launched {launches} for {moves_played} moves")
+    print(f"variant path: evaluation under the Gumbel root alone (PUCT evaluation search): {moves_played} moves, "
+          f"{launches['whole_search_categorical']} whole_search_categorical launches")  # fmt: skip
+    return launches["whole_search_categorical"]
+
+
 def profile_device(label: str, fn, units: int, unit: str) -> None:
     """torch.profiler over ``fn()`` (which does ``units`` ``unit``s of work):
     device time by kernel and the device's idle share."""
@@ -1553,7 +1758,18 @@ def profile_paths(device, moves: int = 5, steps: int = 3) -> None:
     profile_device("reanalyze", one_pass, 1, "pass")
 
     # The whole-search kernel's rate against the searches in one launch (reanalyze.SEARCH_BATCH is one of them).
-    _, cfg, _, packed, roots = full_width_inputs(device, 256, 128)
+    _, cfg, network, packed, roots = full_width_inputs(device, 256, 128)
+
+    # The plain search under the Gumbel root, as a variant config's collection runs it: kernels and idle share,
+    # over 25 simulations (the profiler keeps every one of the ~10^5 launches).
+    gumbel_cfg = cfg._replace(root_selection="gumbel", num_simulations=25)
+    transitions = mcts.network_transitions(network, gumbel_cfg)
+    gumbel = mcts.draw_root_noise(gumbel_cfg, roots[0].shape[0], torch.Generator(device=device).manual_seed(SEED),
+                                  device)  # fmt: skip
+    with torch.no_grad():
+        profile_device("plain search (Gumbel root)",
+                       lambda: mcts.search_tree(*roots, gumbel_cfg, transitions, gumbel),
+                       gumbel_cfg.num_simulations, "simulation")  # fmt: skip
     for copies in (1, 2, 4, 8):
         many = tuple(r.repeat(copies, *[1] * (r.dim() - 1)).contiguous() for r in roots)
         ms = cuda_ms(lambda: sk.whole_search(*many, packed, cfg), reps=3)
@@ -1665,6 +1881,12 @@ def main() -> None:
 
     # ---- data-parallel path: the learner over a virtual mesh of the card, its gradients summed by the ring kernel
     kernels["ring_all_reduce"]["launches"] = drive_dp_training(device, kernels["ring_all_reduce"]["ms"])
+
+    # ---- the search variants: the plain search at full width, CUDA against the CPU at H=64
+    check_variant_searches(device, kernels["whole_search_categorical"]["ms"])
+
+    # ---- variant path: the three variants through the trainer
+    drive_variant_path(device)
 
     if args.profile:
         profile_paths(device)

@@ -56,7 +56,6 @@ from simulate_2048_tpu_torch.search.mcts import (
     PolicyOutput,
     SearchConfig,
     Transitions,
-    check_supported,
     policy_output,
     root_inputs,
     search_tree,
@@ -303,6 +302,19 @@ def in_scope(cfg: SearchConfig) -> bool:
     return cfg.root_selection == "puct" and cfg.chance_selection == "argmax" and cfg.pw_c is None
 
 
+def check_scope(cfg: SearchConfig) -> None:
+    """Raise ``NotImplementedError`` for a search variant outside the kernel's
+    scope, as the JAX package's ``run_mcts_pallas`` does: the Gumbel root,
+    sampled chance selection and progressive widening run in the plain
+    search (``search/mcts.py``) only."""
+    if not in_scope(cfg):
+        raise NotImplementedError(
+            "the whole-search kernel runs PUCT root selection, argmax chance selection and no progressive widening "
+            f"(got root_selection={cfg.root_selection!r}, chance_selection={cfg.chance_selection!r}, "
+            f"pw_c={cfg.pw_c!r}); the plain search runs the others"
+        )
+
+
 def kernel_limits(cfg: SearchConfig, hidden: int, weight_dtype: torch.dtype = torch.float32) -> str | None:
     """Why the CUDA kernel refuses searches of ``cfg`` on a network of hidden
     size ``hidden`` with ``weight_dtype`` packs, or None when it takes them
@@ -335,9 +347,9 @@ def search_plan(cfg: SearchConfig, hidden: int, weight_dtype: torch.dtype = torc
     (resident weights) or a ``stream_chunk`` > 0 (streamed weights). The
     counterpart of the JAX package's ``pallas_search_plan``, decided by the
     CUDA kernel's own limits (:func:`kernel_limits`, raised as a
-    ``ValueError``; a variant the port lacks raises ``NotImplementedError``
-    first): the resident float32 kernel runs 2H threads and a producer warp
-    (at most 544), the streamed one 2H threads under 1,024 and stages 64 KB
+    ``ValueError``; a search variant outside the kernel's scope raises
+    ``NotImplementedError`` first, :func:`check_scope`): the resident float32
+    kernel runs 2H threads and a producer warp (at most 544), the streamed one 2H threads under 1,024 and stages 64 KB
     tiles of rows through shared memory, and the bfloat16 libraries take
     their tensor-core fragments by 16-row k-steps in m-tiles of 16 outputs,
     at most 2 a warp (resident: 8 warps, H <= 256) or 3 (streamed: 12
@@ -348,7 +360,7 @@ def search_plan(cfg: SearchConfig, hidden: int, weight_dtype: torch.dtype = torc
     runs) or the tower depth (the tree tables and the pack live in device
     memory), which JAX's plan also takes. The chunk only sets the pack's
     zero padding: the kernel streams the real layers tile by tile."""
-    check_supported(cfg)
+    check_scope(cfg)
     if weight_dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(f"{weight_dtype} weight packs are not ported (float32 and bfloat16 are)")
     refused = kernel_limits(cfg, hidden, weight_dtype)
@@ -613,7 +625,7 @@ def whole_search(
     plain version on CPU tensors. Same arguments and results as
     :func:`whole_search_reference`; ``workspace`` (made from ``packed``)
     saves its set-up when the same pack serves many calls."""
-    check_supported(cfg)
+    check_scope(cfg)
     if root_h.device.type == "cpu":
         return whole_search_reference(root_h, root_p, root_v, packed, cfg)
     if root_h.device.type != "cuda":

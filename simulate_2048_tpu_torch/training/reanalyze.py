@@ -29,6 +29,7 @@ import torch
 from simulate_2048_tpu_torch.models.network import MuZeroNetwork
 from simulate_2048_tpu_torch.ops import board as ops
 from simulate_2048_tpu_torch.ops.value_transform import inverse_scale_value, scale_value
+from simulate_2048_tpu_torch.search.mcts import draw_root_noise, uses_root_noise
 from simulate_2048_tpu_torch.search.policy import get_policy_target
 from simulate_2048_tpu_torch.training import replay as replay_lib
 from simulate_2048_tpu_torch.training.config import TrainConfig
@@ -68,6 +69,7 @@ def reanalyze_slots(
     config: TrainConfig,
     generator: torch.Generator | None = None,
     noise: torch.Tensor | None = None,
+    chance_noise: torch.Tensor | None = None,
 ) -> replay_lib.BufferState:
     """Refresh the targets of the episodes at buffer rows ``slots``, in place.
 
@@ -75,15 +77,19 @@ def reanalyze_slots(
     - ``values``: TD(λ) returns re-bootstrapped on the current network
       (``value_target_mode == "td_lambda"``) or the fresh root values
       themselves (``"search"`` target mode, as collection would have stored);
-    - ``policies`` (``reanalyze_mode == "search"`` only): fresh visit
-      distributions at temperature 1.0, as at collection;
+    - ``policies`` (``reanalyze_mode == "search"`` only): fresh search
+      policies (visit distributions, or the improved policy under the
+      Gumbel root) at temperature 1.0, as at collection;
     - ``step_priorities``: |h(ν_fresh) − h(z_new)| per position, floored at
       1e-3 inside the episode and 0 outside it.
 
     Rows at or beyond ``buffer.size`` (never written) are left untouched.
-    In "search" mode the root Dirichlet noise of the n·T searches is ``noise``
-    (n·T, A) when given, else drawn from ``generator``; a search with root
-    noise (``dirichlet_fraction > 0``) needs one of the two.
+    In "search" mode the root noise of the n·T searches (Dirichlet under the
+    PUCT root, standard Gumbel under the Gumbel root) is ``noise`` (n·T, A)
+    when given, else drawn from ``generator``; a search with root noise
+    needs one of the two. The chance draws of sampled chance selection are
+    ``chance_noise`` (n·T, S, S + 1, K) when given, else drawn from
+    ``generator`` during the searches.
     """
     n = slots.shape[0]
     t = buffer.actions.shape[1]
@@ -108,16 +114,22 @@ def reanalyze_slots(
             cfg = cfg._replace(pb_c_init=config.reanalyze_pb_c_init)
         roots = obs[:, :t].reshape(n * t, 16)
         legal = ops.legal_actions_mask(boards_i8[:, :t].reshape(n * t, 4, 4).to(torch.int32))  # (n·T, 4)
-        if cfg.dirichlet_fraction > 0.0 and noise is None:
+        if uses_root_noise(cfg) and noise is None:
             if generator is None:
                 raise ValueError("search-mode reanalyze with root noise needs `noise` or a `generator`")
-            alpha = torch.full((n * t, config.action_size), cfg.dirichlet_alpha, dtype=torch.float32, device=device)
-            noise = torch._sample_dirichlet(alpha, generator)
+            noise = draw_root_noise(cfg, n * t, generator, device)
+        if cfg.chance_selection == "sample" and chance_noise is None and generator is None:
+            raise ValueError(
+                "search-mode reanalyze with sampled chance selection needs `chance_noise` or a `generator`"
+            )
         search = _make_search(network, config, cfg, device)
         policies, values = [], []
         for start in range(0, n * t, SEARCH_BATCH):
             part = slice(start, start + SEARCH_BATCH)
-            out = search(roots[part], ~legal[part], None if noise is None else noise[part])
+            out = search(
+                roots[part], ~legal[part], None if noise is None else noise[part],
+                None if chance_noise is None else chance_noise[part], generator,
+            )  # fmt: skip
             # The policy target at temperature 1.0, exactly as at collection (``play_segment``).
             policies.append(get_policy_target(out, legal[part], 1.0))
             values.append(out.search_value)

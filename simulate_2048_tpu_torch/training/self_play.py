@@ -13,11 +13,13 @@ statistics only. The search runs on the whole-search kernel
 dispatched as in the JAX package (see ``TrainConfig.search_backend``); the
 weights are packed once per call, outside the move loop.
 
-Every draw (root Dirichlet noise, action sampling, run seeds) comes from the
+Every draw (root noise, Dirichlet or Gumbel; the chance draws of sampled
+chance selection; action sampling; run seeds) comes from the
 ``torch.Generator`` passed in, which lives on the device the games run on.
 The streams are not ``jax.random``'s: the same seed gives other games than
-the JAX package. ``play_segment`` also takes the noise and the sampling
-uniforms as tensors, so both packages can be fed the same numbers.
+the JAX package. ``play_segment`` also takes the root noise, the chance
+draws and the sampling uniforms as tensors, so both packages can be fed the
+same numbers.
 """
 
 from __future__ import annotations
@@ -31,7 +33,13 @@ from simulate_2048_tpu_torch.env import env as envlib
 from simulate_2048_tpu_torch.ops import board as ops
 from simulate_2048_tpu_torch.ops import search_kernel
 from simulate_2048_tpu_torch.ops.value_transform import scale_value
-from simulate_2048_tpu_torch.search.mcts import PolicyOutput, SearchConfig, batched_run_mcts
+from simulate_2048_tpu_torch.search.mcts import (
+    PolicyOutput,
+    SearchConfig,
+    batched_run_mcts,
+    draw_root_noise,
+    uses_root_noise,
+)
 from simulate_2048_tpu_torch.search.policy import get_policy_target, sample_from_visits
 from simulate_2048_tpu_torch.training.config import TrainConfig
 from simulate_2048_tpu_torch.training.replay import Trajectory
@@ -117,16 +125,20 @@ def _use_kernel(config: TrainConfig, cfg: SearchConfig, device: torch.device) ->
     return refused is None and device.type == "cuda"
 
 
-SearchFn = Callable[[torch.Tensor, torch.Tensor, "torch.Tensor | None"], PolicyOutput]
+SearchFn = Callable[..., PolicyOutput]
 
 
 def _make_search(network, config: TrainConfig, cfg: SearchConfig, device: torch.device) -> SearchFn:
-    """``search(observations, invalid_actions, noise)`` for one weight version:
-    the whole-search kernel with the weights packed here, once, in the
-    layout :func:`search_kernel.search_plan` picks (resident or streamed,
-    in ``config.search_weight_dtype``), or the plain search."""
+    """``search(observations, invalid_actions, noise, chance_noise,
+    generator)`` for one weight version: the whole-search kernel with the
+    weights packed here, once, in the layout :func:`search_kernel.search_plan`
+    picks (resident or streamed, in ``config.search_weight_dtype``), or the
+    plain search, which alone takes the chance draws of sampled chance
+    selection (tensor or generator)."""
     if not _use_kernel(config, cfg, device):
-        return lambda obs, invalid, noise=None: batched_run_mcts(network, obs, cfg, invalid, noise)
+        return lambda obs, invalid, noise=None, chance_noise=None, generator=None: batched_run_mcts(
+            network, obs, cfg, invalid, noise, chance_noise, generator
+        )
     weight_dtype = _search_weight_dtype(config)
     # The kernel's layout; on the CPU the plain version also runs shapes the kernel refuses, resident.
     fits = search_kernel.kernel_limits(cfg, config.hidden_size, weight_dtype) is None
@@ -141,7 +153,7 @@ def _make_search(network, config: TrainConfig, cfg: SearchConfig, device: torch.
         reward_bins=config.reward_bins,
     )
     workspace = search_kernel.SearchWorkspace(packed)
-    return lambda obs, invalid, noise=None: search_kernel.run_search_kernel(
+    return lambda obs, invalid, noise=None, chance_noise=None, generator=None: search_kernel.run_search_kernel(
         network, obs, cfg, invalid, noise, packed=packed, workspace=workspace
     )
 
@@ -163,6 +175,7 @@ def play_segment(
     num_steps: int | None = None,
     noise: torch.Tensor | None = None,
     uniform: torch.Tensor | None = None,
+    chance_noise: torch.Tensor | None = None,
 ) -> tuple[envlib.GameState, Trajectory, GenStats]:
     """Play one trajectory segment from wherever the games currently are.
 
@@ -176,8 +189,11 @@ def play_segment(
       ``config.temperature_move_cutoff`` moves of a game).
     - ``greedy=True`` takes the evaluation search settings, disables the
       root noise and plays argmax actions: nothing is drawn.
-    - ``noise`` (T, B, A) and ``uniform`` (T, B) replace the Dirichlet root
-      noise and the action-sampling uniforms drawn from ``generator``.
+    - ``noise`` (T, B, A) replaces the root noise drawn from ``generator``
+      (Dirichlet under the PUCT root, standard Gumbel under the Gumbel
+      root), ``uniform`` (T, B) the action-sampling uniforms and
+      ``chance_noise`` (T, B, S, S + 1, K) the chance draws of sampled
+      chance selection (:func:`search.mcts.search_tree`).
 
     Returns ``(next_env_state, trajectory, gen_stats)``; the trajectory's
     ``total_reward`` is the reward earned within this segment.
@@ -189,7 +205,6 @@ def play_segment(
     device = env_state.board.device
     search = _make_search(network, config, cfg, device)
     a = config.action_size
-    alpha = torch.full((num_games, a), cfg.dirichlet_alpha, dtype=torch.float32, device=device)
 
     state = env_state
     initial_total = state.total_reward
@@ -207,9 +222,9 @@ def play_segment(
 
         # Root legality masking: simulations never visit illegal root actions.
         step_noise = None
-        if cfg.dirichlet_fraction > 0.0:
-            step_noise = noise[t] if noise is not None else torch._sample_dirichlet(alpha, generator)
-        out = search(obs, ~legal, step_noise)
+        if uses_root_noise(cfg):
+            step_noise = noise[t] if noise is not None else draw_root_noise(cfg, num_games, generator, device)
+        out = search(obs, ~legal, step_noise, None if chance_noise is None else chance_noise[t], generator)
         policy_target = get_policy_target(out, legal, 1.0)
 
         if greedy:
@@ -383,8 +398,17 @@ def compute_n_step_returns(
 
 
 @torch.no_grad()
-def _evaluate_rollout(network, run_seed: int, config: TrainConfig, num_games: int, device: torch.device | str):
-    """Greedy full-game rollouts with streaming stats.
+def _evaluate_rollout(
+    network,
+    run_seed: int,
+    config: TrainConfig,
+    num_games: int,
+    device: torch.device | str,
+    generator: torch.Generator | None = None,
+):
+    """Greedy full-game rollouts with streaming stats. ``generator`` gives
+    the chance draws of sampled chance selection, which evaluation keeps
+    (only the root turns to PUCT).
 
     Returns ``(state, entropy_sum, search_value_sum, n_active, codes_used)``
     as the JAX package does: sums over active games of root visit entropy
@@ -407,7 +431,7 @@ def _evaluate_rollout(network, run_seed: int, config: TrainConfig, num_games: in
         legal = envlib.get_legal_actions(state)
         active = ~state.done
 
-        out = search(obs, ~legal, None)
+        out = search(obs, ~legal, None, None, generator)
         zeros = torch.zeros_like(out.action_weights)
         actions = torch.where(legal, out.action_weights, zeros).argmax(-1)
 
@@ -440,7 +464,7 @@ def evaluate_games(
     n = num_games or config.eval_games
     device = next(network.parameters()).device
     run_seed = _draw_seed(generator)
-    state, ent_sum, val_sum, n_active, codes_used = _evaluate_rollout(network, run_seed, config, n, device)
+    state, ent_sum, val_sum, n_active, codes_used = _evaluate_rollout(network, run_seed, config, n, device, generator)
 
     rewards = state.total_reward.cpu().numpy()
     tiles = ops.max_tile(state.board).cpu().numpy()

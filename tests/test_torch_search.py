@@ -99,8 +99,11 @@ def test_policy_target_matches_jax(nets):
     "field,value", [("root_selection", "gumbel"), ("chance_selection", "sample"), ("pw_c", 1.0)]
 )
 def test_unported_variants_raise(nets, field, value):
+    # The three variants are ported now: each case checks that its variant runs, S visits in every search
+    # (their parity with JAX: test_torch_search_modes.py).
     _, tnet = nets
     obs, _, _ = make_inputs(0, False)
     cfg = SearchConfig(**{**BASE, "dirichlet_fraction": 0.0, field: value})
-    with pytest.raises(NotImplementedError):
-        batched_run_mcts(tnet, torch.from_numpy(obs), cfg)
+    out = batched_run_mcts(tnet, torch.from_numpy(obs), cfg, generator=torch.Generator().manual_seed(0))
+    assert (out.visit_counts.sum(-1) == cfg.num_simulations).all()
+    assert torch.isfinite(out.qvalues).all() and torch.isfinite(out.search_value).all()
