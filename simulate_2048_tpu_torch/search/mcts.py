@@ -21,15 +21,15 @@ noise ``(B, A)`` (Dirichlet under the PUCT root, standard Gumbel under the
 Gumbel root) and, for sampled chance selection, standard Gumbel draws per
 (simulation, node), a table ``(B, S, S + 1, K)``. A draw c ~ σ is
 argmax(g + log σ) over the allowed codes, as ``jax.random.categorical``
-computes it. Draws not given come from the ``torch.Generator`` passed in, the
-chance draws one ``(B, K)`` set per traversal step.
+computes it. :func:`batched_run_mcts` draws what is not given from the
+``torch.Generator`` passed in, the chance draws one ``(B, K)`` set per
+traversal step.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
-
 import math
+from typing import Callable, NamedTuple
 
 import torch
 
