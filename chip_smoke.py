@@ -111,7 +111,8 @@ code != 0, no final ``ok`` line) if any phase fails:
 12. runs the plain search's variants on the card: at the paper preset
    (256/128 bins, 256 searches) PUCT, the Gumbel root, sampled chance
    selection and argmax chance selection under progressive widening
-   (pw_c=1.0), each timed (CUDA events, median of 3) beside the kernel's
+   (pw_c=1.0), each timed (CUDA events, median of 3 calls, the first of
+   them the one checked) beside the kernel's
    PUCT time, S visits, none on a zero prior, finite values; at H=64, 2
    blocks, 16 simulations, 256 searches, each variant (and all three at
    once) on CUDA and on the CPU from the same roots and fed draws: visit
@@ -120,10 +121,12 @@ code != 0, no final ``ok`` line) if any phase fails:
 13. drives the variant path, ``train_muzero`` at the training recipe's widths
    with the Gumbel root, sampled chance selection and widening, backend
    "auto": two 4-move segments of 256 games, two learner steps, one
-   search-mode reanalyze pass of 1,024 searches and one 4-move evaluation,
-   with the launch counts set to 0 just before: no kernel launch (the
-   evaluation search keeps sampled chance selection and widening, as in
-   the JAX package, so it is the plain search's too), finite losses,
+   search-mode reanalyze pass of 1,024 searches, one 4-move evaluation and
+   one 4-move deep evaluation of 128 games (its games seeded by a generator
+   on the CPU, as the ``evaluate`` CLI seeds them), with the launch counts
+   set to 0 just before: no kernel launch (the evaluation searches keep
+   sampled chance selection and widening, as in the JAX package, so they
+   are the plain search's too), finite losses,
    changed parameters, stored policy targets (the improved policy) that
    sum to 1 and are positive on every legal action, the ms per self-play
    move; then the network's evaluation under the Gumbel root alone: one
@@ -134,7 +137,9 @@ code != 0, no final ``ok`` line) if any phase fails:
 ``--profile`` also prints the device time by kernel, the device kernels
 launched and the device's idle share over 20 ``bench`` repetitions, a few
 evaluation moves, self-play moves and learner steps, one reanalyze pass and
-one call of the plain search under the Gumbel root at full width, and the
+one call of the plain search under the Gumbel root at full width (and its
+idle share without the profiler: the profiled device time against the
+call's CUDA-event time), and the
 whole-search kernel's rate at 256 to 2,048 searches a launch.
 Exits non-zero when CUDA is unavailable.
 """
@@ -145,6 +150,7 @@ import argparse
 import copy
 import dataclasses
 import json
+import math
 import os
 import re
 import shutil
@@ -1528,8 +1534,9 @@ VARIANT_REANALYZE_EPISODES = reanalyze.SEARCH_BATCH // VARIANT_SEGMENT_MOVES  # 
 def check_variant_searches(device, kernel_ms: float) -> dict[str, float]:
     """The plain search's variants on the card. At the paper preset (H=256,
     10 blocks, 100 simulations, depth cap 32, 256/128 bins, 256 searches):
-    each variant's ms per call (CUDA events, median of 3) beside the
-    kernel's PUCT time ``kernel_ms``, and the exact invariants. At H=64, 2
+    each variant's ms per call (CUDA events, median of 3 calls, the first of
+    them the one checked) beside the kernel's PUCT time ``kernel_ms``, and
+    the exact invariants. At H=64, 2
     blocks, 16 simulations, 256 searches: each variant on CUDA and on the
     CPU from the same roots and the same draws (root Gumbel (B, A), chance
     Gumbel (B, S, S + 1, K)): visit counts identical in >= 99% of the
@@ -1544,10 +1551,10 @@ def check_variant_searches(device, kernel_ms: float) -> dict[str, float]:
         gen = torch.Generator(device=device).manual_seed(SEED)
         gumbel = mcts.draw_root_noise(vcfg, b, gen, device)  # None under the PUCT root (no Dirichlet noise here)
         with torch.no_grad():
-            out = mcts.search_tree(*roots, vcfg, transitions, gumbel, generator=gen)
-            check_exact_invariants(f"plain search, {name}", out, roots[1], s, b)
-            times[name] = cuda_ms(lambda: mcts.search_tree(*roots, vcfg, transitions, gumbel, generator=gen), reps=3,
-                                  warmup=0)  # fmt: skip
+            calls = [timed_once(lambda: mcts.search_tree(*roots, vcfg, transitions, gumbel, generator=gen))
+                     for _ in range(3)]  # fmt: skip
+            check_exact_invariants(f"plain search, {name}", calls[0][0], roots[1], s, b)
+            times[name] = statistics.median(ms for _, ms in calls)
         print(f"plain search, {name}: {times[name]:.2f} ms per call of {b} searches x {s} simulations at "
               f"H={network.hidden_size}, NB={network.num_blocks}, bins 256/128, depth cap "
               f"{cfg.max_depth} (the kernel, PUCT: {kernel_ms:.2f} ms)")  # fmt: skip
@@ -1596,7 +1603,8 @@ def variant_config():
     """The training recipe's widths (``training_config()``) with the three
     search variants, backend "auto"; depth cut: two 4-move segments of 256
     games, two learner steps, one search-mode reanalyze pass of 1,024
-    searches, one 4-move evaluation."""
+    searches, one 4-move evaluation and one 4-move deep evaluation of 128
+    games."""
     return dataclasses.replace(
         training_config(),
         root_selection="gumbel",
@@ -1612,15 +1620,18 @@ def variant_config():
         eval_max_moves=VARIANT_SEGMENT_MOVES,
         reanalyze_interval=VARIANT_STEPS - 1,
         reanalyze_episodes=VARIANT_REANALYZE_EPISODES,
-        deep_eval_interval=None,
+        deep_eval_interval=VARIANT_STEPS,
+        deep_eval_games=DEEP_EVAL_GAMES,
     )
 
 
 def drive_variant_path(device) -> int:
     """The variant path through ``train_muzero``: every collection and
-    reanalyze search, and the evaluation's too (its root turns to PUCT, its
-    sampled chance selection and widening stay, as in the JAX package), run
-    the plain search, so no kernel launches; then the same network's
+    reanalyze search, and the evaluation's and deep evaluation's too (their
+    root turns to PUCT, their sampled chance selection and widening stay, as
+    in the JAX package), run the plain search, so no kernel launches. The
+    deep evaluation seeds its games from a generator on the CPU, as the
+    ``evaluate`` CLI does, while the games run on the card. Then the same network's
     evaluation under the Gumbel root alone, whose PUCT evaluation search the
     kernel takes: one ``whole_search_categorical`` launch per move. Returns
     that evaluation's launches."""
@@ -1644,8 +1655,12 @@ def drive_variant_path(device) -> int:
     steps = [r for r in history if "total_loss" in r]
     evals = [r for r in history if "eval/mean_reward" in r]
     passes = [r for r in history if "reanalyze/seconds" in r]
-    if len(gens) != 2 or len(steps) != VARIANT_STEPS or len(evals) != 1 or len(passes) != 1:
-        fail(f"variant path: {len(gens)} segments, {len(steps)} steps, {len(evals)} evaluations, {len(passes)} passes")
+    deeps = [r for r in history if "deep_eval/mean_reward" in r]
+    if len(gens) != 2 or len(steps) != VARIANT_STEPS or len(evals) != 1 or len(passes) != 1 or len(deeps) != 1:
+        fail(f"variant path: {len(gens)} segments, {len(steps)} steps, {len(evals)} evaluations, {len(passes)} passes, "
+             f"{len(deeps)} deep evaluations")  # fmt: skip
+    if not (deeps[0]["deep_eval/mean_length"] > 0 and math.isfinite(deeps[0]["deep_eval/mean_search_value"])):
+        fail(f"variant path: the deep evaluation played no move or its search values are not finite: {deeps[0]}")
     loss_terms = [k for k in steps[0] if k.endswith("_loss") or k == "codebook_entropy"]
     if not all(torch.isfinite(torch.tensor([r[k] for k in loss_terms])).all() for r in steps):
         fail("variant path: a loss term is not finite")
@@ -1674,7 +1689,8 @@ def drive_variant_path(device) -> int:
         f"NB={config.num_residual_blocks}, S={config.num_simulations}, bins 256/128, backend auto): {len(gens)} "
         f"segments of {t} moves x {BATCH} games in {gen_s:.2f} s: {1e3 * gen_s / moves:.1f} ms per self-play move "
         f"(plain search); one search-mode reanalyze pass of {searches} searches in "
-        f"{passes[0]['reanalyze/seconds']:.3f} s; {len(steps)} learner steps; whole run {wall:.1f} s; launches "
+        f"{passes[0]['reanalyze/seconds']:.3f} s; one deep evaluation of {DEEP_EVAL_GAMES} games x {t} moves (games seeded on "
+        f"the CPU) in {deeps[0]['deep_eval/seconds']:.3f} s; {len(steps)} learner steps; whole run {wall:.1f} s; launches "
         f"{launches}; {changed}/{len(trainer.state.params)} parameter tensors changed"
     )
     print("variant path: last step " + " ".join(f"{k}={steps[-1][k]:.4f}" for k in loss_terms))
@@ -1694,9 +1710,10 @@ def drive_variant_path(device) -> int:
     return launches["whole_search_categorical"]
 
 
-def profile_device(label: str, fn, units: int, unit: str) -> None:
+def profile_device(label: str, fn, units: int, unit: str) -> float:
     """torch.profiler over ``fn()`` (which does ``units`` ``unit``s of work):
-    device time by kernel and the device's idle share."""
+    device time by kernel and the device's idle share. Returns the device's
+    busy time in ms (summed kernel time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1722,6 +1739,7 @@ def profile_device(label: str, fn, units: int, unit: str) -> None:
     for e in events[:12]:
         print(f"profile {label}:   {e.self_device_time_total / 1e3 / units:9.3f} ms/{unit}  "
               f"{e.count // units:5d} calls/{unit}  {e.key[:90]}")
+    return busy_us / 1e3
 
 
 def profile_paths(device, moves: int = 5, steps: int = 3) -> None:
@@ -1767,9 +1785,13 @@ def profile_paths(device, moves: int = 5, steps: int = 3) -> None:
     gumbel = mcts.draw_root_noise(gumbel_cfg, roots[0].shape[0], torch.Generator(device=device).manual_seed(SEED),
                                   device)  # fmt: skip
     with torch.no_grad():
-        profile_device("plain search (Gumbel root)",
-                       lambda: mcts.search_tree(*roots, gumbel_cfg, transitions, gumbel),
-                       gumbel_cfg.num_simulations, "simulation")  # fmt: skip
+        busy_ms = profile_device("plain search (Gumbel root)",
+                                 lambda: mcts.search_tree(*roots, gumbel_cfg, transitions, gumbel),
+                                 gumbel_cfg.num_simulations, "simulation")  # fmt: skip
+        wall_ms = cuda_ms(lambda: mcts.search_tree(*roots, gumbel_cfg, transitions, gumbel), reps=3, warmup=0)
+    print(f"profile plain search (Gumbel root) without the profiler: {wall_ms:.2f} ms a call (CUDA events, median "
+          f"of 3), {wall_ms / gumbel_cfg.num_simulations:.2f} ms a simulation; idle share against the profiled "
+          f"device time {max(0.0, 1 - busy_ms / wall_ms):.3f}")  # fmt: skip
     for copies in (1, 2, 4, 8):
         many = tuple(r.repeat(copies, *[1] * (r.dim() - 1)).contiguous() for r in roots)
         ms = cuda_ms(lambda: sk.whole_search(*many, packed, cfg), reps=3)

@@ -15,8 +15,10 @@ weights are packed once per call, outside the move loop.
 
 Every draw (root noise, Dirichlet or Gumbel; the chance draws of sampled
 chance selection; action sampling; run seeds) comes from the
-``torch.Generator`` passed in, which lives on the device the games run on.
-The streams are not ``jax.random``'s: the same seed gives other games than
+``torch.Generator`` passed in, which lives on the device the games run on;
+evaluation takes only its run seed from the generator passed in (on any
+device) and its chance draws from a generator on the games' device seeded
+with that run seed. The streams are not ``jax.random``'s: the same seed gives other games than
 the JAX package. ``play_segment`` also takes the root noise, the chance
 draws and the sampling uniforms as tensors, so both packages can be fed the
 same numbers.
@@ -404,11 +406,12 @@ def _evaluate_rollout(
     config: TrainConfig,
     num_games: int,
     device: torch.device | str,
-    generator: torch.Generator | None = None,
 ):
-    """Greedy full-game rollouts with streaming stats. ``generator`` gives
-    the chance draws of sampled chance selection, which evaluation keeps
-    (only the root turns to PUCT).
+    """Greedy full-game rollouts with streaming stats. The chance draws of
+    sampled chance selection, which evaluation keeps (only the root turns to
+    PUCT), come from a generator on ``device`` seeded with ``run_seed``: the
+    games and their searches are a function of the run seed alone, whatever
+    generator drew it.
 
     Returns ``(state, entropy_sum, search_value_sum, n_active, codes_used)``
     as the JAX package does: sums over active games of root visit entropy
@@ -419,6 +422,7 @@ def _evaluate_rollout(
     cfg = search_config_from(config, eval_mode=True)._replace(dirichlet_fraction=0.0)
     state = envlib.reset_batch(run_seed, num_games, device)
     search = _make_search(network, config, cfg, device)
+    generator = torch.Generator(device=device).manual_seed(run_seed)
 
     ent_sum = torch.zeros((), dtype=torch.float32, device=device)
     val_sum = torch.zeros((), dtype=torch.float32, device=device)
@@ -457,14 +461,14 @@ def evaluate_games(
 ) -> dict[str, Any]:
     """Greedy evaluation with summary stats, on the network's device.
 
-    The run seed of the games is drawn from ``generator`` (the JAX package
-    draws it with ``jax.random.randint``, so the same seed number gives
-    other games there).
+    The run seed of the games is drawn from ``generator``, on any device
+    (the JAX package draws it with ``jax.random.randint``, so the same seed
+    number gives other games there); everything else follows from it.
     """
     n = num_games or config.eval_games
     device = next(network.parameters()).device
     run_seed = _draw_seed(generator)
-    state, ent_sum, val_sum, n_active, codes_used = _evaluate_rollout(network, run_seed, config, n, device, generator)
+    state, ent_sum, val_sum, n_active, codes_used = _evaluate_rollout(network, run_seed, config, n, device)
 
     rewards = state.total_reward.cpu().numpy()
     tiles = ops.max_tile(state.board).cpu().numpy()

@@ -32,6 +32,7 @@ from simulate_2048_tpu.env import env as jenv
 from simulate_2048_tpu.training import reanalyze as jreanalyze
 from simulate_2048_tpu.training import self_play as jsp
 from simulate_2048_tpu_torch.env import env as tenv
+from simulate_2048_tpu_torch.models.network import network_from_config
 from simulate_2048_tpu_torch.ops import board as tops
 from simulate_2048_tpu_torch.training import reanalyze as treanalyze
 from simulate_2048_tpu_torch.training import self_play as tsp
@@ -126,6 +127,25 @@ def test_trainer_runs_the_variants_with_search_reanalyze(tmp_path):
     in_ep = torch.arange(config.max_trajectory_length)[None] < buffer.length[:size, None]
     sums = buffer.policies[:size].float().sum(-1)
     np.testing.assert_allclose(sums.numpy(), in_ep.float().numpy(), atol=2e-3)
+
+
+def test_variant_evaluation_follows_the_run_seed():
+    """Evaluation keeps sampled chance selection; its chance draws come from
+    a generator seeded with the run seed on the games' device, not from the
+    caller's generator (deep evaluation and the evaluate CLI pass one on the
+    CPU while the games may run on CUDA). So the games follow from the run
+    seed alone: two rollouts of one run seed, and two evaluations from
+    generators of one seed, are equal."""
+    config = dataclasses.replace(tiny_config(), hidden_size=32, num_simulations=6, eval_max_moves=6, **VARIANTS)
+    network = network_from_config(config, torch.Generator().manual_seed(0), "cpu")
+    first, second = (tsp._evaluate_rollout(network, 11, config, 4, "cpu") for _ in range(2))
+    for a, b in zip(first[0], second[0]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for a, b in zip(first[1:], second[1:]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    stats = [tsp.evaluate_games(network, torch.Generator().manual_seed(3), config, 4, True) for _ in range(2)]
+    assert stats[0] == stats[1]
+    assert stats[0]["mean_length"] > 0
 
 
 def test_train_cli_takes_the_variants(tmp_path, capsys):
