@@ -112,10 +112,9 @@ code != 0, no final ``ok`` line) if any phase fails:
    (256/128 bins, 256 searches) PUCT, the Gumbel root, sampled chance
    selection and argmax chance selection under progressive widening
    (pw_c=1.0), each timed (CUDA events, median of 3 calls, the first of
-   them the one checked) beside the kernel's
-   PUCT time, S visits, none on a zero prior, finite values; at H=64, 2
-   blocks, 16 simulations, 256 searches, each variant (and all three at
-   once) on CUDA and on the CPU from the same roots and fed draws: visit
+   them the one checked) beside the kernel's PUCT time, S visits, none on a
+   zero prior, finite values; at H=64, 2 blocks, 16 simulations, 256
+   searches, each variant (and all three at once) on CUDA and on the CPU from the same roots and fed draws: visit
    counts identical in >= 99% of the searches, the CUDA call timed by
    ``utils.profiling.time_fn``;
 13. drives the variant path, ``train_muzero`` at the training recipe's widths
@@ -126,10 +125,9 @@ code != 0, no final ``ok`` line) if any phase fails:
    on the CPU, as the ``evaluate`` CLI seeds them), with the launch counts
    set to 0 just before: no kernel launch (the evaluation searches keep
    sampled chance selection and widening, as in the JAX package, so they
-   are the plain search's too), finite losses,
-   changed parameters, stored policy targets (the improved policy) that
-   sum to 1 and are positive on every legal action, the ms per self-play
-   move; then the network's evaluation under the Gumbel root alone: one
+   are the plain search's too), finite losses, changed parameters, stored
+   policy targets (the improved policy) that sum to 1 and are positive on
+   every legal action, the ms per self-play move; then the network's evaluation under the Gumbel root alone: one
    ``whole_search_categorical`` launch per move;
 14. prints one JSON line with every kernel's numbers, then
    ``{"ok": true, "device": {...}}`` as the last line.
@@ -139,8 +137,8 @@ launched and the device's idle share over 20 ``bench`` repetitions, a few
 evaluation moves, self-play moves and learner steps, one reanalyze pass and
 one call of the plain search under the Gumbel root at full width (and its
 idle share without the profiler: the profiled device time against the
-call's CUDA-event time), and the
-whole-search kernel's rate at 256 to 2,048 searches a launch.
+call's CUDA-event time), and the whole-search kernel's rate at 256 to
+2,048 searches a launch.
 Exits non-zero when CUDA is unavailable.
 """
 
@@ -1536,12 +1534,12 @@ def check_variant_searches(device, kernel_ms: float) -> dict[str, float]:
     10 blocks, 100 simulations, depth cap 32, 256/128 bins, 256 searches):
     each variant's ms per call (CUDA events, median of 3 calls, the first of
     them the one checked) beside the kernel's PUCT time ``kernel_ms``, and
-    the exact invariants. At H=64, 2
-    blocks, 16 simulations, 256 searches: each variant on CUDA and on the
-    CPU from the same roots and the same draws (root Gumbel (B, A), chance
-    Gumbel (B, S, S + 1, K)): visit counts identical in >= 99% of the
-    searches (each differing one printed), the invariants on both, the CUDA
-    run timed by ``utils.profiling.time_fn``. Returns the full-width ms."""
+    the exact invariants. At H=64, 2 blocks, 16 simulations, 256 searches:
+    each variant on CUDA and on the CPU from the same roots and the same
+    draws (root Gumbel (B, A), chance Gumbel (B, S, S + 1, K)): visit counts
+    identical in >= 99% of the searches (each differing one printed), the
+    invariants on both, the CUDA run timed by ``utils.profiling.time_fn``.
+    Returns the full-width ms."""
     _, cfg, network, _, roots = full_width_inputs(device, 256, 128)
     s, b = cfg.num_simulations, roots[0].shape[0]
     times = {}
@@ -1631,10 +1629,10 @@ def drive_variant_path(device) -> int:
     root turns to PUCT, their sampled chance selection and widening stay, as
     in the JAX package), run the plain search, so no kernel launches. The
     deep evaluation seeds its games from a generator on the CPU, as the
-    ``evaluate`` CLI does, while the games run on the card. Then the same network's
-    evaluation under the Gumbel root alone, whose PUCT evaluation search the
-    kernel takes: one ``whole_search_categorical`` launch per move. Returns
-    that evaluation's launches."""
+    ``evaluate`` CLI does, while the games run on the card. Then the same
+    network's evaluation under the Gumbel root alone, whose PUCT evaluation
+    search the kernel takes: one ``whole_search_categorical`` launch per
+    move. Returns that evaluation's launches."""
     config = variant_config()
     eval_cfg = search_config_from(config, eval_mode=True)._replace(dirichlet_fraction=0.0)
     if _use_kernel(config, search_config_from(config), device) or _use_kernel(config, eval_cfg, device):
@@ -1657,8 +1655,8 @@ def drive_variant_path(device) -> int:
     passes = [r for r in history if "reanalyze/seconds" in r]
     deeps = [r for r in history if "deep_eval/mean_reward" in r]
     if len(gens) != 2 or len(steps) != VARIANT_STEPS or len(evals) != 1 or len(passes) != 1 or len(deeps) != 1:
-        fail(f"variant path: {len(gens)} segments, {len(steps)} steps, {len(evals)} evaluations, {len(passes)} passes, "
-             f"{len(deeps)} deep evaluations")  # fmt: skip
+        fail(f"variant path: {len(gens)} segments, {len(steps)} steps, {len(evals)} evaluations, {len(passes)} "
+             f"passes, {len(deeps)} deep evaluations")  # fmt: skip
     if not (deeps[0]["deep_eval/mean_length"] > 0 and math.isfinite(deeps[0]["deep_eval/mean_search_value"])):
         fail(f"variant path: the deep evaluation played no move or its search values are not finite: {deeps[0]}")
     loss_terms = [k for k in steps[0] if k.endswith("_loss") or k == "codebook_entropy"]
@@ -1689,8 +1687,9 @@ def drive_variant_path(device) -> int:
         f"NB={config.num_residual_blocks}, S={config.num_simulations}, bins 256/128, backend auto): {len(gens)} "
         f"segments of {t} moves x {BATCH} games in {gen_s:.2f} s: {1e3 * gen_s / moves:.1f} ms per self-play move "
         f"(plain search); one search-mode reanalyze pass of {searches} searches in "
-        f"{passes[0]['reanalyze/seconds']:.3f} s; one deep evaluation of {DEEP_EVAL_GAMES} games x {t} moves (games seeded on "
-        f"the CPU) in {deeps[0]['deep_eval/seconds']:.3f} s; {len(steps)} learner steps; whole run {wall:.1f} s; launches "
+        f"{passes[0]['reanalyze/seconds']:.3f} s; one deep evaluation of {DEEP_EVAL_GAMES} games x {t} moves "
+        f"(games seeded on the CPU) in {deeps[0]['deep_eval/seconds']:.3f} s; {len(steps)} learner steps; whole run "
+        f"{wall:.1f} s; launches "
         f"{launches}; {changed}/{len(trainer.state.params)} parameter tensors changed"
     )
     print("variant path: last step " + " ".join(f"{k}={steps[-1][k]:.4f}" for k in loss_terms))
