@@ -87,19 +87,37 @@ code != 0, no final ``ok`` line) if any phase fails:
    move and per batch of reanalyze searches, finite loss terms, changed
    parameters, a checkpoint equal to the saved state, the champion in
    ``best/``, and reanalysed policy targets that sum to 1;
-9. drives the probe's evaluation path, ``evaluate_games`` at the
+9. drives the actor/learner path at the training path's widths and cut,
+   parameters published every 4 steps (``drive_actor_learner``): in this
+   process, a ``LearnerServer`` and an ``ActorClient`` (in a thread) on the
+   card, bit for bit: the actor's parameters are the published snapshot, its
+   three generations equal direct ``generate_games`` calls (the third after
+   4 learner steps, on their parameters), the learner's buffer equals
+   ``ingest_segment`` applied directly; the learner's steps/s serial and
+   solo; then the two roles as processes,
+   ``python -m simulate_2048_tpu_torch.actor_learner_demo --role learner``
+   and ``--role actor``, each under a timeout (either failing stops the
+   other and fails the run): the learner's 12 steps with a finite loss, at
+   least 2 batches received and a pull served per actor generation, the
+   actor's ``whole_search_categorical`` launches equal to its moves, the
+   learner's launches only its evaluations' and reanalyze's, a learner step
+   above 0 seen by the actor, no kernel library rebuilt; printed with the
+   card's name and power limit: the learner's steps/s solo, overlapped and
+   serial, ``overlap_efficiency``, the actor's ms per move alone and while
+   the learner trains, and each process's peak device memory;
+10. drives the probe's evaluation path, ``evaluate_games`` at the
    full-capacity probe's recipe (bfloat16 search packs, 256/128 bins, its
    evaluation calibration) at its own width, H=256, whose weights the kernel
    keeps resident: 256 games of 8 moves, with the launch counts set to 0
    just before: one resident bfloat16 launch per move; printed beside the
    kernel's time, bound, launch shape and registers;
-10. drives the wide path, ``train_muzero`` at the same recipe with hidden
+11. drives the wide path, ``train_muzero`` at the same recipe with hidden
    512, which the kernel runs with streamed weights: two 8-move segments,
    three learner steps, one reanalyze pass, one evaluation and one deep
    evaluation of 8 moves, with the launch counts set to 0 just before: one
    streamed bfloat16 launch per move and per batch of reanalyze searches,
    finite loss terms;
-11. drives the data-parallel path, ``Trainer(mesh=...)`` over a virtual
+12. drives the data-parallel path, ``Trainer(mesh=...)`` over a virtual
    mesh of 4 replicas of the card at the training recipe's widths (batch
    1,024 = 4 x 256): one self-play segment, one fused data-parallel
    superstep of 4 steps and one per-step step, with the launch counts set
@@ -108,7 +126,7 @@ code != 0, no final ``ok`` line) if any phase fails:
    copy of the state against the single-device step on the same batch
    (loss rtol 1e-5, priorities rtol 1e-4, the applied gradient within 2^-8
    relative L2, each parameter within two Adam steps);
-12. runs the plain search's variants on the card: at the paper preset
+13. runs the plain search's variants on the card: at the paper preset
    (256/128 bins, 256 searches) PUCT, the Gumbel root, sampled chance
    selection and argmax chance selection under progressive widening
    (pw_c=1.0), each timed (CUDA events, median of 3 calls, the first of
@@ -117,7 +135,7 @@ code != 0, no final ``ok`` line) if any phase fails:
    searches, each variant (and all three at once) on CUDA and on the CPU from the same roots and fed draws: visit
    counts identical in >= 99% of the searches, the CUDA call timed by
    ``utils.profiling.time_fn``;
-13. drives the variant path, ``train_muzero`` at the training recipe's widths
+14. drives the variant path, ``train_muzero`` at the training recipe's widths
    with the Gumbel root, sampled chance selection and widening, backend
    "auto": two 4-move segments of 256 games, two learner steps, one
    search-mode reanalyze pass of 1,024 searches, one 4-move evaluation and
@@ -129,7 +147,7 @@ code != 0, no final ``ok`` line) if any phase fails:
    policy targets (the improved policy) that sum to 1 and are positive on
    every legal action, the ms per self-play move; then the network's evaluation under the Gumbel root alone: one
    ``whole_search_categorical`` launch per move;
-14. prints one JSON line with every kernel's numbers, then
+15. prints one JSON line with every kernel's numbers, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--profile`` also prints the device time by kernel, the device kernels
@@ -147,20 +165,25 @@ from __future__ import annotations
 import argparse
 import copy
 import dataclasses
+import gc
 import json
 import math
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
+import numpy as np
 import torch
 
 from simulate_2048_tpu_torch import bench
+from simulate_2048_tpu_torch.actor_learner_demo import hook_steps
 from simulate_2048_tpu_torch.env import env as envlib
 from simulate_2048_tpu_torch.models.network import network_from_config
 from simulate_2048_tpu_torch.ops import _build
@@ -170,8 +193,10 @@ from simulate_2048_tpu_torch.ops import rollout_kernel as rk
 from simulate_2048_tpu_torch.ops import search_kernel as sk
 from simulate_2048_tpu_torch.parallel import make_dp_train_step, make_mesh
 from simulate_2048_tpu_torch.parallel import ring
+from simulate_2048_tpu_torch.parallel.actor_learner import ActorClient, LearnerServer, _to_numpy
 from simulate_2048_tpu_torch.search import mcts
 from simulate_2048_tpu_torch.search.mcts import root_inputs
+from simulate_2048_tpu_torch.training import config as config_lib
 from simulate_2048_tpu_torch.training.checkpoint import CheckpointManager
 from simulate_2048_tpu_torch.training.config import default_config, tiny_config
 from simulate_2048_tpu_torch.training import reanalyze
@@ -181,10 +206,11 @@ from simulate_2048_tpu_torch.training.self_play import (
     _evaluate_rollout,
     _use_kernel,
     evaluate_games,
+    generate_games,
     play_segment,
     search_config_from,
 )
-from simulate_2048_tpu_torch.training.trainer import Trainer, train_muzero
+from simulate_2048_tpu_torch.training.trainer import Trainer, ingest_segment, train_muzero
 from simulate_2048_tpu_torch.utils.profiling import time_fn
 
 SEED = 2048
@@ -200,6 +226,14 @@ TRAIN_EVAL_MOVES = 8  # eval_max_moves, of the inline and of the deep evaluation
 REANALYZE_EPISODES = 64  # the training recipe's; one pass, before step TRAIN_STEPS // 2 (the recipe: every 500)
 DEEP_EVAL_GAMES = 128  # the training recipe's; one deep evaluation, after the last step (the recipe: every 25,000)
 # Wide path: the full-capacity probe's recipe at hidden 512 (bfloat16 search packs, streamed), depth cut further.
+# Actor/learner path: the training path's cut, its parameters published every AL_SYNC steps.
+AL_SYNC = 4  # generation_interval, the learner's param_sync_interval
+AL_ACTOR_SEED = 1
+AL_GENERATIONS = 10  # the actor's: two fill the buffer, the rest play while the learner takes TRAIN_STEPS steps
+AL_RATE_STEPS = 8  # steps of each serial and solo learner rate (two self-play segments in the serial one)
+AL_TIMEOUT = 300  # seconds each role process may take
+AL_LOG_LINES = 4  # lines of each role's output printed (40 of one that failed)
+
 WIDE_HIDDEN = 512
 WIDE_SEGMENT_MOVES = 8  # two segments: one fills the buffer, the loop's step 0 plays the other
 WIDE_STEPS = 3  # one reanalyze pass before step WIDE_STEPS - 1; evaluation and deep evaluation after the last
@@ -279,6 +313,14 @@ def sku(name: str) -> str:
         if all(word in name for word in key.split()):
             return key
     return "H100 SXM"
+
+
+def card_line() -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True
+    )
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else f"nvidia-smi failed: {smi.stderr.strip()}"
 
 
 def timed_once(fn):
@@ -1218,6 +1260,300 @@ def drive_training(device) -> dict[str, int]:
     return launches
 
 
+def actor_learner_config():
+    """The training path's cut (``training_config()``) with the learner's
+    parameters published every ``AL_SYNC`` steps (``generation_interval``,
+    which ``LearnerServer`` takes as its ``param_sync_interval``)."""
+    return dataclasses.replace(training_config(), generation_interval=AL_SYNC)
+
+
+def clone_buffer(buffer):
+    return replay_lib.BufferState(*(x.clone() for x in buffer))
+
+
+def in_thread(fn):
+    """``fn()`` in a thread of its own (the actor's side of a split run in one
+    process), waited for; its failure is raised here."""
+    out = {}
+
+    def target():
+        try:
+            out["value"] = fn()
+        except BaseException as e:  # noqa: BLE001 - re-raised in the caller's thread
+            out["error"] = e
+
+    thread = threading.Thread(target=target, daemon=True)
+    thread.start()
+    thread.join(AL_TIMEOUT)
+    if thread.is_alive():
+        fail(f"actor/learner parity: the actor's thread ran past {AL_TIMEOUT} s")
+    if "error" in out:
+        raise out["error"]
+    return out.get("value")
+
+
+def learner_rate(step_rates, hooks: set[int], first_step: int) -> tuple[float, int]:
+    """Learner steps/s over the logged ``(step, steps/s)`` pairs from
+    ``first_step`` on (``log_interval`` 1) whose interval ran no host hook
+    (every mode pays those alike): those steps over their summed seconds.
+    Returns the rate and the steps counted."""
+    kept = [sps for step, sps in step_rates if step >= first_step and step - 1 not in hooks]
+    if not kept:
+        fail("actor/learner rates: no learner step to time")
+    return len(kept) / sum(1 / x for x in kept), len(kept)
+
+
+def check_actor_learner(device) -> dict[str, float]:
+    """(a) The split in this process on the card, the actor in a thread: the
+    parameters the actor loads are the learner's published snapshot, its
+    generations equal direct ``generate_games`` calls on the same weights with
+    a generator of the same seed from the same games (trajectory fields and
+    ``GenStats``, bit for bit), and the learner's buffer after each message
+    equals ``ingest_segment`` applied directly (the second message re-grounds
+    the first's truncated games). Two generations fill the buffer; the
+    learner takes ``AL_SYNC`` steps and republishes; the third generation
+    pulls that step's parameters, which differ from step 0's, and still
+    equals the direct call, while the same call on step 0's weights stores
+    other value targets: nothing derived from the weights (the kernel's
+    pack) outlives a pull. Then the learner's steps/s serial (its own
+    self-play every ``AL_SYNC`` steps) and solo (no self-play), each over
+    ``AL_RATE_STEPS`` steps with the host hooks off, as
+    ``scripts/measure_overlap.py`` measures them. Returns both rates."""
+    config = actor_learner_config()
+    trainer = Trainer(config, seed=SEED, device=device)
+    trainer.initialize()
+    server = LearnerServer(trainer, port=0).start()
+    if server.param_sync_interval != AL_SYNC:
+        fail(f"actor/learner parity: the learner publishes every {server.param_sync_interval} steps")
+    direct_net = network_from_config(config, torch.Generator().manual_seed(0), device)
+    direct_gen = torch.Generator(device=device).manual_seed(AL_ACTOR_SEED)
+    direct_state = envlib.reset_batch(AL_ACTOR_SEED * 2654435761 % (1 << 31), BATCH, device)
+    prev, step0, gen_s = None, None, []
+    try:
+        actor = in_thread(lambda: ActorClient(config, server.address, seed=AL_ACTOR_SEED, device=device))
+        for gen in range(3):
+            if gen == 2:
+                server.run(AL_SYNC, verbose=False)  # steps and republishes
+            in_thread(lambda: actor.run(1))
+            step, snapshot = server._latest_params
+            loaded = [torch.from_numpy(x).to(device) for x in snapshot]
+            if not all(torch.equal(p, x) for p, x in zip(actor._network.parameters(), loaded, strict=True)):
+                fail(f"actor/learner parity: generation {gen}'s parameters are not the published snapshot")
+            if gen == 0:
+                step0 = loaded
+            elif gen == 2:
+                changed = sum(not torch.equal(a, b) for a, b in zip(step0, loaded))
+                if actor.learner_step != AL_SYNC or step != AL_SYNC or changed == 0:
+                    fail(f"actor/learner parity: the pull after {AL_SYNC} steps saw step {actor.learner_step}, "
+                         f"{changed} parameter tensors changed")  # fmt: skip
+            msg = server._traj_queue.get(timeout=AL_TIMEOUT)
+            if gen == 2:
+                # The same generation on step 0's weights differs: a pack left from them would show.
+                stale_gen = torch.Generator(device=device)
+                stale_gen.set_state(direct_gen.get_state())
+                _, stale, _ = generate_games(direct_net, stale_gen, config, step, BATCH, direct_state)
+            with torch.no_grad():
+                for p, x in zip(direct_net.parameters(), loaded):
+                    p.copy_(x)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            direct_state, traj, stats = generate_games(direct_net, direct_gen, config, step, BATCH, direct_state)
+            torch.cuda.synchronize()
+            gen_s.append(time.perf_counter() - t0)
+            for kind, got, want in (("trajectory", msg["payload"], traj), ("GenStats", msg["gen_stats"], stats)):
+                for name, a, b in zip(want._fields, got, _to_numpy(want), strict=True):
+                    if not np.array_equal(a, b):
+                        fail(f"actor/learner parity: generation {gen}'s {kind} field {name} differs from the direct call")
+            if gen == 2 and np.array_equal(stale.values.cpu().numpy(), msg["payload"].values):
+                fail("actor/learner parity: the generation on step 0's weights equals the one on step 4's")
+            if (msg["actor_id"], msg["generation"]) != (AL_ACTOR_SEED, gen):
+                fail(f"actor/learner parity: message {msg['actor_id']}/{msg['generation']} for generation {gen}")
+            expected, prev = ingest_segment(clone_buffer(trainer.buffer), prev, traj, stats.first_search_value, config)
+            server._ingest_message(msg)
+            for name, a, b in zip(replay_lib.BufferState._fields, expected, trainer.buffer):
+                if not torch.equal(a, b):
+                    fail(f"actor/learner parity: buffer field {name} after generation {gen} differs from ingest_segment")
+        actor.close()
+    finally:
+        server.close()
+    print(
+        f"actor/learner parity (in one process, the actor in a thread): 3 generations of {BATCH} games x "
+        f"{TRAIN_SEGMENT_MOVES} moves, parameters = the published snapshot (steps 0, 0, {AL_SYNC}), trajectories and "
+        f"GenStats = direct generate_games bit for bit, buffers = ingest_segment bit for bit; the direct calls "
+        f"{1e3 * statistics.median(gen_s) / TRAIN_SEGMENT_MOVES:.2f} ms per move"
+    )
+
+    # Serial and solo learner rates on this trainer (its buffer holds three generations), host hooks off.
+    quiet = dict(eval_interval=1 << 30, checkpoint_interval=1 << 30, reanalyze_interval=None, deep_eval_interval=None)
+    rates = {}
+    for mode, interval in (("serial", AL_SYNC), ("solo", 1 << 30)):
+        trainer.config = dataclasses.replace(config, generation_interval=interval, **quiet)
+        first = int(trainer.state.step) + 1
+        trainer.train(AL_RATE_STEPS, verbose=False)
+        history = trainer.metrics.history
+        step_rates = [(r["step"], r["steps_per_s"]) for r in history if "steps_per_s" in r]
+        rates[mode], n = learner_rate(step_rates, set(hook_steps(history)), first)
+        gens = sum(1 for r in history if "gen/seconds" in r and r["step"] >= first - 1)
+        print(f"actor/learner rates: {mode} learner {rates[mode]:.4f} steps/s over {n} steps ({gens} self-play "
+              f"segments among them)")  # fmt: skip
+    return rates
+
+
+def config_overrides(config) -> list[str]:
+    """``--set`` arguments that make ``--mode full`` (``default_config()``) into ``config``."""
+    base = config_lib.default_config()
+    args = []
+    for field in dataclasses.fields(config):
+        value = getattr(config, field.name)
+        if value != getattr(base, field.name):
+            args += ["--set", f"{field.name}={value!r}"]
+    return args
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_roles(config) -> tuple[dict, dict, float]:
+    """The learner and one actor as two processes through the entry point,
+    both on the card, each under ``AL_TIMEOUT``: if either exits non-zero or
+    runs out of time, the other is killed and the run fails. Returns both
+    roles' counts lines and the wall seconds."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    command = [sys.executable, "-m", "simulate_2048_tpu_torch.actor_learner_demo", "--mode", "full",
+               "--port", str(free_port()), "--fill-timeout", str(AL_TIMEOUT), *config_overrides(config)]  # fmt: skip
+    roles = {
+        "learner": ["--role", "learner", "--steps", str(TRAIN_STEPS)],
+        "actor": ["--role", "actor", "--generations", str(AL_GENERATIONS), "--actor-seed", str(AL_ACTOR_SEED)],
+    }
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p)}
+    outs = {}
+    with tempfile.TemporaryDirectory() as logs:
+        files = {role: open(os.path.join(logs, role), "w+") for role in roles}
+        t0 = time.perf_counter()
+        procs = {role: subprocess.Popen(command + args, cwd=root, env=env, stdout=files[role],
+                                        stderr=subprocess.STDOUT) for role, args in roles.items()}  # fmt: skip
+        try:
+            while any(p.poll() is None for p in procs.values()):
+                if any(p.poll() not in (None, 0) for p in procs.values()) or time.perf_counter() - t0 > AL_TIMEOUT:
+                    break
+                time.sleep(0.2)
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        wall = time.perf_counter() - t0
+        for role, f in files.items():
+            f.seek(0)
+            outs[role] = f.read()
+            f.close()
+    codes = {role: p.returncode for role, p in procs.items()}
+    for role, code in codes.items():
+        lines = outs[role].strip().splitlines()[-(AL_LOG_LINES if code == 0 else 40):]
+        print("\n".join(f"actor/learner {role}: {line}" for line in lines if not line.startswith("{")))
+    if any(codes.values()):
+        fail(f"actor/learner processes: exit codes {codes} after {wall:.1f} s (a role that fails or runs out of "
+             f"time is stopped with the other: -9)")  # fmt: skip
+    counts = {}
+    for role in roles:
+        lines = outs[role].strip().splitlines()
+        counts[role] = json.loads(lines[-2])
+        if counts[role]["role"] != role:
+            fail(f"actor/learner processes: no counts line from the {role}")
+    return counts["learner"], counts["actor"], wall
+
+
+def drive_actor_learner(device) -> int:
+    """The actor/learner path on the card: (a) ``check_actor_learner``; (b)
+    the two roles as processes through
+    ``python -m simulate_2048_tpu_torch.actor_learner_demo``; (c) the
+    learner's steps/s solo, overlapped and serial, ``overlap_efficiency``
+    (overlapped / solo), the actor's ms per move alone and while the learner
+    trains, and each process's peak device memory.
+
+    Widths, heads, games, batch and unroll are the training path's (H=256, 10
+    blocks, 100 simulations, 256/128 bins, batch 1,024, unroll 5, backend
+    "auto"). Depth cut as the training path's: one actor of 256 games,
+    24-move segments (not 200), ``min_buffer_size`` of two generations, 12
+    learner steps, parameters published every 4 steps, one reanalyze pass
+    (at step 6), an inline and a deep evaluation at step 12 and one at the
+    end, each of 8 moves; ``AL_GENERATIONS`` actor generations; the serial
+    and solo rates over ``AL_RATE_STEPS`` steps. Returns the actor's
+    ``whole_search_categorical`` launches."""
+    t_phase = time.perf_counter()
+    rates = check_actor_learner(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    config = actor_learner_config()
+    built = sorted((p.name, p.stat().st_mtime_ns) for p in _build.BUILD_DIR.iterdir())
+    learner, actor, wall = run_roles(config)
+    if sorted((p.name, p.stat().st_mtime_ns) for p in _build.BUILD_DIR.iterdir()) != built:
+        fail("actor/learner processes: a role built a kernel library instead of loading the cached one")
+
+    # The learner: its steps with a finite loss, batches from the actor, a pull per actor generation.
+    if learner["steps"] != TRAIN_STEPS or not math.isfinite(learner["final_loss"]):
+        fail(f"actor/learner processes: the learner reached step {learner['steps']}, loss {learner['final_loss']}")
+    if learner["trajectories_received"] < 2 or learner["params_served"] < actor["generations"]:
+        fail(f"actor/learner processes: {learner['trajectories_received']} batches received, "
+             f"{learner['params_served']} parameter pulls served for {actor['generations']} generations")  # fmt: skip
+    # The actor searched on the kernel, one launch a move; the learner on its evaluations and reanalyze only.
+    moves = actor["moves"]
+    if actor["generations"] != AL_GENERATIONS or moves != AL_GENERATIONS * TRAIN_SEGMENT_MOVES:
+        fail(f"actor/learner processes: the actor played {actor['generations']} generations, {moves} moves")
+    if actor["launches"]["whole_search_categorical"] != moves or sum(actor["launches"].values()) != moves:
+        fail(f"actor/learner processes: the actor launched {actor['launches']} for {moves} moves")
+    evaluations = 3  # the inline and the deep evaluation at the last step, and the role's own at the end
+    expected = evaluations * TRAIN_EVAL_MOVES + reanalyze.search_batches(REANALYZE_EPISODES * TRAIN_SEGMENT_MOVES)
+    if learner["launches"]["whole_search_categorical"] != expected or sum(learner["launches"].values()) != expected:
+        fail(f"actor/learner processes: the learner launched {learner['launches']}, not its {evaluations} "
+             f"evaluations' and one reanalyze pass's {expected} (a self-play search would add more)")  # fmt: skip
+    if max(actor["learner_steps"]) <= 0:
+        fail(f"actor/learner processes: the actor saw learner steps {actor['learner_steps']} only")
+
+    # (c) Overlapped: the learner's steps (after the first) that ended while the actor played.
+    start, end = learner["work_window"]
+    actor_end = actor["generation_windows"][-1][1]
+    played, t = [], start
+    for step, sps in learner["step_rates"]:
+        t += 1 / sps
+        if t <= actor_end:
+            played.append((step, sps))
+    overlapped, n_over = learner_rate(played, set(learner["hook_steps"]), 2)
+
+    def ms_per_move(windows):
+        return statistics.median(1e3 * (e - s) / TRAIN_SEGMENT_MOVES for s, e in windows) if windows else math.nan
+
+    def overlap(s, e):
+        return max(0.0, min(e, end) - max(s, start)) / (e - s)
+
+    windows = actor["generation_windows"]
+    alone = [w for w in windows[1:] if overlap(*w) < 0.1]
+    during = [w for w in windows if overlap(*w) > 0.9]
+    smi = card_line()
+    print(
+        f"actor/learner processes ({smi}): learner {learner['steps']} steps, {learner['trajectories_received']} "
+        f"batches received ({learner['trajectories_dropped']} dropped), {learner['params_served']} pulls served, "
+        f"final loss {learner['final_loss']:.4f}, evaluation mean reward {learner['eval_mean_reward']:.1f}, launches "
+        f"{learner['launches']['whole_search_categorical']} (evaluations and reanalyze); actor {actor['generations']} "
+        f"generations, {moves} moves, {actor['launches']['whole_search_categorical']} whole_search_categorical "
+        f"launches, learner steps seen {actor['learner_steps']}; both processes {wall:.1f} s; no kernel rebuilt"
+    )
+    print(
+        f"actor/learner numbers ({smi}): learner steps/s solo {rates['solo']:.4f}, overlapped {overlapped:.4f} "
+        f"(over {n_over} steps), serial {rates['serial']:.4f}; overlap_efficiency {overlapped / rates['solo']:.4f}; "
+        f"actor ms per move alone {ms_per_move(alone):.2f} ({len(alone)} generations), while the learner trains "
+        f"{ms_per_move(during):.2f} ({len(during)} generations); peak device memory (allocated / reserved MiB): "
+        f"learner {learner['peak_allocated_mb']:.1f} / {learner['peak_reserved_mb']:.1f}, actor "
+        f"{actor['peak_allocated_mb']:.1f} / {actor['peak_reserved_mb']:.1f}; the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s"
+    )
+    return actor["launches"]["whole_search_categorical"]
+
+
 def gradient_length(config) -> int:
     """Elements of ``config``'s flattened gradient: every parameter of its networks."""
     return sum(p.numel() for p in network_from_config(config, torch.Generator().manual_seed(SEED), "cpu").parameters())
@@ -1808,10 +2144,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True
-    )
-    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else f"nvidia-smi failed: {smi.stderr.strip()}")
+    print(card_line())
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
@@ -1893,6 +2226,9 @@ def main() -> None:
 
     # ---- training path: self-play, replay, learner, reanalyze, checkpoint, evaluation, deep evaluation at full width
     kernels["whole_search_categorical"]["launches"] = drive_training(device)["whole_search_categorical"]
+
+    # ---- actor/learner path: the learner and an actor as two processes on the card, through the entry point
+    drive_actor_learner(device)
 
     # ---- probe evaluation path: the full-capacity probe's recipe at H=256, bfloat16 search packs resident
     kernels["whole_search_bf16"]["launches"] = drive_probe_evaluation(device, ptxas["whole_search_bf16"])

@@ -70,9 +70,11 @@ def _recv_msg(sock: socket.socket) -> Any | None:
 
 
 def _to_numpy(tree: Any) -> Any:
-    """Tensors of a list or named tuple as numpy arrays (on the host)."""
+    """Tensors of a list or named tuple as numpy arrays (on the host), always
+    copies: a CPU tensor's ``numpy()`` shares its storage, and a parameter
+    snapshot that shared it would change under the optimizer's in-place steps."""
     if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().numpy()
+        return tree.detach().to("cpu", copy=True).numpy()
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*(_to_numpy(x) for x in tree))
     if isinstance(tree, (list, tuple)):
@@ -135,6 +137,8 @@ class LearnerServer:
         self.trajectories_dropped = 0
         self.params_served = 0
         self.last_run_fused = False
+        self._connections = 0  # live actor connections, under the condition below
+        self._connections_changed = threading.Condition()
         self._accept_thread = threading.Thread(target=self._accept_loop, daemon=True)
         self.publish_params()
 
@@ -153,6 +157,16 @@ class LearnerServer:
             threading.Thread(target=self._serve_connection, args=(conn,), daemon=True).start()
 
     def _serve_connection(self, conn: socket.socket) -> None:
+        with self._connections_changed:
+            self._connections += 1
+        try:
+            self._serve(conn)
+        finally:
+            with self._connections_changed:
+                self._connections -= 1
+                self._connections_changed.notify_all()
+
+    def _serve(self, conn: socket.socket) -> None:
         # A misbehaving or dying actor never takes the server down: a
         # transport or decoding failure drops this connection only. A clean
         # disconnect in the middle of a message reads as None.
@@ -312,6 +326,13 @@ class LearnerServer:
         self.publish_params()
         return final
 
+    def wait_for_actors(self, timeout_s: float) -> bool:
+        """Keep serving until every connected actor has hung up, for at most
+        ``timeout_s``; True if they all did. A learner that closes under a
+        running actor fails that actor's next request after its redials."""
+        with self._connections_changed:
+            return self._connections_changed.wait_for(lambda: self._connections == 0, timeout_s)
+
     def close(self) -> None:
         self._stop.set()
         # close() alone does not wake a thread blocked in accept() on Linux;
@@ -360,6 +381,7 @@ class ActorClient:
         self._network = network_from_config(config, torch.Generator().manual_seed(0), self.device)
         self._sock = connect_with_retry(learner_address, connect_timeout_s)
         self.generations = 0
+        self.moves_played = 0  # moves of every game, summed over the generations
         self.learner_step = -1
         # Games persist across generations (segments), as the trainer's do.
         self._env_state = envlib.reset_batch(seed * 2654435761 % (1 << 31), self.num_games, self.device)
@@ -423,6 +445,7 @@ class ActorClient:
             if ack.get("kind") != "ack":
                 raise RuntimeError(f"unexpected reply to a trajectory push: {ack}")
             self.generations += 1
+            self.moves_played += traj.actions.shape[1]
             if on_generation is not None:
                 on_generation(gen, self.learner_step)
 

@@ -330,9 +330,13 @@ def generate_games(
 def finish_gen_stats(stats: GenStats, traj: Trajectory) -> dict[str, float]:
     """Collection diagnostics → loggable means (one small host transfer).
     ``traj`` is the trajectory :func:`generate_games` returned alongside
-    ``stats``: its ``values`` hold the final stored targets."""
+    ``stats``: its ``values`` hold the final stored targets. The target and
+    priority sums are taken by NumPy on the host, as the JAX package takes
+    them, so that both log the same numbers for the same segment."""
     n_pos = max(int(stats.active_positions), 1)
     n_done = max(int(stats.completed), 1)
+    targets = traj.values.to(torch.float32).cpu().numpy()
+    priorities = traj.priorities.to(torch.float32).cpu().numpy()
     return {
         "gen/completed_games": int(stats.completed),
         "gen/completed_score": float(stats.completed_score_sum) / n_done,
@@ -340,8 +344,8 @@ def finish_gen_stats(stats: GenStats, traj: Trajectory) -> dict[str, float]:
         "gen/positions": int(stats.active_positions),
         "gen/policy_entropy": float(stats.policy_entropy_sum) / n_pos,
         "gen/search_value": float(stats.search_value_sum) / n_pos,
-        "gen/value_target": float(traj.values.to(torch.float32).sum()) / n_pos,
-        "gen/priority": float(traj.priorities.to(torch.float32).sum()) / n_pos,
+        "gen/value_target": float(targets.sum()) / n_pos,
+        "gen/priority": float(priorities.sum()) / n_pos,
     }
 
 

@@ -201,6 +201,29 @@ def test_actor_reconnects_after_channel_loss(server):
     actor.close()
 
 
+def test_pulled_parameters_are_the_published_snapshot(server):
+    """A pull returns the parameters as they were published, not as later
+    in-place optimizer steps left them (on the CPU, ``numpy()`` of a tensor
+    shares its storage: the snapshot must be a copy)."""
+    published = [p.detach().clone() for p in server.trainer.state.params]
+    with torch.no_grad():
+        for p in server.trainer.state.params:
+            p.add_(1.0)  # what an optimizer step does between two publications
+    actor = ActorClient(micro_config(), server.address, seed=10, device=CPU)
+    for got, want in zip(actor.fetch_params(), published, strict=True):
+        np.testing.assert_array_equal(got, want.numpy())
+    actor.close()
+
+
+def test_wait_for_actors_returns_once_they_hang_up(server):
+    actor = ActorClient(micro_config(), server.address, seed=11, device=CPU)
+    actor.fetch_params()
+    assert not server.wait_for_actors(0.2), "a connected actor keeps the learner serving"
+    actor.fetch_params()  # still served while the learner waits
+    actor.close()
+    assert server.wait_for_actors(10.0)
+
+
 def test_exhausted_retries_raise():
     _, server = started(micro_config())
     actor = ActorClient(micro_config(), server.address, seed=8, connect_timeout_s=1.0, device=CPU)
