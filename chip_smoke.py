@@ -126,7 +126,20 @@ code != 0, no final ``ok`` line) if any phase fails:
    copy of the state against the single-device step on the same batch
    (loss rtol 1e-5, priorities rtol 1e-4, the applied gradient within 2^-8
    relative L2, each parameter within two Adam steps);
-13. runs the plain search's variants on the card: at the paper preset
+13. runs the measurement entry points (``simulate_2048_tpu_torch.scripts``)
+   as processes on the card, each under a timeout (``drive_entry_points``):
+   ``benchmark_mcts --pallas`` at the full preset (256 boards, 100
+   simulations, depth cap 32) once per search library, each reaching its
+   library (six launches, no other) and taking between the kernel's own
+   time at 256 searches and twice it a batch; the plain search at 16
+   simulations; ``benchmark_training --mode full --steps 5 --dtype both``,
+   its ``flops_per_step`` equal to ``learner_step_flops`` (the dense
+   products of one step) and 0 < ``mfu_vs_bf16_peak`` <= 1 in both dtypes;
+   ``verify_parity`` at its defaults (``PARITY OK``); ``benchmark_scaling
+   --virtual 4 --steps 16``, one ring launch per data-parallel step on 2
+   and 4 replicas of the card; no library rebuilt; each script's numbers
+   printed beside the card's name and power limit;
+14. runs the plain search's variants on the card: at the paper preset
    (256/128 bins, 256 searches) PUCT, the Gumbel root, sampled chance
    selection and argmax chance selection under progressive widening
    (pw_c=1.0), each timed (CUDA events, median of 3 calls, the first of
@@ -135,7 +148,7 @@ code != 0, no final ``ok`` line) if any phase fails:
    searches, each variant (and all three at once) on CUDA and on the CPU from the same roots and fed draws: visit
    counts identical in >= 99% of the searches, the CUDA call timed by
    ``utils.profiling.time_fn``;
-14. drives the variant path, ``train_muzero`` at the training recipe's widths
+15. drives the variant path, ``train_muzero`` at the training recipe's widths
    with the Gumbel root, sampled chance selection and widening, backend
    "auto": two 4-move segments of 256 games, two learner steps, one
    search-mode reanalyze pass of 1,024 searches, one 4-move evaluation and
@@ -147,7 +160,7 @@ code != 0, no final ``ok`` line) if any phase fails:
    policy targets (the improved policy) that sum to 1 and are positive on
    every legal action, the ms per self-play move; then the network's evaluation under the Gumbel root alone: one
    ``whole_search_categorical`` launch per move;
-15. prints one JSON line with every kernel's numbers, then
+16. prints one JSON line with every kernel's numbers, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--profile`` also prints the device time by kernel, the device kernels
@@ -211,6 +224,7 @@ from simulate_2048_tpu_torch.training.self_play import (
     search_config_from,
 )
 from simulate_2048_tpu_torch.training.trainer import Trainer, ingest_segment, train_muzero
+from simulate_2048_tpu_torch.utils.card import BF16_TFLOPS, FP32_TFLOPS, HBM_TBPS, card_line, sku
 from simulate_2048_tpu_torch.utils.profiling import time_fn
 
 SEED = 2048
@@ -283,9 +297,6 @@ ROLLOUT_SEED_MIN_OPS = 69
 ROLLOUT_SOURCE_OPS = {"step": 123, "moved": 154, "full": 34, "reset": 333}
 ROLLOUT_SEED_OPS = 79  # a launch that derives its seeds: the derivation's Threefry, a board
 INT32_LANES_PER_SM = 64  # Hopper: 4 partitions of 16 INT32 lanes
-# FP32 (non-tensor-core) and dense bf16 tensor-core peaks by SKU, NVIDIA data sheets (at the full power limit).
-FP32_TFLOPS = {"H100 SXM": 67.0, "H100 NVL": 60.0, "H100 PCIe": 51.0, "H200": 67.0}
-BF16_TFLOPS = {"H100 SXM": 989.0, "H100 NVL": 835.0, "H100 PCIe": 756.0, "H200": 989.0}
 # Data-parallel path: a virtual mesh of DP_REPLICAS replicas on one card, one self-play segment, then one fused
 # superstep of DP_SUPERSTEP steps and one per-step step.
 DP_REPLICAS = 4
@@ -298,7 +309,6 @@ RING_CALLS = 20  # launches per CUDA-event timing of the ring (a launch takes ~0
 SLEEP_CYCLES = 1 << 25  # the device's sleep (~17 ms) behind which RING_CALLS calls are enqueued
 # ptxas's mangling of the ring kernel's element types.
 RING_PTXAS_TYPES = {"f": "float32", "13__nv_bfloat16": "bfloat16", "6__half": "float16"}
-HBM_TBPS = {"H100 SXM": 3.35, "H100 NVL": 3.9, "H100 PCIe": 2.0, "H200": 4.8}
 # check_whole_search's times by check name and searches a launch: (kernel ms, bound ms).
 KERNEL_TIMES: dict[str, dict[int, tuple[float, float]]] = {}
 
@@ -306,21 +316,6 @@ KERNEL_TIMES: dict[str, dict[int, tuple[float, float]]] = {}
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
-
-
-def sku(name: str) -> str:
-    for key in ("H100 NVL", "H100 PCIe", "H200"):
-        if all(word in name for word in key.split()):
-            return key
-    return "H100 SXM"
-
-
-def card_line() -> str:
-    """The card's name and power limit as ``nvidia-smi`` gives them."""
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True
-    )
-    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else f"nvidia-smi failed: {smi.stderr.strip()}"
 
 
 def timed_once(fn):
@@ -1854,6 +1849,161 @@ def drive_dp_training(device, ring_ms: float) -> int:
     return launches
 
 
+ENTRY_TIMEOUT = 240  # seconds each measurement entry point may take
+# benchmark_mcts --pallas at the full preset, one run per library: the flags that reach it.
+CAT_BINS = ["--value-bins", "256", "--reward-bins", "128"]
+MCTS_RUNS = {
+    "whole_search": [],
+    "whole_search_categorical": CAT_BINS,
+    "whole_search_bf16": ["--weight-dtype", "bfloat16", *CAT_BINS],
+    "whole_search_bf16_streamed": ["--weight-dtype", "bfloat16", "--hidden", str(WIDE_HIDDEN), *CAT_BINS],
+}
+MCTS_FLAGS = ["--mode", "full", "--boards", str(BATCH), "--max-depth", "32"]
+MCTS_CALLS = 6  # time_fn's warm-up and five timed calls
+# A batch is the kernel's search plus the root's h/f, ~620 small PyTorch ops of host work before the launch: 6-14 ms
+# on the card's host, 1.08-1.43x the kernel at 256 x 100. A fallback to the plain search would be 60x or more.
+MCTS_MAX_RATIO = 2.0
+PLAIN_SIMS = 16  # the plain search's simulations in its benchmark (the kernel's runs take the preset's 100)
+SCALING_REPLICAS = 4
+SCALING_STEPS = 16  # the sharded rollout's steps (the script's default, 64, takes ~27 s of launches over 3 meshes)
+
+
+def learner_step_flops(config) -> int:
+    """FLOP of the dense products of one ``train_step`` (scalar heads, oracle
+    chance targets, no consistency loss), 2 per multiply-add: forward and
+    backward through h, K + 1 f, K φ, ψ and g (every layer's weight gradient;
+    no input gradient for the layers fed the observations, the action
+    one-hots or the oracle's chance codes), and the fresh priorities' forward
+    h and f."""
+    if (config.value_bins, config.reward_bins, config.chance_target_mode) != (1, 1, "oracle") or (
+        config.consistency_loss_weight
+    ):
+        raise ValueError("learner_step_flops counts scalar heads, oracle chance targets and no consistency loss")
+    b, k, h, nb = config.batch_size, config.num_unroll_steps, config.hidden_size, config.num_residual_blocks
+    a, c, d = config.action_size, config.codebook_size, config.observation_dim
+    tower = 2 * nb * h * h  # multiply-adds a row of a residual tower
+    f_macs = h * h + tower + h * a + h  # f: projection, tower, policy and value heads
+    trained = b * (d * h * 2 + (tower + h * h) * 3)  # h: its first layer forms no input gradient
+    trained += (k + 1) * b * f_macs * 3
+    trained += k * b * ((3 * h * h + tower) * 3 + a * h * 2)  # φ: state fuse, tower's projection and tower, head
+    trained += k * b * ((h * h + tower + h * c + h) * 3)  # ψ
+    trained += k * b * ((3 * h * h + tower + h) * 3 + c * h * 2)  # g
+    priorities = b * (d * h + tower + h * h + f_macs)  # h and f, forward
+    return 2 * (trained + priorities)
+
+
+def run_entry_point(name: str, args: list[str]) -> str:
+    """``python -m simulate_2048_tpu_torch.scripts.<name> <args>`` on the card
+    under ENTRY_TIMEOUT (killed past it); fails the run on a non-zero exit.
+    Returns its standard output."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p)}
+    command = [sys.executable, "-m", f"simulate_2048_tpu_torch.scripts.{name}", *args]
+    try:
+        out = subprocess.run(command, cwd=root, env=env, capture_output=True, text=True, timeout=ENTRY_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        fail(f"{name} {' '.join(args)}: no exit within {ENTRY_TIMEOUT} s")
+    if out.returncode != 0:
+        print("\n".join(out.stderr.strip().splitlines()[-30:]))
+        fail(f"{name} {' '.join(args)}: exit code {out.returncode}")
+    return out.stdout
+
+
+def drive_entry_points() -> dict[str, float]:
+    """The measurement entry points (``simulate_2048_tpu_torch.scripts``),
+    each as a process on the card, through the flags a user gives them:
+
+    - ``benchmark_mcts --pallas`` at the full preset (256 boards, 100
+      simulations, depth cap 32) once per library (``MCTS_RUNS``): the line
+      must name the library and count its six launches and no other (no
+      fallback), and its ``search_ms_per_batch`` lie between the kernel's own
+      time at 256 searches from the check phase and ``MCTS_MAX_RATIO`` times
+      it; then the plain search at ``PLAIN_SIMS`` simulations, no launch;
+    - ``benchmark_training --mode full --steps 5 --dtype both``:
+      ``flops_per_step`` equal to ``learner_step_flops`` at the preset in
+      both dtypes, 0 < ``mfu_vs_bf16_peak`` <= 1;
+    - ``verify_parity`` at its defaults: ``PARITY OK``;
+    - ``benchmark_scaling --virtual 4 --steps 16``: one ring launch per
+      data-parallel step on 2 and 4 replicas of the card, none on 1.
+
+    No library is rebuilt (the ``build/kernels`` listing is unchanged).
+    Prints each script's numbers beside the card's name and power limit.
+    Returns the searches/s by library (and ``plain``)."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()  # this process's cached blocks, for the scripts' own
+    built = sorted((p.name, p.stat().st_mtime_ns) for p in _build.BUILD_DIR.iterdir())
+    card = card_line()
+    rates = {}
+    for library, flags in MCTS_RUNS.items():
+        r = json.loads(run_entry_point("benchmark_mcts", [*MCTS_FLAGS, "--sims", "100", "--pallas", *flags]))
+        kernel_ms = KERNEL_TIMES[library][BATCH][0]
+        print(
+            f"entry points: benchmark_mcts --pallas {' '.join(flags)}: {r['backend']}, {r['launches']} launches, "
+            f"{r['search_ms_per_batch']:.3f} ms a batch of {r['boards']} (the kernel alone {kernel_ms:.3f} ms, "
+            f"ratio {r['search_ms_per_batch'] / kernel_ms:.3f}), {r['searches_per_s']:.1f} searches/s, "
+            f"{r['simulations_per_s']:.0f} simulations/s, first call {r['compile_ms']:.1f} ms; {card}"
+        )
+        if r["backend"] != library or r["launches"] != {library: MCTS_CALLS}:
+            fail(f"benchmark_mcts {' '.join(flags)}: ran {r['backend']} with launches {r['launches']}, not "
+                 f"{MCTS_CALLS} of {library}")  # fmt: skip
+        if not kernel_ms <= r["search_ms_per_batch"] <= MCTS_MAX_RATIO * kernel_ms:
+            fail(f"benchmark_mcts {' '.join(flags)}: {r['search_ms_per_batch']:.3f} ms a batch, outside "
+                 f"[{kernel_ms:.3f}, {MCTS_MAX_RATIO} x {kernel_ms:.3f}] ms (the kernel alone)")  # fmt: skip
+        rates[library] = r["searches_per_s"]
+    r = json.loads(run_entry_point("benchmark_mcts", [*MCTS_FLAGS, "--sims", str(PLAIN_SIMS)]))
+    print(
+        f"entry points: benchmark_mcts (plain search, {PLAIN_SIMS} simulations): {r['search_ms_per_batch']:.3f} ms a "
+        f"batch of {r['boards']}, {r['searches_per_s']:.2f} searches/s, {r['simulations_per_s']:.1f} simulations/s; "
+        f"{card}"
+    )
+    if r["backend"] != "plain" or r["launches"]:
+        fail(f"benchmark_mcts (plain): ran {r['backend']} with kernel launches {r['launches']}")
+    rates["plain"] = r["searches_per_s"]
+
+    r = json.loads(run_entry_point("benchmark_training", ["--mode", "full", "--steps", "5", "--dtype", "both"]))
+    want = learner_step_flops(default_config())
+    for dtype in ("fp32", "bf16"):
+        step = r[dtype]
+        print(
+            f"entry points: benchmark_training {dtype}: {step['train_step_ms']:.2f} ms a step (first "
+            f"{step['train_compile_ms']:.1f}), {step['learner_steps_per_s']:.4f} steps/s, {step['samples_per_s']:.1f} "
+            f"samples/s, flops_per_step {step['flops_per_step']:,} (dense products; analytic {want:,}), "
+            f"mfu_vs_bf16_peak {step['mfu_vs_bf16_peak']:.4g} of {r['peak_tflops_assumed']} TFLOP/s; {r['card']}"
+        )
+        if step["flops_per_step"] != want:
+            fail(f"benchmark_training {dtype}: flops_per_step {step['flops_per_step']:,} != the analytic {want:,}")
+        if not 0 < step["mfu_vs_bf16_peak"] <= 1:
+            fail(f"benchmark_training {dtype}: mfu_vs_bf16_peak {step['mfu_vs_bf16_peak']} outside (0, 1]")
+    print(f"entry points: benchmark_training: sample_ms {r['sample_ms']:.3f}, bf16_speedup {r['bf16_speedup']:.4f}, "
+          f"tf32_matmul {r['tf32_matmul']}")  # fmt: skip
+
+    t0 = time.perf_counter()
+    out = run_entry_point("verify_parity", [])
+    print("\n".join(f"entry points: verify_parity: {line}" for line in out.strip().splitlines()[-3:]))
+    print(f"entry points: verify_parity: {time.perf_counter() - t0:.2f} s with start-up; {card}")
+    if "PARITY OK: 256/4096 boards bitwise-identical over 128 steps" not in out:
+        fail("verify_parity: no PARITY OK line")
+
+    scaling = ["--virtual", str(SCALING_REPLICAS), "--steps", str(SCALING_STEPS)]
+    results = json.loads(run_entry_point("benchmark_scaling", scaling))
+    for r in results:
+        print(
+            f"entry points: benchmark_scaling N={r['devices']}: {r['env_steps_per_s']:.4g} env-steps/s "
+            f"(efficiency {r['rollout_efficiency']:.4f}), {r['learner_samples_per_s']:.1f} samples/s (efficiency "
+            f"{r['learner_efficiency']:.4f}), {r['ring_launches_per_step']} ring launches a step, replicas of one "
+            f"card: {r['replicas_of_one_card']}; {card}"
+        )
+        if r["ring_launches_per_step"] != (r["devices"] > 1) or not r["replicas_of_one_card"]:
+            fail(f"benchmark_scaling N={r['devices']}: {r['ring_launches_per_step']} ring launches a step")
+    if [r["devices"] for r in results] != [1, 2, 4]:
+        fail(f"benchmark_scaling {' '.join(scaling)}: mesh sizes {[r['devices'] for r in results]}")
+    if sorted((p.name, p.stat().st_mtime_ns) for p in _build.BUILD_DIR.iterdir()) != built:
+        fail("entry points: a kernel library was rebuilt")
+    print(f"entry points: phase {time.perf_counter() - t_phase:.1f} s, no kernel rebuilt")
+    return rates
+
+
 VARIANT_SEARCHES = {  # the plain search's variants: SearchConfig overrides
     "PUCT (xla)": {},
     "Gumbel root": dict(root_selection="gumbel"),
@@ -2238,6 +2388,9 @@ def main() -> None:
 
     # ---- data-parallel path: the learner over a virtual mesh of the card, its gradients summed by the ring kernel
     kernels["ring_all_reduce"]["launches"] = drive_dp_training(device, kernels["ring_all_reduce"]["ms"])
+
+    # ---- measurement entry points: the four scripts as processes on the card
+    drive_entry_points()
 
     # ---- the search variants: the plain search at full width, CUDA against the CPU at H=64
     check_variant_searches(device, kernels["whole_search_categorical"]["ms"])

@@ -23,22 +23,9 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import time
 
 REPS = 5
-
-
-def _power_limit_w() -> float | None:
-    """The card's power limit in watts as ``nvidia-smi`` reports it, None when it cannot be read."""
-    try:
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=power.limit", "--format=csv,noheader,nounits"],
-            capture_output=True, text=True, timeout=30,
-        )  # fmt: skip
-        return float(out.stdout.strip().splitlines()[0])
-    except (OSError, subprocess.SubprocessError, ValueError, IndexError):
-        return None
 
 
 def gpu_repetition(seed: int, num_envs: int, num_steps: int, device) -> tuple[int, float]:
@@ -67,6 +54,7 @@ def main(argv: list[str] | None = None) -> dict:
 
     from simulate_2048_tpu_torch.device import resolve_device
     from simulate_2048_tpu_torch.ops.rollout import random_rollout
+    from simulate_2048_tpu_torch.utils.card import power_limit_w
 
     device = resolve_device(args.device)
     on_gpu = device.type == "cuda"
@@ -91,7 +79,7 @@ def main(argv: list[str] | None = None) -> dict:
         "unit": "env-steps/s",
         "backend": "cuda_rollout" if on_gpu else "torch_loop",
         "device": torch.cuda.get_device_name(device) if on_gpu else "cpu",
-        "power_limit_w": _power_limit_w() if on_gpu else None,
+        "power_limit_w": power_limit_w() if on_gpu else None,
         "num_envs": num_envs,
         "num_steps": num_steps,
         "reps": REPS,
