@@ -87,7 +87,24 @@ code != 0, no final ``ok`` line) if any phase fails:
    move and per batch of reanalyze searches, finite loss terms, changed
    parameters, a checkpoint equal to the saved state, the champion in
    ``best/``, and reanalysed policy targets that sum to 1;
-9. drives the actor/learner path at the training path's widths and cut,
+9. drives the recipe path (``drive_recipe_path``): the champion recipe
+   ``simulate_2048_tpu_torch/scripts/run_cat60k_twin.sh`` at its own widths
+   (``small_config()`` with the script's overrides, read from the script:
+   H=128, 5 blocks, 64 games, 50 simulations, batch 256, 256/128 bins):
+   the categorical kernel against its plain version at 64 searches under
+   the self-play search and under the evaluation search (prior temperature
+   4, pb_c_init 0.5), the float32 rule above, timed; a self-play move of
+   the 64 games under the literal recipe's ``search_backend="xla"`` (the
+   plain search) and under "auto" (the kernel), in turns; then a cut run
+   through ``Trainer`` with the launch counts set to 0 just before (2
+   segments of 24 moves, 40 learner steps, one evaluation of 32 games
+   capped at 100 moves, a checkpoint read back): only
+   ``whole_search_categorical`` launched, once per self-play and
+   evaluation move, finite losses, the learner's ms per step and the peak
+   device memory printed; then 3 moves and 5 learner steps under
+   ``utils.profiling.trace`` and ``trace_summary`` on the trace as a
+   process, which must list ``whole_search_kernel`` 3 times;
+10. drives the actor/learner path at the training path's widths and cut,
    parameters published every 4 steps (``drive_actor_learner``): in this
    process, a ``LearnerServer`` and an ``ActorClient`` (in a thread) on the
    card, bit for bit: the actor's parameters are the published snapshot, its
@@ -105,19 +122,19 @@ code != 0, no final ``ok`` line) if any phase fails:
    card's name and power limit: the learner's steps/s solo, overlapped and
    serial, ``overlap_efficiency``, the actor's ms per move alone and while
    the learner trains, and each process's peak device memory;
-10. drives the probe's evaluation path, ``evaluate_games`` at the
+11. drives the probe's evaluation path, ``evaluate_games`` at the
    full-capacity probe's recipe (bfloat16 search packs, 256/128 bins, its
    evaluation calibration) at its own width, H=256, whose weights the kernel
    keeps resident: 256 games of 8 moves, with the launch counts set to 0
    just before: one resident bfloat16 launch per move; printed beside the
    kernel's time, bound, launch shape and registers;
-11. drives the wide path, ``train_muzero`` at the same recipe with hidden
+12. drives the wide path, ``train_muzero`` at the same recipe with hidden
    512, which the kernel runs with streamed weights: two 8-move segments,
    three learner steps, one reanalyze pass, one evaluation and one deep
    evaluation of 8 moves, with the launch counts set to 0 just before: one
    streamed bfloat16 launch per move and per batch of reanalyze searches,
    finite loss terms;
-12. drives the data-parallel path, ``Trainer(mesh=...)`` over a virtual
+13. drives the data-parallel path, ``Trainer(mesh=...)`` over a virtual
    mesh of 4 replicas of the card at the training recipe's widths (batch
    1,024 = 4 x 256): one self-play segment, one fused data-parallel
    superstep of 4 steps and one per-step step, with the launch counts set
@@ -126,7 +143,7 @@ code != 0, no final ``ok`` line) if any phase fails:
    copy of the state against the single-device step on the same batch
    (loss rtol 1e-5, priorities rtol 1e-4, the applied gradient within 2^-8
    relative L2, each parameter within two Adam steps);
-13. runs the measurement entry points (``simulate_2048_tpu_torch.scripts``)
+14. runs the measurement entry points (``simulate_2048_tpu_torch.scripts``)
    as processes on the card, each under a timeout (``drive_entry_points``):
    ``benchmark_mcts --pallas`` at the full preset (256 boards, 100
    simulations, depth cap 32) once per search library, each reaching its
@@ -139,7 +156,7 @@ code != 0, no final ``ok`` line) if any phase fails:
    --virtual 4 --steps 16``, one ring launch per data-parallel step on 2
    and 4 replicas of the card; no library rebuilt; each script's numbers
    printed beside the card's name and power limit;
-14. runs the plain search's variants on the card: at the paper preset
+15. runs the plain search's variants on the card: at the paper preset
    (256/128 bins, 256 searches) PUCT, the Gumbel root, sampled chance
    selection and argmax chance selection under progressive widening
    (pw_c=1.0), each timed (CUDA events, median of 3 calls, the first of
@@ -148,7 +165,7 @@ code != 0, no final ``ok`` line) if any phase fails:
    searches, each variant (and all three at once) on CUDA and on the CPU from the same roots and fed draws: visit
    counts identical in >= 99% of the searches, the CUDA call timed by
    ``utils.profiling.time_fn``;
-15. drives the variant path, ``train_muzero`` at the training recipe's widths
+16. drives the variant path, ``train_muzero`` at the training recipe's widths
    with the Gumbel root, sampled chance selection and widening, backend
    "auto": two 4-move segments of 256 games, two learner steps, one
    search-mode reanalyze pass of 1,024 searches, one 4-move evaluation and
@@ -160,7 +177,7 @@ code != 0, no final ``ok`` line) if any phase fails:
    policy targets (the improved policy) that sum to 1 and are positive on
    every legal action, the ms per self-play move; then the network's evaluation under the Gumbel root alone: one
    ``whole_search_categorical`` launch per move;
-16. prints one JSON line with every kernel's numbers, then
+17. prints one JSON line with every kernel's numbers, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--profile`` also prints the device time by kernel, the device kernels
@@ -207,6 +224,7 @@ from simulate_2048_tpu_torch.ops import search_kernel as sk
 from simulate_2048_tpu_torch.parallel import make_dp_train_step, make_mesh
 from simulate_2048_tpu_torch.parallel import ring
 from simulate_2048_tpu_torch.parallel.actor_learner import ActorClient, LearnerServer, _to_numpy
+from simulate_2048_tpu_torch.scripts import recipes, trace_training
 from simulate_2048_tpu_torch.search import mcts
 from simulate_2048_tpu_torch.search.mcts import root_inputs
 from simulate_2048_tpu_torch.training import config as config_lib
@@ -355,14 +373,24 @@ def cuda_ms(fn, reps: int, warmup: int = 1, calls: int = 1) -> float:
 
 
 def full_width_inputs(
-    device, value_bins: int = 1, reward_bins: int = 1, batch: int = BATCH, hidden: int | None = None
+    device,
+    value_bins: int = 1,
+    reward_bins: int = 1,
+    batch: int = BATCH,
+    hidden: int | None = None,
+    base=None,
+    eval_mode: bool = True,
 ):
     """Seeded full-preset network (``hidden`` wide, default the preset's) and
     ``batch`` roots. Scalar heads are scaled so that values spread;
     categorical heads (zero weights when fresh, so every node would get the
     same expectation and the search would compare float noise) get
-    0.05 * normal weights. Returns the network's float32 resident pack."""
-    config = dataclasses.replace(default_config(), value_bins=value_bins, reward_bins=reward_bins)
+    0.05 * normal weights. ``base`` replaces the preset (``default_config()``);
+    the search config is the evaluation search's without root noise, or with
+    ``eval_mode`` False the self-play search's, its root priors mixed with
+    seeded Dirichlet noise as self-play mixes them. Returns the network's
+    float32 resident pack."""
+    config = dataclasses.replace(base or default_config(), value_bins=value_bins, reward_bins=reward_bins)
     if hidden is not None:
         config = dataclasses.replace(config, hidden_size=hidden)
     gen = torch.Generator().manual_seed(SEED)
@@ -382,9 +410,14 @@ def full_width_inputs(
     obs = envlib.get_observation(state)
     invalid = ~envlib.get_legal_actions(state)
     invalid[invalid.all(-1)] = False
-    cfg = search_config_from(config, eval_mode=True)._replace(dirichlet_fraction=0.0)
+    cfg = search_config_from(config, eval_mode=eval_mode)
+    noise = None
+    if eval_mode:
+        cfg = cfg._replace(dirichlet_fraction=0.0)
+    else:
+        noise = torch._sample_dirichlet(torch.full((batch, cfg.num_actions), cfg.dirichlet_alpha), gen).to(device)
     with torch.no_grad():
-        hidden_state, probs, value = root_inputs(network, obs, cfg, invalid)
+        hidden_state, probs, value = root_inputs(network, obs, cfg, invalid, noise)
     packed = pack(network, config)
     return config, cfg, network, packed, (hidden_state.contiguous(), probs.contiguous(), value.contiguous())
 
@@ -477,9 +510,13 @@ def check_whole_search(
     hidden: int | None = None,
     weight_dtype: torch.dtype = torch.float32,
     stream_chunk: int | None = None,
+    base=None,
+    eval_mode: bool = True,
+    timed: int | None = None,
 ) -> dict:
     """Kernel vs plain version at the full preset (``hidden`` wide, default
-    the preset's; the pack in ``weight_dtype``, resident or streamed), at
+    the preset's; ``base`` and ``eval_mode`` as in ``full_width_inputs``;
+    the pack in ``weight_dtype``, resident or streamed), at
     every launch size in ``batches`` (searches are independent: the plain
     version runs once, on the most roots, and a launch of b searches takes the
     first b); then the times and the bound: float32 packs at ``BATCH``
@@ -490,7 +527,9 @@ def check_whole_search(
     atol 1e-3. Bfloat16, resident or streamed, the tensor-core libraries:
     ``check_order_noise``, and the searches that agree (identical visits, Q
     and value within rtol 1e-3 / atol 1e-2) within that tolerance."""
-    config, cfg, network, packed, roots = full_width_inputs(device, value_bins, reward_bins, max(batches), hidden)
+    config, cfg, network, packed, roots = full_width_inputs(
+        device, value_bins, reward_bins, max(batches), hidden, base, eval_mode
+    )
     bf16 = weight_dtype == torch.bfloat16
     mma = bf16  # both bfloat16 libraries run on the tensor cores
     if bf16 or stream_chunk:
@@ -499,7 +538,7 @@ def check_whole_search(
     h, nb, s = config.hidden_size, config.num_residual_blocks, cfg.num_simulations
     reference, reference_ms = timed_once(lambda: sk.whole_search_reference(*roots, packed, cfg))
     ksteps = sk.whole_search_reference(*roots, packed, cfg, "ksteps") if mma else None
-    timed = max(batches) if bf16 or stream_chunk else BATCH  # searches a launch in the times
+    timed = timed or (max(batches) if bf16 or stream_chunk else BATCH)  # searches a launch in the times
     card = sku(torch.cuda.get_device_name(0))
     # bfloat16 products with float32 sums are what the tensor cores compute: their rate bounds a bfloat16 pack.
     rate, unit = (BF16_TFLOPS[card], "bf16 tensor") if bf16 else (FP32_TFLOPS[card], "FP32")
@@ -1253,6 +1292,178 @@ def drive_training(device) -> dict[str, int]:
         + f"; evaluation mean reward {evals[0]['eval/mean_reward']:.1f} over {TRAIN_EVAL_MOVES} moves"
     )
     return launches
+
+
+RECIPE = "run_cat60k_twin.sh"  # simulate_2048_tpu_torch/scripts/: its preset and overrides, read from the script
+RECIPE_LIBRARY = "whole_search_categorical"
+RECIPE_TIMED_MOVES = 5  # self-play moves of each timing, "xla" and "auto" in turns
+RECIPE_SEGMENT_MOVES = 24  # max_trajectory_length: one segment fills the buffer, the loop's step 0 plays the other
+RECIPE_STEPS = 40  # learner steps: 4 logged chunks of log_interval 10
+RECIPE_EVAL_MOVES = 100  # eval_max_moves of the one evaluation (the recipe: full games, 1,200)
+RECIPE_TRACE_MOVES, RECIPE_TRACE_STEPS = 3, 5  # the traced window after the run
+
+
+def time_recipe_moves(device, config) -> None:
+    """ms per self-play move of the recipe's 64 games under the literal
+    recipe's backend ("xla": the plain search) and under "auto" (the kernel),
+    on the same seeded weights from the same games, in turns (xla, auto, auto,
+    xla) after a one-move warm-up of each; each timing plays
+    RECIPE_TIMED_MOVES moves (``play_segment``; host clock, synchronised)."""
+    gen = torch.Generator().manual_seed(SEED)
+    network = network_from_config(config, gen, device)
+    perturb_categorical_heads(network, gen)
+    start = envlib.reset_batch(SEED, config.num_parallel_games, device)
+    backends = {name: dataclasses.replace(config, search_backend=name) for name in ("xla", "auto")}
+
+    def play(name: str, moves: int) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        play_segment(network, start, torch.Generator(device=device).manual_seed(SEED), 1.0, backends[name],
+                     config.num_parallel_games, num_steps=moves)  # fmt: skip
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / moves
+
+    for name in backends:
+        play(name, 1)
+    times = {name: [] for name in backends}
+    for name in ("xla", "auto", "auto", "xla"):
+        times[name].append(play(name, RECIPE_TIMED_MOVES))
+    plain, kernel = (statistics.mean(times[name]) for name in ("xla", "auto"))
+    print(
+        f"recipe path ({card_line()}): a self-play move of {config.num_parallel_games} games x "
+        f"{config.num_simulations} simulations (H={config.hidden_size}, NB={config.num_residual_blocks}): "
+        f"literal recipe (search_backend=xla, the plain search) {plain:.2f} ms "
+        f"({' / '.join(f'{t:.2f}' for t in times['xla'])}), auto (the kernel) {kernel:.2f} ms "
+        f"({' / '.join(f'{t:.2f}' for t in times['auto'])}): {plain / kernel:.1f}x, "
+        f"{RECIPE_TIMED_MOVES} moves a timing, in turns"
+    )
+
+
+def trace_device_ops(trace_dir: str) -> tuple[str, int]:
+    """``trace_summary`` on the newest trace in ``trace_dir``, run as a
+    process; returns its output and the count of ``whole_search_kernel``."""
+    out = run_entry_point("trace_summary", [trace_dir, "--top", "12"])
+    ops = (re.match(r"\s*[\d.]+ ms\s+x(\d+)\s+(.*)", line) for line in out.splitlines())
+    return out, sum(int(m.group(1)) for m in ops if m and "whole_search_kernel" in m.group(2))
+
+
+def drive_recipe_path(device) -> dict:
+    """The champion recipe (``simulate_2048_tpu_torch/scripts/run_cat60k_twin.sh``)
+    at its own widths: (a) the categorical kernel against its plain version
+    at 64 searches x 50 simulations under both of the recipe's search
+    configs (self-play, and evaluation at prior temperature 4 and pb_c_init
+    0.5), ``check_whole_search``'s float32 rule; (b) the literal recipe's
+    move ("xla") against the kernel's ("auto"); (c) a cut run through
+    ``Trainer`` with the launch counts set to 0 just before: 2 segments of 24
+    moves, 40 learner steps at batch 256, one evaluation of 32 games capped
+    at 100 moves, a checkpoint round trip; only ``whole_search_categorical``
+    launched, once per self-play and evaluation move; (d) 3 moves and 5
+    learner steps of the trained run under ``utils.profiling.trace``, and
+    ``trace_summary`` on the trace as a process: ``whole_search_kernel``
+    listed 3 times. Returns the kernel's entry of the kernels line."""
+    t_phase = time.perf_counter()
+    config = recipes.recipe_config(RECIPE, ["search_backend=auto"])
+    vb, rb = config.value_bins, config.reward_bins
+    games = config.num_parallel_games
+    checks = {}
+    for mode, eval_mode in (("self-play", False), ("evaluation", True)):
+        checks[mode] = check_whole_search(
+            device, f"{RECIPE_LIBRARY} (recipe {mode})", vb, rb, (games,), config.hidden_size, base=config,
+            eval_mode=eval_mode, timed=games,
+        )  # fmt: skip
+    cfg = search_config_from(config, eval_mode=True)
+    print(
+        f"recipe path: the evaluation search at prior temperature {cfg.prior_temperature}, pb_c_init "
+        f"{cfg.pb_c_init}; kernel {checks['evaluation']['ms']:.3f} ms, self-play search "
+        f"{checks['self-play']['ms']:.3f} ms at {games} searches x {config.num_simulations} simulations"
+    )
+    for mode in checks:
+        if not _use_kernel(config, search_config_from(config, eval_mode=mode == "evaluation"), device):
+            fail(f"recipe path: search_backend=auto does not route the {mode} search to the kernel")
+    time_recipe_moves(device, config)
+
+    run = dataclasses.replace(
+        config, max_trajectory_length=RECIPE_SEGMENT_MOVES, min_buffer_size=games, eval_interval=RECIPE_STEPS,
+        checkpoint_interval=RECIPE_STEPS, eval_max_moves=RECIPE_EVAL_MOVES,
+    )  # fmt: skip
+    with tempfile.TemporaryDirectory() as work:
+        ckpt_dir, trace_dir = os.path.join(work, "ckpt"), os.path.join(work, "trace")
+        trainer = Trainer(run, checkpoint_dir=ckpt_dir, seed=SEED, device=device)
+        eval_lengths = []
+
+        def evaluate(num_games=None):
+            stats = evaluate_games(trainer.network, trainer._generator, run, num_games, include_per_game=True)
+            eval_lengths.append(stats.pop("per_game_lengths"))
+            return {k: v for k, v in stats.items() if not k.startswith("per_game")}
+
+        trainer.evaluate = evaluate
+        for name in sk.LAUNCHES:
+            sk.LAUNCHES[name] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer.initialize()
+        trainer.fill_buffer(verbose=False)
+        trainer.train(RECIPE_STEPS, verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(sk.LAUNCHES)
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+
+        fresh = network_from_config(run, torch.Generator().manual_seed(SEED + 7), device)
+        restored = TrainState(fresh, create_optimizer(run).init(list(fresh.parameters())))
+        if CheckpointManager(ckpt_dir).restore(restored) is None:
+            fail("recipe path: no checkpoint was written")
+        trained = trainer.state
+        same = all(torch.equal(a, b) for a, b in zip(restored.params, trained.params))
+        for name in ("mu", "nu"):
+            same &= all(torch.equal(a, b) for a, b in zip(restored.opt_state[name], trained.opt_state[name]))
+        if not (same and restored.step == trained.step == RECIPE_STEPS):
+            fail("recipe path: the restored checkpoint differs from the saved state")
+
+        history = trainer.get_metrics_history()
+        gens = [r for r in history if "gen/positions" in r]
+        steps = [r for r in history if "total_loss" in r]
+        evals = [r for r in history if "eval/mean_reward" in r]
+        if len(gens) != 2 or [r["step"] for r in steps] != [10, 20, 30, 40] or len(evals) != 1:
+            fail(f"recipe path: {len(gens)} segments, logged steps {[r['step'] for r in steps]}, {len(evals)} evals")
+        loss_terms = [k for k in steps[0] if k.endswith("_loss") or k == "codebook_entropy"]
+        if not all(math.isfinite(r[k]) for r in steps for k in loss_terms):
+            fail("recipe path: a loss term is not finite")
+        self_play_moves = len(gens) * RECIPE_SEGMENT_MOVES
+        eval_moves = max(eval_lengths[0])
+        others = {k: v for k, v in launches.items() if k != RECIPE_LIBRARY and v}
+        if launches[RECIPE_LIBRARY] != self_play_moves + eval_moves or others:
+            fail(f"recipe path: launches {launches} for {self_play_moves} self-play and {eval_moves} evaluation moves")
+        # The first logged chunk holds the loop's step-0 segment; the others are learner steps alone.
+        chunk_ms = [1e3 / r["steps_per_s"] for r in steps]
+        step_ms = statistics.median(chunk_ms[1:])
+        gen_s = sum(r["gen/seconds"] for r in gens)
+        print(
+            f"recipe path ({card_line()}): {len(gens)} segments of {RECIPE_SEGMENT_MOVES} moves x {games} games, "
+            f"{1e3 * gen_s / self_play_moves:.2f} ms per self-play move; {RECIPE_STEPS} learner steps (batch "
+            f"{run.batch_size}, unroll {run.num_unroll_steps}): median {step_ms:.2f} ms per step over chunks of "
+            f"{run.log_interval} ({' / '.join(f'{ms:.2f}' for ms in chunk_ms)}); one evaluation of "
+            f"{run.eval_games} games, {eval_moves} moves (cap {RECIPE_EVAL_MOVES}), mean reward "
+            f"{evals[0]['eval/mean_reward']:.1f}; whole run {wall:.1f} s; peak device memory {peak_mib:.1f} MiB; "
+            f"launches {launches}; checkpoint round trip exact"
+        )
+        print("recipe path: total loss by logged step: " + " ".join(f"{r['total_loss']:.4f}" for r in steps))
+
+        for name in sk.LAUNCHES:
+            sk.LAUNCHES[name] = 0
+        trace_training.trace_window(trainer, RECIPE_TRACE_MOVES, RECIPE_TRACE_STEPS, trace_dir)
+        if sk.LAUNCHES[RECIPE_LIBRARY] != RECIPE_TRACE_MOVES:
+            fail(f"recipe path: {sk.LAUNCHES} launches in the traced window of {RECIPE_TRACE_MOVES} moves")
+        summary, traced = trace_device_ops(trace_dir)
+    print("\n".join(f"recipe path trace_summary: {line}" for line in summary.strip().splitlines()))
+    if traced != RECIPE_TRACE_MOVES:
+        fail(f"recipe path: trace_summary lists whole_search_kernel {traced} times for {RECIPE_TRACE_MOVES} moves")
+    print(f"recipe path: {RECIPE_TRACE_MOVES} moves and {RECIPE_TRACE_STEPS} learner steps traced, "
+          f"whole_search_kernel x{traced} in trace_summary; the phase took {time.perf_counter() - t_phase:.1f} s")  # fmt: skip
+    entry = dict(checks["self-play"], name=f"{RECIPE_LIBRARY} (recipe)", launches=launches[RECIPE_LIBRARY])
+    entry["max_abs_err"] = max(c["max_abs_err"] for c in checks.values())
+    return entry
 
 
 def actor_learner_config():
@@ -2376,6 +2587,9 @@ def main() -> None:
 
     # ---- training path: self-play, replay, learner, reanalyze, checkpoint, evaluation, deep evaluation at full width
     kernels["whole_search_categorical"]["launches"] = drive_training(device)["whole_search_categorical"]
+
+    # ---- recipe path: the champion recipe at its own widths, its move under both backends, a cut run, a trace
+    kernels["whole_search_categorical (recipe)"] = drive_recipe_path(device)
 
     # ---- actor/learner path: the learner and an actor as two processes on the card, through the entry point
     drive_actor_learner(device)

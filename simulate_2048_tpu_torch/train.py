@@ -62,15 +62,19 @@ def main(argv: list[str] | None = None):
         config, checkpoint_dir=args.checkpoint_dir, log_dir=args.log_dir, seed=args.seed, mesh=mesh, device=device
     )
     trainer.initialize()
-    trainer.fill_buffer()
-    trainer.train(args.steps)
+    try:
+        trainer.fill_buffer()
+        trainer.train(args.steps)
 
-    if not args.no_eval:
-        stats = trainer.evaluate()
-        print("final evaluation:")
-        for key, value in stats.items():
-            print(f"  {key}: {value}")
-    trainer.metrics.close()
+        if not args.no_eval:
+            stats = trainer.evaluate()
+            print("final evaluation:")
+            for key, value in stats.items():
+                print(f"  {key}: {value}")
+    finally:
+        trainer.metrics.close()
+        if torch.cuda.is_initialized():
+            print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
     return trainer
 
 

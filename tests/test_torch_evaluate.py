@@ -99,7 +99,8 @@ def test_port_imports_no_jax():
         " 'training.learner', 'training.checkpoint', 'ops.distributional', 'utils.metrics', 'ops.rollout',"
         " 'ops.rollout_kernel', 'bench', 'training.reanalyze', 'parallel', 'parallel.ring', 'parallel.mesh',"
         " 'parallel.dp', 'parallel.actor_learner', 'scripts.benchmark_mcts', 'scripts.benchmark_training',"
-        " 'scripts.verify_parity', 'scripts.benchmark_scaling', 'utils.card')} <= names, names\n"
+        " 'scripts.verify_parity', 'scripts.benchmark_scaling', 'utils.card', 'scripts.trace_summary',"
+        " 'scripts.trace_training', 'scripts.recipes')} <= names, names\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
@@ -128,10 +129,17 @@ def test_gpu_entry_points_raise_without_gpu():
     meta = torch.empty(1, 32, device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         sk.whole_search(meta, meta, meta, None, SearchConfig(num_simulations=2))
-    from simulate_2048_tpu_torch.scripts import benchmark_mcts, benchmark_scaling, benchmark_training, verify_parity
+    from simulate_2048_tpu_torch.scripts import (
+        benchmark_mcts,
+        benchmark_scaling,
+        benchmark_training,
+        trace_training,
+        verify_parity,
+    )
 
     for script, argv in (
         (benchmark_mcts, ["--mode", "tiny", "--boards", "2", "--sims", "2"]),
+        (trace_training, ["--checkpoint-dir", str(REPO / "no-such-run")]),
         (benchmark_training, ["--mode", "tiny", "--steps", "1"]),
         (verify_parity, ["--boards", "2", "--steps", "2", "--check", "2"]),
         (benchmark_scaling, ["--virtual", "2", "--envs-per-device", "2", "--steps", "2"]),
