@@ -104,7 +104,23 @@ code != 0, no final ``ok`` line) if any phase fails:
    device memory printed; then 3 moves and 5 learner steps under
    ``utils.profiling.trace`` and ``trace_summary`` on the trace as a
    process, which must list ``whole_search_kernel`` 3 times;
-10. drives the actor/learner path at the training path's widths and cut,
+10. drives the diagnosis path (``drive_diagnosis_path``) on the recipe
+   path's cut-run checkpoint (categorical, H=128, step 40): the diagnoses'
+   prior ablations (``autopsy_eval.flat_prior``, ``prior_sweep.soften_prior``
+   at T=2 and T=4, weight transforms) on the kernel against the plain search
+   on the untouched network with its ``prediction`` wrapped as the JAX
+   scripts wrap it, under the recipe's evaluation search (64 searches x 50
+   simulations) from mid-game roots, the policy logits scaled by the first
+   of 1, 4, 16, 64, 256 at which every ablation moves some search off the
+   untouched network's: visit counts identical in 64 of 64 searches, Q and
+   root value within rtol 1e-4 / atol 1e-3; then ``autopsy_eval``,
+   ``prior_sweep``, ``model_probe`` and ``compare_scalar60k`` as processes
+   started together on that checkpoint (8 games, 50-move
+   evaluations, the recipe's bins and ``search_backend=auto``): every JSON
+   line with the JAX script's keys and finite numbers, and every variant's
+   line on standard error naming ``whole_search_categorical`` with its
+   launches;
+11. drives the actor/learner path at the training path's widths and cut,
    parameters published every 4 steps (``drive_actor_learner``): in this
    process, a ``LearnerServer`` and an ``ActorClient`` (in a thread) on the
    card, bit for bit: the actor's parameters are the published snapshot, its
@@ -122,19 +138,19 @@ code != 0, no final ``ok`` line) if any phase fails:
    card's name and power limit: the learner's steps/s solo, overlapped and
    serial, ``overlap_efficiency``, the actor's ms per move alone and while
    the learner trains, and each process's peak device memory;
-11. drives the probe's evaluation path, ``evaluate_games`` at the
+12. drives the probe's evaluation path, ``evaluate_games`` at the
    full-capacity probe's recipe (bfloat16 search packs, 256/128 bins, its
    evaluation calibration) at its own width, H=256, whose weights the kernel
    keeps resident: 256 games of 8 moves, with the launch counts set to 0
    just before: one resident bfloat16 launch per move; printed beside the
    kernel's time, bound, launch shape and registers;
-12. drives the wide path, ``train_muzero`` at the same recipe with hidden
+13. drives the wide path, ``train_muzero`` at the same recipe with hidden
    512, which the kernel runs with streamed weights: two 8-move segments,
    three learner steps, one reanalyze pass, one evaluation and one deep
    evaluation of 8 moves, with the launch counts set to 0 just before: one
    streamed bfloat16 launch per move and per batch of reanalyze searches,
    finite loss terms;
-13. drives the data-parallel path, ``Trainer(mesh=...)`` over a virtual
+14. drives the data-parallel path, ``Trainer(mesh=...)`` over a virtual
    mesh of 4 replicas of the card at the training recipe's widths (batch
    1,024 = 4 x 256): one self-play segment, one fused data-parallel
    superstep of 4 steps and one per-step step, with the launch counts set
@@ -143,7 +159,7 @@ code != 0, no final ``ok`` line) if any phase fails:
    copy of the state against the single-device step on the same batch
    (loss rtol 1e-5, priorities rtol 1e-4, the applied gradient within 2^-8
    relative L2, each parameter within two Adam steps);
-14. runs the measurement entry points (``simulate_2048_tpu_torch.scripts``)
+15. runs the measurement entry points (``simulate_2048_tpu_torch.scripts``)
    as processes on the card, each under a timeout (``drive_entry_points``):
    ``benchmark_mcts --pallas`` at the full preset (256 boards, 100
    simulations, depth cap 32) once per search library, each reaching its
@@ -154,9 +170,13 @@ code != 0, no final ``ok`` line) if any phase fails:
    products of one step) and 0 < ``mfu_vs_bf16_peak`` <= 1 in both dtypes;
    ``verify_parity`` at its defaults (``PARITY OK``); ``benchmark_scaling
    --virtual 4 --steps 16``, one ring launch per data-parallel step on 2
-   and 4 replicas of the card; no library rebuilt; each script's numbers
-   printed beside the card's name and power limit;
-15. runs the plain search's variants on the card: at the paper preset
+   and 4 replicas of the card; ``measure_overlap --mode tiny --steps 10``
+   with self-play on the kernel (rates positive, trajectory batches
+   streamed); ``multihost_demo`` as one NCCL rank (three finite losses);
+   ``warm_compile scalar60k cat60k`` (one launch of each arm's library); no
+   library rebuilt; each script's numbers printed beside the card's name
+   and power limit;
+16. runs the plain search's variants on the card: at the paper preset
    (256/128 bins, 256 searches) PUCT, the Gumbel root, sampled chance
    selection and argmax chance selection under progressive widening
    (pw_c=1.0), each timed (CUDA events, median of 3 calls, the first of
@@ -165,7 +185,7 @@ code != 0, no final ``ok`` line) if any phase fails:
    searches, each variant (and all three at once) on CUDA and on the CPU from the same roots and fed draws: visit
    counts identical in >= 99% of the searches, the CUDA call timed by
    ``utils.profiling.time_fn``;
-16. drives the variant path, ``train_muzero`` at the training recipe's widths
+17. drives the variant path, ``train_muzero`` at the training recipe's widths
    with the Gumbel root, sampled chance selection and widening, backend
    "auto": two 4-move segments of 256 games, two learner steps, one
    search-mode reanalyze pass of 1,024 searches, one 4-move evaluation and
@@ -177,7 +197,7 @@ code != 0, no final ``ok`` line) if any phase fails:
    policy targets (the improved policy) that sum to 1 and are positive on
    every legal action, the ms per self-play move; then the network's evaluation under the Gumbel root alone: one
    ``whole_search_categorical`` launch per move;
-17. prints one JSON line with every kernel's numbers, then
+18. prints one JSON line with every kernel's numbers, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--profile`` also prints the device time by kernel, the device kernels
@@ -193,6 +213,8 @@ Exits non-zero when CUDA is unavailable.
 from __future__ import annotations
 
 import argparse
+import ast
+import concurrent.futures
 import copy
 import dataclasses
 import gc
@@ -224,11 +246,11 @@ from simulate_2048_tpu_torch.ops import search_kernel as sk
 from simulate_2048_tpu_torch.parallel import make_dp_train_step, make_mesh
 from simulate_2048_tpu_torch.parallel import ring
 from simulate_2048_tpu_torch.parallel.actor_learner import ActorClient, LearnerServer, _to_numpy
-from simulate_2048_tpu_torch.scripts import recipes, trace_training
+from simulate_2048_tpu_torch.scripts import autopsy_eval, prior_sweep, recipes, trace_training
 from simulate_2048_tpu_torch.search import mcts
 from simulate_2048_tpu_torch.search.mcts import root_inputs
 from simulate_2048_tpu_torch.training import config as config_lib
-from simulate_2048_tpu_torch.training.checkpoint import CheckpointManager
+from simulate_2048_tpu_torch.training.checkpoint import CheckpointManager, load_train_config
 from simulate_2048_tpu_torch.training.config import default_config, tiny_config
 from simulate_2048_tpu_torch.training import reanalyze
 from simulate_2048_tpu_torch.training import replay as replay_lib
@@ -402,14 +424,7 @@ def full_width_inputs(
             else:
                 head.weight.mul_(20.0)
                 head.bias.add_(torch.randn(head.bias.shape, generator=gen).to(device))
-    # Roots: mid-game boards from seeded random play.
-    state = envlib.reset_batch(SEED, batch, device)
-    moves = torch.randint(0, 4, (40, batch), generator=gen).to(device)
-    for t in range(moves.shape[0]):
-        state, _, _, _ = envlib.step(state, moves[t])
-    obs = envlib.get_observation(state)
-    invalid = ~envlib.get_legal_actions(state)
-    invalid[invalid.all(-1)] = False
+    obs, invalid = midgame_roots(device, batch, gen)
     cfg = search_config_from(config, eval_mode=eval_mode)
     noise = None
     if eval_mode:
@@ -420,6 +435,19 @@ def full_width_inputs(
         hidden_state, probs, value = root_inputs(network, obs, cfg, invalid, noise)
     packed = pack(network, config)
     return config, cfg, network, packed, (hidden_state.contiguous(), probs.contiguous(), value.contiguous())
+
+
+def midgame_roots(device, batch: int, gen: torch.Generator) -> tuple[torch.Tensor, torch.Tensor]:
+    """``batch`` mid-game boards from seeded random play (40 moves drawn from
+    ``gen``): their observations and invalid-action masks (a board with no
+    legal move gets none masked)."""
+    state = envlib.reset_batch(SEED, batch, device)
+    moves = torch.randint(0, 4, (40, batch), generator=gen).to(device)
+    for t in range(moves.shape[0]):
+        state, _, _, _ = envlib.step(state, moves[t])
+    invalid = ~envlib.get_legal_actions(state)
+    invalid[invalid.all(-1)] = False
+    return envlib.get_observation(state), invalid
 
 
 def pack(network, config, weight_dtype: torch.dtype = torch.float32, stream_chunk: int | None = None):
@@ -1347,7 +1375,7 @@ def trace_device_ops(trace_dir: str) -> tuple[str, int]:
     return out, sum(int(m.group(1)) for m in ops if m and "whole_search_kernel" in m.group(2))
 
 
-def drive_recipe_path(device) -> dict:
+def drive_recipe_path(device) -> tuple[dict, str]:
     """The champion recipe (``simulate_2048_tpu_torch/scripts/run_cat60k_twin.sh``)
     at its own widths: (a) the categorical kernel against its plain version
     at 64 searches x 50 simulations under both of the recipe's search
@@ -1360,7 +1388,9 @@ def drive_recipe_path(device) -> dict:
     launched, once per self-play and evaluation move; (d) 3 moves and 5
     learner steps of the trained run under ``utils.profiling.trace``, and
     ``trace_summary`` on the trace as a process: ``whole_search_kernel``
-    listed 3 times. Returns the kernel's entry of the kernels line."""
+    listed 3 times. Returns the kernel's entry of the kernels line and a
+    directory holding a copy of the cut run's checkpoint and its config
+    sidecar (the caller removes it)."""
     t_phase = time.perf_counter()
     config = recipes.recipe_config(RECIPE, ["search_backend=auto"])
     vb, rb = config.value_bins, config.reward_bins
@@ -1456,6 +1486,7 @@ def drive_recipe_path(device) -> dict:
         if sk.LAUNCHES[RECIPE_LIBRARY] != RECIPE_TRACE_MOVES:
             fail(f"recipe path: {sk.LAUNCHES} launches in the traced window of {RECIPE_TRACE_MOVES} moves")
         summary, traced = trace_device_ops(trace_dir)
+        kept = shutil.copytree(ckpt_dir, os.path.join(tempfile.mkdtemp(prefix="recipe-ckpt-"), "ckpt"))
     print("\n".join(f"recipe path trace_summary: {line}" for line in summary.strip().splitlines()))
     if traced != RECIPE_TRACE_MOVES:
         fail(f"recipe path: trace_summary lists whole_search_kernel {traced} times for {RECIPE_TRACE_MOVES} moves")
@@ -1463,6 +1494,205 @@ def drive_recipe_path(device) -> dict:
           f"whole_search_kernel x{traced} in trace_summary; the phase took {time.perf_counter() - t_phase:.1f} s")  # fmt: skip
     entry = dict(checks["self-play"], name=f"{RECIPE_LIBRARY} (recipe)", launches=launches[RECIPE_LIBRARY])
     entry["max_abs_err"] = max(c["max_abs_err"] for c in checks.values())
+    return entry, kept
+
+
+class WrappedPrediction(torch.nn.Module):
+    """The prediction head wrapped as the JAX diagnosis scripts wrap its
+    apply function: the real head, then ``fn`` on its policy logits. Only the
+    plain search sees it; the kernel packs its weights from the network."""
+
+    def __init__(self, real, fn):
+        super().__init__()
+        self.real, self.fn = real, fn
+
+    def forward(self, hidden):
+        logits, value = self.real(hidden)
+        return self.fn(logits), value
+
+
+# The diagnoses' prior ablations: the port's weight transform, and the JAX scripts' wrapper of the logits.
+ABLATIONS = {
+    "flat_prior": (autopsy_eval.flat_prior, torch.zeros_like),
+    "soften_prior(T=2)": (lambda net: prior_sweep.soften_prior(net, 2.0), lambda logits: logits / 2.0),
+    "soften_prior(T=4)": (lambda net: prior_sweep.soften_prior(net, 4.0), lambda logits: logits / 4.0),
+}
+PRIOR_SCALES = (1.0, 4.0, 16.0, 64.0, 256.0)  # scales of the cut network's policy logits tried by check_ablations
+DIAGNOSIS_GAMES = 8
+DIAGNOSIS_MOVES = 50  # eval_max_moves of the diagnoses' evaluations
+DIAGNOSIS_SIMS = 100  # autopsy_eval's raised simulation budget
+# The JAX scripts' JSON keys (runs/autopsy_v3c.log, runs/prior_sweep_tpu.log, runs/champion_probe.json,
+# runs/r5_scalar_vs_cat_eval.log); model_probe's reward buckets appear only where the data has such rewards.
+AUTOPSY_KEYS = ["ckpt", "variant", "mean_reward", "sem", "max_tile", "reached_512", "mean_length", "search_value",
+                "search_entropy"]  # fmt: skip
+SWEEP_KEYS = ["variant", "mean_reward", "sem", "max_tile", "reached_512", "search_entropy"]
+PROBE_KEYS = ["ckpt", "step", "positions", "reward_mae_raw", "reward_mae_h", "value_corr", "value_mean", "return_mean",
+              "value_bias", "value_mae_h", "prior_top1_agreement", "hidden_drift_1step"]  # fmt: skip
+PROBE_BUCKETS = {f"{kind}/{tag}" for kind in ("reward_mae_raw", "count") for tag in ("r0", "r4_8", "r16_32", "r_big")}
+COMPARE_KEYS = ["ckpt", "step", "mean_reward", "std_reward", "sem_reward", "max_reward", "min_reward", "mean_max_tile",
+                "max_tile", "mean_length", "encoder_codes_used", "mean_search_entropy", "mean_search_value",
+                *(f"reached_{t}" for t in (256, 512, 1024, 2048, 4096, 8192, 16384, 32768))]  # fmt: skip
+
+
+def check_ablations(device, network, config) -> float:
+    """The diagnoses' ablations on the kernel: for each of ``ABLATIONS``, the
+    kernel on the transformed network against the plain search on
+    ``network`` with its ``prediction`` wrapped (the JAX scripts' way), under
+    the recipe's evaluation search (64 searches x 50 simulations, prior
+    temperature 4, pb_c_init 0.5, no root noise) from mid-game roots:
+    visit counts identical in every search, root Q and value within rtol
+    1e-4 / atol 1e-3 (``check_whole_search``'s float32 rule). Each ablation
+    must also move some searches off the untouched network's kernel search,
+    or the check could not tell a kernel that carries it from one that drops
+    it; the cut run's prior is nearly flat under the evaluation search's
+    temperature 4, where softening it moves no search, so the policy logits
+    of a copy of the network are scaled by the first of PRIOR_SCALES at
+    which every ablation moves a search. Returns the largest |kernel - plain|
+    over Q and root value."""
+    cfg = search_config_from(config, eval_mode=True)._replace(dirichlet_fraction=0.0)
+    obs, invalid = midgame_roots(device, config.num_parallel_games, torch.Generator().manual_seed(SEED + 17))
+    b = obs.shape[0]
+
+    def kernel_search(net):
+        return sk.run_search_kernel(net, obs, cfg, invalid, packed=pack(net, config))
+
+    for scale in PRIOR_SCALES:
+        scaled = copy.deepcopy(network)
+        with torch.no_grad():
+            scaled.prediction.policy_logits.weight.mul_(scale)
+            scaled.prediction.policy_logits.bias.mul_(scale)
+        base = kernel_search(scaled)
+        kernels = {name: kernel_search(transform(scaled)) for name, (transform, _) in ABLATIONS.items()}
+        moved = {name: int((k.visit_counts != base.visit_counts).any(-1).sum()) for name, k in kernels.items()}
+        print(f"diagnosis path: policy logits x {scale:g}: searches each ablation moves on the kernel: {moved}")
+        if min(moved.values()) > 0:
+            break
+    else:
+        fail(f"diagnosis path: at no scale of {PRIOR_SCALES} does every ablation move a search: the check shows nothing")
+    network = scaled
+    max_err = 0.0
+    for name, (transform, fn) in ABLATIONS.items():
+        kernel = kernels[name]
+        real = network.prediction
+        network.prediction = WrappedPrediction(real, fn)
+        try:
+            plain = mcts.batched_run_mcts(network, obs, cfg, invalid)
+        finally:
+            network.prediction = real
+        torch.cuda.synchronize()
+        same = (kernel.visit_counts == plain.visit_counts).all(-1)
+        err = max(float((kernel.qvalues - plain.qvalues).abs().max()),
+                  float((kernel.search_value - plain.search_value).abs().max()))  # fmt: skip
+        max_err = max(max_err, err)
+        print(
+            f"diagnosis path: {name}: the kernel on the transformed network against the plain search with "
+            f"prediction wrapped: {int(same.sum())}/{b} searches with identical visit counts, max |kernel - plain| "
+            f"over Q and root value {err:.3g}; {moved[name]}/{b} searches differ from the untouched network's"
+        )
+        for i in (~same).nonzero().flatten().tolist():
+            gap = root_gap(kernel.visit_counts[i], plain.visit_counts[i], kernel.qvalues[i], plain.qvalues[i])
+            print(f"  search {i} differs: {gap}")
+        if not bool(same.all()):
+            fail(f"diagnosis path: {name}: {b - int(same.sum())} of {b} searches differ from the wrapped plain search")
+        q_ok = torch.allclose(kernel.qvalues, plain.qvalues, rtol=1e-4, atol=1e-3)
+        v_ok = torch.allclose(kernel.search_value, plain.search_value, rtol=1e-4, atol=1e-3)
+        if not (q_ok and v_ok):
+            fail(f"diagnosis path: {name}: Q / root value outside rtol 1e-4, atol 1e-3 of the wrapped plain search")
+    return max_err
+
+
+def finite_numbers(obj) -> bool:
+    """Every int or float in a parsed JSON value is finite."""
+    if isinstance(obj, dict):
+        return all(finite_numbers(v) for v in obj.values())
+    if isinstance(obj, list):
+        return all(finite_numbers(v) for v in obj)
+    return not isinstance(obj, float) or math.isfinite(obj)
+
+
+def diagnosis_searches(name: str, err: str, expected: int) -> int:
+    """The lines a diagnosis prints to standard error, one a variant: each
+    must name the recipe's CUDA library and count launches of it alone.
+    Returns the launches summed over the variants."""
+    lines = re.findall(r"^(.*): search (.+?), launches (\{.*\}), ([\d.]+) s$", err, re.M)
+    if len(lines) != expected:
+        print(err[-3000:])
+        fail(f"diagnosis path: {name} printed {len(lines)} search lines, not {expected}")
+    total = 0
+    for label, route, launches, _ in lines:
+        launches = ast.literal_eval(launches)
+        if route != RECIPE_LIBRARY or set(launches) != {RECIPE_LIBRARY} or launches[RECIPE_LIBRARY] <= 0:
+            fail(f"diagnosis path: {label}: search {route}, launches {launches}: not the kernel under auto")
+        total += launches[RECIPE_LIBRARY]
+    return total
+
+
+def drive_diagnoses(ckpt_dir: str, config) -> dict[str, int]:
+    """The four checkpoint diagnoses as processes on the cut run's
+    checkpoint, at small settings (DIAGNOSIS_GAMES games, evaluations capped
+    at DIAGNOSIS_MOVES moves, the recipe's bins and ``search_backend=auto``
+    through ``--set``; ``compare_scalar60k`` reads the checkpoint's sidecar):
+    every JSON line parses with the JAX script's keys and holds only finite
+    numbers, and every variant's line on standard error names the recipe's
+    CUDA library. The four processes run together (``run_entry_points``).
+    Returns the launches of each diagnosis."""
+    sets = [f"value_bins={config.value_bins}", f"reward_bins={config.reward_bins}", "search_backend=auto",
+            f"eval_max_moves={DIAGNOSIS_MOVES}"]  # fmt: skip
+    sets = [w for item in sets for w in ("--set", item)]
+    games = ["--games", str(DIAGNOSIS_GAMES)]
+    runs = {  # name: (arguments, variants)
+        "autopsy_eval": (["--ckpt-dir", ckpt_dir, "--steps", str(RECIPE_STEPS), "--sims", str(DIAGNOSIS_SIMS), *games,
+                          *sets], 8),
+        "prior_sweep": (["--ckpt-dir", ckpt_dir, *games, *sets], 10),
+        "model_probe": (["--ckpt-dir", ckpt_dir, "--mode", "small", *games, *sets], 1),
+        "compare_scalar60k": ([ckpt_dir, *games], 1),
+    }  # fmt: skip
+    card = card_line()
+    t0 = time.perf_counter()
+    outputs = run_entry_points({name: args for name, (args, _) in runs.items()})
+    seconds = time.perf_counter() - t0
+    print(f"diagnosis path: the four diagnoses as processes started together: {seconds:.1f} s; {card}")
+    launches = {}
+    for name, (args, variants) in runs.items():
+        out, err = outputs[name]
+        seconds = sum(float(x) for x in re.findall(r", ([\d.]+) s$", err, re.M))
+        launches[name] = diagnosis_searches(name, err, variants)
+        if name == "model_probe":
+            lines = [json.loads(out)]
+            ok = [k for k in lines[0] if k not in PROBE_BUCKETS] == PROBE_KEYS
+        else:
+            lines = [json.loads(line) for line in out.strip().splitlines()]
+            keys = {"autopsy_eval": AUTOPSY_KEYS, "prior_sweep": SWEEP_KEYS, "compare_scalar60k": COMPARE_KEYS}[name]
+            ok = len(lines) == variants and all(list(line) == keys for line in lines)
+        if not ok or not finite_numbers(lines):
+            print(out[-3000:])
+            fail(f"diagnosis path: {name}: its JSON lines do not have the JAX script's keys and finite numbers")
+        print(f"diagnosis path: {name} {' '.join(args)}: {len(lines)} JSON line(s), {variants} variant(s), "
+              f"{launches[name]} {RECIPE_LIBRARY} launches, {seconds:.2f} s in its variants")  # fmt: skip
+        for line in lines:
+            print(f"diagnosis path: {name}: {json.dumps(line)}")
+    return launches
+
+
+def drive_diagnosis_path(device, ckpt_dir: str, recipe_entry: dict) -> dict:
+    """The checkpoint diagnoses on the recipe path's cut run (categorical,
+    H=128, step RECIPE_STEPS): ``check_ablations`` on its network, then
+    ``drive_diagnoses`` on its checkpoint, with the launch counts of each
+    diagnosis process read from its lines. Removes ``ckpt_dir``'s parent.
+    Returns the diagnoses' entry of the kernels line (the recipe's kernel at
+    the same shapes, timed on the recipe path)."""
+    t_phase = time.perf_counter()
+    config = load_train_config(ckpt_dir)
+    network = network_from_config(config, torch.Generator().manual_seed(SEED + 9), device)
+    state = TrainState(network, create_optimizer(config).init(list(network.parameters())))
+    if CheckpointManager(ckpt_dir).restore(state) is None or state.step != RECIPE_STEPS:
+        fail(f"diagnosis path: no checkpoint at step {RECIPE_STEPS} in the recipe path's copy")
+    max_err = check_ablations(device, network, config)
+    launches = drive_diagnoses(ckpt_dir, config)
+    shutil.rmtree(os.path.dirname(ckpt_dir))
+    print(f"diagnosis path: launches by diagnosis {launches}; the phase took {time.perf_counter() - t_phase:.1f} s")
+    entry = dict(recipe_entry, name=f"{RECIPE_LIBRARY} (diagnoses)", launches=sum(launches.values()))
+    entry["max_abs_err"] = max_err
     return entry
 
 
@@ -2077,6 +2307,8 @@ MCTS_MAX_RATIO = 2.0
 PLAIN_SIMS = 16  # the plain search's simulations in its benchmark (the kernel's runs take the preset's 100)
 SCALING_REPLICAS = 4
 SCALING_STEPS = 16  # the sharded rollout's steps (the script's default, 64, takes ~27 s of launches over 3 meshes)
+OVERLAP_STEPS = 10
+WARM_ARMS = {"scalar60k": "whole_search", "cat60k": "whole_search_categorical"}  # arm: the library it must load
 
 
 def learner_step_flops(config) -> int:
@@ -2103,21 +2335,42 @@ def learner_step_flops(config) -> int:
     return 2 * (trained + priorities)
 
 
-def run_entry_point(name: str, args: list[str]) -> str:
-    """``python -m simulate_2048_tpu_torch.scripts.<name> <args>`` on the card
-    under ENTRY_TIMEOUT (killed past it); fails the run on a non-zero exit.
-    Returns its standard output."""
+def run_entry_points(runs: dict[str, list[str]]) -> dict[str, tuple[str, str]]:
+    """``python -m simulate_2048_tpu_torch.scripts.<name> <args>`` for each
+    (name, args) of ``runs``, as processes on the card started together, each
+    under ENTRY_TIMEOUT (all killed past it); fails the run on a non-zero
+    exit. Returns each one's standard output and standard error."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p)}
-    command = [sys.executable, "-m", f"simulate_2048_tpu_torch.scripts.{name}", *args]
-    try:
-        out = subprocess.run(command, cwd=root, env=env, capture_output=True, text=True, timeout=ENTRY_TIMEOUT)
-    except subprocess.TimeoutExpired:
-        fail(f"{name} {' '.join(args)}: no exit within {ENTRY_TIMEOUT} s")
-    if out.returncode != 0:
-        print("\n".join(out.stderr.strip().splitlines()[-30:]))
-        fail(f"{name} {' '.join(args)}: exit code {out.returncode}")
-    return out.stdout
+    procs = {
+        name: subprocess.Popen([sys.executable, "-m", f"simulate_2048_tpu_torch.scripts.{name}", *args], cwd=root,
+                               env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, args in runs.items()
+    }  # fmt: skip
+    with concurrent.futures.ThreadPoolExecutor(len(procs)) as pool:
+        waits = {name: pool.submit(proc.communicate, timeout=ENTRY_TIMEOUT) for name, proc in procs.items()}
+        outputs, late = {}, []
+        for name, wait in waits.items():
+            try:
+                outputs[name] = wait.result()
+            except subprocess.TimeoutExpired:
+                late.append(name)
+                for proc in procs.values():
+                    proc.kill()
+    if late:
+        fail(f"{' and '.join(f'{n} {chr(32).join(runs[n])}' for n in late)}: no exit within {ENTRY_TIMEOUT} s")
+    for name, proc in procs.items():
+        if proc.returncode != 0:
+            print("\n".join(outputs[name][1].strip().splitlines()[-30:]))
+            fail(f"{name} {' '.join(runs[name])}: exit code {proc.returncode}")
+    return outputs
+
+
+def run_entry_point(name: str, args: list[str], with_stderr: bool = False) -> str | tuple[str, str]:
+    """One entry point through ``run_entry_points``: its standard output (and,
+    ``with_stderr``, its standard error)."""
+    out, err = run_entry_points({name: args})[name]
+    return (out, err) if with_stderr else out
 
 
 def drive_entry_points() -> dict[str, float]:
@@ -2136,6 +2389,8 @@ def drive_entry_points() -> dict[str, float]:
     - ``verify_parity`` at its defaults: ``PARITY OK``;
     - ``benchmark_scaling --virtual 4 --steps 16``: one ring launch per
       data-parallel step on 2 and 4 replicas of the card, none on 1.
+    - ``measure_overlap``, ``multihost_demo`` and ``warm_compile``
+      (``drive_host_entry_points``).
 
     No library is rebuilt (the ``build/kernels`` listing is unchanged).
     Prints each script's numbers beside the card's name and power limit.
@@ -2209,10 +2464,53 @@ def drive_entry_points() -> dict[str, float]:
             fail(f"benchmark_scaling N={r['devices']}: {r['ring_launches_per_step']} ring launches a step")
     if [r["devices"] for r in results] != [1, 2, 4]:
         fail(f"benchmark_scaling {' '.join(scaling)}: mesh sizes {[r['devices'] for r in results]}")
+
+    drive_host_entry_points(card)
     if sorted((p.name, p.stat().st_mtime_ns) for p in _build.BUILD_DIR.iterdir()) != built:
         fail("entry points: a kernel library was rebuilt")
     print(f"entry points: phase {time.perf_counter() - t_phase:.1f} s, no kernel rebuilt")
     return rates
+
+
+def drive_host_entry_points(card: str) -> None:
+    """The entry points around the learner, each as a process on the card:
+    ``measure_overlap --mode tiny --steps OVERLAP_STEPS`` with self-play on
+    the kernel (all three rates positive, trajectory batches streamed, the
+    ``device`` platform); ``multihost_demo`` as one NCCL rank (three finite
+    losses); ``warm_compile`` of ``WARM_ARMS`` (each arm one launch of its
+    library)."""
+    t0 = time.perf_counter()
+    r = json.loads(run_entry_point("measure_overlap", ["--mode", "tiny", "--steps", str(OVERLAP_STEPS), "--set",
+                                                       "search_backend=auto"]))  # fmt: skip
+    rates = {k: r[k] for k in ("serial_steps_per_s", "solo_steps_per_s", "overlapped_steps_per_s")}
+    print(
+        f"entry points: measure_overlap --mode tiny --steps {OVERLAP_STEPS}: learner steps/s "
+        + ", ".join(f"{k.removesuffix('_steps_per_s')} {v:.4f}" for k, v in rates.items())
+        + f", overlap_efficiency_vs_solo {r['overlap_efficiency_vs_solo']:.4f}, speedup_vs_serial "
+        f"{r['speedup_vs_serial']:.4f}, {r['trajectory_batches_streamed']} trajectory batches streamed, platform "
+        f"{r['platform']}; {time.perf_counter() - t0:.1f} s with start-up; {card}"
+    )
+    if min(rates.values()) <= 0 or r["trajectory_batches_streamed"] <= 0 or r["platform"] != "device":
+        fail(f"measure_overlap: {r}")
+
+    t0 = time.perf_counter()
+    demo = ["--num-processes", "1", "--process-id", "0", "--coordinator", f"localhost:{free_port()}"]
+    out = run_entry_point("multihost_demo", demo)
+    losses = [float(x) for x in re.findall(r"^process 0 step \d+: loss (\S+)$", out, re.M)]
+    print(f"entry points: multihost_demo {' '.join(demo)} (NCCL, one rank on the card): losses "
+          f"{' '.join(f'{x:.6f}' for x in losses)}; {time.perf_counter() - t0:.1f} s with start-up")  # fmt: skip
+    if "process 0/1: 1 local / 1 global devices" not in out or len(losses) != 3:
+        fail(f"multihost_demo: {out}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"multihost_demo: losses {losses}")
+
+    t0 = time.perf_counter()
+    out = run_entry_point("warm_compile", list(WARM_ARMS))
+    print("\n".join(f"entry points: warm_compile: {line}" for line in out.strip().splitlines()))
+    print(f"entry points: warm_compile {' '.join(WARM_ARMS)}: {time.perf_counter() - t0:.1f} s with start-up; {card}")
+    for arm, library in WARM_ARMS.items():
+        if not re.search(rf"^\[{arm}\] {library}: .* launches \{{'{library}': 1\}}$", out, re.M):
+            fail(f"warm_compile: arm {arm} did not launch {library} once")
 
 
 VARIANT_SEARCHES = {  # the plain search's variants: SearchConfig overrides
@@ -2589,7 +2887,12 @@ def main() -> None:
     kernels["whole_search_categorical"]["launches"] = drive_training(device)["whole_search_categorical"]
 
     # ---- recipe path: the champion recipe at its own widths, its move under both backends, a cut run, a trace
-    kernels["whole_search_categorical (recipe)"] = drive_recipe_path(device)
+    kernels["whole_search_categorical (recipe)"], recipe_ckpt = drive_recipe_path(device)
+
+    # ---- diagnosis path: the prior ablations on the kernel, then the four diagnoses on the cut run's checkpoint
+    kernels["whole_search_categorical (diagnoses)"] = drive_diagnosis_path(
+        device, recipe_ckpt, kernels["whole_search_categorical (recipe)"]
+    )
 
     # ---- actor/learner path: the learner and an actor as two processes on the card, through the entry point
     drive_actor_learner(device)

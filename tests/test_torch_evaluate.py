@@ -100,7 +100,10 @@ def test_port_imports_no_jax():
         " 'ops.rollout_kernel', 'bench', 'training.reanalyze', 'parallel', 'parallel.ring', 'parallel.mesh',"
         " 'parallel.dp', 'parallel.actor_learner', 'scripts.benchmark_mcts', 'scripts.benchmark_training',"
         " 'scripts.verify_parity', 'scripts.benchmark_scaling', 'utils.card', 'scripts.trace_summary',"
-        " 'scripts.trace_training', 'scripts.recipes')} <= names, names\n"
+        " 'scripts.trace_training', 'scripts.recipes', 'scripts.diagnosis', 'scripts.autopsy_eval',"
+        " 'scripts.prior_sweep', 'scripts.model_probe', 'scripts.compare_scalar60k', 'scripts.measure_overlap',"
+        " 'scripts.multihost_demo', 'scripts.warm_compile', 'scripts.bench_engine_ops', 'scripts.plot_metrics')}"
+        " <= names, names\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
@@ -130,19 +133,34 @@ def test_gpu_entry_points_raise_without_gpu():
     with pytest.raises(ValueError, match="CUDA or CPU"):
         sk.whole_search(meta, meta, meta, None, SearchConfig(num_simulations=2))
     from simulate_2048_tpu_torch.scripts import (
+        autopsy_eval,
         benchmark_mcts,
         benchmark_scaling,
         benchmark_training,
+        compare_scalar60k,
+        measure_overlap,
+        model_probe,
+        multihost_demo,
+        prior_sweep,
         trace_training,
         verify_parity,
+        warm_compile,
     )
 
+    nowhere = str(REPO / "no-such-run")
     for script, argv in (
         (benchmark_mcts, ["--mode", "tiny", "--boards", "2", "--sims", "2"]),
-        (trace_training, ["--checkpoint-dir", str(REPO / "no-such-run")]),
+        (trace_training, ["--checkpoint-dir", nowhere]),
         (benchmark_training, ["--mode", "tiny", "--steps", "1"]),
         (verify_parity, ["--boards", "2", "--steps", "2", "--check", "2"]),
         (benchmark_scaling, ["--virtual", "2", "--envs-per-device", "2", "--steps", "2"]),
+        (autopsy_eval, ["--ckpt-dir", nowhere, "--steps", "1"]),
+        (prior_sweep, ["--ckpt-dir", nowhere]),
+        (model_probe, ["--ckpt-dir", nowhere]),
+        (compare_scalar60k, [nowhere]),
+        (measure_overlap, ["--steps", "1"]),
+        (multihost_demo, ["--num-processes", "1", "--process-id", "0"]),
+        (warm_compile, ["scalar60k"]),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             script.main(argv)

@@ -162,3 +162,54 @@ def test_train_cli_logs_jax_metric_keys(tmp_path, capsys):
     assert {"gen/seconds", "deep_eval/seconds"} <= port_keys
     recorded = load_train_config(str(tmp_path / "ckpt"))
     assert recorded == tconfig.apply_overrides(tconfig.tiny_config(), recipes.set_overrides(argv) + cut)
+
+
+# The other recipes (their steps come first, except the round-4 champion's, which JAX's script fixes), and what
+# the port's copy forwards to train: every argument, or those after STEPS (and the source directory).
+MORE_RECIPES = {
+    "run_champion_r4.sh": '"$@"',
+    "run_temp_early_arm.sh": '"${@:2}"',
+    "run_full_capacity_probe.sh": '"${@:2}"',
+    "run_champion_r5.sh": '"${@:2}"',
+    "run_gumbel_resumed_ab.sh": '"${@:3}"',
+}
+
+
+@pytest.mark.parametrize("name", list(MORE_RECIPES))
+def test_more_recipes_take_jax_flags_and_configs(name):
+    """Each remaining recipe: JAX's preset, steps and ``--set`` flags, then
+    ``--device cuda`` and the forwarded arguments; the config it trains equals
+    JAX's field for field; logs and checkpoints under the port's ``runs/torch_*``,
+    and a resuming recipe copies the port's own checkpoints."""
+    port = recipes.script_argv(recipes.RECIPE_DIR / name)
+    jax_argv = recipes.script_argv(REPO / "scripts" / name)
+    assert recipes.set_overrides(port) == recipes.set_overrides(jax_argv)
+    for flag in ("--mode", "--steps"):
+        assert port[port.index(flag) + 1] == jax_argv[jax_argv.index(flag) + 1], flag
+    device = port.index("--device")
+    assert port[device + 1] == "cuda" and port[device + 2] == MORE_RECIPES[name].strip('"')
+    text = (recipes.RECIPE_DIR / name).read_text()
+    assert "runs/torch_" in port[port.index("--checkpoint-dir") + 1] or "$dir" in port[port.index("--log-dir") + 1]
+    assert MORE_RECIPES[name] in text and "runs/r5_" not in text and "runs/champion_r" not in text
+    # The A/B's deep evaluation runs at its last step, "$STEPS" (default 6000) in both scripts.
+    port_sets, jax_sets = ([o.replace("$STEPS", "6000") for o in recipes.set_overrides(a)] for a in (port, jax_argv))
+    mode = port[port.index("--mode") + 1]
+    port_cfg = tconfig.apply_overrides(recipes.PRESETS[mode](), port_sets)
+    ref = jconfig.apply_overrides({"small": jconfig.small_config, "full": jconfig.default_config}[mode](), jax_sets)
+    assert dataclasses.asdict(port_cfg) == dataclasses.asdict(ref)
+    if "$STEPS" not in " ".join(port):
+        assert port_cfg == recipes.recipe_config(name)
+    if name == "run_champion_r5.sh":
+        assert "cp -r runs/torch_champion_r4/ckpt runs/torch_champion_r5/ckpt" in text
+    if name == "run_gumbel_resumed_ab.sh":
+        assert 'SRC="${1:-runs/torch_cat60k/ckpt}"' in text and 'dir="runs/torch_gres_${arm}"' in text
+        assert "gumbel)   extra=(--set root_selection=gumbel) ;;" in text
+
+
+@pytest.mark.parametrize("name", ["measure_categorical_kernel.sh", "measure_search_kernels.sh"])
+def test_measure_scripts_run_the_ports_benchmark_mcts_with_jax_flags(name):
+    def runs(path, command):
+        return [line.split(command, 1)[1].split() for line in path.read_text().splitlines() if command in line]
+
+    port = runs(recipes.RECIPE_DIR / name, "python -m simulate_2048_tpu_torch.scripts.benchmark_mcts")
+    assert port and port == runs(REPO / "scripts" / name, "python scripts/benchmark_mcts.py")
