@@ -119,7 +119,10 @@ code != 0, no final ``ok`` line) if any phase fails:
    evaluations, the recipe's bins and ``search_backend=auto``): every JSON
    line with the JAX script's keys and finite numbers, and every variant's
    line on standard error naming ``whole_search_categorical`` with its
-   launches;
+   launches; then the kernel against its plain version and timed at the
+   diagnoses' own shapes (8 searches x 50 simulations, and x 100 for
+   ``autopsy_eval``'s raised budget), one kernels-line entry for each
+   simulation count with the launches the diagnoses made at it;
 11. drives the actor/learner path at the training path's widths and cut,
    parameters published every 4 steps (``drive_actor_learner``): in this
    process, a ``LearnerServer`` and an ``ActorClient`` (in a thread) on the
@@ -1610,24 +1613,27 @@ def finite_numbers(obj) -> bool:
     return not isinstance(obj, float) or math.isfinite(obj)
 
 
-def diagnosis_searches(name: str, err: str, expected: int) -> int:
+def diagnosis_searches(name: str, err: str, expected: int, sims: int) -> dict[int, int]:
     """The lines a diagnosis prints to standard error, one a variant: each
     must name the recipe's CUDA library and count launches of it alone.
-    Returns the launches summed over the variants."""
+    Returns the launches by simulations a search: ``autopsy_eval``'s
+    ``sims<DIAGNOSIS_SIMS>`` variants at DIAGNOSIS_SIMS, every other at
+    ``sims``."""
     lines = re.findall(r"^(.*): search (.+?), launches (\{.*\}), ([\d.]+) s$", err, re.M)
     if len(lines) != expected:
         print(err[-3000:])
         fail(f"diagnosis path: {name} printed {len(lines)} search lines, not {expected}")
-    total = 0
+    by_sims = {}
     for label, route, launches, _ in lines:
         launches = ast.literal_eval(launches)
         if route != RECIPE_LIBRARY or set(launches) != {RECIPE_LIBRARY} or launches[RECIPE_LIBRARY] <= 0:
             fail(f"diagnosis path: {label}: search {route}, launches {launches}: not the kernel under auto")
-        total += launches[RECIPE_LIBRARY]
-    return total
+        s = DIAGNOSIS_SIMS if label.endswith(f"sims{DIAGNOSIS_SIMS}") else sims
+        by_sims[s] = by_sims.get(s, 0) + launches[RECIPE_LIBRARY]
+    return by_sims
 
 
-def drive_diagnoses(ckpt_dir: str, config) -> dict[str, int]:
+def drive_diagnoses(ckpt_dir: str, config) -> dict[str, dict[int, int]]:
     """The four checkpoint diagnoses as processes on the cut run's
     checkpoint, at small settings (DIAGNOSIS_GAMES games, evaluations capped
     at DIAGNOSIS_MOVES moves, the recipe's bins and ``search_backend=auto``
@@ -1635,7 +1641,7 @@ def drive_diagnoses(ckpt_dir: str, config) -> dict[str, int]:
     every JSON line parses with the JAX script's keys and holds only finite
     numbers, and every variant's line on standard error names the recipe's
     CUDA library. The four processes run together (``run_entry_points``).
-    Returns the launches of each diagnosis."""
+    Returns the launches of each diagnosis by simulations a search."""
     sets = [f"value_bins={config.value_bins}", f"reward_bins={config.reward_bins}", "search_backend=auto",
             f"eval_max_moves={DIAGNOSIS_MOVES}"]  # fmt: skip
     sets = [w for item in sets for w in ("--set", item)]
@@ -1656,7 +1662,7 @@ def drive_diagnoses(ckpt_dir: str, config) -> dict[str, int]:
     for name, (args, variants) in runs.items():
         out, err = outputs[name]
         seconds = sum(float(x) for x in re.findall(r", ([\d.]+) s$", err, re.M))
-        launches[name] = diagnosis_searches(name, err, variants)
+        launches[name] = diagnosis_searches(name, err, variants, config.num_simulations)
         if name == "model_probe":
             lines = [json.loads(out)]
             ok = [k for k in lines[0] if k not in PROBE_BUCKETS] == PROBE_KEYS
@@ -1668,19 +1674,22 @@ def drive_diagnoses(ckpt_dir: str, config) -> dict[str, int]:
             print(out[-3000:])
             fail(f"diagnosis path: {name}: its JSON lines do not have the JAX script's keys and finite numbers")
         print(f"diagnosis path: {name} {' '.join(args)}: {len(lines)} JSON line(s), {variants} variant(s), "
-              f"{launches[name]} {RECIPE_LIBRARY} launches, {seconds:.2f} s in its variants")  # fmt: skip
+              f"{RECIPE_LIBRARY} launches by simulations a search {launches[name]}, {seconds:.2f} s in its "
+              "variants")  # fmt: skip
         for line in lines:
             print(f"diagnosis path: {name}: {json.dumps(line)}")
     return launches
 
 
-def drive_diagnosis_path(device, ckpt_dir: str, recipe_entry: dict) -> dict:
+def drive_diagnosis_path(device, ckpt_dir: str) -> dict[str, dict]:
     """The checkpoint diagnoses on the recipe path's cut run (categorical,
     H=128, step RECIPE_STEPS): ``check_ablations`` on its network, then
     ``drive_diagnoses`` on its checkpoint, with the launch counts of each
     diagnosis process read from its lines. Removes ``ckpt_dir``'s parent.
-    Returns the diagnoses' entry of the kernels line (the recipe's kernel at
-    the same shapes, timed on the recipe path)."""
+    Returns the kernels line's entries of the diagnoses, one for each
+    simulation count they search with: ``check_whole_search`` at their own
+    shapes (DIAGNOSIS_GAMES searches, the recipe's widths and bins), with
+    the launches the diagnoses made at that count."""
     t_phase = time.perf_counter()
     config = load_train_config(ckpt_dir)
     network = network_from_config(config, torch.Generator().manual_seed(SEED + 9), device)
@@ -1690,10 +1699,22 @@ def drive_diagnosis_path(device, ckpt_dir: str, recipe_entry: dict) -> dict:
     max_err = check_ablations(device, network, config)
     launches = drive_diagnoses(ckpt_dir, config)
     shutil.rmtree(os.path.dirname(ckpt_dir))
+    by_sims = {}
+    for counts in launches.values():
+        for s, n in counts.items():
+            by_sims[s] = by_sims.get(s, 0) + n
     print(f"diagnosis path: launches by diagnosis {launches}; the phase took {time.perf_counter() - t_phase:.1f} s")
-    entry = dict(recipe_entry, name=f"{RECIPE_LIBRARY} (diagnoses)", launches=sum(launches.values()))
-    entry["max_abs_err"] = max_err
-    return entry
+    entries = {}
+    for s, n in sorted(by_sims.items()):
+        name = f"{RECIPE_LIBRARY} (diagnoses, {s} simulations)"
+        entry = check_whole_search(
+            device, name, config.value_bins, config.reward_bins, (DIAGNOSIS_GAMES,), config.hidden_size,
+            base=dataclasses.replace(config, num_simulations=s), timed=DIAGNOSIS_GAMES,
+        )  # fmt: skip
+        entry["launches"] = n
+        entry["max_abs_err"] = max(entry["max_abs_err"], max_err)
+        entries[name] = entry
+    return entries
 
 
 def actor_learner_config():
@@ -2366,11 +2387,9 @@ def run_entry_points(runs: dict[str, list[str]]) -> dict[str, tuple[str, str]]:
     return outputs
 
 
-def run_entry_point(name: str, args: list[str], with_stderr: bool = False) -> str | tuple[str, str]:
-    """One entry point through ``run_entry_points``: its standard output (and,
-    ``with_stderr``, its standard error)."""
-    out, err = run_entry_points({name: args})[name]
-    return (out, err) if with_stderr else out
+def run_entry_point(name: str, args: list[str]) -> str:
+    """One entry point through ``run_entry_points``: its standard output."""
+    return run_entry_points({name: args})[name][0]
 
 
 def drive_entry_points() -> dict[str, float]:
@@ -2890,9 +2909,7 @@ def main() -> None:
     kernels["whole_search_categorical (recipe)"], recipe_ckpt = drive_recipe_path(device)
 
     # ---- diagnosis path: the prior ablations on the kernel, then the four diagnoses on the cut run's checkpoint
-    kernels["whole_search_categorical (diagnoses)"] = drive_diagnosis_path(
-        device, recipe_ckpt, kernels["whole_search_categorical (recipe)"]
-    )
+    kernels.update(drive_diagnosis_path(device, recipe_ckpt))
 
     # ---- actor/learner path: the learner and an actor as two processes on the card, through the entry point
     drive_actor_learner(device)
