@@ -70,7 +70,16 @@ code != 0, no final ``ok`` line) if any phase fails:
 5. checks greedy evaluation, a greedy self-play segment with categorical
    heads and a search-mode reanalyze of that segment on a small config on
    the card: the kernel backend against the plain search backend, game for
-   game and position for position;
+   game and position for position; then the draws that sampled self-play
+   and replay take on the card (``check_self_play_draws``, 2^20 of each,
+   each statistic within 6 standard errors): the root's Dirichlet noise at
+   the scalar recipe's alpha 0.25 over 4 actions, drawn a move at a time
+   as self-play draws it (each component's mean 0.25 and variance 0.09375;
+   the largest share beside numpy's draws), the action uniforms (mean 1/2,
+   variance 1/12) and their correlation with the noise drawn before them
+   from the same generator, ``sample_from_visits``'s action shares from
+   fixed visit weights, and the replay's (episode, start) draws (a
+   chi-square over the episodes, the mean start);
 6. drives the rollout path, ``simulate_2048_tpu_torch.bench`` on the card
    (65,536 boards x 128 steps, a warm-up and five repetitions: six kernel
    launches, each deriving its seeds), and prints its JSON line;
@@ -252,6 +261,7 @@ from simulate_2048_tpu_torch.parallel.actor_learner import ActorClient, LearnerS
 from simulate_2048_tpu_torch.scripts import autopsy_eval, prior_sweep, recipes, trace_training
 from simulate_2048_tpu_torch.search import mcts
 from simulate_2048_tpu_torch.search.mcts import root_inputs
+from simulate_2048_tpu_torch.search.policy import sample_from_visits
 from simulate_2048_tpu_torch.training import config as config_lib
 from simulate_2048_tpu_torch.training.checkpoint import CheckpointManager, load_train_config
 from simulate_2048_tpu_torch.training.config import default_config, tiny_config
@@ -395,6 +405,109 @@ def cuda_ms(fn, reps: int, warmup: int = 1, calls: int = 1) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+DRAWS = 1 << 20  # draws of each distribution in check_self_play_draws
+DRAW_SIGMAS = 6.0  # its bound: this many standard errors of the statistic
+
+
+def within(label: str, got: float, want: float, se: float) -> str:
+    """``got`` against ``want`` within DRAW_SIGMAS standard errors ``se``: a report, or fail."""
+    bound = DRAW_SIGMAS * se
+    if not abs(got - want) <= bound:
+        fail(f"self-play draws: {label} {got:.6g}, expected {want:.6g} within {bound:.3g}")
+    return f"{label} {got:.6f} (expected {want:.6f}, bound {bound:.2g})"
+
+
+def check_self_play_draws(device) -> None:
+    """The draws self-play and replay take on the card, against their
+    distributions and numpy's: the root's Dirichlet noise
+    (``mcts.draw_root_noise``, ``torch._sample_dirichlet`` at the recipe's
+    alpha over 4 actions: mean alpha / (4 alpha), variance (1/4)(3/4) /
+    (4 alpha + 1)), drawn as self-play draws it (one call of the recipe's 64
+    games a move, from a CUDA generator); the uniforms of
+    ``sample_from_visits`` (mean 1/2, variance 1/12) and the actions it
+    draws from fixed visit weights; the noise's correlation with the
+    uniforms drawn after it from the same generator; and the replay's
+    (episode, start) draws (``replay.sample_indices``) against the
+    weights' shares (a chi-square over the episodes and over the starts of
+    the heaviest episode). Each statistic over DRAWS draws, held to
+    DRAW_SIGMAS standard errors; numpy's Dirichlet draws beside the card's."""
+    config = recipes.recipe_config("run_scalar60k_arm.sh")
+    cfg = search_config_from(config)
+    games, alpha, a = config.num_parallel_games, cfg.dirichlet_alpha, cfg.num_actions
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    calls = DRAWS // games
+    noise, uniforms = [], []
+    for _ in range(calls):  # the self-play loop's order: the move's noise, then its action uniforms
+        noise.append(mcts.draw_root_noise(cfg, games, gen, device))
+        uniforms.append(torch.rand(games, generator=gen, device=device))
+    noise = torch.cat(noise).double().cpu().numpy()
+    uniforms = torch.cat(uniforms).double().cpu().numpy()
+    ref = np.random.default_rng(SEED).dirichlet([alpha] * a, size=len(noise))
+    n = len(noise)
+    mean, var = 1.0 / a, (1.0 / a) * (1 - 1.0 / a) / (a * alpha + 1)
+    fourth = float(np.mean((ref - mean) ** 4))  # the fourth central moment, from numpy's draws
+    lines = []
+    for j in range(a):
+        lines.append(within(f"noise[{j}] mean", float(noise[:, j].mean()), mean, math.sqrt(var / n)))
+        lines.append(within(f"noise[{j}] variance", float(noise[:, j].var()), var, math.sqrt((fourth - var**2) / n)))
+    if not np.allclose(noise.sum(-1), 1.0, atol=1e-5) or (noise < 0).any():
+        fail("self-play draws: Dirichlet noise rows off the simplex")
+    top, ref_top = np.sort(noise, -1)[:, -1], np.sort(ref, -1)[:, -1]
+    se_top = math.sqrt(top.var() / n + ref_top.var() / n)
+    lines.append(within("noise largest share (numpy's draws beside)", float(top.mean()), float(ref_top.mean()), se_top))
+    lines.append(within("uniform mean", float(uniforms.mean()), 0.5, math.sqrt(1 / 12 / n)))
+    lines.append(within("uniform variance", float(uniforms.var()), 1 / 12, math.sqrt((1 / 80 - 1 / 144) / n)))
+    corr = float(np.corrcoef(noise[:, 0], uniforms)[0, 1])
+    lines.append(within("corr(noise[0], the move's uniform)", corr, 0.0, 1 / math.sqrt(n)))
+    weights = torch.tensor([[0.1, 0.2, 0.3, 0.4]], device=device).expand(DRAWS, a)
+    out = mcts.PolicyOutput(weights, torch.zeros(DRAWS, device=device), torch.zeros_like(weights), weights)
+    actions = sample_from_visits(out, torch.ones_like(weights, dtype=torch.bool), 1.0, gen)
+    freq = torch.bincount(actions, minlength=a).double().cpu().numpy() / DRAWS
+    for j, p in enumerate((0.1, 0.2, 0.3, 0.4)):
+        lines.append(within(f"sample_from_visits action {j} share", float(freq[j]), p, math.sqrt(p * (1 - p) / DRAWS)))
+
+    # The replay's draws: a buffer of the recipe's segment length whose priorities numpy makes.
+    rs = np.random.RandomState(SEED)
+    rcfg = dataclasses.replace(config, replay_buffer_size=1000, batch_size=DRAWS // 16)
+    buffer = replay_lib.init_buffer(rcfg, device)
+    b, t = 576, rcfg.max_trajectory_length
+    length = rs.randint(20, t + 1, size=b)
+    terminated = rs.rand(b) < 0.5
+    live = np.arange(t)[None] < length[:, None]
+    traj = replay_lib.Trajectory(
+        boards=torch.zeros(b, t + 1, 16, dtype=torch.int8),
+        actions=torch.zeros(b, t, dtype=torch.int8),
+        rewards=torch.zeros(b, t),
+        policies=torch.full((b, t, a), 0.25),
+        values=torch.zeros(b, t),
+        priorities=torch.from_numpy((rs.gamma(0.5, 20.0, size=(b, t)) * live).astype(np.float32)),
+        length=torch.from_numpy(length.astype(np.int32)),
+        terminated=torch.from_numpy(terminated),
+        total_reward=torch.zeros(b),
+        max_tile=torch.zeros(b, dtype=torch.int32),
+    )
+    buffer = replay_lib.add_trajectories(buffer, replay_lib.Trajectory(*(x.to(device) for x in traj)))
+    w = replay_lib._sampling_weights(buffer, rcfg).double().cpu().numpy()
+    idx = torch.cat([replay_lib.sample_indices(buffer, gen, rcfg.batch_size, rcfg) for _ in range(16)]).cpu().numpy()
+    p_ep = w.sum(-1)[:b] / w.sum()
+    counts = np.bincount(idx[:, 0], minlength=len(w))
+    chi2 = float(((counts[:b] - DRAWS * p_ep) ** 2 / (DRAWS * p_ep)).sum())
+    df = b - 1
+    if counts[b:].any():
+        fail("replay draws: an empty buffer row was drawn")
+    lines.append(within("replay episodes chi-square / dof", chi2 / df, 1.0, math.sqrt(2.0 / df)))
+    steps = np.arange(t)[None, :]
+    start_mean = float((w * steps).sum() / w.sum())
+    start_var = float((w * steps**2).sum() / w.sum()) - start_mean**2
+    if (w[idx[:, 0], idx[:, 1]] == 0).any():
+        fail("replay draws: a start of zero weight was drawn")
+    lines.append(within("replay start mean", float(idx[:, 1].mean()), start_mean, math.sqrt(start_var / DRAWS)))
+    print(f"self-play draws on the card ({calls} moves of {games} games, alpha {alpha}; {DRAWS} draws each, "
+          f"bounds {DRAW_SIGMAS:g} standard errors):")  # fmt: skip
+    for line in lines:
+        print(f"  {line}")
 
 
 def full_width_inputs(
@@ -1111,6 +1224,11 @@ def wide_config():
     )
 
 
+def fill_segments(config) -> int:
+    """The segments ``Trainer.fill_buffer`` plays into an empty buffer; it logs none of them."""
+    return -(-config.min_buffer_size // config.num_parallel_games)
+
+
 def drive_probe_evaluation(device, ptxas: str) -> int:
     """The full-capacity probe's evaluation at its own width (H=256, 10
     blocks, 256/128 bins, bfloat16 search packs, which the kernel keeps
@@ -1176,8 +1294,8 @@ def drive_wide_training(device) -> dict[str, int]:
     evals = [r for r in history if "eval/mean_reward" in r]
     passes = [r for r in history if "reanalyze/seconds" in r]
     deeps = [r for r in history if "deep_eval/mean_reward" in r]
-    if len(gens) != 2 or len(steps) != WIDE_STEPS or len(evals) != 1:
-        fail(f"wide path: {len(gens)} segments, {len(steps)} logged steps, {len(evals)} evaluations")
+    if len(gens) + fill_segments(config) != 2 or len(steps) != WIDE_STEPS or len(evals) != 1:
+        fail(f"wide path: {len(gens)} logged segments, {len(steps)} logged steps, {len(evals)} evaluations")
     if [r["step"] for r in passes] != [WIDE_STEPS - 1] or [r["step"] for r in deeps] != [WIDE_STEPS]:
         fail(f"wide path: reanalyze passes {passes}, deep evaluations {deeps}")
     if best_steps != [WIDE_STEPS]:
@@ -1188,7 +1306,7 @@ def drive_wide_training(device) -> dict[str, int]:
     if not all(torch.isfinite(torch.tensor(r["gen/search_value"])) for r in gens):
         fail("wide path: a self-play search value is not finite")
 
-    self_play_moves = len(gens) * WIDE_SEGMENT_MOVES
+    self_play_moves = (fill_segments(config) + len(gens)) * WIDE_SEGMENT_MOVES
     searches = REANALYZE_EPISODES * WIDE_SEGMENT_MOVES
     reanalyze_launches = reanalyze.search_batches(searches)
     expected = self_play_moves + 2 * TRAIN_EVAL_MOVES + reanalyze_launches
@@ -1204,8 +1322,8 @@ def drive_wide_training(device) -> dict[str, int]:
     step_ms = statistics.median(1e3 / x for x in pure)
     print(
         f"wide path (H={WIDE_HIDDEN}, NB={config.num_residual_blocks}, bf16 search packs streamed): {len(gens)} "
-        f"segments of {WIDE_SEGMENT_MOVES} moves x {BATCH} games in {gen_s:.2f} s: {positions / gen_s:.1f} "
-        f"game-moves/s, {1e3 * gen_s / self_play_moves:.2f} ms per move; {len(steps)} learner steps, median "
+        f"logged segments of {WIDE_SEGMENT_MOVES} moves x {BATCH} games in {gen_s:.2f} s: {positions / gen_s:.1f} "
+        f"game-moves/s, {1e3 * gen_s / (len(gens) * WIDE_SEGMENT_MOVES):.2f} ms per move; {len(steps)} learner steps, median "
         f"{step_ms:.2f} ms per step; whole run {wall:.1f} s"
     )
     print(
@@ -1284,7 +1402,7 @@ def drive_training(device) -> dict[str, int]:
     if not torch.allclose(policy_sums, in_ep.float(), atol=2e-3):  # float16 probabilities
         fail("training path: reanalysed policy targets do not sum to 1 inside the episodes and 0 outside")
 
-    self_play_moves = len(gens) * TRAIN_SEGMENT_MOVES
+    self_play_moves = (fill_segments(config) + len(gens)) * TRAIN_SEGMENT_MOVES
     reanalyze_launches = len(passes) * reanalyze.search_batches(REANALYZE_EPISODES * TRAIN_SEGMENT_MOVES)
     expected = self_play_moves + 2 * TRAIN_EVAL_MOVES + reanalyze_launches
     if launches["whole_search_categorical"] != expected or launches["whole_search"] != 0:
@@ -1299,8 +1417,8 @@ def drive_training(device) -> dict[str, int]:
     pure = [r["steps_per_s"] for r in steps if r["step"] not in gen_steps]
     step_ms = statistics.median(1e3 / x for x in pure)
     print(
-        f"training path: {len(gens)} segments of {TRAIN_SEGMENT_MOVES} moves x {BATCH} games in {gen_s:.2f} s: "
-        f"{positions / gen_s:.1f} game-moves/s, {1e3 * gen_s / self_play_moves:.2f} ms per move "
+        f"training path: {len(gens)} logged segments of {TRAIN_SEGMENT_MOVES} moves x {BATCH} games in {gen_s:.2f} s: "
+        f"{positions / gen_s:.1f} game-moves/s, {1e3 * gen_s / (len(gens) * TRAIN_SEGMENT_MOVES):.2f} ms per move "
         f"(the kernel alone at B={BATCH}: timed above)"
     )
     print(
@@ -1458,12 +1576,12 @@ def drive_recipe_path(device) -> tuple[dict, str]:
         gens = [r for r in history if "gen/positions" in r]
         steps = [r for r in history if "total_loss" in r]
         evals = [r for r in history if "eval/mean_reward" in r]
-        if len(gens) != 2 or [r["step"] for r in steps] != [10, 20, 30, 40] or len(evals) != 1:
+        if len(gens) + fill_segments(run) != 2 or [r["step"] for r in steps] != [10, 20, 30, 40] or len(evals) != 1:
             fail(f"recipe path: {len(gens)} segments, logged steps {[r['step'] for r in steps]}, {len(evals)} evals")
         loss_terms = [k for k in steps[0] if k.endswith("_loss") or k == "codebook_entropy"]
         if not all(math.isfinite(r[k]) for r in steps for k in loss_terms):
             fail("recipe path: a loss term is not finite")
-        self_play_moves = len(gens) * RECIPE_SEGMENT_MOVES
+        self_play_moves = (fill_segments(run) + len(gens)) * RECIPE_SEGMENT_MOVES
         eval_moves = max(eval_lengths[0])
         others = {k: v for k, v in launches.items() if k != RECIPE_LIBRARY and v}
         if launches[RECIPE_LIBRARY] != self_play_moves + eval_moves or others:
@@ -1473,8 +1591,8 @@ def drive_recipe_path(device) -> tuple[dict, str]:
         step_ms = statistics.median(chunk_ms[1:])
         gen_s = sum(r["gen/seconds"] for r in gens)
         print(
-            f"recipe path ({card_line()}): {len(gens)} segments of {RECIPE_SEGMENT_MOVES} moves x {games} games, "
-            f"{1e3 * gen_s / self_play_moves:.2f} ms per self-play move; {RECIPE_STEPS} learner steps (batch "
+            f"recipe path ({card_line()}): {len(gens)} logged segments of {RECIPE_SEGMENT_MOVES} moves x {games} games, "
+            f"{1e3 * gen_s / (len(gens) * RECIPE_SEGMENT_MOVES):.2f} ms per self-play move; {RECIPE_STEPS} learner steps (batch "
             f"{run.batch_size}, unroll {run.num_unroll_steps}): median {step_ms:.2f} ms per step over chunks of "
             f"{run.log_interval} ({' / '.join(f'{ms:.2f}' for ms in chunk_ms)}); one evaluation of "
             f"{run.eval_games} games, {eval_moves} moves (cap {RECIPE_EVAL_MOVES}), mean reward "
@@ -2668,7 +2786,8 @@ def drive_variant_path(device) -> int:
     evals = [r for r in history if "eval/mean_reward" in r]
     passes = [r for r in history if "reanalyze/seconds" in r]
     deeps = [r for r in history if "deep_eval/mean_reward" in r]
-    if len(gens) != 2 or len(steps) != VARIANT_STEPS or len(evals) != 1 or len(passes) != 1 or len(deeps) != 1:
+    if len(gens) + fill_segments(config) != 2 or len(steps) != VARIANT_STEPS or len(evals) != 1 or len(passes) != 1 \
+            or len(deeps) != 1:
         fail(f"variant path: {len(gens)} segments, {len(steps)} steps, {len(evals)} evaluations, {len(passes)} "
              f"passes, {len(deeps)} deep evaluations")  # fmt: skip
     if not (deeps[0]["deep_eval/mean_length"] > 0 and math.isfinite(deeps[0]["deep_eval/mean_search_value"])):
@@ -2699,7 +2818,7 @@ def drive_variant_path(device) -> int:
     print(
         f"variant path (Gumbel root, sampled chance, widening pw_c=1.0; H={config.hidden_size}, "
         f"NB={config.num_residual_blocks}, S={config.num_simulations}, bins 256/128, backend auto): {len(gens)} "
-        f"segments of {t} moves x {BATCH} games in {gen_s:.2f} s: {1e3 * gen_s / moves:.1f} ms per self-play move "
+        f"logged segments of {t} moves x {BATCH} games in {gen_s:.2f} s: {1e3 * gen_s / moves:.1f} ms per self-play move "
         f"(plain search); one search-mode reanalyze pass of {searches} searches in "
         f"{passes[0]['reanalyze/seconds']:.3f} s; one deep evaluation of {DEEP_EVAL_GAMES} games x {t} moves "
         f"(games seeded on the CPU) in {deeps[0]['deep_eval/seconds']:.3f} s; {len(steps)} learner steps; whole run "
@@ -2868,6 +2987,7 @@ def main() -> None:
     check_streamed_equals_resident(device)
     check_small_evaluation(device)
     check_small_training(device)
+    check_self_play_draws(device)
 
     # ---- rollout path: the benchmark's entry point on the card
     kernels["random_rollout"]["launches"] = drive_rollout_path()

@@ -203,8 +203,9 @@ class Trainer:
             runtime=self._runtime_payload(),
         )
 
-    def _generate(self, step: int) -> None:
-        """Play one segment of every game, ingest it and log its diagnostics."""
+    def _generate(self, step: int, log: bool = True) -> float:
+        """Play one segment of every game and ingest it; with ``log``, log its
+        diagnostics under ``gen/``. Returns the segment's seconds."""
         t0 = time.perf_counter()
         self.gen_state, traj, gen_stats = generate_games(
             self.network, self._generator, self.config, step, env_state=self.gen_state
@@ -213,15 +214,21 @@ class Trainer:
             self.buffer, self._prev, traj, gen_stats.first_search_value, self.config
         )
         record = finish_gen_stats(gen_stats, traj)  # reads from the device: the segment is complete
-        self.metrics.log({"step": step, **record, "gen/seconds": time.perf_counter() - t0})
+        seconds = time.perf_counter() - t0
+        if log:
+            self.metrics.log({"step": step, **record, "gen/seconds": seconds})
+        return seconds
 
     def fill_buffer(self, verbose: bool = True) -> None:
-        """Self-play until the buffer holds ``min_buffer_size`` episodes."""
+        """Self-play until the buffer holds ``min_buffer_size`` episodes. As
+        in the JAX package, these segments log no ``gen/`` row: the first is
+        the training loop's, at its first step. ``verbose`` prints each
+        segment's seconds."""
         self._require_initialized()
         while int(self.buffer.size) < self.config.min_buffer_size:
-            self._generate(self.state.step)
+            seconds = self._generate(self.state.step, log=False)
             if verbose:
-                print(f"buffer: {int(self.buffer.size)}/{self.config.min_buffer_size}")
+                print(f"buffer: {int(self.buffer.size)}/{self.config.min_buffer_size} ({seconds:.2f} s)")
 
     def train(self, num_steps: int | None = None, verbose: bool = True) -> dict[str, Any]:
         """Main loop; always persists the latest state on the way out."""

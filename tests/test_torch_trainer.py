@@ -165,6 +165,35 @@ def test_train_cli_runs_resumes_and_evaluate_loads(tmp_path, capsys):
         evaluate.main(["--checkpoint-dir", ckpt, "--device", "cpu", "--step", "7"])
 
 
+def test_fill_buffer_logs_no_gen_rows_like_jax(tmp_path):
+    """The warm-up segments of ``fill_buffer`` log nothing, in both packages:
+    after it and one loop step the log holds one ``gen/`` row, at step 0,
+    the loop's first segment."""
+    overrides = dict(hidden_size=16, num_residual_blocks=1, num_simulations=2, search_max_depth=2, num_parallel_games=2,
+                     max_trajectory_length=4, min_buffer_size=6, batch_size=4, replay_buffer_size=16,
+                     generation_interval=4, log_interval=1, checkpoint_interval=100, eval_interval=100)  # fmt: skip
+    trainer = ttrainer.Trainer(dataclasses.replace(tiny_config(), **overrides), log_dir=str(tmp_path / "torch"),
+                               device="cpu")  # fmt: skip
+    trainer.initialize()
+    trainer.fill_buffer(verbose=False)
+    assert int(trainer.buffer.size) == 6 and not trainer.get_metrics_history()
+    trainer.train(1, verbose=False)
+    trainer.metrics.close()
+
+    from simulate_2048_tpu.training import config as jconfig
+
+    jtrainer_ = jtrainer.Trainer(dataclasses.replace(jconfig.tiny_config(), **overrides), log_dir=str(tmp_path / "jax"))
+    jtrainer_.initialize()
+    jtrainer_.fill_buffer(verbose=False)
+    jtrainer_.train(1, verbose=False)
+    jtrainer_.metrics.close()
+    for package in ("torch", "jax"):
+        rows = [json.loads(line) for line in open(tmp_path / package / "metrics.jsonl")]
+        gen = [r for r in rows if any(k.startswith("gen/") for k in r)]
+        assert [r["step"] for r in gen] == [0], package
+        assert int(gen[0]["gen/completed_games"]) >= 0 and [r["step"] for r in rows if "total_loss" in r] == [1]
+
+
 def test_checkpoint_round_trip_is_exact(tmp_path):
     config = dataclasses.replace(tiny_config(), hidden_size=32, value_bins=16, reward_bins=8, num_parallel_games=4,
                                  max_trajectory_length=8, min_buffer_size=4, batch_size=4, replay_buffer_size=16,
