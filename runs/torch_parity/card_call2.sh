@@ -1,6 +1,9 @@
 #!/bin/bash
-# Usage: bash card_call2.sh OUT, from a staging directory chip_stage/ at the repository root that holds
-# runs/torch_parity/*.py and the saved inits (twin_run.py --save-init), on a machine with one GPU.
+# Usage, from the repository root on a machine with one GPU: copy runs/torch_parity/*.py, this script and the
+# saved inits (twin_run.py --save-init: init/, init_full/) into chip_stage/, then
+# run `bash chip_stage/card_call2.sh OUT`; the cd below lands at chip_stage/.., the repository root.
+# Written after the call from the script it ran, chip_stage/run2.sh, which was not kept: that one took no
+# argument and wrote to a fixed output directory, where OUT is now. This form has not been run on the card.
 # Diagnostic call 2: draws on the card; the reduced twin on the card (base, self-play on the CPU, learner on the CPU);
 # the recipe at full width with its draws on the CPU; one trained network's self-play under three backends.
 cd "$(dirname "$0")/.." || exit 1

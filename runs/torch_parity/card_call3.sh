@@ -1,6 +1,9 @@
 #!/bin/bash
-# Usage: bash card_call3.sh OUT, from a staging directory chip_stage/ at the repository root that holds
-# runs/torch_parity/*.py and the saved inits (twin_run.py --save-init), on a machine with one GPU.
+# Usage, from the repository root on a machine with one GPU: copy runs/torch_parity/*.py, this script and the
+# saved inits (twin_run.py --save-init: init/, init_full/) into chip_stage/, then
+# run `bash chip_stage/card_call3.sh OUT`; the cd below lands at chip_stage/.., the repository root.
+# Written after the call from the script it ran, chip_stage/run3.sh, which was not kept: that one took no
+# argument and wrote to a fixed output directory, where OUT is now. This form has not been run on the card.
 # Diagnostic call 3: the scalar recipe on the card from the JAX package's own initial weights (converted),
 # the init of runs/r4_scalar60k (JAX seed 42) under two trainer seeds, and JAX seed 0's init; the categorical
 # twin at --seed 43 to 5,000.

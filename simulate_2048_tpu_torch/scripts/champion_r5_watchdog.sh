@@ -8,18 +8,15 @@
 # Usage: champion_r5_watchdog.sh <champion_pid> [target_step]
 # Departures: the newest step is read from the port's step_<n>.pt files
 # (latest_step.sh); logs go to runs/torch_champion_r5_watchdog.log,
-# runs/torch_champion_r5_launch.log and runs/torch_scalar60k_launch.log;
-# the wait between checks on the PID is $WATCHDOG_POLL_S seconds (default 60,
-# as JAX's).
+# runs/torch_champion_r5_launch.log and runs/torch_scalar60k_launch.log.
 cd "$(dirname "$0")/../.." || exit 1
 source simulate_2048_tpu_torch/scripts/latest_step.sh
 S=simulate_2048_tpu_torch/scripts
 PID="$1"
 TARGET="${2:-600000}"
-POLL="${WATCHDOG_POLL_S:-60}"
 mkdir -p runs
 while true; do
-  while kill -0 "$PID" 2>/dev/null; do sleep "$POLL"; done
+  while kill -0 "$PID" 2>/dev/null; do sleep 60; done
   step=$(latest_step runs/torch_champion_r5/ckpt)
   echo "$(date +%T) champion process $PID exited at checkpoint step $step" >> runs/torch_champion_r5_watchdog.log
   if [ "$step" -ge "$TARGET" ]; then break; fi

@@ -9,15 +9,13 @@
 # Usage: r5b_phase2.sh <main_queue_pid>
 # Departures: the newest step is read from the port's step_<n>.pt files
 # (latest_step.sh); the bench is python -m simulate_2048_tpu_torch.bench;
-# the runs and logs are the port's runs/torch_*; the wait between checks on
-# the PID is $WATCHDOG_POLL_S seconds (default 30, as JAX's).
+# the runs and logs are the port's runs/torch_*.
 cd "$(dirname "$0")/../.." || exit 1
 source simulate_2048_tpu_torch/scripts/latest_step.sh
 S=simulate_2048_tpu_torch/scripts
 PID="$1"
-POLL="${WATCHDOG_POLL_S:-30}"
 mkdir -p runs
-while kill -0 "$PID" 2>/dev/null; do sleep "$POLL"; done
+while kill -0 "$PID" 2>/dev/null; do sleep 30; done
 echo "$(date +%T) phase 2: bench" >> runs/torch_r5b_queue.log
 python -m simulate_2048_tpu_torch.bench > runs/torch_r5b_bench_probe.json 2> runs/torch_r5b_bench_probe.log
 echo "$(date +%T) phase 2: early-anneal arm" >> runs/torch_r5b_queue.log

@@ -6,15 +6,13 @@
 # relaunch into the same --checkpoint-dir resumes from its newest checkpoint).
 # Usage: watchdog_arm.sh <pid> <ckpt_dir> <target_step> <launch_script> <log>
 # Departures: the newest step is read from the port's step_<n>.pt files
-# (latest_step.sh); the log is runs/torch_watchdog_arm.log; the wait between
-# checks on the PID is $WATCHDOG_POLL_S seconds (default 30, as JAX's).
+# (latest_step.sh); the log is runs/torch_watchdog_arm.log.
 cd "$(dirname "$0")/../.." || exit 1
 source simulate_2048_tpu_torch/scripts/latest_step.sh
 PID="$1"; CKPT="$2"; TARGET="$3"; SCRIPT="$4"; LOG="$5"
-POLL="${WATCHDOG_POLL_S:-30}"
 mkdir -p runs
 while true; do
-  while kill -0 "$PID" 2>/dev/null; do sleep "$POLL"; done
+  while kill -0 "$PID" 2>/dev/null; do sleep 30; done
   step=$(latest_step "$CKPT")
   echo "$(date +%T) $SCRIPT pid $PID exited at checkpoint step $step" >> runs/torch_watchdog_arm.log
   if [ "$step" -ge "$TARGET" ]; then break; fi

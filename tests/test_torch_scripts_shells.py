@@ -7,7 +7,8 @@ of a port checkpoint directory (``training/checkpoint.py``), not JAX's orbax
 step directories. ``watchdog_arm.sh`` and the queue's ``run_to_target`` each
 drive a stub launch script that writes ``step_<n>.pt`` and exits early once:
 they must relaunch it with the remaining steps (target + 10 - step, as the
-JAX shells compute it) until the target is reached. That a relaunch resumes
+JAX shells compute it) until the target is reached. A ``sleep`` first on
+``PATH`` cuts the shells' 30 s wait between checks on a PID to 0.1 s. That a relaunch resumes
 and adds ``--steps`` to the resumed step is the port's train CLI's own
 behaviour, held by ``test_torch_trainer.py::test_train_cli_runs_resumes_and_evaluate_loads``.
 """
@@ -34,6 +35,10 @@ if [ ! -f "$STUB_CALLS.crashed" ]; then
   exit 1
 fi
 touch "$STUB_CKPT/step_$(( cur + $1 )).pt"
+"""
+
+FAST_SLEEP = f"""#!/bin/bash
+exec {shutil.which("sleep")} 0.1
 """
 
 
@@ -65,14 +70,19 @@ def test_latest_step_reads_port_checkpoint_files(tmp_path):
 def stubbed(tmp_path):
     """A copy of the scripts under ``tmp_path`` (so that the shells' ``cd`` to
     the checkout lands there and their logs go to ``tmp_path/runs``), a stub
-    launch script, and its environment."""
+    launch script, and its environment, whose ``PATH`` starts with a fast
+    ``sleep``."""
     scripts = tmp_path / "simulate_2048_tpu_torch" / "scripts"
     shutil.copytree(SCRIPTS, scripts, ignore=shutil.ignore_patterns("*.py", "__pycache__"))
     stub = tmp_path / "stub.sh"
     stub.write_text(STUB)
     stub.chmod(0o755)
+    bin_dir = tmp_path / "bin"
+    bin_dir.mkdir()
+    (bin_dir / "sleep").write_text(FAST_SLEEP)
+    (bin_dir / "sleep").chmod(0o755)
     env = {**os.environ, "STUB_CKPT": str(tmp_path / "ckpt"), "STUB_CALLS": str(tmp_path / "calls"),
-           "WATCHDOG_POLL_S": "0.1"}  # fmt: skip
+           "PATH": f"{bin_dir}{os.pathsep}{os.environ['PATH']}"}  # fmt: skip
     return scripts, stub, env
 
 
