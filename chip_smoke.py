@@ -254,6 +254,7 @@ from simulate_2048_tpu_torch.ops import _build
 from simulate_2048_tpu_torch.ops import board as board_ops
 from simulate_2048_tpu_torch.ops import rng as tfrng
 from simulate_2048_tpu_torch.ops import rollout_kernel as rk
+from simulate_2048_tpu_torch.ops.rng import prng_key
 from simulate_2048_tpu_torch.ops import search_kernel as sk
 from simulate_2048_tpu_torch.parallel import make_dp_train_step, make_mesh
 from simulate_2048_tpu_torch.parallel import ring
@@ -532,7 +533,7 @@ def full_width_inputs(
     if hidden is not None:
         config = dataclasses.replace(config, hidden_size=hidden)
     gen = torch.Generator().manual_seed(SEED)
-    network = network_from_config(config, gen, device)
+    network = network_from_config(config, prng_key(SEED), device)
     with torch.no_grad():
         for head in (network.prediction.value, network.afterstate_prediction.q_value, network.dynamics.reward):
             if head.out_features > 1:
@@ -879,7 +880,7 @@ def check_dense_probe(device, library: str) -> float:
     worst = 0.0
     for h in PROBE_WIDTHS[library]:
         config = dataclasses.replace(wide_config(), hidden_size=h)
-        network = network_from_config(config, torch.Generator().manual_seed(SEED), device)
+        network = network_from_config(config, prng_key(SEED), device)
         packed = pack(network, config, torch.bfloat16, sk.STREAM_CHUNK if streamed else None)
         fragments = sk.SearchWorkspace(packed).fragments
         n_layers = fragments.shape[0]
@@ -1088,7 +1089,7 @@ def drive_rollout_path() -> int:
 def check_small_evaluation(device) -> None:
     """Greedy games on a small config: kernel backend vs plain search backend."""
     config = dataclasses.replace(tiny_config(), num_simulations=16, eval_max_moves=40)
-    network = network_from_config(config, torch.Generator().manual_seed(SEED), device)
+    network = network_from_config(config, prng_key(SEED), device)
     kernel_config = dataclasses.replace(config, search_backend="pallas")
     kernel_state, *_ = _evaluate_rollout(network, SEED, kernel_config, 32, device)
     plain_state, *_ = _evaluate_rollout(network, SEED, dataclasses.replace(config, search_backend="xla"), 32, device)
@@ -1119,7 +1120,7 @@ def check_small_training(device) -> None:
         replay_buffer_size=games, reanalyze_mode="search", value_target_mode="td_lambda", td_lambda=1.0,
     )  # fmt: skip
     gen = torch.Generator().manual_seed(SEED)
-    network = network_from_config(config, gen, device)
+    network = network_from_config(config, prng_key(SEED), device)
     perturb_categorical_heads(network, gen)
     out = {}
     for backend in ("pallas", "xla"):
@@ -1240,7 +1241,7 @@ def drive_probe_evaluation(device, ptxas: str) -> int:
     if sk.search_plan(search_config_from(config, eval_mode=True), config.hidden_size, torch.bfloat16) != 0:
         fail("probe evaluation: the search plan streams hidden-256 weights")
     gen = torch.Generator().manual_seed(SEED)
-    network = network_from_config(config, gen, device)
+    network = network_from_config(config, prng_key(SEED), device)
     perturb_categorical_heads(network, gen)
     for name in sk.LAUNCHES:
         sk.LAUNCHES[name] = 0
@@ -1351,7 +1352,7 @@ def drive_training(device) -> dict[str, int]:
         launches = dict(sk.LAUNCHES)
 
         # The checkpoint written at the last step, read back into a fresh state, equals the trained one.
-        fresh = network_from_config(config, torch.Generator().manual_seed(SEED + 7), device)
+        fresh = network_from_config(config, prng_key(SEED + 7), device)
         restored = TrainState(fresh, create_optimizer(config).init(list(fresh.parameters())))
         if CheckpointManager(ckpt_dir).restore(restored) is None:
             fail("training path: no checkpoint was written")
@@ -1374,7 +1375,7 @@ def drive_training(device) -> dict[str, int]:
     loss_terms = [k for k in steps[0] if k.endswith("_loss") or k == "codebook_entropy"]
     if not all(torch.isfinite(torch.tensor([r[k] for k in loss_terms])).all() for r in steps):
         fail("training path: a loss term is not finite")
-    initial = network_from_config(config, torch.Generator().manual_seed(SEED), device)
+    initial = network_from_config(config, prng_key(SEED), device)
     changed = sum(not torch.equal(a, b) for a, b in zip(initial.parameters(), trained.params))
     if changed < len(trained.params) // 2:
         fail(f"training path: only {changed} of {len(trained.params)} parameter tensors changed")
@@ -1459,7 +1460,7 @@ def time_recipe_moves(device, config) -> None:
     xla) after a one-move warm-up of each; each timing plays
     RECIPE_TIMED_MOVES moves (``play_segment``; host clock, synchronised)."""
     gen = torch.Generator().manual_seed(SEED)
-    network = network_from_config(config, gen, device)
+    network = network_from_config(config, prng_key(SEED), device)
     perturb_categorical_heads(network, gen)
     start = envlib.reset_batch(SEED, config.num_parallel_games, device)
     backends = {name: dataclasses.replace(config, search_backend=name) for name in ("xla", "auto")}
@@ -1496,6 +1497,26 @@ def trace_device_ops(trace_dir: str) -> tuple[str, int]:
     return out, sum(int(m.group(1)) for m in ops if m and "whole_search_kernel" in m.group(2))
 
 
+def check_trainer_init(config, seed: int, initial: list[torch.Tensor]) -> None:
+    """The initial network of a ``Trainer`` of ``seed`` on the card
+    (``initial``, its parameters copied back) against ``network_from_config``
+    on the CPU, with the key JAX's ``Trainer`` takes
+    (``split(PRNGKey(seed))[1]``): bit for bit, since both are drawn on the
+    CPU. Then prints the first kernel's sum of the recipe's init at seed 42,
+    the seed of JAX's recipe runs, as ``tests/test_torch_init.py`` holds it
+    against Flax's."""
+    want = network_from_config(config, tfrng.split(prng_key(seed))[1], "cpu")
+    names = [name for name, _ in want.named_parameters()]
+    differ = [n for n, a, b in zip(names, initial, want.parameters()) if not torch.equal(a, b.detach())]
+    if len(initial) != len(names) or differ:
+        fail(f"recipe path: the Trainer's initial network differs from network_from_config on the CPU: {differ}")
+    seed42 = network_from_config(config, tfrng.split(prng_key(42))[1], "cpu")
+    kernel = seed42.representation.trunk.proj.weight
+    print(f"recipe path: the Trainer's initial network on the card equals network_from_config on the CPU "
+          f"(seed {seed}, {len(names)} tensors, bit for bit); seed 42's init: representation/TowerWithHead_0/"
+          f"Dense_0 kernel {tuple(kernel.t().shape)} sum {float(kernel.double().sum()):.9g}")  # fmt: skip
+
+
 def drive_recipe_path(device) -> tuple[dict, str]:
     """The champion recipe (``simulate_2048_tpu_torch/scripts/run_cat60k_twin.sh``)
     at its own widths: (a) the categorical kernel against its plain version
@@ -1503,7 +1524,8 @@ def drive_recipe_path(device) -> tuple[dict, str]:
     configs (self-play, and evaluation at prior temperature 4 and pb_c_init
     0.5), ``check_whole_search``'s float32 rule; (b) the literal recipe's
     move ("xla") against the kernel's ("auto"); (c) a cut run through
-    ``Trainer`` with the launch counts set to 0 just before: 2 segments of 24
+    ``Trainer`` with the launch counts set to 0 just before (its initial
+    network held to the CPU's, ``check_trainer_init``): 2 segments of 24
     moves, 40 learner steps at batch 256, one evaluation of 32 games capped
     at 100 moves, a checkpoint round trip; only ``whole_search_categorical``
     launched, once per self-play and evaluation move; (d) 3 moves and 5
@@ -1554,14 +1576,16 @@ def drive_recipe_path(device) -> tuple[dict, str]:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         trainer.initialize()
+        initial = [p.detach().cpu() for p in trainer.network.parameters()]
         trainer.fill_buffer(verbose=False)
         trainer.train(RECIPE_STEPS, verbose=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(sk.LAUNCHES)
         peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        check_trainer_init(run, SEED, initial)
 
-        fresh = network_from_config(run, torch.Generator().manual_seed(SEED + 7), device)
+        fresh = network_from_config(run, prng_key(SEED + 7), device)
         restored = TrainState(fresh, create_optimizer(run).init(list(fresh.parameters())))
         if CheckpointManager(ckpt_dir).restore(restored) is None:
             fail("recipe path: no checkpoint was written")
@@ -1810,7 +1834,7 @@ def drive_diagnosis_path(device, ckpt_dir: str) -> dict[str, dict]:
     the launches the diagnoses made at that count."""
     t_phase = time.perf_counter()
     config = load_train_config(ckpt_dir)
-    network = network_from_config(config, torch.Generator().manual_seed(SEED + 9), device)
+    network = network_from_config(config, prng_key(SEED + 9), device)
     state = TrainState(network, create_optimizer(config).init(list(network.parameters())))
     if CheckpointManager(ckpt_dir).restore(state) is None or state.step != RECIPE_STEPS:
         fail(f"diagnosis path: no checkpoint at step {RECIPE_STEPS} in the recipe path's copy")
@@ -1900,7 +1924,7 @@ def check_actor_learner(device) -> dict[str, float]:
     server = LearnerServer(trainer, port=0).start()
     if server.param_sync_interval != AL_SYNC:
         fail(f"actor/learner parity: the learner publishes every {server.param_sync_interval} steps")
-    direct_net = network_from_config(config, torch.Generator().manual_seed(0), device)
+    direct_net = network_from_config(config, prng_key(0), device)
     direct_gen = torch.Generator(device=device).manual_seed(AL_ACTOR_SEED)
     direct_state = envlib.reset_batch(AL_ACTOR_SEED * 2654435761 % (1 << 31), BATCH, device)
     prev, step0, gen_s = None, None, []
@@ -2131,7 +2155,7 @@ def drive_actor_learner(device) -> int:
 
 def gradient_length(config) -> int:
     """Elements of ``config``'s flattened gradient: every parameter of its networks."""
-    return sum(p.numel() for p in network_from_config(config, torch.Generator().manual_seed(SEED), "cpu").parameters())
+    return sum(p.numel() for p in network_from_config(config, prng_key(SEED), "cpu").parameters())
 
 
 # Libraries whose search kernel must neither spill nor keep a stack frame: their ring loops slow down when they do.
@@ -2362,7 +2386,7 @@ def drive_dp_training(device, ring_ms: float) -> int:
     values = [r[k] for r in history for k in loss_terms] + [float(x) for x in loss]
     if len(history) != 1 or not torch.isfinite(torch.tensor(values)).all():
         fail(f"data-parallel path: {len(history)} logged supersteps, or a loss term is not finite")
-    initial = network_from_config(config, torch.Generator().manual_seed(SEED), device)
+    initial = network_from_config(config, prng_key(SEED), device)
     changed = sum(not torch.equal(a, b) for a, b in zip(initial.parameters(), trainer.state.params))
     if changed < len(trainer.state.params) // 2:
         fail(f"data-parallel path: only {changed} of {len(trainer.state.params)} parameter tensors changed")
@@ -2690,7 +2714,7 @@ def check_variant_searches(device, kernel_ms: float) -> dict[str, float]:
               f"{cfg.max_depth} (the kernel, PUCT: {kernel_ms:.2f} ms)")  # fmt: skip
 
     config = dataclasses.replace(tiny_config(), num_simulations=16)
-    cpu_net = network_from_config(config, torch.Generator().manual_seed(SEED), "cpu")
+    cpu_net = network_from_config(config, prng_key(SEED), "cpu")
     gpu_net = copy.deepcopy(cpu_net).to(device)
     gen = torch.Generator().manual_seed(SEED)
     state = envlib.reset_batch(SEED, BATCH, "cpu")
@@ -2795,7 +2819,7 @@ def drive_variant_path(device) -> int:
     loss_terms = [k for k in steps[0] if k.endswith("_loss") or k == "codebook_entropy"]
     if not all(torch.isfinite(torch.tensor([r[k] for k in loss_terms])).all() for r in steps):
         fail("variant path: a loss term is not finite")
-    initial = network_from_config(config, torch.Generator().manual_seed(SEED), device)
+    initial = network_from_config(config, prng_key(SEED), device)
     changed = sum(not torch.equal(a, b) for a, b in zip(initial.parameters(), trainer.state.params))
     if changed < len(trainer.state.params) // 2:
         fail(f"variant path: only {changed} of {len(trainer.state.params)} parameter tensors changed")
@@ -2884,7 +2908,7 @@ def profile_paths(device, moves: int = 5, steps: int = 3) -> None:
         "repetition",
     )
     config = dataclasses.replace(default_config(), eval_max_moves=moves)
-    network = network_from_config(config, torch.Generator().manual_seed(SEED), device)
+    network = network_from_config(config, prng_key(SEED), device)
     profile_device("evaluation", lambda: _evaluate_rollout(network, SEED, config, BATCH, device), moves, "move")
 
     from simulate_2048_tpu_torch.training.trainer import Trainer
@@ -2994,7 +3018,7 @@ def main() -> None:
 
     # ---- evaluation path: greedy evaluation at the full preset on the card
     config = dataclasses.replace(default_config(), eval_max_moves=MAIN_PATH_MAX_MOVES)
-    network = network_from_config(config, torch.Generator().manual_seed(SEED), device)
+    network = network_from_config(config, prng_key(SEED), device)
     for name in sk.LAUNCHES:
         sk.LAUNCHES[name] = 0
     torch.cuda.synchronize()

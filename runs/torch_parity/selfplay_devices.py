@@ -24,6 +24,7 @@ import torch
 
 from simulate_2048_tpu_torch.env import env as envlib
 from simulate_2048_tpu_torch.models.network import network_from_config
+from simulate_2048_tpu_torch.ops.rng import prng_key
 from simulate_2048_tpu_torch.scripts.recipes import recipe_config
 from simulate_2048_tpu_torch.training.checkpoint import CheckpointManager
 from simulate_2048_tpu_torch.training.self_play import finish_gen_stats, generate_games
@@ -39,7 +40,7 @@ def main() -> None:
     device_name, backend = args.backend.split("_")
     device = torch.device(device_name)
     config = dataclasses.replace(recipe_config("run_scalar60k_arm.sh"), search_backend=backend)
-    network = network_from_config(config, torch.Generator().manual_seed(args.seed), "cpu")
+    network = network_from_config(config, prng_key(args.seed), "cpu")
     step = 0
     if args.ckpt:
         payload = torch.load(f"{args.ckpt}/step_{CheckpointManager(args.ckpt).latest_step()}.pt", map_location="cpu",

@@ -17,7 +17,8 @@ then fills its buffer and trains with its own draws, and writes its
         --seed 0 --set search_backend=auto --tag cuda_auto --out runs/torch_parity/twin_cuda
     # the same with one stage or source of draws on the CPU (card_variants.py's variants)
     python runs/torch_parity/twin_run.py ... --device cuda --variant learner_cpu --tag cuda_learner_cpu
-    # the port from its own initial weights (its generator seeded with --seed), not JAX's
+    # the port drawing its initial weights itself from --seed (since they are JAX's for the seed,
+    # this equals the converted init; before, a torch generator seeded with --seed drew them)
     JAX_PLATFORMS=cpu PYTHONPATH=. python runs/torch_parity/twin_run.py --package torch --own-init --tag torch_owninit ...
     # the comparison of every run under a directory
     python runs/torch_parity/twin_run.py --summary runs/torch_parity/twin_cpu runs/torch_parity/twin_cuda
@@ -182,7 +183,7 @@ def main() -> None:
     parser.add_argument("--threads", type=int, default=1)
     parser.add_argument("--full-width", action="store_true", help="the recipe's widths, not the reduced ones")
     parser.add_argument("--variant", default="base", help="a card_variants.py variant (the port on the GPU)")
-    parser.add_argument("--own-init", action="store_true", help="the port draws its own initial weights from --seed")
+    parser.add_argument("--own-init", action="store_true", help="the port draws its initial weights from --seed itself")
     parser.add_argument("--summary", nargs="+", metavar="DIR")
     args = parser.parse_args()
     global FULL_WIDTH

@@ -49,6 +49,7 @@ def main(argv: list[str] | None = None) -> None:
 
     from simulate_2048_tpu_torch.device import resolve_device
     from simulate_2048_tpu_torch.models.network import network_from_config
+    from simulate_2048_tpu_torch.ops.rng import prng_key
     from simulate_2048_tpu_torch.training.config import apply_overrides, default_config, small_config, tiny_config
     from simulate_2048_tpu_torch.training.self_play import evaluate_games
 
@@ -74,7 +75,7 @@ def main(argv: list[str] | None = None) -> None:
             parser.error(str(e))
         print(f"config overrides: {args.overrides}")
 
-    network = network_from_config(config, torch.Generator().manual_seed(args.seed), device)
+    network = network_from_config(config, prng_key(args.seed), device)
     if manager is not None:
         from simulate_2048_tpu_torch.training.learner import TrainState, create_optimizer
 

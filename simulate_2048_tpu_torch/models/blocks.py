@@ -6,6 +6,10 @@ Port of the JAX package's ``models/blocks.py`` with Flax's numerics:
   bias are cast to the compute dtype and the output stays in it. Weights are
   stored ``(out, in)`` as ``nn.Linear`` does (Flax kernels are ``(in, out)``;
   ``convert.py`` transposes).
+
+Parameters are allocated as zeros and drawn by nothing at construction:
+``init_weights(key)`` sets each layer as Flax initialises it, from the key
+that Flax hands the layer (``MuZeroNetwork.init_weights``).
 - :class:`LayerNorm` is Flax ``LayerNorm(dtype=float32)``: statistics in
   float32 with ``epsilon=1e-6`` and Flax's fast variance
   ``max(0, E[x²] − E[x]²)``, scale folded into the reciprocal std.
@@ -13,25 +17,32 @@ Port of the JAX package's ``models/blocks.py`` with Flax's numerics:
 
 from __future__ import annotations
 
-import math
-
 import torch
 from torch import nn
 
+from simulate_2048_tpu_torch.ops import rng
 
-class Dense(nn.Linear):
-    """``nn.Linear`` computed in ``compute_dtype`` (Flax ``Dense(dtype=...)``)."""
+
+class Dense(nn.Module):
+    """A float32 ``(out, in)`` weight and bias, computed in ``compute_dtype`` (Flax ``Dense(dtype=...)``)."""
 
     def __init__(self, in_features: int, out_features: int, compute_dtype: torch.dtype = torch.float32):
-        super().__init__(in_features, out_features)
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
         self.compute_dtype = compute_dtype
+        self.weight = nn.Parameter(torch.zeros(out_features, in_features))
+        self.bias = nn.Parameter(torch.zeros(out_features))
 
-    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
-        """Flax's default init: LeCun-normal (truncated) weights, zero bias."""
-        std = math.sqrt(1.0 / self.in_features) / 0.87962566103423978
-        with torch.no_grad():
-            nn.init.trunc_normal_(self.weight, std=std, a=-2 * std, b=2 * std, generator=generator)
-            self.bias.zero_()
+    @torch.no_grad()
+    def init_weights(self, key: torch.Tensor) -> None:
+        """Flax's default init from the layer's ``key``: the ``(in, out)``
+        kernel LeCun-normal, truncated at ±2 standard normals
+        (``variance_scaling(1, "fan_in", "truncated_normal")``), zero bias."""
+        std = torch.sqrt(torch.tensor(1.0 / self.in_features, dtype=torch.float32))
+        std = std / torch.tensor(0.87962566103423978, dtype=torch.float32)
+        kernel = rng.truncated_normal(key, -2.0, 2.0, (self.in_features, self.out_features)) * std
+        self.weight.copy_(kernel.t())
+        self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
@@ -46,6 +57,12 @@ class LayerNorm(nn.Module):
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
+
+    @torch.no_grad()
+    def init_weights(self, key: torch.Tensor | None = None) -> None:
+        """Flax's LayerNorm init: scale one, bias zero (no draw)."""
+        self.weight.fill_(1.0)
+        self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(torch.float32)

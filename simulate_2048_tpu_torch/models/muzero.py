@@ -34,11 +34,11 @@ class CategoricalHead(Dense):
     and the bias is 0 on atom 0 and -14 elsewhere, so the initial expectation
     is about 0 like a scalar head's, not the midpoint of the support."""
 
-    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
-        with torch.no_grad():
-            self.weight.zero_()
-            self.bias.fill_(-14.0)
-            self.bias[0] = 0.0
+    @torch.no_grad()
+    def init_weights(self, key: torch.Tensor | None = None) -> None:
+        self.weight.zero_()
+        self.bias.fill_(-14.0)
+        self.bias[0] = 0.0
 
 
 def _value_head(hidden_size: int, bins: int) -> Dense:

@@ -4,14 +4,21 @@ Port of the JAX package's ``models/network.py`` (``create_network``) and of
 ``training/learner.py``'s ``network_from_config``. Where the JAX package
 pairs parameter trees with apply functions, the port's modules carry their
 own parameters and are called directly.
+
+``flax_layout`` names the Flax module behind each of the port's layers; it
+is the one map between the two, read by ``init_weights`` (each layer drawn
+from the key Flax hands it, so a key gives the JAX package's network) and by
+``convert.params_from_flax``.
 """
 
 from __future__ import annotations
 
+from collections.abc import Iterator
+
 import torch
 from torch import nn
 
-from simulate_2048_tpu_torch.models.blocks import Dense
+from simulate_2048_tpu_torch.models.blocks import Dense, LayerNorm, TowerWithHead
 from simulate_2048_tpu_torch.models.muzero import (
     AfterstateDynamics,
     AfterstatePrediction,
@@ -20,7 +27,18 @@ from simulate_2048_tpu_torch.models.muzero import (
     Prediction,
     Representation,
 )
+from simulate_2048_tpu_torch.ops import rng
 from simulate_2048_tpu_torch.training.config import TrainConfig
+
+# The six networks, in the order of JAX's ``NetworkParams`` and of its init keys.
+NETWORK_NAMES = (
+    "representation",
+    "prediction",
+    "afterstate_dynamics",
+    "afterstate_prediction",
+    "dynamics",
+    "encoder",
+)
 
 
 class MuZeroNetwork(nn.Module):
@@ -59,16 +77,51 @@ class MuZeroNetwork(nn.Module):
         self.dynamics = Dynamics(h, codebook_size, nb, cd, reward_bins, reward_support_max)
         self.encoder = Encoder(observation_dim, codebook_size, h, nb, cd, observation_onehot)
 
-    def init_weights(self, generator: torch.Generator) -> "MuZeroNetwork":
-        """Fresh weights drawn from ``generator`` with Flax's default init."""
-        for module in self.modules():
-            if isinstance(module, Dense):
-                module.reset_parameters(generator)
+    def init_weights(self, key: torch.Tensor) -> "MuZeroNetwork":
+        """The weights JAX's ``create_network(key, ...)`` draws: network i
+        from ``split(key, 6)[i]``, each layer from Flax's key for its module
+        path (``rng.fold_in_path(..., 1)``, its first draw). Drawn on the CPU."""
+        keys = rng.split(key.cpu(), len(NETWORK_NAMES))
+        for net, path, module in flax_layout(self):
+            module.init_weights(rng.fold_in_path(keys[net], path, 1))
         return self
 
 
+def _tower_layout(tower: TowerWithHead) -> Iterator[tuple[tuple[str, ...], nn.Module]]:
+    yield ("TowerWithHead_0", "Dense_0"), tower.proj
+    for i, block in enumerate(tower.tower.blocks):
+        prefix = ("TowerWithHead_0", "ResidualTower_0", f"DenseResidualBlock_{i}")
+        yield prefix + ("LayerNorm_0",), block.norm1
+        yield prefix + ("Dense_0",), block.fc1
+        yield prefix + ("LayerNorm_1",), block.norm2
+        yield prefix + ("Dense_1",), block.fc2
+    yield ("TowerWithHead_0", "LayerNorm_0"), tower.norm
+
+
+def flax_layout(net: MuZeroNetwork) -> Iterator[tuple[int, tuple[str, ...], Dense | LayerNorm]]:
+    """``(network index, Flax module path, port layer)`` for every layer of
+    ``net``: the index into ``NETWORK_NAMES``, and the path below that
+    network's root module (``models/muzero.py`` and ``models/blocks.py`` of
+    the JAX package name them)."""
+    rep, pred, phi = net.representation, net.prediction, net.afterstate_dynamics
+    psi, g, enc = net.afterstate_prediction, net.dynamics, net.encoder
+    heads = (
+        {"hidden_state": rep.hidden_state},
+        {"policy_logits": pred.policy_logits, "value": pred.value},
+        {"Dense_0": phi.state_proj, "Dense_1": phi.action_proj, "afterstate": phi.afterstate},
+        {"chance_logits": psi.chance_logits, "q_value": psi.q_value},
+        {"Dense_0": g.state_proj, "Dense_1": g.chance_proj, "next_state": g.next_state, "reward": g.reward},
+        {"chance_logits": enc.chance_logits},
+    )
+    for i, (name, named_heads) in enumerate(zip(NETWORK_NAMES, heads)):
+        for path, layer in _tower_layout(getattr(net, name).trunk):
+            yield i, path, layer
+        for head, layer in named_heads.items():
+            yield i, (head,), layer
+
+
 def architecture_from_config(config: TrainConfig) -> MuZeroNetwork:
-    """The network a ``TrainConfig`` describes, on the CPU, weights unset."""
+    """The network a ``TrainConfig`` describes, on the CPU, weights unset (zeros, LayerNorm scales one)."""
     return MuZeroNetwork(
         observation_dim=config.observation_dim,
         action_size=config.action_size,
@@ -84,12 +137,7 @@ def architecture_from_config(config: TrainConfig) -> MuZeroNetwork:
     )
 
 
-def network_from_config(
-    config: TrainConfig, generator: torch.Generator | None = None, device: torch.device | str = "cpu"
-) -> MuZeroNetwork:
-    """Build the network a ``TrainConfig`` describes, with weights from
-    ``generator`` (a fresh ``torch.Generator`` seeded with ``config.seed``
-    when None), on ``device``."""
-    if generator is None:
-        generator = torch.Generator().manual_seed(config.seed)
-    return architecture_from_config(config).init_weights(generator).to(device)
+def network_from_config(config: TrainConfig, key: torch.Tensor, device: torch.device | str = "cpu") -> MuZeroNetwork:
+    """The network a ``TrainConfig`` describes, with the weights that JAX's
+    ``network_from_config(key, config)`` draws, on ``device``."""
+    return architecture_from_config(config).init_weights(key).to(device)

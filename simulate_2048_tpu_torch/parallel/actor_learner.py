@@ -30,6 +30,7 @@ import torch
 
 from simulate_2048_tpu_torch.env import env as envlib
 from simulate_2048_tpu_torch.models.network import network_from_config
+from simulate_2048_tpu_torch.ops.rng import prng_key
 from simulate_2048_tpu_torch.training import replay as replay_lib
 from simulate_2048_tpu_torch.training.config import TrainConfig
 from simulate_2048_tpu_torch.training.self_play import GenStats, finish_gen_stats, generate_games
@@ -378,7 +379,7 @@ class ActorClient:
         self.reconnects = 0
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
         # The architecture only: the parameters always come from the learner.
-        self._network = network_from_config(config, torch.Generator().manual_seed(0), self.device)
+        self._network = network_from_config(config, prng_key(0), self.device)
         self._sock = connect_with_retry(learner_address, connect_timeout_s)
         self.generations = 0
         self.moves_played = 0  # moves of every game, summed over the generations

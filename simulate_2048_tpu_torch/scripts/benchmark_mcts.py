@@ -6,7 +6,7 @@ untrained network, reporting searches/s and simulations/s (one simulation is
 one tree expansion). Same flags, defaults and result keys, plus ``--device``
 (default ``cuda``; raises when no GPU is present unless given ``--device cpu``).
 
-- The network's weights come from ``torch.Generator().manual_seed(0)``, its
+- The network's weights are those of ``PRNGKey(0)``, as JAX's, its
   towers in float32 (as the JAX script builds it), with ``--value-bins`` /
   ``--reward-bins`` heads; the roots are ``env.reset_batch(0, boards)``; the
   root's Dirichlet noise is drawn once from a generator on the device seeded
@@ -43,6 +43,7 @@ import torch
 from simulate_2048_tpu_torch.env import env as envlib
 from simulate_2048_tpu_torch.models.network import network_from_config
 from simulate_2048_tpu_torch.ops import search_kernel as sk
+from simulate_2048_tpu_torch.ops.rng import prng_key
 from simulate_2048_tpu_torch.search.mcts import PolicyOutput, SearchConfig, batched_run_mcts, draw_root_noise
 from simulate_2048_tpu_torch.training.config import TrainConfig, default_config, small_config, tiny_config
 
@@ -82,7 +83,7 @@ def setup(
         value_bins=value_bins,
         reward_bins=reward_bins,
     )
-    network = network_from_config(config, torch.Generator().manual_seed(0), device)
+    network = network_from_config(config, prng_key(0), device)
     search_config = SearchConfig(
         num_simulations=sims,
         codebook_size=config.codebook_size,

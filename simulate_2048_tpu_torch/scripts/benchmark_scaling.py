@@ -110,6 +110,7 @@ def benchmark(
     """The JAX script's run and result entries (see the module docstring)."""
     from simulate_2048_tpu_torch.device import resolve_device
     from simulate_2048_tpu_torch.models.network import network_from_config
+    from simulate_2048_tpu_torch.ops.rng import prng_key
     from simulate_2048_tpu_torch.parallel import make_mesh, make_sharded_rollout, ring
     from simulate_2048_tpu_torch.utils.profiling import time_fn
 
@@ -129,7 +130,7 @@ def benchmark(
 
         # Learner scaling: global batch proportional to devices.
         cfg = learner_config(n, batch_per_device)
-        network = network_from_config(cfg, torch.Generator().manual_seed(0), mesh.devices[0])
+        network = network_from_config(cfg, prng_key(0), mesh.devices[0])
         step = learner_step(mesh, cfg, network, *learner_batch(cfg, mesh.devices[0]))
         launches = ring.LAUNCHES["ring_all_reduce"]
         st2 = time_fn(lambda: step().total_loss, warmup=1, reps=3)

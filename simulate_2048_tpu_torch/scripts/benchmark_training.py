@@ -11,7 +11,7 @@ step's model-FLOPs utilization. Same flags, defaults and result keys, plus
   preset's length), made on the host once, moved to the device once and
   inserted into a fresh buffer there.
 - ``sample_ms``: ``replay.sample_batch`` of one batch. Each dtype then gets a
-  fresh learner (weights from ``torch.Generator().manual_seed(0)``) and
+  fresh learner (the weights of ``PRNGKey(0)``, as JAX's) and
   ``train_step`` on one sampled batch is timed by
   ``utils.profiling.time_fn(warmup=1, reps=max(steps, 3))``:
   ``train_compile_ms`` is the first call, ``train_step_ms`` the best.
@@ -86,6 +86,7 @@ def benchmark(
 ) -> dict:
     """The JAX script's run and result keys (see the module docstring)."""
     from simulate_2048_tpu_torch.device import resolve_device
+    from simulate_2048_tpu_torch.ops.rng import prng_key
     from simulate_2048_tpu_torch.training.learner import create_optimizer, create_train_state, train_step
     from simulate_2048_tpu_torch.training.replay import add_trajectories, init_buffer, sample_batch
     from simulate_2048_tpu_torch.utils.card import BF16_TFLOPS, card_line, sku
@@ -105,7 +106,7 @@ def benchmark(
 
     def bench_dtype(use_bf16: bool) -> dict:
         cfg = replace(config, use_bfloat16=use_bf16)
-        state, _ = create_train_state(cfg, torch.Generator().manual_seed(0), device)
+        state, _ = create_train_state(cfg, prng_key(0), device)
         optimizer = create_optimizer(cfg)
         stats = time_fn(lambda: train_step(state, batch, weights, cfg, optimizer)[1].total_loss, warmup=1,
                         reps=max(steps, 3))  # fmt: skip

@@ -23,6 +23,7 @@ from typing import Any
 import torch
 
 from simulate_2048_tpu_torch.ops import search_kernel as sk
+from simulate_2048_tpu_torch.ops.rng import prng_key
 from simulate_2048_tpu_torch.scripts.benchmark_mcts import KernelRefused, library
 from simulate_2048_tpu_torch.training.checkpoint import CheckpointManager
 from simulate_2048_tpu_torch.training.config import TrainConfig
@@ -50,9 +51,9 @@ def parse_set(config: TrainConfig, items: list[str]) -> TrainConfig:
 
 
 def template(config: TrainConfig, device: torch.device) -> tuple[TrainState, torch.nn.Module]:
-    """The train state a checkpoint is restored into: fresh weights from
-    ``torch.Generator().manual_seed(0)`` (the JAX scripts' ``PRNGKey(0)``)."""
-    return create_train_state(config, torch.Generator().manual_seed(0), device)
+    """The train state a checkpoint is restored into: the fresh weights of
+    ``PRNGKey(0)``, as the JAX scripts'."""
+    return create_train_state(config, prng_key(0), device)
 
 
 def restore(state: TrainState, ckpt_dir: str, step: int | None = None) -> TrainState:

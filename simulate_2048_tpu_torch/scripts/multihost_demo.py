@@ -20,8 +20,8 @@ card a rank, so on one GPU the demo runs as one process (``--num-processes
 1``); two or more run over gloo on the CPU, or across cards.
 
 The model is ``tiny_config()`` at hidden 32 with one block, 8 windows a
-process; every process builds the same weights (``torch.Generator`` seeded
-with 0) and draws its shard from ``np.random.RandomState(100 + pid)``.
+process; every process builds the same weights (those of ``PRNGKey(0)``,
+as JAX's) and draws its shard from ``np.random.RandomState(100 + pid)``.
 """
 
 from __future__ import annotations
@@ -66,6 +66,7 @@ def run(coordinator: str | None, num_processes: int | None, process_id: int | No
     import torch.distributed as dist
 
     from simulate_2048_tpu_torch.device import resolve_device
+    from simulate_2048_tpu_torch.ops.rng import prng_key
     from simulate_2048_tpu_torch.parallel import initialize_distributed, make_dp_train_step, make_mesh
     from simulate_2048_tpu_torch.training.learner import TrainState, create_optimizer, create_train_state
 
@@ -81,7 +82,7 @@ def run(coordinator: str | None, num_processes: int | None, process_id: int | No
     optimizer = create_optimizer(cfg)
     if network is None:
         # Same seed everywhere: identical initial weights on all processes.
-        state, network = create_train_state(cfg, torch.Generator().manual_seed(0), device)
+        state, network = create_train_state(cfg, prng_key(0), device)
     else:
         network = network.to(device)
         state = TrainState(network, optimizer.init(list(network.parameters())))

@@ -80,6 +80,7 @@ def warm(name: str, device) -> dict:
     from simulate_2048_tpu_torch.env import env as envlib
     from simulate_2048_tpu_torch.models.network import network_from_config
     from simulate_2048_tpu_torch.ops import search_kernel as sk
+    from simulate_2048_tpu_torch.ops.rng import prng_key
     from simulate_2048_tpu_torch.scripts.diagnosis import launches_since, search_route
     from simulate_2048_tpu_torch.search.mcts import draw_root_noise, uses_root_noise
     from simulate_2048_tpu_torch.training.self_play import _make_search, _search_weight_dtype, search_config_from
@@ -96,7 +97,7 @@ def warm(name: str, device) -> dict:
     kernel = dataclasses.replace(config, search_backend="auto" if device.type == "cuda" else "pallas")
     route = search_route(kernel, device, eval_mode=False)
     t0 = time.perf_counter()
-    network = network_from_config(config, torch.Generator().manual_seed(0), device)
+    network = network_from_config(config, prng_key(0), device)
     search = _make_search(network, kernel, cfg, device)
     state = envlib.reset_batch(1, games, device)
     generator = torch.Generator(device=device).manual_seed(2)

@@ -23,20 +23,10 @@ from typing import Callable
 import numpy as np
 import torch
 
-from simulate_2048_tpu_torch.models.network import MuZeroNetwork, network_from_config
+from simulate_2048_tpu_torch.models.network import NETWORK_NAMES, MuZeroNetwork, network_from_config
 from simulate_2048_tpu_torch.ops.value_transform import scale_value
 from simulate_2048_tpu_torch.training.config import TrainConfig
 from simulate_2048_tpu_torch.training.losses import LossOutput, TrainingTargets, compute_loss
-
-NETWORK_NAMES = (
-    "representation",
-    "prediction",
-    "afterstate_dynamics",
-    "afterstate_prediction",
-    "dynamics",
-    "encoder",
-)
-
 
 def learning_rate(config: TrainConfig, count: int) -> float:
     """The schedule's value at optimizer step ``count`` (0 for the first
@@ -122,10 +112,10 @@ class TrainState:
 
 
 def create_train_state(
-    config: TrainConfig, generator: torch.Generator | None = None, device: torch.device | str = "cpu"
+    config: TrainConfig, key: torch.Tensor, device: torch.device | str = "cpu"
 ) -> tuple[TrainState, MuZeroNetwork]:
-    """Initialise the networks (weights from ``generator``) and the optimizer state on ``device``."""
-    network = network_from_config(config, generator, device)
+    """Initialise the networks (JAX's weights for ``key``) and the optimizer state on ``device``."""
+    network = network_from_config(config, key, device)
     state = TrainState(network, create_optimizer(config).init(list(network.parameters())))
     return state, network
 

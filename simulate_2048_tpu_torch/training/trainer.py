@@ -26,6 +26,7 @@ import torch
 from simulate_2048_tpu_torch.device import resolve_device
 from simulate_2048_tpu_torch.env import env as envlib
 from simulate_2048_tpu_torch.models.network import MuZeroNetwork
+from simulate_2048_tpu_torch.ops import rng
 from simulate_2048_tpu_torch.parallel.dp import DataParallelTrainStep, make_dp_train_step, make_dp_train_superstep
 from simulate_2048_tpu_torch.parallel.mesh import Mesh
 from simulate_2048_tpu_torch.training import replay as replay_lib
@@ -107,9 +108,11 @@ class Trainer:
             self.device = first
         self.device = resolve_device(self.device)
         seed = self._seed()
-        # Weights are drawn on the CPU and moved; every other draw (run seeds,
-        # root noise, action and replay sampling) comes from the device's generator.
-        self._weight_generator = torch.Generator().manual_seed(seed)
+        # The initial weights are JAX's for the seed: its first ``_next_key()``,
+        # ``split(PRNGKey(seed))[1]``, drawn on the CPU and moved. Every other
+        # draw (run seeds, root noise, action and replay sampling) comes from
+        # the device's generator.
+        self._init_key = rng.split(rng.prng_key(seed))[1]
         self._generator = torch.Generator(device=self.device).manual_seed(seed + 1)
         self._optimizer = create_optimizer(self.config)
         self._ckpt = CheckpointManager(self.checkpoint_dir) if self.checkpoint_dir else None
@@ -131,7 +134,7 @@ class Trainer:
 
     def initialize(self) -> None:
         """Create state + buffer; resume from the latest checkpoint if there is one."""
-        self.state, self.network = create_train_state(self.config, self._weight_generator, self.device)
+        self.state, self.network = create_train_state(self.config, self._init_key, self.device)
         self.buffer = replay_lib.init_buffer(self.config, self.device)
         self.gen_state = envlib.reset_batch(_draw_seed(self._generator), self.config.num_parallel_games, self.device)
         if self._ckpt is None:

@@ -108,9 +108,10 @@ def test_categorical_heads_not_ported():
     elsewhere, as the JAX package initialises them, so its expectation is
     about 0; scalar heads keep a LeCun-normal weight."""
     from simulate_2048_tpu_torch.models.network import network_from_config
+    from simulate_2048_tpu_torch.ops.rng import prng_key
 
     cfg = replace(TrainConfig(), hidden_size=HIDDEN, num_residual_blocks=1, value_bins=21, reward_bins=1)
-    tnet = network_from_config(cfg, torch.Generator().manual_seed(0))
+    tnet = network_from_config(cfg, prng_key(0))
     jnet = create_network(jax.random.PRNGKey(0), hidden_size=HIDDEN, num_blocks=1, value_bins=21)
     for head, jtree in ((tnet.prediction.value, jnet.params.prediction), (tnet.afterstate_prediction.q_value,
                                                                             jnet.params.afterstate_prediction)):

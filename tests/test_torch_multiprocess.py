@@ -29,6 +29,7 @@ def worker(rank: int, port: int) -> None:
     import torch
     import torch.distributed as dist
 
+    from simulate_2048_tpu_torch.ops.rng import prng_key
     from simulate_2048_tpu_torch.parallel import initialize_distributed, make_dp_train_step, make_mesh
     from simulate_2048_tpu_torch.training import learner
     from simulate_2048_tpu_torch.training.config import tiny_config
@@ -38,7 +39,7 @@ def worker(rank: int, port: int) -> None:
     initialize_distributed(f"localhost:{port}", 2, rank, device="cpu")
     cfg = dataclasses.replace(tiny_config(), hidden_size=32, num_residual_blocks=1, batch_size=16, warmup_steps=1,
                               learning_rate=1e-3)  # fmt: skip
-    state, network = learner.create_train_state(cfg, torch.Generator().manual_seed(0))
+    state, network = learner.create_train_state(cfg, prng_key(0))
     optimizer = learner.create_optimizer(cfg)
     single = learner.TrainState(copy.deepcopy(network), optimizer.init(list(state.params)))
     step = make_dp_train_step(network, cfg, optimizer, make_mesh(["cpu"] * 2))

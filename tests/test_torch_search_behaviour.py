@@ -25,6 +25,7 @@ from test_search import A, C, H, MOCK_PARAMS, mock_apply_fns
 from simulate_2048_tpu.models import create_network
 from simulate_2048_tpu_torch.convert import params_from_flax
 from simulate_2048_tpu_torch.models.network import network_from_config
+from simulate_2048_tpu_torch.ops.rng import prng_key
 from simulate_2048_tpu_torch.search import mcts
 from simulate_2048_tpu_torch.search.mcts import SearchConfig, batched_run_mcts
 from simulate_2048_tpu_torch.training.config import TrainConfig, tiny_config
@@ -135,7 +136,7 @@ def test_no_widening_matches_unbounded_cap():
 def test_full_search_runs_in_sample_mode():
     config = dataclasses.replace(tiny_config(), hidden_size=16, num_residual_blocks=1, codebook_size=C,
                                  chance_target_mode="encoder")  # fmt: skip
-    network = network_from_config(config, torch.Generator().manual_seed(0), "cpu")
+    network = network_from_config(config, prng_key(0), "cpu")
     cfg = SearchConfig(num_simulations=12, codebook_size=C, chance_selection="sample", pw_c=1.0)
     out = run(network, cfg, seed=1, batch=3)
     assert (out.visit_counts.sum(-1) == 12).all() and torch.isfinite(out.search_value).all()

@@ -34,6 +34,7 @@ from simulate_2048_tpu.training import self_play as jsp
 from simulate_2048_tpu_torch.env import env as tenv
 from simulate_2048_tpu_torch.models.network import network_from_config
 from simulate_2048_tpu_torch.ops import board as tops
+from simulate_2048_tpu_torch.ops.rng import prng_key
 from simulate_2048_tpu_torch.training import reanalyze as treanalyze
 from simulate_2048_tpu_torch.training import self_play as tsp
 from simulate_2048_tpu_torch.training import trainer as ttrainer
@@ -137,7 +138,7 @@ def test_variant_evaluation_follows_the_run_seed():
     seed alone: two rollouts of one run seed, and two evaluations from
     generators of one seed, are equal."""
     config = dataclasses.replace(tiny_config(), hidden_size=32, num_simulations=6, eval_max_moves=6, **VARIANTS)
-    network = network_from_config(config, torch.Generator().manual_seed(0), "cpu")
+    network = network_from_config(config, prng_key(0), "cpu")
     first, second = (tsp._evaluate_rollout(network, 11, config, 4, "cpu") for _ in range(2))
     for a, b in zip(first[0], second[0]):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
