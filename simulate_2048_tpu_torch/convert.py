@@ -5,10 +5,11 @@ dicts of numpy arrays (``jax.tree.map(np.asarray, params)``; a plain mapping
 of the six network names works too) and returns a :class:`MuZeroNetwork`
 that computes the same functions. Flax stores Dense kernels ``(in, out)``
 and LayerNorm ``scale``; the port stores weights ``(out, in)``, as
-``nn.Linear`` does, and ``weight``; a categorical head's ``(H, bins)`` kernel crosses the same
-way. Which Flax module feeds which layer is ``models/network.py``'s
-``flax_layout``, the map the port's init reads too. Every parameter of the
-port is written exactly once, and a shape mismatch raises.
+``nn.Linear`` does, and ``weight``; a categorical head's ``(H, bins)``
+kernel crosses the same way. Which Flax module feeds which layer is
+``models/network.py``'s ``flax_layout``, the map the port's init reads too.
+Every parameter of the port is written exactly once, and a shape mismatch
+raises.
 """
 
 from __future__ import annotations

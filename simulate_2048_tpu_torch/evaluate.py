@@ -29,8 +29,8 @@ def main(argv: list[str] | None = None) -> None:
         "--seed",
         type=int,
         default=0,
-        help="seeds the weights (torch.Generator(seed)) and the games' run seed "
-        "(torch.Generator(seed + 1)); the JAX CLI maps the same number to other weights and games",
+        help="seeds the weights (JAX's PRNGKey(seed): the JAX CLI's weights for the same number) and the "
+        "games' run seed (torch.Generator(seed + 1); the JAX CLI maps the same number to other games)",
     )
     parser.add_argument(
         "--set",

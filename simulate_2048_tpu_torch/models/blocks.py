@@ -6,13 +6,13 @@ Port of the JAX package's ``models/blocks.py`` with Flax's numerics:
   bias are cast to the compute dtype and the output stays in it. Weights are
   stored ``(out, in)`` as ``nn.Linear`` does (Flax kernels are ``(in, out)``;
   ``convert.py`` transposes).
+- :class:`LayerNorm` is Flax ``LayerNorm(dtype=float32)``: statistics in
+  float32 with ``epsilon=1e-6`` and Flax's fast variance
+  ``max(0, E[x²] − E[x]²)``, scale folded into the reciprocal std.
 
 Parameters are allocated as zeros and drawn by nothing at construction:
 ``init_weights(key)`` sets each layer as Flax initialises it, from the key
 that Flax hands the layer (``MuZeroNetwork.init_weights``).
-- :class:`LayerNorm` is Flax ``LayerNorm(dtype=float32)``: statistics in
-  float32 with ``epsilon=1e-6`` and Flax's fast variance
-  ``max(0, E[x²] − E[x]²)``, scale folded into the reciprocal std.
 """
 
 from __future__ import annotations

@@ -107,13 +107,9 @@ class Trainer:
                 raise ValueError(f"a trainer over a mesh runs on the mesh's first device, {first}")
             self.device = first
         self.device = resolve_device(self.device)
-        seed = self._seed()
-        # The initial weights are JAX's for the seed: its first ``_next_key()``,
-        # ``split(PRNGKey(seed))[1]``, drawn on the CPU and moved. Every other
-        # draw (run seeds, root noise, action and replay sampling) comes from
-        # the device's generator.
-        self._init_key = rng.split(rng.prng_key(seed))[1]
-        self._generator = torch.Generator(device=self.device).manual_seed(seed + 1)
+        # Every draw but the initial weights' (run seeds, root noise, action
+        # and replay sampling) comes from the device's generator.
+        self._generator = torch.Generator(device=self.device).manual_seed(self._seed() + 1)
         self._optimizer = create_optimizer(self.config)
         self._ckpt = CheckpointManager(self.checkpoint_dir) if self.checkpoint_dir else None
         self.metrics = MetricsLogger(self.log_dir)
@@ -134,7 +130,9 @@ class Trainer:
 
     def initialize(self) -> None:
         """Create state + buffer; resume from the latest checkpoint if there is one."""
-        self.state, self.network = create_train_state(self.config, self._init_key, self.device)
+        # JAX's initial weights for the seed: its first ``_next_key()``, ``split(PRNGKey(seed))[1]``.
+        init_key = rng.split(rng.prng_key(self._seed()))[1]
+        self.state, self.network = create_train_state(self.config, init_key, self.device)
         self.buffer = replay_lib.init_buffer(self.config, self.device)
         self.gen_state = envlib.reset_batch(_draw_seed(self._generator), self.config.num_parallel_games, self.device)
         if self._ckpt is None:

@@ -176,6 +176,18 @@ def test_network_from_config_is_flax_init(name, seed):
     assert_same_init(port, flax_network(config, key))
 
 
+def test_building_a_network_draws_nothing_from_torch():
+    """Construction allocates without drawing; the init reads its key alone."""
+    before = torch.get_rng_state()
+    network_from_config(tconfig.tiny_config(), rng.prng_key(1))
+    assert torch.equal(torch.get_rng_state(), before)
+    fresh = MuZeroNetwork(hidden_size=16, num_blocks=1, value_bins=8, reward_bins=4)
+    assert torch.equal(torch.get_rng_state(), before)
+    for name, p in fresh.named_parameters():
+        assert torch.equal(p, torch.ones_like(p) if name.endswith(("norm1.weight", "norm2.weight", "norm.weight"))
+                           else torch.zeros_like(p)), name  # fmt: skip
+
+
 @pytest.mark.parametrize("seed", [0, 42])
 def test_trainer_init_is_jax_trainer_init(seed):
     config = dataclasses.replace(tconfig.tiny_config(), hidden_size=32, num_residual_blocks=2, value_bins=16,
@@ -186,6 +198,41 @@ def test_trainer_init_is_jax_trainer_init(seed):
     port_trainer.initialize()
     assert_same_init(port_trainer.network, params_from_flax(jax.tree.map(np.asarray, jax_trainer.state.params), config))
     chip_smoke.check_trainer_init(config, seed, [p.detach().clone() for p in port_trainer.network.parameters()])
+
+
+# The float32 kernel's search 141 of chip_smoke.py's check at the preset
+# (H=256, 10 blocks, 100 simulations), JAX's init of chip_smoke.SEED, on an
+# NVIDIA H100: root visits equal to the plain version's, root Q of action 3
+# and the root value 0.465 and 0.456 away.
+KERNEL_SEARCH_141 = ([1.0, 0.0, 0.0, 99.0], [19.834877014160156, 0.0, 0.0, 321.3943786621094], 317.0799255371094)
+
+
+def test_chip_smoke_near_tie_reproduces_the_kernels_search(monkeypatch):
+    """The plain version itself gives the kernel's search 141 on the pack
+    moved by at most 2 ulp (a near tie below the root), and no such run
+    gives an answer 5 away in one Q."""
+    config, cfg, network, packed, roots = chip_smoke.full_width_inputs(torch.device("cpu"), batch=256)
+    root = tuple(r[141:142].contiguous() for r in roots)
+    visits, q, value = (torch.tensor(x) for x in KERNEL_SEARCH_141)
+    plain = chip_smoke.sk.whole_search_reference(*root, packed, cfg)
+    assert torch.equal(plain[0][0], visits) and float((plain[1][0] - q).abs().max()) > 0.4
+    assert chip_smoke.near_tie(root, packed, cfg, (visits, q, value), 1e-4, 1e-3) is not None
+    monkeypatch.setattr(chip_smoke, "NEAR_TIE_TRIALS", 3)
+    wrong = (visits, q + torch.tensor([0.0, 0.0, 0.0, 5.0]), value)
+    assert chip_smoke.near_tie(root, packed, cfg, wrong, 1e-4, 1e-3) is None
+
+
+def test_chip_smoke_constant_value():
+    """A fresh categorical value head (zero weights) gives one value on every
+    board, the case in which model_probe's value_corr is NaN; a drawn head
+    does not."""
+    config = recipes.recipe_config(chip_smoke.RECIPE)
+    network = network_from_config(config, rng.split(rng.prng_key(chip_smoke.SEED))[1])
+    constant = chip_smoke.constant_value(network, config, torch.device("cpu"))
+    assert constant is not None and 0 < constant < 1
+    with torch.no_grad():
+        network.prediction.value.weight.normal_(generator=torch.Generator().manual_seed(0))
+    assert chip_smoke.constant_value(network, config, torch.device("cpu")) is None
 
 
 class _Built(Exception):
