@@ -1,0 +1,7 @@
+"""The device's idle share of the traced deep evaluation (1 - union of device activity / window), in %."""
+
+from perfbench.harness import readers
+
+
+def read(run):
+    return readers.idle_percent(run, "deep_eval")
