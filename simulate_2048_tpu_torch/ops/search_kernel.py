@@ -60,6 +60,7 @@ from simulate_2048_tpu_torch.search.mcts import (
     root_inputs,
     search_tree,
 )
+from simulate_2048_tpu_torch.utils import tracing
 
 # Kernel launches by library (``_build.LIBRARIES``), the float32 resident
 # one's by head variant (scalar heads, or at least one categorical head).
@@ -762,8 +763,10 @@ def run_search_kernel(
             value_bins=config.value_bins,
             reward_bins=config.reward_bins,
         )
-    hidden, probs, root_value = root_inputs(network, observations, config, invalid_actions, noise)
-    visits, qvalues, value = whole_search(
-        hidden.contiguous(), probs.contiguous(), root_value.contiguous(), packed, config, workspace
-    )
+    with tracing.span("search.root"):
+        hidden, probs, root_value = root_inputs(network, observations, config, invalid_actions, noise)
+    with tracing.span("search.kernel"):
+        visits, qvalues, value = whole_search(
+            hidden.contiguous(), probs.contiguous(), root_value.contiguous(), packed, config, workspace
+        )
     return policy_output(visits, qvalues, value)

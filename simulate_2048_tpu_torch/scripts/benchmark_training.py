@@ -1,10 +1,10 @@
 """Training-pipeline benchmark: ``python -m simulate_2048_tpu_torch.scripts.benchmark_training``.
 
 Port of the repository's ``scripts/benchmark_training.py``: replay sampling
-and learner-step timings, steps/s, an fp32-against-bf16 comparison, and the
-step's model-FLOPs utilization. Same flags, defaults and result keys, plus
-``--device`` (default ``cuda``; raises when no GPU is present unless given
-``--device cpu``).
+and learner-step timings, steps/s, an fp32-against-bf16 comparison and the
+step's FLOP. Same flags, defaults and result keys, less the JAX script's
+MFU, plus ``--device`` (default ``cuda``; raises when no GPU is present
+unless given ``--device cpu``).
 
 - The fixture is the JAX script's dummy trajectories (``numpy``
   ``RandomState(0)``, ``max(min_buffer_size, 64)`` trajectories of the
@@ -20,11 +20,11 @@ step's model-FLOPs utilization. Same flags, defaults and result keys, plus
   optimizer), taken outside the timed steps. It counts the dense products
   (matrix multiplies); XLA's cost model, which the JAX script reads, counts
   elementwise work too, so the two are different definitions.
-- ``mfu_vs_bf16_peak`` = ``flops_per_step`` / best step time / peak, against
-  the card's dense bf16 tensor-core peak for both dtypes, as the JAX script
-  does. ``--peak-tflops`` defaults, on the card, to that peak for the SKU the
-  card names (``utils/card.py``); on the CPU there is no default and, without
-  the flag, no MFU (null).
+- ``peak_tflops_assumed``: ``--peak-tflops``, by default on the card the
+  dense bf16 tensor-core peak of the SKU the card names (``utils/card.py``);
+  on the CPU there is no default (null). The JAX script's MFU against it is
+  left out: it divides by the best step, not a window of steps, and takes
+  the bf16 peak for float32 products too.
 
 Beside the JAX script's keys the JSON names the device, the card's name and
 power limit (``nvidia-smi``) and the TF32 setting of matrix multiplies, which
@@ -112,15 +112,12 @@ def benchmark(
                         reps=max(steps, 3))  # fmt: skip
         flops = step_flops(state, batch, weights, cfg, optimizer)
         steps_per_s = 1000.0 / stats["best_ms"]
-        mfu = None if peak_tflops is None else flops / (stats["best_ms"] / 1e3) / (peak_tflops * 1e12)
         return {
             "train_step_ms": stats["best_ms"],
             "train_compile_ms": stats["compile_plus_first_ms"],
             "learner_steps_per_s": steps_per_s,
             "samples_per_s": steps_per_s * cfg.batch_size,
             "flops_per_step": flops,
-            # Against the card's bf16 tensor-core peak for both dtypes, as the JAX script does.
-            "mfu_vs_bf16_peak": mfu,
         }
 
     result = {

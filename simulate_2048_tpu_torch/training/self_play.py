@@ -45,6 +45,7 @@ from simulate_2048_tpu_torch.search.mcts import (
 from simulate_2048_tpu_torch.search.policy import get_policy_target, sample_from_visits
 from simulate_2048_tpu_torch.training.config import TrainConfig
 from simulate_2048_tpu_torch.training.replay import Trajectory
+from simulate_2048_tpu_torch.utils import tracing
 
 
 class GenStats(NamedTuple):
@@ -200,85 +201,98 @@ def play_segment(
     Returns ``(next_env_state, trajectory, gen_stats)``; the trajectory's
     ``total_reward`` is the reward earned within this segment.
     """
-    t_max = num_steps or config.max_trajectory_length
-    cfg = search_config_from(config, eval_mode=greedy)
-    if greedy:
-        cfg = cfg._replace(dirichlet_fraction=0.0)
-    device = env_state.board.device
-    search = _make_search(network, config, cfg, device)
-    a = config.action_size
-
-    state = env_state
-    initial_total = state.total_reward
-    boards = torch.zeros(num_games, t_max + 1, 16, dtype=torch.int8, device=device)
-    actions_bt = torch.zeros(num_games, t_max, dtype=torch.int8, device=device)
-    rewards_bt = torch.zeros(num_games, t_max, dtype=torch.float32, device=device)
-    policies_bt = torch.zeros(num_games, t_max, a, dtype=torch.float32, device=device)
-    values_bt = torch.zeros(num_games, t_max, dtype=torch.float32, device=device)
-    active_bt = torch.zeros(num_games, t_max, dtype=torch.bool, device=device)
-
-    for t in range(t_max):
-        obs = envlib.get_observation(state)
-        legal = envlib.get_legal_actions(state)
-        active = ~state.done
-
-        # Root legality masking: simulations never visit illegal root actions.
-        step_noise = None
-        if uses_root_noise(cfg):
-            step_noise = noise[t] if noise is not None else draw_root_noise(cfg, num_games, generator, device)
-        out = search(obs, ~legal, step_noise, None if chance_noise is None else chance_noise[t], generator)
-        policy_target = get_policy_target(out, legal, 1.0)
-
+    with tracing.span("segment", unit=True):
+        t_max = num_steps or config.max_trajectory_length
+        cfg = search_config_from(config, eval_mode=greedy)
         if greedy:
-            actions = torch.where(legal, out.action_weights, torch.zeros_like(out.action_weights)).argmax(-1)
-        else:
-            temps = torch.full((num_games,), float(temperature), dtype=torch.float32, device=device)
-            if config.temperature_move_cutoff is not None:
-                temps = torch.where(state.step_count < config.temperature_move_cutoff, temps, torch.zeros_like(temps))
-            actions = sample_from_visits(out, legal, temps, generator, None if uniform is None else uniform[t])
+            cfg = cfg._replace(dirichlet_fraction=0.0)
+        device = env_state.board.device
+        search = _make_search(network, config, cfg, device)
+        a = config.action_size
 
-        new_state, reward, _, _ = envlib.step(state, actions)
-        boards[:, t] = state.board.flatten(-2).to(torch.int8)
-        actions_bt[:, t] = actions.to(torch.int8) * active.to(torch.int8)
-        rewards_bt[:, t] = reward * active
-        policies_bt[:, t] = policy_target * active[:, None]
-        values_bt[:, t] = out.search_value * active
-        active_bt[:, t] = active
-        state = new_state
+        state = env_state
+        initial_total = state.total_reward
+        boards = torch.zeros(num_games, t_max + 1, 16, dtype=torch.int8, device=device)
+        actions_bt = torch.zeros(num_games, t_max, dtype=torch.int8, device=device)
+        rewards_bt = torch.zeros(num_games, t_max, dtype=torch.float32, device=device)
+        policies_bt = torch.zeros(num_games, t_max, a, dtype=torch.float32, device=device)
+        values_bt = torch.zeros(num_games, t_max, dtype=torch.float32, device=device)
+        active_bt = torch.zeros(num_games, t_max, dtype=torch.bool, device=device)
 
-    final_state = state
-    boards[:, t_max] = final_state.board.flatten(-2).to(torch.int8)
-    lengths = active_bt.sum(-1, dtype=torch.int32)
-    priorities = collection_priorities(rewards_bt, values_bt, lengths, config, final_state.done)
+        for t in range(t_max):
+            with tracing.span("move.observe"):
+                obs = envlib.get_observation(state)
+                legal = envlib.get_legal_actions(state)
+                active = ~state.done
 
-    traj = Trajectory(
-        boards=boards,
-        actions=actions_bt,
-        rewards=rewards_bt,
-        policies=policies_bt,
-        values=values_bt,
-        priorities=priorities,
-        length=lengths,
-        terminated=final_state.done,
-        total_reward=final_state.total_reward - initial_total,
-        max_tile=ops.max_tile(boards[:, -1].reshape(num_games, 4, 4).to(torch.int32)),
-    )
+            # Root legality masking: simulations never visit illegal root actions.
+            step_noise = None
+            if uses_root_noise(cfg):
+                with tracing.span("move.noise"):
+                    step_noise = noise[t] if noise is not None else draw_root_noise(cfg, num_games, generator, device)
+            out = search(obs, ~legal, step_noise, None if chance_noise is None else chance_noise[t], generator)
 
-    # Collection diagnostics, before dead lanes are reseeded (every lane is
-    # active at segment entry, so done-at-end means the game finished here).
-    entropy = -(policies_bt * torch.log(torch.clamp_min(policies_bt, 1e-12))).sum(-1)
-    done = final_state.done
-    zero = torch.zeros((), dtype=torch.float32, device=device)
-    stats = GenStats(
-        completed=done.sum(dtype=torch.int32),
-        completed_score_sum=torch.where(done, final_state.total_reward, zero).sum(),
-        completed_length_sum=torch.where(done, final_state.step_count, torch.zeros_like(final_state.step_count)).sum(),
-        active_positions=lengths.sum(),
-        policy_entropy_sum=(entropy * active_bt).sum(),
-        search_value_sum=values_bt.sum(),
-        first_search_value=values_bt[:, 0],
-    )
-    return envlib.reset_done(final_state), traj, stats
+            with tracing.span("move.act"):
+                policy_target = get_policy_target(out, legal, 1.0)
+                if greedy:
+                    actions = torch.where(legal, out.action_weights, torch.zeros_like(out.action_weights)).argmax(-1)
+                else:
+                    temps = torch.full((num_games,), float(temperature), dtype=torch.float32, device=device)
+                    if config.temperature_move_cutoff is not None:
+                        temps = torch.where(
+                            state.step_count < config.temperature_move_cutoff, temps, torch.zeros_like(temps)
+                        )
+                    actions = sample_from_visits(out, legal, temps, generator, None if uniform is None else uniform[t])
+
+            with tracing.span("env.step"):
+                new_state, reward, _, _ = envlib.step(state, actions)
+            with tracing.span("move.record"):
+                boards[:, t] = state.board.flatten(-2).to(torch.int8)
+                actions_bt[:, t] = actions.to(torch.int8) * active.to(torch.int8)
+                rewards_bt[:, t] = reward * active
+                policies_bt[:, t] = policy_target * active[:, None]
+                values_bt[:, t] = out.search_value * active
+                active_bt[:, t] = active
+            state = new_state
+
+        with tracing.span("segment.finish"):
+            final_state = state
+            boards[:, t_max] = final_state.board.flatten(-2).to(torch.int8)
+            lengths = active_bt.sum(-1, dtype=torch.int32)
+            priorities = collection_priorities(rewards_bt, values_bt, lengths, config, final_state.done)
+
+            traj = Trajectory(
+                boards=boards,
+                actions=actions_bt,
+                rewards=rewards_bt,
+                policies=policies_bt,
+                values=values_bt,
+                priorities=priorities,
+                length=lengths,
+                terminated=final_state.done,
+                total_reward=final_state.total_reward - initial_total,
+                max_tile=ops.max_tile(boards[:, -1].reshape(num_games, 4, 4).to(torch.int32)),
+            )
+
+            # Collection diagnostics, before dead lanes are reseeded (every lane is
+            # active at segment entry, so done-at-end means the game finished here).
+            entropy = -(policies_bt * torch.log(torch.clamp_min(policies_bt, 1e-12))).sum(-1)
+            done = final_state.done
+            zero = torch.zeros((), dtype=torch.float32, device=device)
+            stats = GenStats(
+                completed=done.sum(dtype=torch.int32),
+                completed_score_sum=torch.where(done, final_state.total_reward, zero).sum(),
+                completed_length_sum=torch.where(
+                    done, final_state.step_count, torch.zeros_like(final_state.step_count)
+                ).sum(),
+                active_positions=lengths.sum(),
+                policy_entropy_sum=(entropy * active_bt).sum(),
+                search_value_sum=values_bt.sum(),
+                first_search_value=values_bt[:, 0],
+            )
+            tracing.count("selfplay.lanes_searched", num_games * t_max)
+            tracing.count("selfplay.lanes_active", stats.active_positions)
+            return envlib.reset_done(final_state), traj, stats
 
 
 def play_games(
@@ -322,8 +336,9 @@ def generate_games(
     else:
         traj = play_games(network, generator, temperature, config, n, False)
     if config.value_target_mode == "td_lambda":
-        returns = compute_n_step_returns(traj.rewards, traj.values, traj.length, config, traj.terminated)
-        traj = traj._replace(values=returns)
+        with tracing.span("segment.returns"):
+            returns = compute_n_step_returns(traj.rewards, traj.values, traj.length, config, traj.terminated)
+            traj = traj._replace(values=returns)
     return (next_state, traj, stats) if env_state is not None else traj
 
 
@@ -422,38 +437,43 @@ def _evaluate_rollout(
     and search value, the count of active (game, move) pairs, and which
     encoder codes were used.
     """
-    device = torch.device(device)
-    cfg = search_config_from(config, eval_mode=True)._replace(dirichlet_fraction=0.0)
-    state = envlib.reset_batch(run_seed, num_games, device)
-    search = _make_search(network, config, cfg, device)
-    generator = torch.Generator(device=device).manual_seed(run_seed)
+    with tracing.span("eval.rollout", unit=True):
+        device = torch.device(device)
+        cfg = search_config_from(config, eval_mode=True)._replace(dirichlet_fraction=0.0)
+        state = envlib.reset_batch(run_seed, num_games, device)
+        search = _make_search(network, config, cfg, device)
+        generator = torch.Generator(device=device).manual_seed(run_seed)
 
-    ent_sum = torch.zeros((), dtype=torch.float32, device=device)
-    val_sum = torch.zeros((), dtype=torch.float32, device=device)
-    n_active = torch.zeros((), dtype=torch.int32, device=device)
-    codes_used = torch.zeros(config.codebook_size, dtype=torch.bool, device=device)
-    for _ in range(config.eval_max_moves):
-        if bool(state.done.all()):
-            break
-        obs = envlib.get_observation(state)
-        legal = envlib.get_legal_actions(state)
-        active = ~state.done
+        ent_sum = torch.zeros((), dtype=torch.float32, device=device)
+        val_sum = torch.zeros((), dtype=torch.float32, device=device)
+        n_active = torch.zeros((), dtype=torch.int32, device=device)
+        codes_used = torch.zeros(config.codebook_size, dtype=torch.bool, device=device)
+        for _ in range(config.eval_max_moves):
+            with tracing.span("eval.done_read"):
+                if bool(state.done.all()):
+                    break
+            with tracing.span("move.observe"):
+                obs = envlib.get_observation(state)
+                legal = envlib.get_legal_actions(state)
+                active = ~state.done
 
-        out = search(obs, ~legal, None, None, generator)
-        zeros = torch.zeros_like(out.action_weights)
-        actions = torch.where(legal, out.action_weights, zeros).argmax(-1)
+            out = search(obs, ~legal, None, None, generator)
+            zeros = torch.zeros_like(out.action_weights)
+            actions = torch.where(legal, out.action_weights, zeros).argmax(-1)
 
-        probs = get_policy_target(out, legal, 1.0)
-        entropy = -(probs * torch.log(torch.clamp_min(probs, 1e-12))).sum(-1)
-        ent_sum = ent_sum + torch.where(active, entropy, torch.zeros_like(entropy)).sum()
-        val_sum = val_sum + torch.where(active, out.search_value, torch.zeros_like(out.search_value)).sum()
-        n_active = n_active + active.sum(dtype=torch.int32)
-        code = network.encoder(obs).argmax(-1)
-        hit = torch.nn.functional.one_hot(code, config.codebook_size).bool() & active[:, None]
-        codes_used = codes_used | hit.any(0)
+            with tracing.span("eval.stats"):
+                probs = get_policy_target(out, legal, 1.0)
+                entropy = -(probs * torch.log(torch.clamp_min(probs, 1e-12))).sum(-1)
+                ent_sum = ent_sum + torch.where(active, entropy, torch.zeros_like(entropy)).sum()
+                val_sum = val_sum + torch.where(active, out.search_value, torch.zeros_like(out.search_value)).sum()
+                n_active = n_active + active.sum(dtype=torch.int32)
+                code = network.encoder(obs).argmax(-1)
+                hit = torch.nn.functional.one_hot(code, config.codebook_size).bool() & active[:, None]
+                codes_used = codes_used | hit.any(0)
 
-        state, _, _, _ = envlib.step(state, actions)
-    return state, ent_sum, val_sum, n_active, codes_used
+            with tracing.span("env.step"):
+                state, _, _, _ = envlib.step(state, actions)
+        return state, ent_sum, val_sum, n_active, codes_used
 
 
 def evaluate_games(
@@ -474,26 +494,27 @@ def evaluate_games(
     run_seed = _draw_seed(generator)
     state, ent_sum, val_sum, n_active, codes_used = _evaluate_rollout(network, run_seed, config, n, device)
 
-    rewards = state.total_reward.cpu().numpy()
-    tiles = ops.max_tile(state.board).cpu().numpy()
-    n_act = max(int(n_active), 1)
-    stats: dict[str, Any] = {
-        "mean_reward": float(rewards.mean()),
-        "std_reward": float(rewards.std()),
-        "sem_reward": float(rewards.std() / max(np.sqrt(rewards.size), 1.0)),
-        "max_reward": float(rewards.max()),
-        "min_reward": float(rewards.min()),
-        "mean_max_tile": float(tiles.mean()),
-        "max_tile": int(tiles.max()),
-        "mean_length": float(state.step_count.float().mean()),
-        "encoder_codes_used": int(codes_used.sum()),
-        "mean_search_entropy": float(ent_sum) / n_act,
-        "mean_search_value": float(val_sum) / n_act,
-    }
-    for tile in (256, 512, 1024, 2048, 4096, 8192, 16384, 32768):
-        stats[f"reached_{tile}"] = int((tiles >= tile).sum())
-    if include_per_game:
-        stats["per_game_rewards"] = rewards.tolist()
-        stats["per_game_tiles"] = tiles.tolist()
-        stats["per_game_lengths"] = state.step_count.cpu().tolist()
-    return stats
+    with tracing.span("eval.summary"):
+        rewards = state.total_reward.cpu().numpy()
+        tiles = ops.max_tile(state.board).cpu().numpy()
+        n_act = max(int(n_active), 1)
+        stats: dict[str, Any] = {
+            "mean_reward": float(rewards.mean()),
+            "std_reward": float(rewards.std()),
+            "sem_reward": float(rewards.std() / max(np.sqrt(rewards.size), 1.0)),
+            "max_reward": float(rewards.max()),
+            "min_reward": float(rewards.min()),
+            "mean_max_tile": float(tiles.mean()),
+            "max_tile": int(tiles.max()),
+            "mean_length": float(state.step_count.float().mean()),
+            "encoder_codes_used": int(codes_used.sum()),
+            "mean_search_entropy": float(ent_sum) / n_act,
+            "mean_search_value": float(val_sum) / n_act,
+        }
+        for tile in (256, 512, 1024, 2048, 4096, 8192, 16384, 32768):
+            stats[f"reached_{tile}"] = int((tiles >= tile).sum())
+        if include_per_game:
+            stats["per_game_rewards"] = rewards.tolist()
+            stats["per_game_tiles"] = tiles.tolist()
+            stats["per_game_lengths"] = state.step_count.cpu().tolist()
+        return stats

@@ -42,6 +42,7 @@ from simulate_2048_tpu_torch.training.learner import (
 from simulate_2048_tpu_torch.training.losses import LossOutput
 from simulate_2048_tpu_torch.training.reanalyze import reanalyze_pass
 from simulate_2048_tpu_torch.training.self_play import _draw_seed, evaluate_games, finish_gen_stats, generate_games
+from simulate_2048_tpu_torch.utils import tracing
 from simulate_2048_tpu_torch.utils.metrics import MetricsLogger
 
 
@@ -61,17 +62,20 @@ def ingest_segment(buffer, prev, traj, first_search_value, config):
     Returns ``(buffer, (slots, cont, seq))``: thread the second element back
     in as ``prev`` with the next consecutive segment batch.
     """
-    b = traj.length.shape[0]
-    if config.cross_segment_backfill and prev is not None:
-        prev_slots, prev_cont, prev_seq = prev
-        buffer = replay_lib.backfill_returns(
-            buffer, prev_slots, prev_cont, prev_seq, first_search_value, traj.values[:, 0], config
-        )
-    lanes = torch.arange(b, device=buffer.length.device)
-    slots = (buffer.write_pos + lanes) % buffer.length.shape[0]
-    seq = buffer.episodes_added + lanes
-    buffer = replay_lib.add_trajectories(buffer, traj)
-    return buffer, (slots, ~traj.terminated, seq)
+    with tracing.span("replay.ingest"):
+        b = traj.length.shape[0]
+        if config.cross_segment_backfill and prev is not None:
+            prev_slots, prev_cont, prev_seq = prev
+            with tracing.span("replay.backfill"):
+                buffer = replay_lib.backfill_returns(
+                    buffer, prev_slots, prev_cont, prev_seq, first_search_value, traj.values[:, 0], config
+                )
+        lanes = torch.arange(b, device=buffer.length.device)
+        slots = (buffer.write_pos + lanes) % buffer.length.shape[0]
+        seq = buffer.episodes_added + lanes
+        with tracing.span("replay.add"):
+            buffer = replay_lib.add_trajectories(buffer, traj)
+        return buffer, (slots, ~traj.terminated, seq)
 
 
 # Salt of the deep-evaluation games' seed: they depend on the run's seed alone.
