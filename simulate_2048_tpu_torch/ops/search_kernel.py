@@ -41,11 +41,16 @@ order and fragment order (:func:`mma_fragments`), which a
 - :func:`run_search_kernel` is the drop-in for ``batched_run_mcts``: root
   h/f, priors, noise and legality masking in PyTorch, then one
   :func:`whole_search`.
+- :class:`RootGraph` replays that root h/f (``search.mcts.root_inputs``, ≈
+  850 small kernels at H=256 with 10 blocks) as one CUDA graph, captured at
+  its first call; :class:`RootGraphs` fetches the graphs of one network and
+  search config by batch shape from a small process-wide cache.
 """
 
 from __future__ import annotations
 
 import ctypes
+from collections import OrderedDict
 from typing import NamedTuple
 
 import numpy as np
@@ -740,6 +745,110 @@ def _load(library: str) -> ctypes.CDLL:
     return lib
 
 
+# The SearchConfig fields root_inputs reads (the network's parameters and the batch shape complete a graph's key).
+ROOT_FIELDS = ("prior_temperature", "dirichlet_fraction", "root_selection", "value_transform_epsilon", "num_actions",
+               "codebook_size")  # fmt: skip
+ROOT_GRAPH_CACHE = 8  # graphs kept in the process, across weight sets and batch shapes; the oldest used goes first
+_root_graphs: OrderedDict[tuple, RootGraph] = OrderedDict()
+
+
+def root_weights(network) -> tuple[torch.Tensor, ...]:
+    """The parameters the root's h/f reads: the representation's and the prediction's."""
+    return (*network.representation.parameters(), *network.prediction.parameters())
+
+
+class RootGraph:
+    """``root_inputs(network, observations, config, invalid, noise)`` for one
+    batch shape, as a CUDA graph. It owns the static inputs (observations
+    (B, 16) float32, the illegal-action mask (B, A) bool and the root noise
+    (B, A) float32, each where the shape has it) and the graph's outputs,
+    ``hidden``, ``probs`` and ``root_value``, contiguous. A call copies its
+    tensors into the inputs, replays on the current stream and returns the
+    outputs, which the next replay overwrites: a caller reads them in stream
+    order before its next call. The first call captures (after one eager run
+    on the capture stream, so that the libraries set up their state there
+    and not inside the capture). The graph reads the parameters where they
+    are stored: weights updated in place are read live, and the graph keeps
+    them, so that no other tensor takes their storage while it lives."""
+
+    def __init__(self, network, config: SearchConfig, batch: int, masked: bool, noised: bool, device):
+        self.device = torch.device(device)
+        self._config = config
+        self.weights = root_weights(network)  # kept alive: no other tensor takes their storage
+        self._network = network  # until the capture
+        a = config.num_actions
+        self.observations = torch.zeros(batch, network.observation_dim, dtype=torch.float32, device=self.device)
+        self.invalid = torch.zeros(batch, a, dtype=torch.bool, device=self.device) if masked else None
+        self.noise = torch.zeros(batch, a, dtype=torch.float32, device=self.device) if noised else None
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.outputs: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None
+
+    def _root(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        outputs = root_inputs(self._network, self.observations, self._config, self.invalid, self.noise)
+        return tuple(t.contiguous() for t in outputs)
+
+    @torch.no_grad()
+    def capture(self) -> None:
+        with torch.cuda.device(self.device):
+            stream = torch.cuda.Stream(self.device)
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(stream):
+                self._root()
+            torch.cuda.current_stream(self.device).wait_stream(stream)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+                self.outputs = self._root()
+        self.graph, self._network = graph, None
+        tracing.count("search.root_graph_captures", 1)
+
+    def __call__(
+        self, observations: torch.Tensor, invalid_actions: torch.Tensor | None, noise: torch.Tensor | None
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        if (invalid_actions is None) != (self.invalid is None) or (noise is None) != (self.noise is None):
+            raise ValueError("the root graph was captured for another mask / noise presence")
+        self.observations.copy_(observations)
+        if self.invalid is not None:
+            self.invalid.copy_(invalid_actions)
+        if self.noise is not None:
+            self.noise.copy_(noise)
+        if self.graph is None:
+            self.capture()
+        self.graph.replay()
+        tracing.count("search.root_graph_replays", 1)
+        return self.outputs
+
+
+class RootGraphs:
+    """The :class:`RootGraph` of one network and search config on one device,
+    by batch shape, from the process-wide cache (``ROOT_GRAPH_CACHE``
+    entries). Its key is made only of what the root reads: the device, the
+    config's ``ROOT_FIELDS``, the storage of :func:`root_weights`, then the
+    batch size and whether the mask and the noise are given. The first part
+    is computed here, once; a parameter given new storage makes a new key
+    and so a new capture."""
+
+    def __init__(self, network, config: SearchConfig, device):
+        self._network, self._config, self._device = network, config, torch.device(device)
+        self.key = (
+            self._device,
+            tuple(getattr(config, name) for name in ROOT_FIELDS),
+            tuple((w.data_ptr(), w.dtype, tuple(w.shape)) for w in root_weights(network)),
+        )
+        self._mine: dict[tuple, RootGraph] = {}
+
+    def get(self, batch: int, masked: bool, noised: bool) -> RootGraph:
+        shape = (batch, masked, noised)
+        graph = self._mine.get(shape)
+        if graph is None:
+            key = self.key + shape
+            graph = _root_graphs.pop(key, None) or RootGraph(self._network, self._config, *shape, self._device)
+            _root_graphs[key] = graph
+            while len(_root_graphs) > ROOT_GRAPH_CACHE:
+                _root_graphs.popitem(last=False)
+            self._mine[shape] = graph
+        return graph
+
+
 @torch.no_grad()
 def run_search_kernel(
     network,
@@ -749,11 +858,14 @@ def run_search_kernel(
     noise: torch.Tensor | None = None,
     packed: PackedSearchParams | None = None,
     workspace: SearchWorkspace | None = None,
+    root_graph: RootGraph | None = None,
 ) -> PolicyOutput:
     """Batched search through :func:`whole_search` (drop-in for
     ``batched_run_mcts``). ``packed`` can be built once per weight version
     with :func:`pack_search_params`, and ``workspace`` once per pack;
-    without it the float32 weights are packed in :func:`search_plan`'s layout."""
+    without it the float32 weights are packed in :func:`search_plan`'s layout.
+    ``root_graph`` (of this network, config and batch shape) replays the
+    root's h/f; without it the root runs eagerly."""
     if packed is None:
         packed = pack_search_params(
             network,
@@ -763,8 +875,12 @@ def run_search_kernel(
             value_bins=config.value_bins,
             reward_bins=config.reward_bins,
         )
+    tracing.count("search.root_calls", 1)
     with tracing.span("search.root"):
-        hidden, probs, root_value = root_inputs(network, observations, config, invalid_actions, noise)
+        if root_graph is not None:
+            hidden, probs, root_value = root_graph(observations, invalid_actions, noise)
+        else:
+            hidden, probs, root_value = root_inputs(network, observations, config, invalid_actions, noise)
     with tracing.span("search.kernel"):
         visits, qvalues, value = whole_search(
             hidden.contiguous(), probs.contiguous(), root_value.contiguous(), packed, config, workspace

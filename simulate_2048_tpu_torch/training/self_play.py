@@ -137,7 +137,8 @@ def _make_search(network, config: TrainConfig, cfg: SearchConfig, device: torch.
     weights packed here, once, in the layout :func:`search_kernel.search_plan`
     picks (resident or streamed, in ``config.search_weight_dtype``), or the
     plain search, which alone takes the chance draws of sampled chance
-    selection (tensor or generator)."""
+    selection (tensor or generator). On CUDA the root's h/f replays a
+    :class:`search_kernel.RootGraph` of this network, config and batch shape."""
     if not _use_kernel(config, cfg, device):
         return lambda obs, invalid, noise=None, chance_noise=None, generator=None: batched_run_mcts(
             network, obs, cfg, invalid, noise, chance_noise, generator
@@ -156,9 +157,15 @@ def _make_search(network, config: TrainConfig, cfg: SearchConfig, device: torch.
         reward_bins=config.reward_bins,
     )
     workspace = search_kernel.SearchWorkspace(packed)
-    return lambda obs, invalid, noise=None, chance_noise=None, generator=None: search_kernel.run_search_kernel(
-        network, obs, cfg, invalid, noise, packed=packed, workspace=workspace
-    )
+    roots = search_kernel.RootGraphs(network, cfg, device) if device.type == "cuda" else None
+
+    def search(obs, invalid, noise=None, chance_noise=None, generator=None):
+        root_graph = None if roots is None else roots.get(obs.shape[0], invalid is not None, noise is not None)
+        return search_kernel.run_search_kernel(
+            network, obs, cfg, invalid, noise, packed=packed, workspace=workspace, root_graph=root_graph
+        )
+
+    return search
 
 
 def _draw_seed(generator: torch.Generator) -> int:

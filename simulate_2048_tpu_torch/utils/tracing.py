@@ -93,8 +93,13 @@ def _new_unit() -> None:
 
 
 def count(name: str, value) -> None:
-    """Add ``value`` (an int, or a device scalar read at :func:`snapshot`) to counter ``name`` of the current unit."""
-    _counts.setdefault(_unit, {}).setdefault(name, []).append(value)
+    """Add ``value`` (an int, or a device scalar read at :func:`snapshot`) to counter ``name`` of the current unit.
+    Host ints are summed as they come (a count made every move keeps one int), device scalars kept."""
+    values = _counts.setdefault(_unit, {}).setdefault(name, [0])
+    if isinstance(value, int):
+        values[0] += value
+    else:
+        values.append(value)
 
 
 def reset() -> None:

@@ -199,7 +199,8 @@ def test_every_counter_the_program_records_is_read_by_a_metric():
         tsp.evaluate_games(network, torch.Generator().manual_seed(9), config, 8, include_per_game=True)
     recorded = {name for named in tracing.snapshot()["counts"].values() for name in named}
     readers = "\n".join(path.read_text() for path in (spec.ROOT / "perfbench" / "metrics").glob("*.py"))
-    assert recorded == {"selfplay.lanes_searched", "selfplay.lanes_active"}
+    # On the CPU the root runs eagerly: no root graph is replayed or captured.
+    assert recorded == {"selfplay.lanes_searched", "selfplay.lanes_active", "search.root_calls"}
     assert all(f'"{name}"' in readers for name in recorded)
 
 
@@ -217,7 +218,7 @@ def test_the_evaluation_spans_one_read_of_done_a_move():
     parent = {s["name"]: snap["spans"][s["parent"]]["name"] if s["parent"] is not None else None
               for s in snap["spans"]}  # fmt: skip
     assert parent["eval.done_read"] == parent["search.root"] == "eval.rollout" and parent["eval.summary"] is None
-    assert snap["counts"] == {unit: {}}  # the evaluation counts nothing
+    assert snap["counts"] == {unit: {"search.root_calls": searched.calls}}  # the evaluation counts its root calls
 
 
 # ---- the benchmark's readers
