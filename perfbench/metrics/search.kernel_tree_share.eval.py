@@ -1,0 +1,16 @@
+"""search.kernel_tree_share.eval: the search kernel's computing warps' cycles spent in the traversal, the gather and
+install of node embeddings, and the backup, over all their cycles, in the traced deep evaluation, in %, from the
+clocked kernel's counters (``search.kernel.cycles.tree`` of ``search.kernel.cycles``); nothing where the program
+does not clock its kernel."""
+
+from perfbench.harness import spans
+
+
+def read(run):
+    if run.player != "deep_eval":
+        return None
+    counts = spans.traced_counts(run)
+    cycles = (counts or {}).get("search.kernel.cycles")
+    if not cycles:
+        return None
+    return 100.0 * counts.get("search.kernel.cycles.tree", 0) / cycles

@@ -25,20 +25,22 @@
 // Behind the products' rate stands the weight traffic: each block reads the
 // whole pack once per simulation (23 MB at H=256 in float32, 11.5 MB in
 // bfloat16; 92 MB at H=512, 46 MB in bfloat16, more than or about the 50 MB
-// L2). 100 dependent simulations leave no parallelism but the batch. Read
-// from L2 straight into registers (the first bfloat16 resident kernel's
-// way), a pack is bound by the loads' latency: 8 rows in flight a thread, a
-// restart at every layer. Staged through shared memory, the float32
-// resident kernel is bound by each SM's shared-memory pipe: a 64 KB tile is
-// written once by the copy and read once as weights, beside the activations'
-// broadcast reads (about 1,300 cycles a tile by a clock64 profile on an
-// NVIDIA H100 80GB HBM3 at 700 W), and then by the latency of the layer norms
-// and heads, which only G warps can work on (PERF.md). The bfloat16
-// libraries on the tensor cores are bound by each SM's feed: every block
-// takes the whole pack's fragments a simulation (11.3 MB at H=256, 46.1 MB
-// at H=512) through its shared memory (written by the bulk copies, read
-// once by the products), then by their layer norms and heads, which one
-// warp a column works on.
+// L2). 100 dependent simulations leave no parallelism but the batch, so
+// each block's chain of dependent layers sets the pace: the time of a launch
+// hardly moves from 128 to 1,024 searches. The phase clocks below split that
+// chain (PERF.md §5, NVIDIA H100 80GB HBM3 at 700 W). The weight feed holds
+// no warp back: a warp finds its stage landed (feed under 2% in every
+// library) while the producer waits for a free stage half to two thirds of
+// its time. The float32 resident kernel (about 7,400 cycles a layer) is
+// bound by its products and by warps with nothing to do: its 8 dense warps
+// spend about two thirds of their cycles in the products (about 1,270
+// cycles a 64 KB tile), while its other 8 computing warps, and 14 of the 16
+// during the layer norms and heads that G = 2 warps work on, wait at
+// barriers (54% of all computing warps' cycles against 39% products and 6%
+// norms). The tensor-core libraries are bound by their norms: the layer
+// norms, heads and epilogues, one warp a column, take 51% of the resident
+// library's cycles (about 7,100 a layer) against 39% in the products, and
+// 31% against 50% in the streamed one at H=512 (about 18,200 a layer).
 //
 // Design. The TPU version keeps 128 searches' tree tables and all weights in
 // VMEM and reads rows by one-hot mask sums (no gather on the TPU). Neither
@@ -357,6 +359,18 @@ __device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
   }
 }
 
+// Whether the phase of parity `parity` of the mbarrier at `bar` has completed, without waiting.
+__device__ __forceinline__ bool mbar_done(unsigned bar, unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n .reg .pred p;\n mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done;
+}
+
 // The threads that compute: the whole block, but for a ring's producer warp.
 __device__ __forceinline__ unsigned compute_threads() { return kProducerWarp ? blockDim.x - 32 : blockDim.x; }
 
@@ -367,6 +381,210 @@ __device__ __forceinline__ void block_sync() {
     asm volatile("bar.sync 1, %0;\n" ::"r"(compute_threads()) : "memory");
   } else {
     __syncthreads();
+  }
+}
+
+// Phase clocks. Each kernel has a clocked instantiation, whose last argument
+// is a Clock (ops/search_kernel.py launches it only while spans record), and
+// an unclocked one, with no such argument. Helpers take the clock as a
+// trailing pack `Clk&... clk`: empty in the unclocked kernels, so that every
+// hook below compiles to nothing there and their machine code is the one the
+// kernels had before the clocks. A lap adds the cycles since the last lap to
+// the phase it names, so every cycle of a computing warp, from its start to
+// its end, falls in exactly one phase:
+// - kFeed: waiting for a weight stage that has not landed when the warp
+//   comes to it (the rings' mbarrier waits; the float32 streamed library's
+//   wait for its copies, and their issue);
+// - kProducts: a dense layer from its start to its last FMA or mma.sync
+//   k-step and the stage's release (the float32 ring: and the hand-off of
+//   the second input half's partial sums);
+// - kNorm: the rest of a dense layer (bias, row and residual adds, epilogue
+//   stores), layer norms, scalar and categorical heads, logits, and the
+//   priors' softmax;
+// - kBarrier: waiting at a block-wide or named barrier of the computing
+//   threads;
+// - kTree: tree init, traversal, the parent embeddings' gather, the new
+//   node's install, backup and root statistics.
+// A thread keeps in registers its last lap, the cycles of the three phases
+// that come many times a layer (kProducts, kNorm, kBarrier) and its dense
+// layers; lane 0 adds them into its warp's row of a small shared array at the
+// end of each simulation, and adds the rare phases (kFeed, kTree) there at
+// once. The producer warp's lane 0 counts its stalls (waits for a free stage)
+// as kFeed. At the block's end one atomic add per counter takes the block's
+// totals into `out` (int64s, Counter order).
+enum Phase { kFeed, kProducts, kNorm, kBarrier, kTree, kPhases };
+// The counters (ops/search_kernel.py CLOCK_COUNTERS): the five phases, the
+// computing warps' total cycles, the dense layers the block computed, and the
+// producer's cycles and stalls.
+enum Counter { kCycles = kPhases, kLayers, kProducerCycles, kProducerStalls, kCounters };
+constexpr int kClockRows = 34;  // a row for each warp (at most 32 and a producer), and padding to 128 bytes
+constexpr int kClockSlots = 8;  // a row: the phases, the warp's start (then its cycles), its dense layers
+
+// Whether a lap reads %clock into a uniform register (S2UR) or the low half
+// of %clock64 into two registers (CS2R, fewer cycles a lap): the kernels at
+// their register limit (both float32 kernels, the streamed tensor-core one)
+// have no register to spare and spill with CS2R reads, the resident
+// tensor-core kernel has.
+constexpr bool kUniformClock = !(kMma && !kStreamed);
+
+__device__ __forceinline__ unsigned clock_lo() {
+  if constexpr (kUniformClock) {
+    unsigned t;
+    asm volatile("mov.u32 %0, %%clock;" : "=r"(t)::"memory");
+    return t;
+  } else {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%clock64;" : "=l"(t)::"memory");
+    return (unsigned)t;
+  }
+}
+
+// clock_lo after a barrier. A warp that reaches a bar.sync goes on issuing
+// until an instruction needs the barrier, and a clock read does not: this
+// one waits for the load of a shared word (`word`, never all ones), which
+// waits for the barrier to release the warp: predicated on it (a register
+// and a select) where registers allow, else behind a trap predicated on it.
+__device__ __forceinline__ unsigned clock_after_barrier(const unsigned* word) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(word));
+  unsigned now;
+  if constexpr (kUniformClock) {
+    asm volatile(
+        "{\n .reg .pred p;\n .reg .u32 x;\n ld.volatile.shared.u32 x, [%1];\n"
+        " setp.eq.u32 p, x, 0xffffffff;\n @p trap;\n mov.u32 %0, %%clock;\n}\n"
+        : "=r"(now)
+        : "r"(addr)
+        : "memory");
+  } else {
+    asm volatile(
+        "{\n .reg .pred p;\n .reg .u32 x;\n ld.volatile.shared.u32 x, [%1];\n"
+        " setp.ne.u32 p, x, 0xffffffff;\n @p mov.u32 %0, %%clock;\n @!p mov.u32 %0, 0;\n}\n"
+        : "=r"(now)
+        : "r"(addr)
+        : "memory");
+  }
+  return now;
+}
+
+__device__ __forceinline__ unsigned long long clock_wide() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t)::"memory");
+  return t;
+}
+
+struct Clock {
+  unsigned long long* out;  // kCounters int64s, zeroed by the caller
+  unsigned last;            // %clock at the last lap
+  unsigned hot[3];          // kProducts, kNorm and kBarrier cycles since the last settle
+  unsigned layers;          // dense layers since the last settle
+
+  // The warps' rows; their size, a multiple of 128 bytes, keeps the dynamic shared memory after them 128-byte
+  // aligned.
+  __device__ static unsigned long long* rows() {
+    __shared__ __align__(128) unsigned long long counts[kClockRows * kClockSlots];
+    return counts;
+  }
+  __device__ static unsigned long long* row() { return rows() + (threadIdx.x >> 5) * kClockSlots; }
+  __device__ static bool first() { return (threadIdx.x & 31) == 0; }
+
+  __device__ __forceinline__ void begin() {
+    if (first()) {
+      unsigned long long* r = row();
+#pragma unroll
+      for (int c = 0; c < kClockSlots; ++c) r[c] = 0;
+      r[kCycles] = clock_wide();
+    }
+#pragma unroll
+    for (int h = 0; h < 3; ++h) hot[h] = 0;
+    layers = 0;
+    last = clock_lo();
+  }
+
+  template <int P>
+  __device__ __forceinline__ void add() {
+    add<P>(clock_lo());
+  }
+
+  // The wait at a barrier just passed (a warp's layer count, read for it, is never all ones).
+  __device__ __forceinline__ void add_barrier() {
+    add<kBarrier>(clock_after_barrier(reinterpret_cast<const unsigned*>(row() + kLayers)));
+  }
+
+  // The cycles up to `now` belong to phase P.
+  template <int P>
+  __device__ __forceinline__ void add(unsigned now) {
+    if constexpr (P == kProducts || P == kNorm || P == kBarrier) {
+      hot[P - kProducts] += now - last;
+    } else if (first()) {
+      row()[P] += now - last;
+    }
+    last = now;
+  }
+
+  __device__ __forceinline__ void layer() { ++layers; }
+
+  // Lane 0 adds the counts kept in registers to its warp's row (each simulation, so that no 32-bit count wraps).
+  __device__ __forceinline__ void settle() {
+    if (first()) {
+      unsigned long long* r = row();
+#pragma unroll
+      for (int h = 0; h < 3; ++h) r[kProducts + h] += hot[h];
+      r[kLayers] += layers;
+    }
+#pragma unroll
+    for (int h = 0; h < 3; ++h) hot[h] = 0;
+    layers = 0;
+  }
+
+  // Every thread of the block calls it once, at its end: the producer warp
+  // (which has left the computing threads' barrier) first.
+  __device__ void flush() {
+    settle();
+    unsigned long long* r = row();
+    if (kProducerWarp && threadIdx.x >= compute_threads()) {
+      if (first()) {
+        atomicAdd(out + kProducerCycles, clock_wide() - r[kCycles]);
+        atomicAdd(out + kProducerStalls, r[kFeed]);
+      }
+      return;
+    }
+    if (first()) r[kCycles] = clock_wide() - r[kCycles];
+    block_sync();
+    const int c = threadIdx.x, warps = c == kLayers ? 1 : compute_threads() >> 5;  // layers: warp 0's
+    if (c < kProducerCycles) {
+      unsigned long long sum = 0;
+      for (int w = 0; w < warps; ++w) sum += rows()[w * kClockSlots + c];
+      atomicAdd(out + c, sum);
+    }
+  }
+};
+
+// The cycles since the last lap belong to phase P.
+template <int P, typename... Clk>
+__device__ __forceinline__ void lap(Clk&... clk) {
+  (clk.template add<P>(), ...);
+}
+
+// block_sync, the work before it ending in phase P and the wait counted as kBarrier.
+template <int P, typename... Clk>
+__device__ __forceinline__ void sync_lap(Clk&... clk) {
+  lap<P>(clk...);
+  block_sync();
+  (clk.add_barrier(), ...);
+}
+
+// mbar_wait on a ring's barrier. A clocked warp probes first and, only if it
+// must wait, counts the wait as kFeed and the work before it as kProducts:
+// its products run on from tile to tile without a lap while the ring keeps up.
+// The producer warp waits here for a free stage: its kFeed is its stalls.
+template <typename... Clk>
+__device__ __forceinline__ void feed_wait(unsigned bar, unsigned parity, Clk&... clk) {
+  if constexpr (sizeof...(Clk) > 0) {
+    if (mbar_done(bar, parity)) return;
+    lap<kProducts>(clk...);
+    mbar_wait(bar, parity);
+    lap<kFeed>(clk...);
+  } else {
+    mbar_wait(bar, parity);
   }
 }
 
@@ -455,19 +673,22 @@ struct Ring {
   }
 
   // The producer warp's lane 0: every tile of the launch, in order.
-  __device__ void produce(const Args& a) const {
+  template <typename... Clk>
+  __device__ void produce(const Args& a, Clk&... clk) const {
     for (int r = 0; r < total; ++r) {
       const int s = r % kStages, k = r / kStages;
-      if (k > 0) mbar_wait(empty(s), (k - 1) & 1);  // the block is done with tile r - kStages
+      if (k > 0) feed_wait(empty(s), (k - 1) & 1, clk...);  // the block is done with tile r - kStages
       arm(s);
       issue(a, r);
+      if ((r & 63) == 63) (clk.settle(), ...);  // a clock's 32-bit counts, settled before they can wrap
     }
   }
 
   // A computing thread: waits for tile q and returns its stage.
-  __device__ const float* ready() const {
+  template <typename... Clk>
+  __device__ const float* ready(Clk&... clk) const {
     const int s = q % kStages;
-    mbar_wait(full(s), (q / kStages) & 1);
+    feed_wait(full(s), (q / kStages) & 1, clk...);
     return buf + (size_t)s * 2 * T * H;
   }
 
@@ -546,10 +767,11 @@ struct MmaRing {
   }
 
   // The producer warp's lane 0: every tile of the launch, in order.
-  __device__ void produce() const {
+  template <typename... Clk>
+  __device__ void produce(Clk&... clk) const {
     for (int r = 0; r < total; ++r) {
       const int s = r % kMmaStages, k = r / kMmaStages;
-      if (k > 0) mbar_wait(empty(s), (k - 1) & 1);  // every reader is done with tile r - kMmaStages
+      if (k > 0) feed_wait(empty(s), (k - 1) & 1, clk...);  // every reader is done with tile r - kMmaStages
       asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(full(s)), "r"(tile_bytes)
                    : "memory");
       const char* from = src + (size_t)((first + r) % period) * tile_bytes;
@@ -557,13 +779,15 @@ struct MmaRing {
                        smem_addr(buf + (size_t)s * tile_bytes)),
                    "l"(from), "r"(tile_bytes), "r"(full(s))
                    : "memory");
+      if ((r & 63) == 63) (clk.settle(), ...);
     }
   }
 
   // A reading warp: waits for tile q and returns its fragments.
-  __device__ const uint4* ready() const {
+  template <typename... Clk>
+  __device__ const uint4* ready(Clk&... clk) const {
     const int s = q % kMmaStages;
-    mbar_wait(full(s), (q / kMmaStages) & 1);
+    feed_wait(full(s), (q / kMmaStages) & 1, clk...);
     return reinterpret_cast<const uint4*>(buf + (size_t)s * tile_bytes);
   }
 
@@ -688,9 +912,9 @@ __device__ __forceinline__ void load_vec(const float* p, float (&v)[U]) {
 // float4 (G = 2), kRingRows rows at a time. The epilogue's global loads, and
 // the next layer norm's vectors (ln_next: vectors iv + 1, iv + 2, which
 // half 1 parks in shared memory for it), are issued before the tiles.
-template <int G>
+template <int G, typename... Clk>
 __device__ void dense_ring(const Args& a, Ring& st, int iv, const float* in, float* out, float* part,
-                           const float* rows, const int* row_idx, bool residual, bool ln_next) {
+                           const float* rows, const int* row_idx, bool residual, bool ln_next, Clk&... clk) {
   constexpr int U = 2;  // outputs a thread
   static_assert(G == 2, "activations are read as float4s of two rows");
   const int H = a.H;
@@ -718,9 +942,10 @@ __device__ void dense_ring(const Args& a, Ring& st, int iv, const float* in, flo
     load_vec<U>(a.vecs + (size_t)(iv + 1) * H + o0, gamma);
     load_vec<U>(a.vecs + (size_t)(iv + 2) * H + o0, beta);
   }
+  (clk.layer(), ...);
   for (int t = 0; t < st.tpl; ++t, ++st.q) {
     if (!active) continue;
-    const float* w = st.ready() + (size_t)half * st.T * H + o0;
+    const float* w = st.ready(clk...) + (size_t)half * st.T * H + o0;
     const float* x = in + (i0 + t * st.T) * G;
     constexpr int R = kRingRows;
     for (int u = 0; u < st.T; u += R) {
@@ -751,7 +976,7 @@ __device__ void dense_ring(const Args& a, Ring& st, int iv, const float* in, flo
       }
     }
   }
-  block_sync();
+  sync_lap<kProducts>(clk...);
   if (active && half == 0) {
 #pragma unroll
     for (int k = 0; k < U; ++k) {
@@ -765,7 +990,7 @@ __device__ void dense_ring(const Args& a, Ring& st, int iv, const float* in, flo
       }
     }
   }
-  block_sync();
+  sync_lap<kNorm>(clk...);
 }
 
 // out (H, G) = W[layer]^T in + vec[iv] (+ rows[row_idx[g]] | + out), a
@@ -775,9 +1000,9 @@ __device__ void dense_ring(const Args& a, Ring& st, int iv, const float* in, flo
 // one on those of its Ring; either must stand at this layer's first tile, so
 // `layer` is unread (kept, with tower's ihh, so that the float32 libraries
 // compile to the machine code they had).
-template <int G, typename W, bool kStream, typename Feed>
+template <int G, typename W, bool kStream, typename Feed, typename... Clk>
 __device__ void dense(const Args& a, Feed& st, int layer, int iv, const float* in, float* out, float* part,
-                      const W* rows, const int* row_idx, bool residual) {
+                      const W* rows, const int* row_idx, bool residual, Clk&... clk) {
   const int H = a.H;
   const int o = threadIdx.x % H;
   const int half = threadIdx.x / H;
@@ -786,10 +1011,14 @@ __device__ void dense(const Args& a, Feed& st, int layer, int iv, const float* i
   static_assert(G % 2 == 0, "activations are read as float2s");
   RowSum<G, W> sum;
   if constexpr (kStream) {
+    (clk.layer(), ...);
     for (int t = 0; t < st.tpl; ++t) {
-      st.wait();        // this thread's copies of tile st.q
+      st.wait();  // this thread's copies of tile st.q
+      lap<kFeed>(clk...);
       __syncthreads();  // everyone's; and the other buffer's last readers are done
+      (clk.add_barrier(), ...);
       if (st.q + 1 < st.total) st.issue(a, st.q + 1);
+      lap<kFeed>(clk...);
       const W* w = st.buf + (size_t)(st.q & 1) * 2 * st.T * H + (size_t)half * st.T * H + o;
       const float* x = in + (i0 + t * st.T) * G;
       for (int u = 0; u < st.T; u += 8) {
@@ -799,16 +1028,17 @@ __device__ void dense(const Args& a, Feed& st, int layer, int iv, const float* i
         sum.add8(wr, x + u * G);
       }
       ++st.q;
+      lap<kProducts>(clk...);
     }
   } else if constexpr (kRing) {
-    dense_ring<G>(a, st, iv, in, out, part, rows, row_idx, residual, false);
+    dense_ring<G>(a, st, iv, in, out, part, rows, row_idx, residual, false, clk...);
     return;
   }
   if (half == 1) {
 #pragma unroll
     for (int g = 0; g < G; ++g) part[o * G + g] = sum.acc[g];
   }
-  block_sync();
+  sync_lap<kNorm>(clk...);
   if (half == 0) {
     const float bias = a.vecs[(size_t)iv * H + o];
 #pragma unroll
@@ -819,7 +1049,7 @@ __device__ void dense(const Args& a, Feed& st, int layer, int iv, const float* i
       out[o * G + g] = v;
     }
   }
-  block_sync();
+  sync_lap<kNorm>(clk...);
 }
 
 // A balanced tree over v[0..N-1], N a power of two: halving, as the plain
@@ -836,8 +1066,8 @@ __device__ __forceinline__ float tree(float (&v)[N]) {
 
 // out = relu(LayerNorm(in) * vec[iv] + vec[iv + 1]) of a float32 pack, one
 // warp per column; `out` may alias `in`.
-template <int G, typename W>
-__device__ void layer_norm_relu(const Args& a, int iv, const float* in, float* out) {
+template <int G, typename W, typename... Clk>
+__device__ void layer_norm_relu(const Args& a, int iv, const float* in, float* out, Clk&... clk) {
   const int H = a.H;
   const int lane = threadIdx.x & 31;
   for (int g = threadIdx.x >> 5; g < G; g += compute_threads() >> 5) {
@@ -891,38 +1121,38 @@ __device__ void layer_norm_relu(const Args& a, int iv, const float* in, float* o
       }
     }
   }
-  block_sync();
+  sync_lap<kNorm>(clk...);
 }
 
 // A dense layer of a tower, which a layer norm follows: the ring kernel's
 // brings that layer norm's vectors along.
-template <int G, typename W, bool kStream, typename Feed>
+template <int G, typename W, bool kStream, typename Feed, typename... Clk>
 __device__ __forceinline__ void tower_dense(const Args& a, Feed& st, int layer, int iv, const float* in, float* out,
-                                            float* part, bool residual) {
+                                            float* part, bool residual, Clk&... clk) {
   if constexpr (kRing) {
-    dense_ring<G>(a, st, iv, in, out, part, nullptr, nullptr, residual, true);
+    dense_ring<G>(a, st, iv, in, out, part, nullptr, nullptr, residual, true, clk...);
   } else {
-    dense<G, W, kStream>(a, st, layer, iv, in, out, part, nullptr, nullptr, residual);
+    dense<G, W, kStream>(a, st, layer, iv, in, out, part, nullptr, nullptr, residual, clk...);
   }
 }
 
 // TowerWithHead: dense -> NB pre-LN residual blocks -> LN -> relu; result in x.
 // `in` may alias u (it is consumed by the first layer).
-template <int G, typename W, bool kStream, typename Feed>
+template <int G, typename W, bool kStream, typename Feed, typename... Clk>
 __device__ void tower(const Args& a, Feed& st, int ihh, int iv, const float* in, float* x, float* t, float* u,
-                      float* part) {
-  tower_dense<G, W, kStream>(a, st, ihh, iv, in, x, part, false);
+                      float* part, Clk&... clk) {
+  tower_dense<G, W, kStream>(a, st, ihh, iv, in, x, part, false, clk...);
   ihh += 1;
   iv += 1;
   for (int blk = 0; blk < a.NB; ++blk) {
-    layer_norm_relu<G, W>(a, iv, x, t);
-    tower_dense<G, W, kStream>(a, st, ihh, iv + 2, t, u, part, false);
-    layer_norm_relu<G, W>(a, iv + 3, u, u);
-    tower_dense<G, W, kStream>(a, st, ihh + 1, iv + 5, u, x, part, true);
+    layer_norm_relu<G, W>(a, iv, x, t, clk...);
+    tower_dense<G, W, kStream>(a, st, ihh, iv + 2, t, u, part, false, clk...);
+    layer_norm_relu<G, W>(a, iv + 3, u, u, clk...);
+    tower_dense<G, W, kStream>(a, st, ihh + 1, iv + 5, u, x, part, true, clk...);
     ihh += 2;
     iv += 6;
   }
-  layer_norm_relu<G, W>(a, iv, x, x);
+  layer_norm_relu<G, W>(a, iv, x, x, clk...);
 }
 
 // The tensor-core libraries' dense layer: out (columns, H + kRowPad) float and/or xout
@@ -938,9 +1168,10 @@ __device__ void tower(const Args& a, Feed& st, int ihh, int iv, const float* in,
 // and/or its bfloat16 rounding, the next product's input (the TPU kernel's
 // x.astype(w.dtype), done once here instead of at every product). A layer
 // must not write the bfloat16 tile it reads.
-template <int G>
+template <int G, typename... Clk>
 __device__ void dense_mma(const Args& a, MmaRing& st, int iv, const __nv_bfloat16* xin, float* out,
-                          __nv_bfloat16* xout, const __nv_bfloat16* rows, const int* row_idx, bool residual) {
+                          __nv_bfloat16* xout, const __nv_bfloat16* rows, const int* row_idx, bool residual,
+                          Clk&... clk) {
   constexpr int NT = (G + 7) / 8;  // n-tiles of 8 columns
   const int H = a.H, MT = H / 16, ld = H + kActPad, ldf = H + kRowPad;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
@@ -960,8 +1191,9 @@ __device__ void dense_mma(const Args& a, MmaRing& st, int iv, const __nv_bfloat1
   if (!active) {
     st.q += st.tpl;  // the cursor stays in step; this warp reads no tile
   }
+  (clk.layer(), ...);
   for (int t = 0; active && t < st.tpl; ++t, ++st.q) {
-    const uint4* w = st.ready();
+    const uint4* w = st.ready(clk...);
     for (int kk = 0; kk < st.kt; ++kk) {
       const __nv_bfloat16* xk = xin + (size_t)gq * ld + (t * st.kt + kk) * 16 + 2 * tq;
       unsigned b[NT][2];
@@ -982,6 +1214,7 @@ __device__ void dense_mma(const Args& a, MmaRing& st, int iv, const __nv_bfloat1
     }
     st.release();
   }
+  lap<kProducts>(clk...);
 #pragma unroll
   for (int j = 0; j < kMmaMaxTiles; ++j) {
     const int mt = warp + j * kMmaWarps;
@@ -1000,7 +1233,7 @@ __device__ void dense_mma(const Args& a, MmaRing& st, int iv, const __nv_bfloat1
       }
     }
   }
-  block_sync();
+  sync_lap<kNorm>(clk...);
 }
 
 // LayerNorm and relu beside a bfloat16 pack, every operation rounded on its
@@ -1012,8 +1245,9 @@ __device__ void dense_mma(const Args& a, MmaRing& st, int iv, const __nv_bfloat1
 // bfloat16 rounding of the result to `xb` (columns, H + kActPad), the next
 // dense layer's input, and, unless null, the float result to `heads` (H, G),
 // the heads' layout.
-template <int G>
-__device__ void layer_norm_mma(const Args& a, int iv, const float* in, float* heads, __nv_bfloat16* xb) {
+template <int G, typename... Clk>
+__device__ void layer_norm_mma(const Args& a, int iv, const float* in, float* heads, __nv_bfloat16* xb,
+                               Clk&... clk) {
   const int H = a.H, n = H / 32, ld = H + kActPad, ldf = H + kRowPad;
   const int lane = threadIdx.x & 31;
   for (int g = threadIdx.x >> 5; g < G; g += compute_threads() >> 5) {
@@ -1045,7 +1279,7 @@ __device__ void layer_norm_mma(const Args& a, int iv, const float* in, float* he
       xb[(size_t)g * ld + i] = __float2bfloat16_rn(z);
     }
   }
-  block_sync();
+  sync_lap<kNorm>(clk...);
 }
 
 // tower on the tensor cores: the input's bfloat16 tile in_b; the result in
@@ -1053,24 +1287,24 @@ __device__ void layer_norm_mma(const Args& a, int iv, const float* in, float* he
 // u (columns, H + kRowPad) hold the residual stream and a block's first
 // dense layer; the blocks' layer norms write only the bfloat16 tiles their
 // dense layers read (xa, then xb).
-template <int G>
+template <int G, typename... Clk>
 __device__ void tower_mma(const Args& a, MmaRing& st, int iv, const __nv_bfloat16* in_b, float* x, float* u,
-                          float* xh, __nv_bfloat16* xa, __nv_bfloat16* xb) {
-  dense_mma<G>(a, st, iv, in_b, x, nullptr, nullptr, nullptr, false);
+                          float* xh, __nv_bfloat16* xa, __nv_bfloat16* xb, Clk&... clk) {
+  dense_mma<G>(a, st, iv, in_b, x, nullptr, nullptr, nullptr, false, clk...);
   iv += 1;
   for (int blk = 0; blk < a.NB; ++blk) {
-    layer_norm_mma<G>(a, iv, x, nullptr, xa);
-    dense_mma<G>(a, st, iv + 2, xa, u, nullptr, nullptr, nullptr, false);
-    layer_norm_mma<G>(a, iv + 3, u, nullptr, xb);
-    dense_mma<G>(a, st, iv + 5, xb, x, nullptr, nullptr, nullptr, true);
+    layer_norm_mma<G>(a, iv, x, nullptr, xa, clk...);
+    dense_mma<G>(a, st, iv + 2, xa, u, nullptr, nullptr, nullptr, false, clk...);
+    layer_norm_mma<G>(a, iv + 3, u, nullptr, xb, clk...);
+    dense_mma<G>(a, st, iv + 5, xb, x, nullptr, nullptr, nullptr, true, clk...);
     iv += 6;
   }
-  layer_norm_mma<G>(a, iv, x, xh, xa);
+  layer_norm_mma<G>(a, iv, x, xh, xa, clk...);
 }
 
 // out[g] = untransform(scal[:, c] . x[:, g] + scal_b[c]), one warp per column.
-template <int G>
-__device__ void head_scalar(const Args& a, int c, const float* x, float* out) {
+template <int G, typename... Clk>
+__device__ void head_scalar(const Args& a, int c, const float* x, float* out, Clk&... clk) {
   const int lane = threadIdx.x & 31;
   for (int g = threadIdx.x >> 5; g < G; g += compute_threads() >> 5) {
     float s = 0.f;
@@ -1078,16 +1312,16 @@ __device__ void head_scalar(const Args& a, int c, const float* x, float* out) {
     s = warp_sum(s) + a.scal_b[c];
     if (lane == 0) out[g] = untransform(a, s);
   }
-  block_sync();
+  sync_lap<kNorm>(clk...);
 }
 
 // out[g] = untransform(sum_k softmax(cat[:, off:off+bins]^T x[:, g] + cat_b)[k] * k * step).
 // `psum` holds max(split, bins) * G floats and `lg` bins * G floats, split
 // the threads the input range is split over: every computing thread, but in
 // the resident tensor-core library kHeadSplit.
-template <int G, typename W>
+template <int G, typename W, typename... Clk>
 __device__ void head_categorical(const Args& a, int off, int bins, float step, const float* x, float* out,
-                                 float* psum, float* lg) {
+                                 float* psum, float* lg, Clk&... clk) {
   const int H = a.H, T = compute_threads();
   const int split = kMma && !kStreamed ? kHeadSplit : T;
   const int nparts = bins >= split ? 1 : split / bins;  // input ranges summed by separate threads
@@ -1107,14 +1341,14 @@ __device__ void head_categorical(const Args& a, int off, int bins, float step, c
 #pragma unroll
     for (int g = 0; g < G; ++g) psum[(size_t)e * G + g] = acc[g];
   }
-  block_sync();
+  sync_lap<kNorm>(clk...);
   for (int e = threadIdx.x; e < bins * G; e += T) {
     const int k = e / G, g = e % G;
     float s = 0.f;
     for (int part = 0; part < nparts; ++part) s += psum[(size_t)(part * bins + k) * G + g];
     lg[e] = s + a.cat_b[off + k];
   }
-  block_sync();
+  sync_lap<kNorm>(clk...);
   const int lane = threadIdx.x & 31;
   for (int g = threadIdx.x >> 5; g < G; g += T >> 5) {
     float m = -INFINITY;
@@ -1130,25 +1364,26 @@ __device__ void head_categorical(const Args& a, int off, int bins, float step, c
     den = warp_sum(den);
     if (lane == 0) out[g] = untransform(a, __fdiv_rn(num, den));
   }
-  block_sync();
+  sync_lap<kNorm>(clk...);
 }
 
 // The value (c = 0), Q (c = 1) or reward (c = 2) head, scalar (float32
 // weights and activations, whatever W is) or categorical.
-template <int G, typename W>
-__device__ void head_value(const Args& a, int c, const float* x, float* out, float* psum, float* lg) {
+template <int G, typename W, typename... Clk>
+__device__ void head_value(const Args& a, int c, const float* x, float* out, float* psum, float* lg,
+                           Clk&... clk) {
   const int bins = c == 2 ? a.reward_bins : a.value_bins;
   if (bins == 1) {
-    head_scalar<G>(a, c, x, out);
+    head_scalar<G>(a, c, x, out, clk...);
     return;
   }
   const int off = a.value_bins > 1 ? c * a.value_bins : 0;
-  head_categorical<G, W>(a, off, bins, c == 2 ? a.reward_step : a.value_step, x, out, psum, lg);
+  head_categorical<G, W>(a, off, bins, c == 2 ? a.reward_step : a.value_step, x, out, psum, lg, clk...);
 }
 
 // logits (K, G) = wide[j]^T x + wide_b[:, j].
-template <int G, typename W>
-__device__ void head_logits(const Args& a, int j, const float* x, float* logits) {
+template <int G, typename W, typename... Clk>
+__device__ void head_logits(const Args& a, int j, const float* x, float* logits, Clk&... clk) {
   for (int e = threadIdx.x; e < a.K * G; e += compute_threads()) {
     const int k = e / G, g = e % G;
     const W* w = static_cast<const W*>(a.wide) + (size_t)j * a.H * a.K + k;
@@ -1156,7 +1391,7 @@ __device__ void head_logits(const Args& a, int j, const float* x, float* logits)
     for (int i = 0; i < a.H; ++i) s = fmaf(to_f(w[(size_t)i * a.K]), act<W>(x[i * G + g]), s);
     logits[e] = s + a.wide_b[k * 2 + j];
   }
-  block_sync();
+  sync_lap<kNorm>(clk...);
 }
 
 // Floats of shared memory the categorical heads take beside the rest: partial
@@ -1187,8 +1422,8 @@ struct Picks {
 };
 
 // Tree init: the root of search b0 + g is node 0, a decision node.
-template <int G, typename W>
-__device__ __forceinline__ void tree_init(const Args& a, int b0) {
+template <int G, typename W, typename... Clk>
+__device__ __forceinline__ void tree_init(const Args& a, int b0, Clk&... clk) {
   const int H = a.H, K = a.K, N = a.S + 1;
   const int tid = threadIdx.x;
   W* emb = static_cast<W*>(a.emb);
@@ -1210,12 +1445,12 @@ __device__ __forceinline__ void tree_init(const Args& a, int b0) {
     }
     for (int e = tid; e < H; e += compute_threads()) emb[nn * H + e] = from_f<W>(a.root_h[(size_t)b * H + e]);
   }
-  block_sync();
+  sync_lap<kTree>(clk...);
 }
 
 // Traversal, one warp per search: the leaf each search expands, in `p`.
-template <int G>
-__device__ __forceinline__ void traverse(const Args& a, int b0, const Picks& p) {
+template <int G, typename... Clk>
+__device__ __forceinline__ void traverse(const Args& a, int b0, const Picks& p, Clk&... clk) {
   const int K = a.K, A = a.A, N = a.S + 1, P = a.P;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = compute_threads() >> 5;
   for (int g = warp; g < G; g += nwarps) {
@@ -1260,14 +1495,14 @@ __device__ __forceinline__ void traverse(const Args& a, int b0, const Picks& p) 
       p.crow[g] = min(edge, K - 1);
     }
   }
-  block_sync();
+  sync_lap<kTree>(clk...);
 }
 
 // The new nodes' priors at row new_index: a softmax of the chance logits
 // (lc) after a decision parent, of the action logits (la) after a chance one.
-template <int G>
+template <int G, typename... Clk>
 __device__ __forceinline__ void priors(const Args& a, int b0, int new_index, const int* s_dec, const float* lc,
-                                       const float* la) {
+                                       const float* la, Clk&... clk) {
   const int K = a.K, A = a.A, N = a.S + 1;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = compute_threads() >> 5;
   for (int g = warp; g < G; g += nwarps) {
@@ -1282,13 +1517,14 @@ __device__ __forceinline__ void priors(const Args& a, int b0, int new_index, con
     const float sum = warp_sum(ev);
     if (lane < K) a.prior[((size_t)b * N + new_index) * K + lane] = __fdiv_rn(ev, sum);
   }
+  lap<kNorm>(clk...);
 }
 
 // The backup, one thread per search: the new node's statistics, then the
 // path's values, visits and edges.
-template <int G>
+template <int G, typename... Clk>
 __device__ __forceinline__ void backup(const Args& a, int b0, int new_index, const Picks& p, const float* s_q,
-                                       const float* s_r, const float* s_v) {
+                                       const float* s_r, const float* s_v, Clk&... clk) {
   const int K = a.K, N = a.S + 1, P = a.P;
   const int tid = threadIdx.x;
   if (tid < G && b0 + tid < a.B) {
@@ -1329,12 +1565,12 @@ __device__ __forceinline__ void backup(const Args& a, int b0, int new_index, con
       a.cval[ek] = __fadd_rn(a.nrew[nb + cn], __fmul_rn(a.ndis[nb + cn], a.nval[nb + cn]));
     }
   }
-  block_sync();
+  sync_lap<kTree>(clk...);
 }
 
 // Root visits and Q of every action, and the root value.
-template <int G>
-__device__ __forceinline__ void root_stats(const Args& a, int b0) {
+template <int G, typename... Clk>
+__device__ __forceinline__ void root_stats(const Args& a, int b0, Clk&... clk) {
   const int K = a.K, A = a.A, N = a.S + 1;
   const int tid = threadIdx.x;
   for (int e = tid; e < G * A; e += compute_threads()) {
@@ -1345,6 +1581,7 @@ __device__ __forceinline__ void root_stats(const Args& a, int b0) {
     }
   }
   if (tid < G && b0 + tid < a.B) a.rootv[b0 + tid] = a.nval[(size_t)(b0 + tid) * N];
+  lap<kTree>(clk...);
 }
 
 // The streamed kernel's tile: T rows of each input half, the largest power
@@ -1365,8 +1602,9 @@ inline int stream_tile_rows(int H, int wsize) {
 #define WHOLE_SEARCH_BOUNDS __launch_bounds__(1024)
 #endif
 
-template <int G, typename W, bool kStream>
-__global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
+template <int G, typename W, bool kStream, typename... Clk>
+__global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a, Clk... clk) {
+  (clk.begin(), ...);
   extern __shared__ __align__(16) float smem[];
   const int H = a.H, K = a.K, A = a.A, N = a.S + 1, P = a.P;
   const int HG = H * G;
@@ -1414,7 +1652,8 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
   if constexpr (kRing) {
     st.start(a, smem, tower_hh);
     if (tid >= (int)compute_threads()) {  // the producer warp
-      if (lane == 0) st.produce(a);
+      if (lane == 0) st.produce(a, clk...);
+      (clk.flush(), ...);
       return;
     }
   } else {
@@ -1444,7 +1683,7 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
     }
     for (int e = tid; e < H; e += compute_threads()) emb[nn * H + e] = from_f<W>(a.root_h[(size_t)b * H + e]);
   }
-  block_sync();
+  sync_lap<kTree>(clk...);
 
   for (int sim = 0; sim < a.S; ++sim) {
     const int new_index = sim + 1;
@@ -1496,32 +1735,32 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
         s_crow[g] = min(edge, K - 1);
       }
     }
-    block_sync();
+    sync_lap<kTree>(clk...);
 
     // ---- expansion: both transition types at (parent, edge)
     for (int e = tid; e < HG; e += compute_threads()) {
       const int i = e / G, g = e % G, b = b0 + g;
       pe[e] = b < a.B ? to_f(emb[((size_t)b * N + s_parent[g]) * H + i]) : 0.f;
     }
-    block_sync();
+    sync_lap<kTree>(clk...);
 
     // phi then psi (decision parent -> chance child)
     // (in call order: the streamed pack holds the layers in this order)
-    dense<G, W, kStream>(a, st, PHI_FUSE_HH, PHI_FUSE_V, pe, u, part, win, s_arow, false);
-    tower<G, W, kStream>(a, st, PHI_HH, PHI_V, u, x, t, u, part);
-    dense<G, W, kStream>(a, st, PHI_HEAD_HH, PHI_HEAD_V, x, after, part, nullptr, nullptr, false);
-    tower<G, W, kStream>(a, st, PSI_HH, PSI_V, after, x, t, u, part);
-    head_value<G, W>(a, 1, x, s_q, psum, lgt);
-    head_logits<G, W>(a, 1, x, lc);
+    dense<G, W, kStream>(a, st, PHI_FUSE_HH, PHI_FUSE_V, pe, u, part, win, s_arow, false, clk...);
+    tower<G, W, kStream>(a, st, PHI_HH, PHI_V, u, x, t, u, part, clk...);
+    dense<G, W, kStream>(a, st, PHI_HEAD_HH, PHI_HEAD_V, x, after, part, nullptr, nullptr, false, clk...);
+    tower<G, W, kStream>(a, st, PSI_HH, PSI_V, after, x, t, u, part, clk...);
+    head_value<G, W>(a, 1, x, s_q, psum, lgt, clk...);
+    head_logits<G, W>(a, 1, x, lc, clk...);
 
     // g then f (chance parent -> decision child)
-    dense<G, W, kStream>(a, st, G_FUSE_HH, G_FUSE_V, pe, u, part, win + (size_t)K * H, s_crow, false);
-    tower<G, W, kStream>(a, st, G_HH, G_V, u, x, t, u, part);
-    dense<G, W, kStream>(a, st, G_HEAD_HH, G_HEAD_V, x, hnew, part, nullptr, nullptr, false);
-    head_value<G, W>(a, 2, x, s_r, psum, lgt);
-    tower<G, W, kStream>(a, st, F_HH, F_V, hnew, x, t, u, part);
-    head_value<G, W>(a, 0, x, s_v, psum, lgt);
-    head_logits<G, W>(a, 0, x, la);
+    dense<G, W, kStream>(a, st, G_FUSE_HH, G_FUSE_V, pe, u, part, win + (size_t)K * H, s_crow, false, clk...);
+    tower<G, W, kStream>(a, st, G_HH, G_V, u, x, t, u, part, clk...);
+    dense<G, W, kStream>(a, st, G_HEAD_HH, G_HEAD_V, x, hnew, part, nullptr, nullptr, false, clk...);
+    head_value<G, W>(a, 2, x, s_r, psum, lgt, clk...);
+    tower<G, W, kStream>(a, st, F_HH, F_V, hnew, x, t, u, part, clk...);
+    head_value<G, W>(a, 0, x, s_v, psum, lgt, clk...);
+    head_logits<G, W>(a, 0, x, la, clk...);
 
     // ---- install the new node at row new_index (unreachable when the
     // depth cap stopped on an expanded edge)
@@ -1529,6 +1768,7 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
       const int i = e / G, g = e % G, b = b0 + g;
       if (b < a.B) emb[((size_t)b * N + new_index) * H + i] = from_f<W>(s_dec[g] ? after[e] : hnew[e]);
     }
+    lap<kTree>(clk...);
     for (int g = warp; g < G; g += nwarps) {
       const int b = b0 + g;
       if (b >= a.B) continue;
@@ -1541,6 +1781,7 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
       const float sum = warp_sum(ev);
       if (lane < K) a.prior[((size_t)b * N + new_index) * K + lane] = __fdiv_rn(ev, sum);
     }
+    lap<kNorm>(clk...);
 
     // ---- backup, one thread per search
     if (tid < G && b0 + tid < a.B) {
@@ -1581,7 +1822,8 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
         a.cval[ek] = __fadd_rn(a.nrew[nb + cn], __fmul_rn(a.ndis[nb + cn], a.nval[nb + cn]));
       }
     }
-    block_sync();
+    sync_lap<kTree>(clk...);
+    (clk.settle(), ...);
   }
 
   // ---- root statistics
@@ -1593,6 +1835,8 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
     }
   }
   if (tid < G && b0 + tid < a.B) a.rootv[b0 + tid] = a.nval[(size_t)(b0 + tid) * N];
+  lap<kTree>(clk...);
+  (clk.flush(), ...);
 }
 
 // The tensor-core libraries' kernel (bfloat16 packs, variants (c) resident
@@ -1608,8 +1852,9 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a) {
 // install copies to the table), then u (columns, H + kRowPad) float and the
 // bfloat16 tiles xa and xb, over which the categorical heads keep their
 // partial sums (none of the three is live during a head).
-template <int G>
-__global__ void __launch_bounds__(32 * (kMmaWarps + 1), 1) whole_search_mma_kernel(Args a) {
+template <int G, typename... Clk>
+__global__ void __launch_bounds__(32 * (kMmaWarps + 1), 1) whole_search_mma_kernel(Args a, Clk... clk) {
+  (clk.begin(), ...);
   using bf16 = __nv_bfloat16;
   extern __shared__ __align__(16) float smem[];
   const int H = a.H, K = a.K, N = a.S + 1;
@@ -1649,50 +1894,54 @@ __global__ void __launch_bounds__(32 * (kMmaWarps + 1), 1) whole_search_mma_kern
   MmaRing st;
   st.start(a.hh, smem, H, 0, n_real, a.S * n_real, min(kMmaWarps, H / 16));
   if (tid >= (int)compute_threads()) {  // the producer warp
-    if ((tid & 31) == 0) st.produce();
+    if ((tid & 31) == 0) st.produce(clk...);
+    (clk.flush(), ...);
     return;
   }
 
-  tree_init<G, bf16>(a, b0);
+  tree_init<G, bf16>(a, b0, clk...);
 
   for (int sim = 0; sim < a.S; ++sim) {
     const int new_index = sim + 1;
-    traverse<G>(a, b0, picks);
+    traverse<G>(a, b0, picks, clk...);
 
     // ---- expansion: both transition types at (parent, edge), the layers in call order
     for (int e = tid; e < HG; e += compute_threads()) {
       const int g = e / H, i = e % H, b = b0 + g;
       pe_b[(size_t)g * ld + i] = b < a.B ? emb[((size_t)b * N + picks.parent[g]) * H + i] : __float2bfloat16_rn(0.f);
     }
-    block_sync();
+    sync_lap<kTree>(clk...);
 
     // phi then psi (decision parent -> chance child)
-    dense_mma<G>(a, st, PHI_FUSE_V, pe_b, nullptr, xa, win, picks.arow, false);
-    tower_mma<G>(a, st, PHI_V, xa, x, u, xh, xa, xb);
-    dense_mma<G>(a, st, PHI_HEAD_V, xa, nullptr, after_b, nullptr, nullptr, false);
-    tower_mma<G>(a, st, PSI_V, after_b, x, u, xh, xa, xb);
-    head_value<G, bf16>(a, 1, xh, s_q, psum, lgt);
-    head_logits<G, bf16>(a, 1, xh, lc);
+    dense_mma<G>(a, st, PHI_FUSE_V, pe_b, nullptr, xa, win, picks.arow, false, clk...);
+    tower_mma<G>(a, st, PHI_V, xa, x, u, xh, xa, xb, clk...);
+    dense_mma<G>(a, st, PHI_HEAD_V, xa, nullptr, after_b, nullptr, nullptr, false, clk...);
+    tower_mma<G>(a, st, PSI_V, after_b, x, u, xh, xa, xb, clk...);
+    head_value<G, bf16>(a, 1, xh, s_q, psum, lgt, clk...);
+    head_logits<G, bf16>(a, 1, xh, lc, clk...);
 
     // g then f (chance parent -> decision child)
-    dense_mma<G>(a, st, G_FUSE_V, pe_b, nullptr, xa, win + (size_t)K * H, picks.crow, false);
-    tower_mma<G>(a, st, G_V, xa, x, u, xh, xa, xb);
-    dense_mma<G>(a, st, G_HEAD_V, xa, nullptr, hnew_b, nullptr, nullptr, false);
-    head_value<G, bf16>(a, 2, xh, s_r, psum, lgt);
-    tower_mma<G>(a, st, F_V, hnew_b, x, u, xh, xa, xb);
-    head_value<G, bf16>(a, 0, xh, s_v, psum, lgt);
-    head_logits<G, bf16>(a, 0, xh, la);
+    dense_mma<G>(a, st, G_FUSE_V, pe_b, nullptr, xa, win + (size_t)K * H, picks.crow, false, clk...);
+    tower_mma<G>(a, st, G_V, xa, x, u, xh, xa, xb, clk...);
+    dense_mma<G>(a, st, G_HEAD_V, xa, nullptr, hnew_b, nullptr, nullptr, false, clk...);
+    head_value<G, bf16>(a, 2, xh, s_r, psum, lgt, clk...);
+    tower_mma<G>(a, st, F_V, hnew_b, x, u, xh, xa, xb, clk...);
+    head_value<G, bf16>(a, 0, xh, s_v, psum, lgt, clk...);
+    head_logits<G, bf16>(a, 0, xh, la, clk...);
 
     // ---- install the new node at row new_index: the bfloat16 values the next products read
     for (int e = tid; e < HG; e += compute_threads()) {
       const int g = e / H, i = e % H, b = b0 + g;
       if (b < a.B) emb[((size_t)b * N + new_index) * H + i] = (picks.dec[g] ? after_b : hnew_b)[(size_t)g * ld + i];
     }
-    priors<G>(a, b0, new_index, picks.dec, lc, la);
-    backup<G>(a, b0, new_index, picks, s_q, s_r, s_v);
+    lap<kTree>(clk...);
+    priors<G>(a, b0, new_index, picks.dec, lc, la, clk...);
+    backup<G>(a, b0, new_index, picks, s_q, s_r, s_v, clk...);
+    (clk.settle(), ...);
   }
 
-  root_stats<G>(a, b0);
+  root_stats<G>(a, b0, clk...);
+  (clk.flush(), ...);
 }
 
 // The dense probe: block l runs dense_mma on layer l of the fragment copy
@@ -1783,34 +2032,45 @@ inline cudaLaunchConfig_t cluster_config(const Plan& p, cudaStream_t stream, cud
   return cfg;
 }
 
-template <int G, typename W, bool kStream>
-int launch(Args a, cudaStream_t stream) {
+// The launch of the unclocked kernel, or with a Clock (clk) the clocked one.
+template <int G, typename W, bool kStream, typename... Clk>
+int launch(Args a, cudaStream_t stream, Clk... clk) {
   const Plan p = make_plan<G, W, kStream>(a.B, a.H, a.K, a.value_bins, a.reward_bins);
   a.tile_rows = p.tile_rows;
   a.tile_floats = p.tile_floats;
-  cudaError_t err = cudaFuncSetAttribute(whole_search_kernel<G, W, kStream>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  auto kernel = whole_search_kernel<G, W, kStream, Clk...>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (err != cudaSuccess) return (int)err;
   if constexpr (kRing) {
     cudaLaunchAttribute attr;
     const cudaLaunchConfig_t cfg = cluster_config(p, stream, &attr);
-    err = cudaLaunchKernelEx(&cfg, whole_search_kernel<G, W, kStream>, a);
+    err = cudaLaunchKernelEx(&cfg, kernel, a, clk...);
     if (err != cudaSuccess) return (int)err;
   } else {
-    whole_search_kernel<G, W, kStream><<<p.blocks, p.threads, p.smem, stream>>>(a);
+    kernel<<<p.blocks, p.threads, p.smem, stream>>>(a, clk...);
   }
   return (int)cudaGetLastError();
 }
 
-template <int G>
-int launch_mma(Args a, cudaStream_t stream) {
+template <int G, typename... Clk>
+int launch_mma(Args a, cudaStream_t stream, Clk... clk) {
   const Plan p = make_mma_plan<G>(a.B, a.H, a.K, a.value_bins, a.reward_bins);
   a.tile_floats = p.tile_floats;
-  cudaError_t err =
-      cudaFuncSetAttribute(whole_search_mma_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  auto kernel = whole_search_mma_kernel<G, Clk...>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (err != cudaSuccess) return (int)err;
-  whole_search_mma_kernel<G><<<p.blocks, p.threads, p.smem, stream>>>(a);
+  kernel<<<p.blocks, p.threads, p.smem, stream>>>(a, clk...);
   return (int)cudaGetLastError();
+}
+
+// This library's launch (launch or launch_mma), clocked when given a Clock.
+template <typename... Clk>
+int launch_library(const Args& a, cudaStream_t stream, Clk... clk) {
+#if WHOLE_SEARCH_BF16
+  return launch_mma<kSearchesPerBlock>(a, stream, clk...);
+#else
+  return launch<kSearchesPerBlock, Weight, kStreamed>(a, stream, clk...);
+#endif
 }
 
 // make_plan's numbers for this library's kernel, and how many of its blocks
@@ -1885,14 +2145,16 @@ int whole_search_launch_shape(int B, int H, int K, int value_bins, int reward_bi
 // variant this library was not built for. hh, win, wide and cat are bfloat16
 // when weight_bf16 is 1, else float32; with streamed = 1, hh holds the
 // 4 (1 + 2 NB) + 4 layers in call order (any zero padding after them is
-// never read).
+// never read). With `clocks` (kCounters int64s, zeroed) the clocked kernel
+// runs and adds its phase clocks there; with null, the unclocked one.
 int whole_search_launch(const float* root_h, const float* root_p, const float* root_v, const void* hh,
                         const float* vecs, const void* win, const void* wide, const float* wide_b,
                         const float* scal, const float* scal_b, const void* cat, const float* cat_b,
                         float* visits, float* qvals, float* rootv, void* workspace, int B, int H, int NB, int S,
                         int K, int A, int P, int CB, int value_bins, int reward_bins, int weight_bf16, int streamed,
                         float pb_c_init, float pb_c_base, float discount, float temperature, float value_step,
-                        float reward_step, int has_eps, float eps, float four_eps, float two_eps, void* stream) {
+                        float reward_step, int has_eps, float eps, float four_eps, float two_eps, void* clocks,
+                        void* stream) {
   if (weight_bf16 != WHOLE_SEARCH_BF16 || streamed != WHOLE_SEARCH_STREAMED || B < 1 || H < 32 || H % 32 != 0 ||
       2 * H > (kStreamed ? 1024 : 512) || K < 1 || K > 32 || A < 1 || A > K ||
       S < 1 || P < 1 ||
@@ -1952,11 +2214,12 @@ int whole_search_launch(const float* root_h, const float* root_p, const float* r
   a.eps = eps;
   a.four_eps = four_eps;
   a.two_eps = two_eps;
-#if WHOLE_SEARCH_BF16
-  return launch_mma<kSearchesPerBlock>(a, static_cast<cudaStream_t>(stream));
-#else
-  return launch<kSearchesPerBlock, Weight, kStreamed>(a, static_cast<cudaStream_t>(stream));
-#endif
+  if (clocks != nullptr) {
+    Clock clk{};
+    clk.out = static_cast<unsigned long long*>(clocks);
+    return launch_library(a, static_cast<cudaStream_t>(stream), clk);
+  }
+  return launch_library(a, static_cast<cudaStream_t>(stream));
 }
 
 #if WHOLE_SEARCH_BF16

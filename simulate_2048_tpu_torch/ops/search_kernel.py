@@ -37,7 +37,10 @@ order and fragment order (:func:`mma_fragments`), which a
   launches count by head variant (``"whole_search"`` scalar heads,
   ``"whole_search_categorical"`` at least one categorical head). A
   :class:`SearchWorkspace` keeps its set-up across the calls of one
-  evaluation.
+  evaluation. While spans record (``utils.tracing.is_recording``) it
+  launches the kernel's clocked instantiation, which counts each computing
+  warp's cycles by phase into the unit's ``CLOCK_COUNTERS``; otherwise the
+  unclocked one, the same machine code as before the clocks.
 - :func:`run_search_kernel` is the drop-in for ``batched_run_mcts``: root
   h/f, priors, noise and legality masking in PyTorch, then one
   :func:`whole_search`.
@@ -82,6 +85,13 @@ STREAMED_MAX_H = 512  # the streamed kernels: 2H threads under __launch_bounds__
 MAX_WIDTH = 32  # K, the child slots of a node: one warp lane each
 STREAM_CHUNK = 8  # layers per unit of zero padding in a streamed pack (JAX's largest chunk)
 ROW_PAD = 4  # the tensor-core kernel's float activations are (columns, H + ROW_PAD): kRowPad in csrc/whole_search.cu
+# The clocked kernel's counters, in csrc/whole_search.cu's Counter order: the computing warps' cycles in each phase
+# (waiting for a weight stage; the products; norms, epilogues and heads; barriers; the tree's walk, gather, install
+# and backup) and in all, the dense layers computed, and the producer warp's cycles and stalls for a free stage.
+CLOCK_COUNTERS = tuple(f"search.kernel.cycles.{p}" for p in ("feed", "products", "norm", "barrier", "tree")) + (
+    "search.kernel.cycles", "search.kernel.layers", "search.kernel.producer_cycles",
+    "search.kernel.producer_stall_cycles",
+)  # fmt: skip
 # G, the searches one thread block runs, by library (kSearchesPerBlock in csrc/whole_search.cu).
 SEARCHES_PER_BLOCK = {
     "whole_search": 2,
@@ -657,6 +667,7 @@ def whole_search(
         hh = workspace.fragments if bf16 else packed.hh  # the tensor-core kernels' fragments
         weights = (hh, workspace.vecs, *packed.tensors[2:])
         vb, rb = cfg.value_bins, cfg.reward_bins
+        clocks = tracing.device_counts(CLOCK_COUNTERS, dev) if tracing.is_recording() else None
         err = lib.whole_search_launch(
             *(t.data_ptr() for t in (root_h, root_p, root_v, *weights, visits, qvals, rootv, tables)),
             b, h, packed.num_blocks, s, k, cfg.num_actions, p, packed.cat.shape[1], vb, rb,
@@ -664,10 +675,12 @@ def whole_search(
             f32(cfg.pb_c_init), f32(cfg.pb_c_base), f32(cfg.discount), f32(cfg.prior_temperature),
             f32(cfg.value_support_max / max(vb - 1, 1)), f32(cfg.reward_support_max / max(rb - 1, 1)),
             int(eps is not None), f32(eps or 0.0), f32(4 * (eps or 0.0)), f32(2 * (eps or 0.0)),
-            torch.cuda.current_stream(dev).cuda_stream,
+            None if clocks is None else clocks.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )  # fmt: skip
     if err != 0:
         raise RuntimeError(f"whole_search kernel launch failed: {lib.whole_search_error_string(err).decode()}")
+    if clocks is not None:
+        tracing.count("search.kernel.clocked_launches", 1)
     if library == "whole_search" and (vb > 1 or rb > 1):
         library = "whole_search_categorical"
     LAUNCHES[library] += 1
@@ -734,7 +747,7 @@ def _load(library: str) -> ctypes.CDLL:
         lib.whole_search_workspace_bytes.restype = ctypes.c_size_t
         lib.whole_search_error_string.argtypes = [i32]
         lib.whole_search_error_string.restype = ctypes.c_char_p
-        lib.whole_search_launch.argtypes = [ptr] * 16 + [i32] * 12 + [f32] * 6 + [i32] + [f32] * 3 + [ptr]
+        lib.whole_search_launch.argtypes = [ptr] * 16 + [i32] * 12 + [f32] * 6 + [i32] + [f32] * 3 + [ptr] * 2
         lib.whole_search_launch.restype = i32
         lib.whole_search_launch_shape.argtypes = [i32] * 5 + [ptr]
         lib.whole_search_launch_shape.restype = i32

@@ -28,6 +28,13 @@ five calls, each waiting for the device. ``--trace DIR`` writes a
 ``torch.profiler`` trace of one more call into DIR. Beside the JAX script's
 keys the JSON line names the device, the backend that ran (``plain`` or the
 kernel's library) and the kernel launches the run made, by library.
+
+``--phases`` (with ``--pallas``, on the card) then runs the kernel alone on
+one search's roots, unclocked and clocked in turns (:func:`kernel_phases`),
+and adds ``phases``: the computing warps' cycles by phase, a layer's cycles,
+the producer's stall share, the clocked launch's device time over the
+unclocked one's, and the warps' cycles over the device time against the SM
+clock that ``nvidia-smi`` reads.
 """
 
 from __future__ import annotations
@@ -35,6 +42,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import statistics
+import subprocess
 import sys
 from typing import Callable, NamedTuple
 
@@ -44,8 +53,15 @@ from simulate_2048_tpu_torch.env import env as envlib
 from simulate_2048_tpu_torch.models.network import network_from_config
 from simulate_2048_tpu_torch.ops import search_kernel as sk
 from simulate_2048_tpu_torch.ops.rng import prng_key
-from simulate_2048_tpu_torch.search.mcts import PolicyOutput, SearchConfig, batched_run_mcts, draw_root_noise
+from simulate_2048_tpu_torch.search.mcts import (
+    PolicyOutput,
+    SearchConfig,
+    batched_run_mcts,
+    draw_root_noise,
+    root_inputs,
+)
 from simulate_2048_tpu_torch.training.config import TrainConfig, default_config, small_config, tiny_config
+from simulate_2048_tpu_torch.utils import tracing
 
 PRESETS = {"tiny": tiny_config, "small": small_config, "full": default_config}
 WEIGHT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -123,8 +139,16 @@ def search_fn(
     (B, A), the same every call."""
     if not pallas:
         return lambda: batched_run_mcts(network, observations, search_config, noise=noise)
+    packed = pack(network, search_config, weight_dtype)
+    workspace = sk.SearchWorkspace(packed)
+    return lambda: sk.run_search_kernel(network, observations, search_config, noise=noise, packed=packed,
+                                        workspace=workspace)  # fmt: skip
+
+
+def pack(network, search_config: SearchConfig, weight_dtype: torch.dtype) -> sk.PackedSearchParams:
+    """The network's weights for the kernel, in ``search_plan``'s layout (raises outside the kernel's limits)."""
     plan = sk.search_plan(search_config, network.hidden_size, weight_dtype)
-    packed = sk.pack_search_params(
+    return sk.pack_search_params(
         network,
         network.num_blocks,
         max(search_config.num_actions, search_config.codebook_size),
@@ -133,9 +157,93 @@ def search_fn(
         value_bins=search_config.value_bins,
         reward_bins=search_config.reward_bins,
     )
+
+
+def sm_clock_mhz() -> float | None:
+    """The card's SM clock now, as ``nvidia-smi`` reads it (None where it cannot)."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits", "-i", "0"],
+                             capture_output=True, text=True, timeout=30, check=True).stdout  # fmt: skip
+        return float(out.split()[0])
+    except (OSError, subprocess.SubprocessError, ValueError, IndexError):
+        return None
+
+
+def kernel_phases(
+    network,
+    observations: torch.Tensor,
+    search_config: SearchConfig,
+    weight_dtype: torch.dtype,
+    noise: torch.Tensor | None,
+    reps: int = 10,
+) -> dict:
+    """The kernel on one search's roots, ``reps`` unclocked and ``reps``
+    clocked launches in turns after one of each, each timed by CUDA events;
+    the clocked ones while a CPU-only ``torch.profiler`` profile records, the
+    condition under which the wrapper clocks them. From their counters: each phase's share of
+    the computing warps' cycles, a layer's cycles (a warp's cycles over the
+    dense layers its block computed) in all and by phase, and the producer's
+    stalls over its cycles; ``clock_check`` is the warps' mean cycles over
+    (the clocked launch's device time × the SM clock read after it), which
+    reads about 1 when the phases cover the whole launch."""
+    device = observations.device
+    packed = pack(network, search_config, weight_dtype)
     workspace = sk.SearchWorkspace(packed)
-    return lambda: sk.run_search_kernel(network, observations, search_config, noise=noise, packed=packed,
-                                        workspace=workspace)  # fmt: skip
+    with torch.no_grad():
+        roots = [t.contiguous() for t in root_inputs(network, observations, search_config, None, noise)]
+    library = sk.library_name(weight_dtype, packed.stream_chunk > 0)
+    k = max(search_config.num_actions, search_config.codebook_size)
+    shape = sk.launch_shape(library, observations.shape[0], network.hidden_size, k, search_config.value_bins,
+                            search_config.reward_bins)  # fmt: skip
+    warps = shape.threads // 32 - (library != "whole_search_streamed")  # the computing warps: all but a producer
+
+    def timed() -> float:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        sk.whole_search(*roots, packed, search_config, workspace)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    timed()  # the libraries' build and load, the tables' allocation
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        timed()  # the clocked kernel's first launch
+    tracing.reset()
+    unclocked, clocked = [], []
+    for _ in range(reps):
+        unclocked.append(timed())
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            clocked.append(timed())
+    sm_mhz = sm_clock_mhz()
+    counts: dict[str, int] = {}
+    for named in tracing.snapshot()["counts"].values():
+        for name, value in named.items():
+            counts[name] = counts.get(name, 0) + value
+    tracing.reset()
+    cycles, layers = counts["search.kernel.cycles"], counts["search.kernel.layers"]
+    producer, stalls = counts["search.kernel.producer_cycles"], counts["search.kernel.producer_stall_cycles"]
+    phases = [name.rsplit(".", 1)[1] for name in sk.CLOCK_COUNTERS[:5]]
+    warp_cycles = cycles / (warps * shape.blocks)
+    out = {
+        "library": library,
+        "blocks": shape.blocks,
+        "computing_warps": warps,
+        "clocked_launches": counts["search.kernel.clocked_launches"],
+        "layers_per_launch": layers / reps,
+        "shares_pct": {p: 100.0 * counts[f"search.kernel.cycles.{p}"] / cycles for p in phases},
+        "phase_sum_over_cycles": sum(counts[f"search.kernel.cycles.{p}"] for p in phases) / cycles,
+        "cycles_per_layer": cycles / (warps * layers),
+        "phase_cycles_per_layer": {p: counts[f"search.kernel.cycles.{p}"] / (warps * layers) for p in phases},
+        "producer_stall_pct": 100.0 * stalls / producer if producer else None,
+        "unclocked_ms": unclocked,
+        "clocked_ms": clocked,
+        "clocked_over_unclocked": statistics.median(clocked) / statistics.median(unclocked),
+        "warp_cycles_per_launch": warp_cycles / reps,
+        "effective_sm_mhz": warp_cycles / reps / (statistics.median(clocked) * 1e3),
+        "sm_mhz": sm_mhz,
+    }
+    out["clock_check"] = out["effective_sm_mhz"] / sm_mhz if sm_mhz else None
+    return out
 
 
 def benchmark(
@@ -151,6 +259,7 @@ def benchmark(
     weight_dtype: str = "float32",
     trace_dir: str | None = None,
     device: torch.device | str = "cuda",
+    phases: bool = False,
 ) -> dict:
     """The JAX script's run and result keys (see the module docstring)."""
     from simulate_2048_tpu_torch.device import resolve_device
@@ -179,7 +288,7 @@ def benchmark(
     launches = {k: v - before[k] for k, v in sk.LAUNCHES.items() if v != before[k]}
 
     searches_per_s = boards / (stats["best_ms"] / 1e3)
-    return {
+    result = {
         "boards": boards,
         "hidden": cfg.hidden_size,
         "blocks": cfg.num_residual_blocks,
@@ -192,6 +301,11 @@ def benchmark(
         "backend": backend,
         "launches": launches,
     }
+    if phases:
+        if not (pallas and device.type == "cuda"):
+            raise ValueError("--phases clocks the CUDA kernel: it needs --pallas and a CUDA device")
+        result["phases"] = kernel_phases(s.network, s.observations, s.search_config, wdtype, noise)
+    return result
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -226,11 +340,16 @@ def main(argv: list[str] | None = None) -> dict:
         "--trace", default=None, metavar="DIR", help="write a torch.profiler trace of one search batch into DIR"
     )
     parser.add_argument("--device", default="cuda", help="torch device (default cuda; 'cpu' to run on the CPU)")
+    parser.add_argument(
+        "--phases",
+        action="store_true",
+        help="with --pallas on the card: clock the kernel's phases (unclocked and clocked launches in turns)",
+    )
     args = parser.parse_args(argv)
     try:
         result = benchmark(
             args.boards, args.sims, args.mode, args.max_depth, args.hidden, args.blocks, args.pallas,
-            args.value_bins, args.reward_bins, args.weight_dtype, args.trace, args.device,
+            args.value_bins, args.reward_bins, args.weight_dtype, args.trace, args.device, args.phases,
         )  # fmt: skip
     except KernelRefused as exc:
         print(f"kernel: config unsupported ({exc})", file=sys.stderr)

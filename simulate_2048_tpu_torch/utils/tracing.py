@@ -17,6 +17,10 @@
   is a host integer or a device scalar the program already computes, kept
   as a tensor and read by :func:`snapshot`, so a count adds no kernel and
   no host read where it is made.
+- ``device_counts(names, device)``: a zeroed int64 buffer on the device,
+  one a unit, whose elements a kernel adds to and which are counted under
+  ``names``: one device operation a unit (the zeroing), read at
+  :func:`snapshot`.
 - ``snapshot()``: what was recorded; ``self_times`` gives each span's self
   time.
 
@@ -73,6 +77,7 @@ _spans: list[_Span] = []
 _open: list[int] = []  # indices of the recorded spans open now, innermost last
 _unit = 0
 _counts: OrderedDict[int, dict[str, list]] = OrderedDict()
+_buffers: dict[tuple, torch.Tensor] = {}  # (unit, names, device) -> the unit's device_counts buffer
 
 
 def span(name: str, unit: bool = False):
@@ -90,6 +95,8 @@ def _new_unit() -> None:
     _counts[_unit] = {}
     while len(_counts) > KEEP_UNITS:
         _counts.popitem(last=False)
+    for key in [key for key in _buffers if key[0] not in _counts]:
+        del _buffers[key]
 
 
 def count(name: str, value) -> None:
@@ -102,12 +109,26 @@ def count(name: str, value) -> None:
         values.append(value)
 
 
+def device_counts(names: tuple[str, ...], device) -> torch.Tensor:
+    """The current unit's int64 buffer of ``len(names)`` counts on ``device``:
+    zeroed and counted under ``names`` (element i under ``names[i]``, read at
+    :func:`snapshot`) at the unit's first call, the same buffer after."""
+    key = (_unit, names, torch.device(device))
+    buf = _buffers.get(key)
+    if buf is None:
+        buf = _buffers[key] = torch.zeros(len(names), dtype=torch.int64, device=device)
+        for i, name in enumerate(names):
+            count(name, buf[i])
+    return buf
+
+
 def reset() -> None:
     """Forget every span and count."""
     global _unit
     _spans.clear()
     _open.clear()
     _counts.clear()
+    _buffers.clear()
     _unit = 0
 
 
