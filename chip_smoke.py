@@ -652,9 +652,11 @@ def check_order_noise(name: str, out, tree, ksteps) -> None:
     version (``bf16_differ``) in at most max(2 n_order, ceil(B / 100))
     searches, n_order being the searches in which the tree and the k-step
     plain versions disagree with each other, the noise of another order of
-    sums; and it meets the JAX package's aggregate bfloat16 rule
-    (``tests/test_pallas_search.py`` TestBf16Weights): most-visited actions
-    agree in > 70% of the searches, mean |root value difference| < 0.15."""
+    sums (the k-step one sums the products by k-steps and takes the kernel's
+    layer norms, ``sk.epilogue_layer_norm``); and it meets the JAX package's
+    aggregate bfloat16 rule (``tests/test_pallas_search.py``
+    TestBf16Weights): most-visited actions agree in > 70% of the searches,
+    mean |root value difference| < 0.15."""
     b = out[0].shape[0]
     n_order = int(bf16_differ(ksteps, tree).sum())
     n_kernel = int(bf16_differ(out, tree).sum())
@@ -853,12 +855,12 @@ def check_streamed_equals_resident(device) -> None:
     chunks 2 and 8: every thread sums the same products in the same order.
     Bfloat16, the two tensor-core libraries ((c) resident, (d) streamed), at
     256 and 1,024 searches a launch, and at H=96 (no power of two) at 256:
-    every output sums its k-steps in one order whichever warp owns its
-    m-tile, each layer norm takes one warp a column and each categorical
-    head splits its sums alike. Then both layouts are timed at 256 and 1,024
-    searches a launch (self-play's size and a reanalyze batch's), their calls
-    in turns, median of 5: the resident kernel is the one the plan picks up
-    to H=256."""
+    every output sums its k-steps, and each layer norm its m-tiles'
+    statistics, in one order whichever warp owns the m-tile, and each
+    categorical head splits its sums alike. Then both layouts are timed at
+    256 and 1,024 searches a launch (self-play's size and a reanalyze
+    batch's), their calls in turns, median of 5: the resident kernel is the
+    one the plan picks up to H=256."""
     config, cfg, network, _, roots = full_width_inputs(device, 256, 128, reanalyze.SEARCH_BATCH)
     h, s = config.hidden_size, cfg.num_simulations
     for dtype in (torch.float32, torch.bfloat16):

@@ -37,10 +37,11 @@
 // cycles a 64 KB tile), while its other 8 computing warps, and 14 of the 16
 // during the layer norms and heads that G = 2 warps work on, wait at
 // barriers (54% of all computing warps' cycles against 39% products and 6%
-// norms). The tensor-core libraries are bound by their norms: the layer
-// norms, heads and epilogues, one warp a column, take 51% of the resident
-// library's cycles (about 7,100 a layer) against 39% in the products, and
-// 31% against 50% in the streamed one at H=512 (about 18,200 a layer).
+// norms). The tensor-core libraries are bound by their norms and products:
+// the heads, epilogues and layer norms (these in the epilogues of the dense
+// layers) take 46% of the resident library's cycles (about 6,700 a layer)
+// against 44% in the products, and 30% against 58% in the streamed one at
+// H=512 (about 18,800 a layer); the heads are about 27% of the resident's.
 //
 // Design. The TPU version keeps 128 searches' tree tables and all weights in
 // VMEM and reads rows by one-hot mask sums (no gather on the TPU). Neither
@@ -87,14 +88,15 @@
 //   (MmaRing, Ring's protocol), across layers and simulations. Each warp
 //   owns 16-output m-tiles; the tensor core sums each 16-input k-step, and
 //   one float32 add a k-step takes that into the warp's accumulator,
-//   k-steps in ascending order, whichever warp owns the m-tile, and the
-//   layer norms take one warp a column: the two libraries give bit-identical
-//   searches on one network. The activations are (columns, H + pad) tiles:
-//   float for the residual stream and the layer norms, bfloat16 for the
-//   products, rounded once where the epilogue or the layer norm writes them.
-//   Their searches agree with the plain version to the noise of another
-//   order of sums (chip_smoke.py), not to the bit: no plain version repeats
-//   the tensor core's sums;
+//   k-steps in ascending order, whichever warp owns the m-tile. A tower's
+//   layer norm is taken in the epilogue of the dense layer before it, by the
+//   warps that own the values: each m-tile's sum and squared deviation per
+//   column, combined in one order whichever warp owns the m-tile. So the two
+//   libraries give bit-identical searches on one network. The activations are (columns, H + pad) tiles: float for the
+//   residual stream, bfloat16 for the products, rounded once where the
+//   epilogue writes them. Their searches agree with the plain version to the
+//   noise of another order of sums (chip_smoke.py), not to the bit: no plain
+//   version repeats the tensor core's sums;
 // - a bfloat16 pack stores hh / win / wide / cat and the node embeddings in
 //   bfloat16; every dense and head product rounds its input activation to
 //   bfloat16 (`__float2bfloat16_rn`) and sums products of the widened values
@@ -105,11 +107,14 @@
 //   sums and the bias, and one warp per search takes the max, exponentials,
 //   the two sums and one division (expf and a correctly rounded division,
 //   as the plain version computes them);
-// - LayerNorm uses eps 1e-6 and the two-pass variance, argmax breaks ties
-//   at the first index, and the arithmetic that selects edges (and, beside
-//   a bfloat16 pack, LayerNorm) uses correctly rounded intrinsics (no FMA
-//   contraction), so that it matches the plain PyTorch version operation
-//   for operation.
+// - LayerNorm uses eps 1e-6 and a variance as stable as the two-pass one
+//   (float32 packs: the two-pass variance, the plain version's; tensor cores:
+//   squared deviations about each m-tile's mean, combined by Chan's rule in
+//   one order, which the plain version repeats with order="ksteps",
+//   search_kernel.epilogue_layer_norm), argmax breaks ties at the first
+//   index, and the arithmetic that selects edges (and, beside a bfloat16
+//   pack, LayerNorm) uses correctly rounded intrinsics (no FMA contraction),
+//   so that it matches the plain PyTorch version operation for operation.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -165,11 +170,13 @@ constexpr unsigned kMaxSpins = 1u << 24;  // a wait that spins longer traps: the
 // 32 KB. Streamed (H <= 512): 12 consumer warps beside the producer (16 were
 // 1.6% faster but spill under the 96 registers 17 warps leave; 8 and 15
 // slower); 4 stages (3 stages, 2 of 64 KB, 8 of 16 KB slower). Resident
-// (H <= 256): 8 consumer warps, two 16-output m-tiles each at H=256, 128
-// registers (16 warps, one m-tile each and 92 registers, were 2-5% slower
-// at 256 and 1,024 searches; 12 within 1%, 1-2% slower at 1,024); 4 stages,
-// one whole H=256 layer (5: within 1%, 33 KB more shared memory); its
-// categorical heads split their sums as the streamed library's 12 warps do.
+// (H <= 256): 8 consumer warps, two 16-output m-tiles each at H=256, 154
+// registers (128 before the layer norms went into the epilogues; 16 warps, one m-tile each and 92 registers, were 2-5% slower
+// at 256 and 1,024 searches; 12 within 1%, 1-2% slower at 1,024; with the
+// layer norms in the epilogues, 16 and 12 at 256 searches 5% slower, 16
+// spilling when clocked); 4 stages, one whole H=256 layer (5: within 1%,
+// 33 KB more shared memory); its categorical heads split their sums as the
+// streamed library's 12 warps do.
 constexpr int kSearchesPerBlock = kMma ? 8 : 2;  // G
 constexpr int kMmaMaxH = kStreamed ? 512 : 256;
 constexpr int kStreamedMmaWarps = 12;
@@ -177,7 +184,6 @@ constexpr int kMmaWarps = kStreamed ? kStreamedMmaWarps : 8;
 constexpr int kMmaStages = 4;
 constexpr int kMmaStageBytes = 32 * 1024;
 constexpr int kMmaMaxTiles = (kMmaMaxH / 16 + kMmaWarps - 1) / kMmaWarps;  // 16-row output tiles a warp
-constexpr int kLnValues = kMmaMaxH / 32;  // a lane's values in a tensor-core layer norm
 // The threads the resident library's categorical heads split their sums
 // over: the streamed library's, so that the two sum every logit in one order.
 constexpr int kHeadSplit = 32 * kStreamedMmaWarps;
@@ -414,11 +420,15 @@ __device__ __forceinline__ void block_sync() {
 // totals into `out` (int64s, Counter order).
 enum Phase { kFeed, kProducts, kNorm, kBarrier, kTree, kPhases };
 // The counters (ops/search_kernel.py CLOCK_COUNTERS): the five phases, the
-// computing warps' total cycles, the dense layers the block computed, and the
-// producer's cycles and stalls.
-enum Counter { kCycles = kPhases, kLayers, kProducerCycles, kProducerStalls, kCounters };
+// computing warps' total cycles, the dense layers the block computed, the
+// producer's cycles and stalls, and the layer norms the block took in the
+// epilogue of a dense layer (the tensor-core kernel's tower layers).
+enum Counter { kCycles = kPhases, kLayers, kProducerCycles, kProducerStalls, kEpilogueNorms, kCounters };
 constexpr int kClockRows = 34;  // a row for each warp (at most 32 and a producer), and padding to 128 bytes
-constexpr int kClockSlots = 8;  // a row: the phases, the warp's start (then its cycles), its dense layers
+constexpr int kClockSlots = 8;  // a row: the phases, the warp's start (then its cycles), its dense layers, its norms
+// A row keeps its epilogue layer norms in the slot of kProducerCycles, which no row holds (the producer's lane 0
+// reads its cycles from its start).
+constexpr int kNormSlot = kProducerCycles;
 
 // Whether a lap reads %clock into a uniform register (S2UR) or the low half
 // of %clock64 into two registers (CS2R, fewer cycles a lap): the kernels at
@@ -476,6 +486,7 @@ struct Clock {
   unsigned last;            // %clock at the last lap
   unsigned hot[3];          // kProducts, kNorm and kBarrier cycles since the last settle
   unsigned layers;          // dense layers since the last settle
+  unsigned norms;           // layer norms taken in a dense layer's epilogue since the last settle
 
   // The warps' rows; their size, a multiple of 128 bytes, keeps the dynamic shared memory after them 128-byte
   // aligned.
@@ -496,6 +507,7 @@ struct Clock {
 #pragma unroll
     for (int h = 0; h < 3; ++h) hot[h] = 0;
     layers = 0;
+    norms = 0;
     last = clock_lo();
   }
 
@@ -521,6 +533,7 @@ struct Clock {
   }
 
   __device__ __forceinline__ void layer() { ++layers; }
+  __device__ __forceinline__ void norm() { ++norms; }
 
   // Lane 0 adds the counts kept in registers to its warp's row (each simulation, so that no 32-bit count wraps).
   __device__ __forceinline__ void settle() {
@@ -529,10 +542,12 @@ struct Clock {
 #pragma unroll
       for (int h = 0; h < 3; ++h) r[kProducts + h] += hot[h];
       r[kLayers] += layers;
+      r[kNormSlot] += norms;
     }
 #pragma unroll
     for (int h = 0; h < 3; ++h) hot[h] = 0;
     layers = 0;
+    norms = 0;
   }
 
   // Every thread of the block calls it once, at its end: the producer warp
@@ -549,10 +564,12 @@ struct Clock {
     }
     if (first()) r[kCycles] = clock_wide() - r[kCycles];
     block_sync();
-    const int c = threadIdx.x, warps = c == kLayers ? 1 : compute_threads() >> 5;  // layers: warp 0's
-    if (c < kProducerCycles) {
+    const int c = threadIdx.x;
+    if (c < kProducerCycles || c == kEpilogueNorms) {
+      const bool every_warp = c == kLayers || c == kEpilogueNorms;  // counted alike by every warp: warp 0's
+      const int warps = every_warp ? 1 : compute_threads() >> 5, slot = c == kEpilogueNorms ? kNormSlot : c;
       unsigned long long sum = 0;
-      for (int w = 0; w < warps; ++w) sum += rows()[w * kClockSlots + c];
+      for (int w = 0; w < warps; ++w) sum += rows()[w * kClockSlots + slot];
       atomicAdd(out + c, sum);
     }
   }
@@ -1155,33 +1172,60 @@ __device__ void tower(const Args& a, Feed& st, int ihh, int iv, const float* in,
   layer_norm_relu<G, W>(a, iv, x, x, clk...);
 }
 
-// The tensor-core libraries' dense layer: out (columns, H + kRowPad) float and/or xout
-// (columns, H + kActPad) bfloat16 = W[layer]^T x + vec[iv] (+ rows[row_idx[g]]
-// | + out), x being the bfloat16 activations `xin` (columns, H + kActPad),
-// on the tiles of `st`, which must stand at this layer's first tile. Reading
-// warp w owns the 16-output m-tiles w, w + kMmaWarps, ...: for each k-step
-// of a tile it loads the k-step's B fragments (two 4-byte loads a lane for
-// each 8 columns) and, for each of its m-tiles, the A fragment (one 16-byte
-// load a lane, conflict-free) into mma.sync m16n8k16, accumulating in float32
-// registers in ascending k-steps (mma_bf16). The epilogue adds in dense's order: the
-// bias, then the input row, then the residual; it writes the float value
-// and/or its bfloat16 rounding, the next product's input (the TPU kernel's
-// x.astype(w.dtype), done once here instead of at every product). A layer
-// must not write the bfloat16 tile it reads.
-template <int G, typename... Clk>
+// The layer norm that a tower's dense layer takes into its epilogue (dense_mma's `ln`): relu(LayerNorm(v) *
+// vec[iv] + vec[iv + 1]) of each column v of the layer's output, eps 1e-6.
+struct EpilogueNorm {
+  int iv;
+  float inv_h;         // 1 / H, rounded
+  float* stats;        // (H / 16, G) float2s: an m-tile's sum and squared deviation about its mean, per column
+  __nv_bfloat16* xb;   // the result's bfloat16 rounding (columns, H + kActPad), the next dense layer's input
+  float* heads;        // unless null, the float result (H, G), the heads' layout
+};
+
+// The tensor-core libraries' dense layer: v = W[layer]^T x + vec[iv] (+ rows[row_idx[g]]) (+ residual), x being
+// the bfloat16 activations `xin` (columns, H + kActPad), on the tiles of `st`, which must stand at this layer's
+// first tile. Reading warp w owns the 16-output m-tiles w, w + kMmaWarps, ...: for each k-step of a tile it loads
+// the k-step's B fragments (two 4-byte loads a lane for each 8 columns) and, for each of its m-tiles, the A
+// fragment (one 16-byte load a lane, conflict-free) into mma.sync m16n8k16, accumulating in float32 registers in
+// ascending k-steps (mma_bf16). The epilogue adds in dense's order: the bias, then the input row, then the
+// residual (columns, H + kRowPad). It writes, each unless null, v as float to `out` (columns, H + kRowPad) and its
+// bfloat16 rounding to `xout` (columns, H + kActPad), the next product's input (the TPU kernel's
+// x.astype(w.dtype), done once here instead of at every product).
+//
+// Given an EpilogueNorm (`ln`; nullptr: none) it takes the layer norm after the layer instead of writing `xout`,
+// with gamma and beta loaded beside the bias, before the products; `out` then takes v. Each warp re-reads its own
+// m-tiles from `out` (8 rows of a column a lane, added as a balanced tree, the other 8 by the next lane) into
+// each m-tile's sum and squared deviation about its mean, per column, in ln.stats. After the barrier four lanes
+// combine each column, whichever warp owns its m-tiles, so the two libraries normalise alike: Chan's rule for
+// groups, the mean of the sums, then each m-tile's squared deviation plus 16 times its mean's squared distance
+// from the mean; and each warp normalises its own values, still in registers. Every operation of the norm is
+// rounded on its own (no FMA contraction) and 1 / sqrt correctly rounded, as search_kernel.epilogue_layer_norm
+// repeats. A layer without a norm must not write the bfloat16 tile it reads; with one, it writes ln.xb after the
+// barrier.
+template <int G, typename Ln, typename... Clk>
 __device__ void dense_mma(const Args& a, MmaRing& st, int iv, const __nv_bfloat16* xin, float* out,
-                          __nv_bfloat16* xout, const __nv_bfloat16* rows, const int* row_idx, bool residual,
-                          Clk&... clk) {
+                          __nv_bfloat16* xout, const __nv_bfloat16* rows, const int* row_idx, const float* residual,
+                          const Ln& ln, Clk&... clk) {
+  constexpr bool kLayerNorm = std::is_same_v<Ln, EpilogueNorm>;
+  static_assert(kLayerNorm || std::is_same_v<Ln, decltype(nullptr)>, "an EpilogueNorm or nullptr");
+  static_assert(!kLayerNorm || G == 8, "the layer norm's lanes take 8 columns");
   constexpr int NT = (G + 7) / 8;  // n-tiles of 8 columns
   const int H = a.H, MT = H / 16, ld = H + kActPad, ldf = H + kRowPad;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
   const bool active = warp < min(kMmaWarps, MT);
-  float acc[kMmaMaxTiles][NT][4], bias[kMmaMaxTiles][2];
+  float acc[kMmaMaxTiles][NT][4], bias[kMmaMaxTiles][2], gamma[kMmaMaxTiles][2], beta[kMmaMaxTiles][2];
 #pragma unroll
   for (int j = 0; j < kMmaMaxTiles; ++j) {
     const int m = (warp + j * kMmaWarps) * 16 + gq;
-    bias[j][0] = active && m < H ? a.vecs[(size_t)iv * H + m] : 0.f;
-    bias[j][1] = active && m < H ? a.vecs[(size_t)iv * H + m + 8] : 0.f;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bool here = active && m < H;
+      bias[j][r] = here ? a.vecs[(size_t)iv * H + m + 8 * r] : 0.f;
+      if constexpr (kLayerNorm) {
+        gamma[j][r] = here ? a.vecs[(size_t)ln.iv * H + m + 8 * r] : 0.f;
+        beta[j][r] = here ? a.vecs[(size_t)(ln.iv + 1) * H + m + 8 * r] : 0.f;
+      }
+    }
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
@@ -1192,6 +1236,7 @@ __device__ void dense_mma(const Args& a, MmaRing& st, int iv, const __nv_bfloat1
     st.q += st.tpl;  // the cursor stays in step; this warp reads no tile
   }
   (clk.layer(), ...);
+  if constexpr (kLayerNorm) (clk.norm(), ...);
   for (int t = 0; active && t < st.tpl; ++t, ++st.q) {
     const uint4* w = st.ready(clk...);
     for (int kk = 0; kk < st.kt; ++kk) {
@@ -1227,79 +1272,112 @@ __device__ void dense_mma(const Args& a, MmaRing& st, int iv, const __nv_bfloat1
         if (n >= G) continue;
         float v = acc[j][nt][i] + bias[j][i >> 1];
         if (rows != nullptr) v += __bfloat162float(rows[(size_t)row_idx[n] * H + m]);
-        if (residual) v += out[n * ldf + m];
+        if (residual != nullptr) v += residual[n * ldf + m];
         if (out != nullptr) out[n * ldf + m] = v;
-        if (xout != nullptr) xout[(size_t)n * ld + m] = __float2bfloat16_rn(v);
+        if constexpr (kLayerNorm) {
+          acc[j][nt][i] = v;
+        } else if (xout != nullptr) {
+          xout[(size_t)n * ld + m] = __float2bfloat16_rn(v);
+        }
       }
     }
   }
-  sync_lap<kNorm>(clk...);
-}
-
-// LayerNorm and relu beside a bfloat16 pack, every operation rounded on its
-// own (no FMA contraction) and 1 / sqrt correctly rounded, in the plain
-// version's order: one warp per column, each lane's kLnValues values (zeros
-// past H) summed as a balanced tree, then warp_sum's butterfly; on the
-// float activations `in` (columns, H + kRowPad), the LayerNorm vectors at
-// the lane's values loaded before the sums. Writes the
-// bfloat16 rounding of the result to `xb` (columns, H + kActPad), the next
-// dense layer's input, and, unless null, the float result to `heads` (H, G),
-// the heads' layout.
-template <int G, typename... Clk>
-__device__ void layer_norm_mma(const Args& a, int iv, const float* in, float* heads, __nv_bfloat16* xb,
-                               Clk&... clk) {
-  const int H = a.H, n = H / 32, ld = H + kActPad, ldf = H + kRowPad;
-  const int lane = threadIdx.x & 31;
-  for (int g = threadIdx.x >> 5; g < G; g += compute_threads() >> 5) {
-    const float* row = in + g * ldf;
-    float gamma[kLnValues], beta[kLnValues], t[kLnValues];
+  if constexpr (kLayerNorm) {
+    // Lane L takes rows 8 (L & 1) to 8 (L & 1) + 7 of column (L >> 1) & 7 of the warp's m-tiles j0 + (L >> 4).
+    __syncwarp();
+    const int n = (lane >> 1) & 7, half = lane & 1;
 #pragma unroll
-    for (int j = 0; j < kLnValues; ++j) {
-      const int i = lane + 32 * j;
-      t[j] = j < n ? row[i] : 0.f;
-      gamma[j] = j < n ? a.vecs[(size_t)iv * H + i] : 0.f;
-      beta[j] = j < n ? a.vecs[(size_t)(iv + 1) * H + i] : 0.f;
-    }
-    const float inv_h = __fdiv_rn(1.f, (float)H);
-    const float mean = __fmul_rn(warp_sum(tree(t)), inv_h);
+    for (int j0 = 0; j0 < kMmaMaxTiles; j0 += 2) {
+      const int j = j0 + (lane >> 4), mt = warp + j * kMmaWarps;
+      const bool here = active && j < kMmaMaxTiles && mt < MT;
+      const float4* at = reinterpret_cast<const float4*>(out + n * ldf + mt * 16 + 8 * half);
+      const float4 lo = here ? at[0] : make_float4(0.f, 0.f, 0.f, 0.f), hi = here ? at[1] : lo;
+      const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+      float t[8];
 #pragma unroll
-    for (int j = 0; j < kLnValues; ++j) {
-      const float d = j < n ? __fsub_rn(row[lane + 32 * j], mean) : 0.f;
-      t[j] = __fmul_rn(d, d);
-    }
-    const float var = __fmul_rn(warp_sum(tree(t)), inv_h);
-    const float r = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, 1e-6f)));
+      for (int e = 0; e < 8; ++e) t[e] = v[e];
+      float sum = tree(t);
+      sum = __fadd_rn(sum, __shfl_xor_sync(kFull, sum, 1));
+      const float mean = __fmul_rn(sum, 0.0625f);
 #pragma unroll
-    for (int j = 0; j < kLnValues; ++j) {
-      if (j >= n) break;
-      const int i = lane + 32 * j;
-      const float y = __fmul_rn(__fsub_rn(row[i], mean), r);
-      const float z = fmaxf(__fadd_rn(__fmul_rn(y, gamma[j]), beta[j]), 0.f);
-      if (heads != nullptr) heads[i * G + g] = z;
-      xb[(size_t)g * ld + i] = __float2bfloat16_rn(z);
+      for (int e = 0; e < 8; ++e) {
+        const float d = __fsub_rn(v[e], mean);
+        t[e] = __fmul_rn(d, d);
+      }
+      float sq = tree(t);
+      sq = __fadd_rn(sq, __shfl_xor_sync(kFull, sq, 1));
+      if (here && half == 0) *reinterpret_cast<float2*>(ln.stats + 2 * (mt * G + n)) = make_float2(sum, sq);
     }
   }
   sync_lap<kNorm>(clk...);
+  if constexpr (kLayerNorm) {
+    if (active) {
+      // Lane (gq, tq) combines column 2 tq + (gq & 1) with the 3 other lanes of that column (lanes xor 8, 16): each
+      // takes m-tiles gq >> 1, (gq >> 1) + 4, ... in turn (absent ones as 0), and the butterfly adds the 4 as a
+      // balanced tree. Lane xor 4 holds the other column of the quad position.
+      constexpr int kTurns = kMmaMaxH / 64;
+      const int c = gq & 1, n = 2 * tq + c, first = gq >> 1;
+      float2 p[kTurns];
+      float total = 0.f, m2 = 0.f;
+#pragma unroll
+      for (int k = 0; k < kTurns; ++k) {
+        const int mt = first + 4 * k;
+        p[k] = mt < MT ? *reinterpret_cast<const float2*>(ln.stats + 2 * (mt * G + n)) : make_float2(0.f, 0.f);
+        total = __fadd_rn(total, p[k].x);
+      }
+      total = __fadd_rn(total, __shfl_xor_sync(kFull, total, 8));
+      total = __fadd_rn(total, __shfl_xor_sync(kFull, total, 16));
+      const float mean = __fmul_rn(total, ln.inv_h);
+#pragma unroll
+      for (int k = 0; k < kTurns; ++k) {
+        const float d = __fsub_rn(__fmul_rn(p[k].x, 0.0625f), mean);
+        m2 = __fadd_rn(m2, first + 4 * k < MT ? __fadd_rn(p[k].y, __fmul_rn(__fmul_rn(d, d), 16.f)) : 0.f);
+      }
+      m2 = __fadd_rn(m2, __shfl_xor_sync(kFull, m2, 8));
+      m2 = __fadd_rn(m2, __shfl_xor_sync(kFull, m2, 16));
+      const float r = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(__fmul_rn(m2, ln.inv_h), 1e-6f)));
+      const float other_mean = __shfl_xor_sync(kFull, mean, 4), other_r = __shfl_xor_sync(kFull, r, 4);
+      const float means[2] = {c ? other_mean : mean, c ? mean : other_mean};
+      const float rs[2] = {c ? other_r : r, c ? r : other_r};
+#pragma unroll
+      for (int j = 0; j < kMmaMaxTiles; ++j) {
+        const int mt = warp + j * kMmaWarps;
+        if (mt >= MT) continue;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int m = mt * 16 + gq + 8 * (i >> 1), col = 2 * tq + (i & 1);
+          const float y = __fmul_rn(__fsub_rn(acc[j][0][i], means[i & 1]), rs[i & 1]);
+          const float z = fmaxf(__fadd_rn(__fmul_rn(y, gamma[j][i >> 1]), beta[j][i >> 1]), 0.f);
+          if (ln.heads != nullptr) ln.heads[m * G + col] = z;
+          ln.xb[(size_t)col * ld + m] = __float2bfloat16_rn(z);
+        }
+      }
+    }
+    sync_lap<kNorm>(clk...);
+  }
 }
 
 // tower on the tensor cores: the input's bfloat16 tile in_b; the result in
-// xh (H, G) float, the heads' layout, and its bfloat16 rounding in xa. x and
-// u (columns, H + kRowPad) hold the residual stream and a block's first
-// dense layer; the blocks' layer norms write only the bfloat16 tiles their
-// dense layers read (xa, then xb).
+// xh (H, G) float, the heads' layout, and its bfloat16 rounding in xa. Every
+// layer norm is taken in the epilogue of the dense layer before it (two
+// barriers a layer), through `stats`. Its float input goes to x, the
+// residual stream, or, for a block's first layer, to u (both (columns, H +
+// kRowPad)); the layer norms write the bfloat16 tiles the next dense layers
+// read (xa, then xb).
 template <int G, typename... Clk>
 __device__ void tower_mma(const Args& a, MmaRing& st, int iv, const __nv_bfloat16* in_b, float* x, float* u,
-                          float* xh, __nv_bfloat16* xa, __nv_bfloat16* xb, Clk&... clk) {
-  dense_mma<G>(a, st, iv, in_b, x, nullptr, nullptr, nullptr, false, clk...);
+                          float* stats, float* xh, __nv_bfloat16* xa, __nv_bfloat16* xb, Clk&... clk) {
+  const float inv_h = __fdiv_rn(1.f, (float)a.H);
+  dense_mma<G>(a, st, iv, in_b, x, nullptr, nullptr, nullptr, nullptr,
+               EpilogueNorm{iv + 1, inv_h, stats, xa, a.NB > 0 ? nullptr : xh}, clk...);
   iv += 1;
   for (int blk = 0; blk < a.NB; ++blk) {
-    layer_norm_mma<G>(a, iv, x, nullptr, xa, clk...);
-    dense_mma<G>(a, st, iv + 2, xa, u, nullptr, nullptr, nullptr, false, clk...);
-    layer_norm_mma<G>(a, iv + 3, u, nullptr, xb, clk...);
-    dense_mma<G>(a, st, iv + 5, xb, x, nullptr, nullptr, nullptr, true, clk...);
+    dense_mma<G>(a, st, iv + 2, xa, u, nullptr, nullptr, nullptr, nullptr,
+                 EpilogueNorm{iv + 3, inv_h, stats, xb, nullptr}, clk...);
+    dense_mma<G>(a, st, iv + 5, xb, x, nullptr, nullptr, nullptr, x,
+                 EpilogueNorm{iv + 6, inv_h, stats, xa, blk == a.NB - 1 ? xh : nullptr}, clk...);
     iv += 6;
   }
-  layer_norm_mma<G>(a, iv, x, xh, xa, clk...);
 }
 
 // out[g] = untransform(scal[:, c] . x[:, g] + scal_b[c]), one warp per column.
@@ -1849,9 +1927,10 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a, Clk... clk) {
 // output xh (H, G) float for the heads, the logits and head values, the
 // traversal's picks, the bfloat16 tiles (columns, H + kActPad) of the
 // parent embeddings, the afterstate and the next hidden state (what the
-// install copies to the table), then u (columns, H + kRowPad) float and the
-// bfloat16 tiles xa and xb, over which the categorical heads keep their
-// partial sums (none of the three is live during a head).
+// install copies to the table), then u (columns, H + kRowPad) float, the
+// layer norms' m-tile statistics (H floats; every region here is 16-byte
+// aligned) and the bfloat16 tiles xa and xb, over which the categorical heads
+// keep their partial sums (none of the four is live during a head).
 template <int G, typename... Clk>
 __global__ void __launch_bounds__(32 * (kMmaWarps + 1), 1) whole_search_mma_kernel(Args a, Clk... clk) {
   (clk.begin(), ...);
@@ -1874,7 +1953,8 @@ __global__ void __launch_bounds__(32 * (kMmaWarps + 1), 1) whole_search_mma_kern
   bf16* after_b = pe_b + tile;
   bf16* hnew_b = after_b + tile;
   float* u = reinterpret_cast<float*>(hnew_b + tile);
-  bf16* xa = reinterpret_cast<bf16*>(u + rows);
+  float* stats = u + rows;  // (H / 16, G) float2s
+  bf16* xa = reinterpret_cast<bf16*>(stats + H);
   bf16* xb = xa + tile;
   float* psum = u;  // categorical heads: partial sums, then the (bins, G) logits
   const int cat_bins = max(a.value_bins, a.reward_bins);
@@ -1913,19 +1993,19 @@ __global__ void __launch_bounds__(32 * (kMmaWarps + 1), 1) whole_search_mma_kern
     sync_lap<kTree>(clk...);
 
     // phi then psi (decision parent -> chance child)
-    dense_mma<G>(a, st, PHI_FUSE_V, pe_b, nullptr, xa, win, picks.arow, false, clk...);
-    tower_mma<G>(a, st, PHI_V, xa, x, u, xh, xa, xb, clk...);
-    dense_mma<G>(a, st, PHI_HEAD_V, xa, nullptr, after_b, nullptr, nullptr, false, clk...);
-    tower_mma<G>(a, st, PSI_V, after_b, x, u, xh, xa, xb, clk...);
+    dense_mma<G>(a, st, PHI_FUSE_V, pe_b, nullptr, xa, win, picks.arow, nullptr, nullptr, clk...);
+    tower_mma<G>(a, st, PHI_V, xa, x, u, stats, xh, xa, xb, clk...);
+    dense_mma<G>(a, st, PHI_HEAD_V, xa, nullptr, after_b, nullptr, nullptr, nullptr, nullptr, clk...);
+    tower_mma<G>(a, st, PSI_V, after_b, x, u, stats, xh, xa, xb, clk...);
     head_value<G, bf16>(a, 1, xh, s_q, psum, lgt, clk...);
     head_logits<G, bf16>(a, 1, xh, lc, clk...);
 
     // g then f (chance parent -> decision child)
-    dense_mma<G>(a, st, G_FUSE_V, pe_b, nullptr, xa, win + (size_t)K * H, picks.crow, false, clk...);
-    tower_mma<G>(a, st, G_V, xa, x, u, xh, xa, xb, clk...);
-    dense_mma<G>(a, st, G_HEAD_V, xa, nullptr, hnew_b, nullptr, nullptr, false, clk...);
+    dense_mma<G>(a, st, G_FUSE_V, pe_b, nullptr, xa, win + (size_t)K * H, picks.crow, nullptr, nullptr, clk...);
+    tower_mma<G>(a, st, G_V, xa, x, u, stats, xh, xa, xb, clk...);
+    dense_mma<G>(a, st, G_HEAD_V, xa, nullptr, hnew_b, nullptr, nullptr, nullptr, nullptr, clk...);
     head_value<G, bf16>(a, 2, xh, s_r, psum, lgt, clk...);
-    tower_mma<G>(a, st, F_V, hnew_b, x, u, xh, xa, xb, clk...);
+    tower_mma<G>(a, st, F_V, hnew_b, x, u, stats, xh, xa, xb, clk...);
     head_value<G, bf16>(a, 0, xh, s_v, psum, lgt, clk...);
     head_logits<G, bf16>(a, 0, xh, la, clk...);
 
@@ -1965,7 +2045,8 @@ __global__ void __launch_bounds__(32 * (kMmaWarps + 1), 1)
     xb[(size_t)(e / H) * (H + kActPad) + e % H] = __float2bfloat16_rn(x[e]);
   }
   block_sync();
-  dense_mma<G>(a, st, blockIdx.x, xb, out + (size_t)blockIdx.x * G * (H + kRowPad), nullptr, nullptr, nullptr, false);
+  dense_mma<G>(a, st, blockIdx.x, xb, out + (size_t)blockIdx.x * G * (H + kRowPad), nullptr, nullptr, nullptr, nullptr,
+               nullptr);
 }
 
 // The ring's tile: T rows of each input half, the largest power of two times
@@ -1992,7 +2073,8 @@ Plan make_mma_plan(int B, int H, int K, int value_bins, int reward_bins) {
   const int bins = value_bins > reward_bins ? value_bins : reward_bins;
   const size_t cat = bins > 1 ? (size_t)((split > bins ? split : bins) + bins) * G * sizeof(float) : 0;
   const int rows = G * (H + kRowPad);
-  const size_t scratch = (size_t)rows * sizeof(float) + 2 * (size_t)tile * sizeof(__nv_bfloat16);
+  // u, the layer norms' statistics, xa and xb
+  const size_t scratch = (size_t)(rows + H) * sizeof(float) + 2 * (size_t)tile * sizeof(__nv_bfloat16);
   Plan p{(B + G - 1) / G, threads + 32, 16 * mma_tile_ksteps(H), mma_ring_floats(H), 0};
   p.smem = (size_t)(p.tile_floats + rows + H * G + 2 * K * G + 3 * G) * sizeof(float) + (size_t)7 * G * sizeof(int) +
            3 * (size_t)tile * sizeof(__nv_bfloat16) + (cat > scratch ? cat : scratch);

@@ -28,7 +28,8 @@ order and fragment order (:func:`mma_fragments`), which a
   categorical head as max, exponentials, two sums and one division; with a
   bfloat16 pack, every product's input rounded to bfloat16, and the dense
   layers and LayerNorms summed as balanced trees, or with
-  ``order="ksteps"`` in the tensor cores' k-steps).
+  ``order="ksteps"`` as the tensor-core kernel sums them: the products in
+  k-steps, the LayerNorms by m-tiles, :func:`epilogue_layer_norm`).
 - :func:`whole_search` is the wrapper: on CPU tensors it runs the plain
   version, on CUDA tensors it launches the kernel or raises. It counts its
   launches in ``LAUNCHES``, each launch once, under the library that ran it
@@ -87,10 +88,11 @@ STREAM_CHUNK = 8  # layers per unit of zero padding in a streamed pack (JAX's la
 ROW_PAD = 4  # the tensor-core kernel's float activations are (columns, H + ROW_PAD): kRowPad in csrc/whole_search.cu
 # The clocked kernel's counters, in csrc/whole_search.cu's Counter order: the computing warps' cycles in each phase
 # (waiting for a weight stage; the products; norms, epilogues and heads; barriers; the tree's walk, gather, install
-# and backup) and in all, the dense layers computed, and the producer warp's cycles and stalls for a free stage.
+# and backup) and in all, the dense layers computed, the producer warp's cycles and stalls for a free stage, and the
+# layer norms taken in a dense layer's epilogue (the tensor-core kernel's towers: 4 (1 + 2 NB) a simulation).
 CLOCK_COUNTERS = tuple(f"search.kernel.cycles.{p}" for p in ("feed", "products", "norm", "barrier", "tree")) + (
     "search.kernel.cycles", "search.kernel.layers", "search.kernel.producer_cycles",
-    "search.kernel.producer_stall_cycles",
+    "search.kernel.producer_stall_cycles", "search.kernel.epilogue_norms",
 )  # fmt: skip
 # G, the searches one thread block runs, by library (kSearchesPerBlock in csrc/whole_search.cu).
 SEARCHES_PER_BLOCK = {
@@ -422,6 +424,67 @@ def bf16_dense_sum(x: torch.Tensor, w: torch.Tensor, order: str = "tree") -> tor
     return halves[0] + halves[1]
 
 
+def _pair_tree(v: torch.Tensor) -> torch.Tensor:
+    """(..., 2^k) → (...): a balanced tree over consecutive pairs, as the kernel's trees and butterflies sum."""
+    while v.shape[-1] > 1:
+        v = v[..., 0::2] + v[..., 1::2]
+    return v[..., 0]
+
+
+def epilogue_moments(x: torch.Tensor, warps: int = 8) -> tuple[torch.Tensor, torch.Tensor]:
+    """The mean and variance (B,) of each row of ``x`` (B, H) float32 as the
+    tensor-core kernel's dense layer forms them in its epilogue
+    (``csrc/whole_search.cu`` ``dense_mma``), operation for operation. Warp w
+    of ``warps`` owns the 16-output m-tiles w, w + warps, ...; of an m-tile a
+    lane sums 8 consecutive outputs as a balanced tree (:func:`_pair_tree`)
+    and adds the other 8's, then the squares of the deviations about sum / 16
+    alike. After the barrier Chan's rule for groups combines the m-tiles in
+    one order, whichever warp owns them: lane g of 4 adds m-tiles g, g + 4,
+    ... in turn (absent ones as 0), and a butterfly adds the 4 lanes as a
+    balanced tree; first the sums, for the mean, then each m-tile's squared
+    deviations plus 16 times its mean's squared distance from the mean, for
+    the variance. That stays as stable as the two-pass variance (no E[x²] −
+    mean²), and the owners change no bit."""
+    b, h = x.shape
+    if h % 16:
+        raise ValueError(f"m-tiles take H % 16 == 0 (got H={h})")
+    n = h // 16
+    turns = -(-n // 4)
+    sums, squares = x.new_zeros(b, 4 * turns), x.new_zeros(b, 4 * turns)  # the absent m-tiles' as 0
+    tiles = x.view(b, n, 2, 8)  # [row][m-tile][outputs 0-7 or 8-15][output]
+    for w in range(warps):
+        own = list(range(w, n, warps))
+        if not own:
+            continue
+        v = tiles[:, own]
+        s = _pair_tree(v)
+        s = s[:, :, 0] + s[:, :, 1]
+        d = v - (s * 0.0625)[:, :, None, None]
+        q = _pair_tree(d * d)
+        sums[:, own] = s
+        squares[:, own] = q[:, :, 0] + q[:, :, 1]
+    inv_h = x.new_ones(()) / x.new_full((), float(h))
+    total, m2 = x.new_zeros(b, 4), x.new_zeros(b, 4)  # [row][lane g]
+    for k in range(turns):
+        total = total + sums[:, 4 * k : 4 * k + 4]
+    mean = _pair_tree(total) * inv_h
+    d = sums * 0.0625 - mean[:, None]
+    terms = torch.where(torch.arange(4 * turns, device=x.device) < n, squares + (d * d) * 16.0, x.new_zeros(()))
+    for k in range(turns):
+        m2 = m2 + terms[:, 4 * k : 4 * k + 4]
+    return mean, _pair_tree(m2) * inv_h
+
+
+def epilogue_layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, warps: int = 8) -> torch.Tensor:
+    """LayerNorm(x) * gamma + beta (eps 1e-6, 1 / sqrt correctly rounded) of
+    ``x`` (B, H) float32 from :func:`epilogue_moments`, as the tensor-core
+    kernel normalises in a dense layer's epilogue. The kernel's plain version
+    takes it with ``order="ksteps"``; the search path does not."""
+    mean, var = epilogue_moments(x, warps)
+    r = torch.reciprocal(torch.sqrt(var + 1e-6))
+    return ((x - mean[:, None]) * r[:, None]) * gamma + beta
+
+
 def packed_transitions(packed: PackedSearchParams, cfg: SearchConfig, order: str = "tree"):
     """Both transitions from the packed tensors, as the kernel computes them.
 
@@ -430,8 +493,10 @@ def packed_transitions(packed: PackedSearchParams, cfg: SearchConfig, order: str
     (bfloat16 times bfloat16 fits float32) in :func:`bf16_dense_sum`'s
     ``order`` ("tree": a balanced tree over each input half; "ksteps": the
     tensor cores' 16-row k-steps, whose sums inside a step no plain version
-    repeats), and LayerNorm takes the kernels' lane-strided sums, butterfly
-    and correctly rounded 1 / sqrt. With a float32 pack, dense
+    repeats), and LayerNorm takes, in the "tree" order, JAX's bfloat16
+    kernel's lane-strided sums, butterfly and correctly rounded 1 / sqrt, and
+    in the "ksteps" order the tensor-core kernel's
+    (:func:`epilogue_layer_norm`). With a float32 pack, dense
     layers are plain matrix products and LayerNorm takes PyTorch's
     reductions: their sums round in another order than the kernel's, within
     float32 noise."""
@@ -487,6 +552,8 @@ def packed_transitions(packed: PackedSearchParams, cfg: SearchConfig, order: str
             mean = x.mean(-1, keepdim=True)
             y = (x - mean) * torch.rsqrt(torch.square(x - mean).mean(-1, keepdim=True) + 1e-6)
             return y * vecs[:, iv] + vecs[:, iv + 1]
+        if order == "ksteps":
+            return epilogue_layer_norm(x, vecs[:, iv], vecs[:, iv + 1])
         d = x - warp_sum(x) * inv_h
         r = torch.reciprocal(torch.sqrt(warp_sum(d * d) * inv_h + 1e-6))
         return (d * r) * vecs[:, iv] + vecs[:, iv + 1]

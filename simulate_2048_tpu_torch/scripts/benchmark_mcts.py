@@ -32,9 +32,10 @@ kernel's library) and the kernel launches the run made, by library.
 ``--phases`` (with ``--pallas``, on the card) then runs the kernel alone on
 one search's roots, unclocked and clocked in turns (:func:`kernel_phases`),
 and adds ``phases``: the computing warps' cycles by phase, a layer's cycles,
-the producer's stall share, the clocked launch's device time over the
-unclocked one's, and the warps' cycles over the device time against the SM
-clock that ``nvidia-smi`` reads.
+the layer norms a launch took in dense layers' epilogues, the producer's
+stall share, the clocked launch's device time over the unclocked one's, and
+the warps' cycles over the device time against the SM clock that
+``nvidia-smi`` reads.
 """
 
 from __future__ import annotations
@@ -182,8 +183,9 @@ def kernel_phases(
     the clocked ones while a CPU-only ``torch.profiler`` profile records, the
     condition under which the wrapper clocks them. From their counters: each phase's share of
     the computing warps' cycles, a layer's cycles (a warp's cycles over the
-    dense layers its block computed) in all and by phase, and the producer's
-    stalls over its cycles; ``clock_check`` is the warps' mean cycles over
+    dense layers its block computed) in all and by phase, the layer norms a
+    launch took in a dense layer's epilogue, and the producer's stalls over
+    its cycles; ``clock_check`` is the warps' mean cycles over
     (the clocked launch's device time × the SM clock read after it), which
     reads about 1 when the phases cover the whole launch."""
     device = observations.device
@@ -230,6 +232,7 @@ def kernel_phases(
         "computing_warps": warps,
         "clocked_launches": counts["search.kernel.clocked_launches"],
         "layers_per_launch": layers / reps,
+        "epilogue_norms_per_launch": counts["search.kernel.epilogue_norms"] / reps,
         "shares_pct": {p: 100.0 * counts[f"search.kernel.cycles.{p}"] / cycles for p in phases},
         "phase_sum_over_cycles": sum(counts[f"search.kernel.cycles.{p}"] for p in phases) / cycles,
         "cycles_per_layer": cycles / (warps * layers),

@@ -11,8 +11,10 @@ skip without one; they run on the card with
 
 at each cell's library and shape and on both streamed libraries at H=512:
 the clocked launch searches bit for bit as the unclocked one, its phases sum
-to its cycles, it counts every dense layer, and spans off launch no clocked
-kernel and count nothing.
+to its cycles, it counts every dense layer and, on the tensor cores, every
+layer norm taken in a dense layer's epilogue, and spans off launch no clocked
+kernel and count nothing. The two tensor-core libraries, resident and
+streamed, search bit for bit alike on one network at H=256.
 """
 
 import dataclasses
@@ -91,10 +93,11 @@ def test_the_counters_follow_the_kernels_order():
     phases = re.search(r"enum Phase \{([^}]*)\}", source).group(1).replace(" ", "").split(",")
     counters = re.search(r"enum Counter \{([^}]*)\}", source).group(1).replace(" ", "").split(",")
     assert phases == ["kFeed", "kProducts", "kNorm", "kBarrier", "kTree", "kPhases"]
-    assert counters == ["kCycles=kPhases", "kLayers", "kProducerCycles", "kProducerStalls", "kCounters"]
+    assert counters == ["kCycles=kPhases", "kLayers", "kProducerCycles", "kProducerStalls", "kEpilogueNorms",
+                        "kCounters"]  # fmt: skip
     assert sk.CLOCK_COUNTERS == (
         *(f"search.kernel.cycles.{p}" for p in PHASES), "search.kernel.cycles", "search.kernel.layers",
-        "search.kernel.producer_cycles", "search.kernel.producer_stall_cycles",
+        "search.kernel.producer_cycles", "search.kernel.producer_stall_cycles", "search.kernel.epilogue_norms",
     )  # fmt: skip
 
 
@@ -247,8 +250,42 @@ def test_the_clocked_kernel_searches_bit_for_bit_and_clocks_every_cycle(card, ca
     blocks = sk.kernel_blocks(batch, library)
     per_simulation = 2 * (2 * (1 + 2 * config.num_residual_blocks) + 2)  # 88 at NB=10
     assert counted["search.kernel.layers"] == per_simulation * cfg.num_simulations * blocks
+    # The tensor-core kernel takes every tower layer norm in the epilogue of the dense layer before it.
+    norms = 4 * (1 + 2 * config.num_residual_blocks) if wdtype == torch.bfloat16 else 0  # 84 at NB=10
+    assert counted["search.kernel.epilogue_norms"] == norms * cfg.num_simulations * blocks
     producer, stalls = counted["search.kernel.producer_cycles"], counted["search.kernel.producer_stall_cycles"]
     if library == "whole_search_streamed":  # no producer warp: every thread copies
         assert producer == stalls == 0
     else:
         assert 0 <= stalls <= producer and producer > 0
+
+
+@pytest.mark.card
+def test_resident_and_streamed_tensor_core_libraries_search_alike(card):
+    """At H=256 a bfloat16 pack runs resident (8 warps) or streamed (12 warps):
+    each output's k-steps and each layer norm's m-tiles are summed in one
+    order whichever warp owns them, so the two libraries' searches are equal
+    bit for bit on one network, clocked or not."""
+    config, network = clock_network("capacity_probe.selfplay", card)
+    cfg = tsp.search_config_from(config)
+    k = max(cfg.num_actions, cfg.codebook_size)
+    obs, invalid, noise = roots(config, cfg, 256, card)
+    with torch.no_grad():
+        inputs = [t.contiguous() for t in root_inputs(network, obs, cfg, invalid, noise)]
+    out = {}
+    for chunk in (None, sk.STREAM_CHUNK):
+        packed = sk.pack_search_params(network, config.num_residual_blocks, k, torch.bfloat16, chunk,
+                                       value_bins=cfg.value_bins, reward_bins=cfg.reward_bins)  # fmt: skip
+        workspace = sk.SearchWorkspace(packed)
+        library = sk.library_name(torch.bfloat16, chunk is not None)
+        out[library] = [t.clone() for t in sk.whole_search(*inputs, packed, cfg, workspace)]
+        with cpu_profile():
+            out[library + ".clocked"] = [t.clone() for t in sk.whole_search(*inputs, packed, cfg, workspace)]
+    torch.cuda.synchronize()
+    assert set(out) == {"whole_search_bf16", "whole_search_bf16_streamed", "whole_search_bf16.clocked",
+                        "whole_search_bf16_streamed.clocked"}  # fmt: skip
+    want = out.pop("whole_search_bf16")
+    assert (want[0].sum(-1) == cfg.num_simulations).all()
+    for name, got in out.items():
+        for a, b in zip(want, got):
+            assert torch.equal(a, b), name

@@ -21,7 +21,11 @@ side of that against the PTX ISA's fragment layout and the JAX package:
   multiple of 32, as a float32 one, and streams it above; a resident pack's
   fragment copy is the streamed pack's, element for element; and
   ``kernel_blocks`` counts blocks of each library's G, a last partial block
-  included.
+  included;
+- (e) the layer norm the kernel takes in a dense layer's epilogue
+  (``epilogue_layer_norm``: m-tile statistics combined in one order)
+  against the two-pass layer norm, on a row of zero variance, on a row of
+  large mean and small spread, and whatever number of warps owns the m-tiles.
 
 The kernel itself, its dense probe and the parity rule for its searches run
 on the card in ``chip_smoke.py``.
@@ -227,3 +231,91 @@ def test_tensor_core_library_runs_more_searches_a_block():
     assert sk.kernel_blocks(512, "whole_search_bf16_streamed") == 64
     assert sk.kernel_blocks(100, "whole_search_bf16_streamed") == 13
     assert sk.kernel_blocks(1024, "whole_search_bf16") == 128  # one wave of the card's 132 SMs
+
+
+# ---- (e) the layer norm in the dense layer's epilogue
+
+EPS = 2.0**-24  # float32's unit roundoff
+
+
+def two_pass_layer_norm(x: torch.Tensor) -> torch.Tensor:
+    mean = x.mean(-1, keepdim=True)
+    d = x - mean
+    return d * torch.rsqrt((d * d).mean(-1, keepdim=True) + 1e-6)
+
+
+@pytest.mark.parametrize("h", [96, 256, 512])
+def test_epilogue_layer_norm_meets_the_two_pass_layer_norm(h):
+    """Rows of several means and spreads. The two layer norms differ only in
+    the order of the float32 sums that make the mean and the variance: the
+    epilogue's adds 16 values an m-tile in 4 levels, then H/64 m-tiles a lane
+    in turn and 4 lanes in 2 levels; PyTorch's is no deeper. Each sum then
+    carries fewer than 8 + H/16 roundings of EPS of terms up to max|x|, and an
+    error of the mean moves a normalised value by its size over the row's
+    spread σ (the variance's error moves it less), so each row's values agree
+    within 4 (8 + H/16) EPS max|x| / σ, twice the sum of the two bounds (2e-5
+    at H=256 for unit rows)."""
+    rs = np.random.RandomState(h)
+    scale = torch.tensor([1.0, 3.0, 0.1, 10.0]).repeat_interleave(64)[:, None]
+    shift = torch.tensor([0.0, 1.0, 5.0, -20.0]).repeat_interleave(64)[:, None]
+    x = (torch.from_numpy(rs.standard_normal((256, h)).astype(np.float32)) * scale + shift).float()
+    gamma = torch.from_numpy(rs.standard_normal(h).astype(np.float32))
+    beta = torch.from_numpy(rs.standard_normal(h).astype(np.float32))
+    got = sk.epilogue_layer_norm(x, torch.ones(h), torch.zeros(h))
+    want = two_pass_layer_norm(x)
+    tol = 4 * (8 + h // 16) * EPS * x.abs().amax(-1, keepdim=True) / x.double().std(-1, keepdim=True).float()
+    assert ((got - want).abs() <= tol).all(), float(((got - want).abs() / tol).max())
+    # The affine part is the plain version's: y * gamma + beta, each rounded.
+    assert torch.equal(sk.epilogue_layer_norm(x, gamma, beta), got * gamma + beta)
+
+
+@pytest.mark.parametrize("h", [96, 256, 512])
+def test_epilogue_layer_norm_of_a_row_of_zero_variance(h):
+    """A constant row: where its m-tile sums add exactly (these constants), the
+    mean is the constant, the variance 0 and the output beta, bit for bit;
+    for any constant the variance is never negative (E[x²] − mean² can be)
+    and the mean within H/16 roundings of it."""
+    beta = torch.linspace(-1, 1, h)
+    for c in (0.75, -2.5, 1024.0, 0.0):
+        x = torch.full((2, h), c)
+        mean, var = sk.epilogue_moments(x)
+        assert torch.equal(mean, x[:, 0]) and torch.equal(var, torch.zeros(2))
+        assert torch.equal(sk.epilogue_layer_norm(x, torch.ones(h), beta), beta.expand(2, h))
+    for c in (3.3, -0.123456789, 7777.77):
+        x = torch.full((2, h), c)
+        mean, var = sk.epilogue_moments(x)
+        assert (var >= 0).all() and torch.isfinite(sk.epilogue_layer_norm(x, torch.ones(h), beta)).all()
+        assert ((mean - c).abs() <= (h // 16) * EPS * 2 * abs(c)).all()
+
+
+@pytest.mark.parametrize("h", [96, 256, 512])
+def test_epilogue_variance_of_a_large_mean_and_small_spread(h):
+    """Rows of mean 1,000 and spread 0.01: E[x²] − mean² in float32 loses the
+    variance (it reads 0 or a multiple of ulp(10⁶) = 0.0625, against 10⁻⁴);
+    the m-tiles' squared deviations, combined by Chan's rule, keep it within
+    1% of the float64 variance of the same float32 values, as the two-pass
+    variance does."""
+    rs = np.random.RandomState(h)
+    x = torch.from_numpy((1000 + rs.standard_normal((64, h)) * 1e-2).astype(np.float32))
+    want = x.double().var(-1, unbiased=False)
+    _, var = sk.epilogue_moments(x)
+    assert ((var.double() - want).abs() <= 0.01 * want).all()
+    mean = x.mean(-1, keepdim=True)
+    assert ((((x - mean) ** 2).mean(-1).double() - want).abs() <= 0.01 * want).all()
+    naive = (x * x).mean(-1) - x.mean(-1) ** 2
+    assert ((naive.double() - want).abs() > 0.5 * want).all()
+
+
+@pytest.mark.parametrize("h", [96, 256, 512])
+def test_epilogue_layer_norm_is_the_same_whoever_owns_the_mtiles(h):
+    """The resident library's 8 warps and the streamed one's 12 (and any other
+    count) own the m-tiles differently; each m-tile is summed alone and the
+    combine takes them in one order, so the bits are the same."""
+    rs = np.random.RandomState(h + 1)
+    x = torch.from_numpy((rs.standard_normal((16, h)) * 2 + 0.5).astype(np.float32))
+    gamma = torch.from_numpy(rs.standard_normal(h).astype(np.float32))
+    beta = torch.from_numpy(rs.standard_normal(h).astype(np.float32))
+    want = sk.epilogue_layer_norm(x, gamma, beta, warps=8)
+    for warps in (1, 5, 12, 32):
+        assert torch.equal(sk.epilogue_layer_norm(x, gamma, beta, warps=warps), want)
+        assert all(torch.equal(a, b) for a, b in zip(sk.epilogue_moments(x, warps), sk.epilogue_moments(x)))
