@@ -53,9 +53,8 @@ code != 0, no final ``ok`` line) if any phase fails:
 4. times each kernel (CUDA events after warm-up, median of 5; 3 for the
    new variants) beside its plain version and its bound: the FP32 operations
    a search needs (at the bf16 tensor-core rate for a bfloat16 pack; beside
-   it each library's launch shape: blocks, cluster size C (1), weight stages
-   and rows T of a tile, the blocks the card keeps resident at once
-   (cudaOccupancyMaxActiveClusters for the float32 resident kernel); the
+   it each library's launch shape: blocks, weight stages and rows T of a
+   tile, the blocks the card keeps resident at once; the
    bytes the kernel reads from L2 per call; and ptxas's registers, stack
    frame and spills, printed after the build, where a stack frame or a
    spill in the float32 resident or a tensor-core library fails the
@@ -246,6 +245,8 @@ import time
 import numpy as np
 import torch
 
+from perfbench.harness.flops import search_flops
+from perfbench.harness.trace import union_ns
 from simulate_2048_tpu_torch import bench
 from simulate_2048_tpu_torch.actor_learner_demo import hook_steps
 from simulate_2048_tpu_torch.env import env as envlib
@@ -550,7 +551,7 @@ def full_width_inputs(
         noise = torch._sample_dirichlet(torch.full((batch, cfg.num_actions), cfg.dirichlet_alpha), gen).to(device)
     with torch.no_grad():
         hidden_state, probs, value = root_inputs(network, obs, cfg, invalid, noise)
-    packed = pack(network, config)
+    packed = sk.pack_for(network, cfg)
     return config, cfg, network, packed, (hidden_state.contiguous(), probs.contiguous(), value.contiguous())
 
 
@@ -567,38 +568,12 @@ def midgame_roots(device, batch: int, gen: torch.Generator) -> tuple[torch.Tenso
     return envlib.get_observation(state), invalid
 
 
-def pack(network, config, weight_dtype: torch.dtype = torch.float32, stream_chunk: int | None = None):
-    """``network``'s search pack for ``config``'s tower depth and heads."""
-    return sk.pack_search_params(
-        network,
-        config.num_residual_blocks,
-        max(config.action_size, config.codebook_size),
-        weight_dtype,
-        stream_chunk,
-        value_bins=config.value_bins,
-        reward_bins=config.reward_bins,
-    )
-
-
 def root_gap(visits_a, visits_b, q_a, q_b) -> str:
     """Root visits of both sides and the Q gap between the two most visited actions."""
     a, b = visits_a.tolist(), visits_b.tolist()
     top = sorted(range(len(a)), key=lambda i: -(a[i] + b[i]))[:2]
     gaps = [abs(float(q[top[0]] - q[top[1]])) for q in (q_a, q_b)]
     return f"kernel {a} plain {b}; top-two root Q gap kernel {gaps[0]:.3g} plain {gaps[1]:.3g}"
-
-
-def search_flops(h: int, nb: int, a: int, k: int, searches: int, sims: int, vb: int = 1, rb: int = 1) -> float:
-    """FLOP the searches need: each simulation expands through one transition,
-    a fuse layer, a tower, a head layer and a second tower (2 (1 + 2 nb) + 2
-    dense h x h layers), plus that transition's heads. The cheaper heads are
-    counted (reward, value and action logits after g -> f: h (a + vb + rb)
-    against q and chance logits after phi -> psi: h (k + vb); vb, rb are the
-    value and reward bins, 1 for a scalar head), so this is a lower bound
-    whichever mix of parents the run expands."""
-    layers = 2 * (1 + 2 * nb) + 2
-    per_sim = 2.0 * (layers * h * h + h * min(a + vb + rb, k + vb))
-    return per_sim * searches * sims
 
 
 NEAR_TIE_TRIALS, NEAR_TIE_ULPS = 64, 2
@@ -709,7 +684,7 @@ def check_whole_search(
     bf16 = weight_dtype == torch.bfloat16
     mma = bf16  # both bfloat16 libraries run on the tensor cores
     if bf16 or stream_chunk:
-        packed = pack(network, config, weight_dtype, stream_chunk)
+        packed = sk.pack_for(network, cfg, weight_dtype, stream_chunk)
     rtol, atol = (1e-3, 1e-2) if bf16 else (1e-4, 1e-3)
     h, nb, s = config.hidden_size, config.num_residual_blocks, cfg.num_simulations
     reference, reference_ms = timed_once(lambda: sk.whole_search_reference(*roots, packed, cfg))
@@ -805,19 +780,17 @@ def check_whole_search(
     tile_kb = (1 if mma else 2) * shape.tile_rows * h * packed.hh.element_size() / 1024
     print(
         f"{name}: {timed} searches a launch: {shape.blocks} blocks of {shape.threads} threads "
-        f"(G={shape.searches_per_block}) in clusters of C={shape.cluster}; {shape.stages} weight stages of "
+        f"(G={shape.searches_per_block}); {shape.stages} weight stages of "
         f"T={shape.tile_rows} rows {'of every output' if mma else 'of each input half'} ({tile_kb:.0f} KB); "
         f"{shape.smem_bytes} B of shared memory "
         "a block; "
-        f"{shape.resident} blocks resident at once (the occupancy query; cudaOccupancyMaxActiveClusters for "
-        "the float32 resident kernel's clusters of one): "
-        f"{-(-shape.blocks // shape.resident)} wave(s)"
+        f"{shape.resident} blocks resident at once (the occupancy query): {-(-shape.blocks // shape.resident)} wave(s)"
     )
     hh_bytes = len(sk.call_order(nb)) * h * h * packed.hh.element_size()  # a streamed pack's padding is never read
     other_bytes = weight_bytes - packed.hh.numel() * packed.hh.element_size()
     l2 = shape.blocks * s * (hh_bytes + other_bytes)
     print(
-        f"{name}: L2 bytes a call: the hh layers once per block and simulation (clusters of C={shape.cluster}), "
+        f"{name}: L2 bytes a call: the hh layers once per block and simulation, "
         f"{shape.blocks} x {s} x {hh_bytes / 1e6:.2f} MB, and heads and vectors once per block and simulation, "
         f"{shape.blocks} x {s} x {other_bytes / 1e6:.3f} MB: {l2 / 1e9:.1f} GB a call"
     )
@@ -864,12 +837,12 @@ def check_streamed_equals_resident(device) -> None:
     config, cfg, network, _, roots = full_width_inputs(device, 256, 128, reanalyze.SEARCH_BATCH)
     h, s = config.hidden_size, cfg.num_simulations
     for dtype in (torch.float32, torch.bfloat16):
-        resident_pack = pack(network, config, dtype)
-        streamed_pack = pack(network, config, dtype, sk.STREAM_CHUNK)
+        resident_pack = sk.pack_for(network, cfg, dtype)
+        streamed_pack = sk.pack_for(network, cfg, dtype, sk.STREAM_CHUNK)
         if dtype == torch.float32:
             resident = sk.whole_search(*roots, resident_pack, cfg)
             for chunk in (2, 8):
-                streamed = sk.whole_search(*roots, pack(network, config, dtype, chunk), cfg)
+                streamed = sk.whole_search(*roots, sk.pack_for(network, cfg, dtype, chunk), cfg)
                 torch.cuda.synchronize()
                 for label, got, want in zip(("visits", "Q", "root value"), streamed, resident):
                     if not torch.equal(got, want):
@@ -897,8 +870,8 @@ def check_streamed_equals_resident(device) -> None:
                 f"{ms['streamed'] / ms['resident']:.3f}"
             )
     config, cfg, network, _, roots = full_width_inputs(device, 256, 128, BATCH, 96)
-    resident = sk.whole_search(*roots, pack(network, config, torch.bfloat16), cfg)
-    streamed = sk.whole_search(*roots, pack(network, config, torch.bfloat16, sk.STREAM_CHUNK), cfg)
+    resident = sk.whole_search(*roots, sk.pack_for(network, cfg, torch.bfloat16), cfg)
+    streamed = sk.whole_search(*roots, sk.pack_for(network, cfg, torch.bfloat16, sk.STREAM_CHUNK), cfg)
     torch.cuda.synchronize()
     check_bit_identical("whole_search_bf16_streamed vs whole_search_bf16, H=96", streamed, resident, roots[1],
                         cfg.num_simulations, BATCH)  # fmt: skip
@@ -925,7 +898,7 @@ def check_dense_probe(device, library: str) -> float:
     for h in PROBE_WIDTHS[library]:
         config = dataclasses.replace(wide_config(), hidden_size=h)
         network = network_from_config(config, tfrng.prng_key(SEED), device)
-        packed = pack(network, config, torch.bfloat16, sk.STREAM_CHUNK if streamed else None)
+        packed = sk.pack_for(network, search_config_from(config), torch.bfloat16, sk.STREAM_CHUNK if streamed else 0)
         fragments = sk.SearchWorkspace(packed).fragments
         n_layers = fragments.shape[0]
         x = torch.relu(torch.randn(g, h, generator=gen, device=device))
@@ -1743,7 +1716,7 @@ def check_ablations(device, network, config) -> float:
     b = obs.shape[0]
 
     def kernel_search(net):
-        return sk.run_search_kernel(net, obs, cfg, invalid, packed=pack(net, config))
+        return sk.run_search_kernel(net, obs, cfg, invalid, packed=sk.pack_for(net, cfg))
 
     for scale in PRIOR_SCALES:
         scaled = copy.deepcopy(network)
@@ -2950,13 +2923,8 @@ def profile_device(label: str, fn, units: int, unit: str) -> float:
         if getattr(e, "device_type", None) == DeviceType.CUDA and e.self_device_time_total > 0
     ]  # device kernels only: CPU-side ops also report the time of the kernels they launch
     events.sort(key=lambda e: -e.self_device_time_total)
-    intervals = sorted((e.start_ns(), e.start_ns() + e.duration_ns()) for e in prof.profiler.kineto_results.events()
-                       if e.device_type() == DeviceType.CUDA)  # fmt: skip
-    busy_ns, reach = 0, 0
-    for start, end in intervals:
-        busy_ns += max(0, end - max(start, reach))
-        reach = max(reach, end)
-    busy_us = busy_ns / 1e3
+    busy_us = union_ns([(e.start_ns(), e.start_ns() + e.duration_ns()) for e in prof.profiler.kineto_results.events()
+                        if e.device_type() == DeviceType.CUDA]) / 1e3  # fmt: skip
     calls = sum(e.count for e in events)
     plural = unit + ("es" if unit.endswith("s") else "s")
     print(f"profile {label}: {units} {plural}, wall {wall_us / 1e3:.2f} ms, device busy {busy_us / 1e3:.2f} ms "

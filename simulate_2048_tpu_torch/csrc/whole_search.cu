@@ -28,20 +28,7 @@
 // L2). 100 dependent simulations leave no parallelism but the batch, so
 // each block's chain of dependent layers sets the pace: the time of a launch
 // hardly moves from 128 to 1,024 searches. The phase clocks below split that
-// chain (PERF.md §5, NVIDIA H100 80GB HBM3 at 700 W). The weight feed holds
-// no warp back: a warp finds its stage landed (feed under 2% in every
-// library) while the producer waits for a free stage half to two thirds of
-// its time. The float32 resident kernel (about 7,400 cycles a layer) is
-// bound by its products and by warps with nothing to do: its 8 dense warps
-// spend about two thirds of their cycles in the products (about 1,270
-// cycles a 64 KB tile), while its other 8 computing warps, and 14 of the 16
-// during the layer norms and heads that G = 2 warps work on, wait at
-// barriers (54% of all computing warps' cycles against 39% products and 6%
-// norms). The tensor-core libraries are bound by their norms and products:
-// the heads, epilogues and layer norms (these in the epilogues of the dense
-// layers) take 46% of the resident library's cycles (about 6,700 a layer)
-// against 44% in the products, and 30% against 58% in the streamed one at
-// H=512 (about 18,800 a layer); the heads are about 27% of the resident's.
+// chain by phase in every library; PERF.md §5 holds their latest readings.
 //
 // Design. The TPU version keeps 128 searches' tree tables and all weights in
 // VMEM and reads rows by one-hot mask sums (no gather on the TPU). Neither
@@ -315,20 +302,19 @@ __device__ __forceinline__ W from_f(float x) {
 // rows [t T, t T + T) and [H/2 + t T, H/2 + t T + T) of call-order layer
 // q / tpl (t = q % tpl), in buffer q % 2. Every thread keeps its own copy;
 // all threads step it together.
-template <typename W>
 struct Stream {
-  W* buf;     // 2 buffers of (2, T, H): [half][row][out]
-  int T;      // rows of each input half in a tile
-  int tpl;    // tiles per layer: H / 2 / T
-  int total;  // tiles of the real layers of one expansion
-  int q;      // the next tile to compute
+  float* buf;  // 2 buffers of (2, T, H): [half][row][out]
+  int T;       // rows of each input half in a tile
+  int tpl;     // tiles per layer: H / 2 / T
+  int total;   // tiles of the real layers of one expansion
+  int q;       // the next tile to compute
 
   // Every thread issues its share of tile q's 16-byte copies into buffer q % 2, as one group.
   __device__ void issue(const Args& a, int tile) const {
     const int H = a.H;
-    const W* src = static_cast<const W*>(a.hh) + ((size_t)(tile / tpl) * H + (size_t)(tile % tpl) * T) * H;
-    W* dst = buf + (size_t)(tile & 1) * 2 * T * H;
-    const int pieces = T * H * (int)sizeof(W) / 16;  // per input half
+    const float* src = static_cast<const float*>(a.hh) + ((size_t)(tile / tpl) * H + (size_t)(tile % tpl) * T) * H;
+    float* dst = buf + (size_t)(tile & 1) * 2 * T * H;
+    const int pieces = T * H * (int)sizeof(float) / 16;  // per input half
     for (int e = threadIdx.x; e < 2 * pieces; e += blockDim.x) {
       const int half = e / pieces, piece = e % pieces;
       const char* from = reinterpret_cast<const char*>(src + (size_t)half * (H / 2) * H) + (size_t)piece * 16;
@@ -394,10 +380,9 @@ __device__ __forceinline__ void block_sync() {
 // is a Clock (ops/search_kernel.py launches it only while spans record), and
 // an unclocked one, with no such argument. Helpers take the clock as a
 // trailing pack `Clk&... clk`: empty in the unclocked kernels, so that every
-// hook below compiles to nothing there and their machine code is the one the
-// kernels had before the clocks. A lap adds the cycles since the last lap to
-// the phase it names, so every cycle of a computing warp, from its start to
-// its end, falls in exactly one phase:
+// hook below compiles to nothing there. A lap adds the cycles since the last
+// lap to the phase it names, so every cycle of a computing warp, from its
+// start to its end, falls in exactly one phase:
 // - kFeed: waiting for a weight stage that has not landed when the warp
 //   comes to it (the rings' mbarrier waits; the float32 streamed library's
 //   wait for its copies, and their issue);
@@ -629,7 +614,9 @@ __device__ __forceinline__ float* ln_vectors(const Args& a) {
 // the full barrier of tile q, reads it, and releases the stage with one
 // arrive (lane 0) on its empty barrier, which counts every computing warp.
 // The phases come from q alone: stage q % kStages fills for the
-// (q / kStages)-th time. Every thread keeps its own copy of the cursor.
+// (q / kStages)-th time. Every thread keeps its own copy of the cursor. A
+// launch without clusters runs each block as a cluster of one, so the
+// copies' shared::cluster addresses and the .cluster fence are this block's.
 struct Ring {
   float* buf;          // kStages stages of (2, T, H): [half][row][out]
   unsigned bars;       // shared address of full[0]; full[s] at + 8 s, empty[s] at + 8 (kStages + s)
@@ -830,26 +817,22 @@ __device__ __forceinline__ void mma_bf16(float (&acc)[4], const uint4& a, unsign
 }
 
 // acc[g] += w * x[g] over one input row (x: G activations, read as float2s).
-template <int G, typename W>
+template <int G>
 __device__ __forceinline__ void fma_row(float (&acc)[G], float w, const float* x) {
   const float2* x2 = reinterpret_cast<const float2*>(x);
 #pragma unroll
   for (int q = 0; q < G / 2; ++q) {
     const float2 xv = x2[q];
-    acc[2 * q + 0] = fmaf(w, act<W>(xv.x), acc[2 * q + 0]);
-    acc[2 * q + 1] = fmaf(w, act<W>(xv.y), acc[2 * q + 1]);
+    acc[2 * q + 0] = fmaf(w, xv.x, acc[2 * q + 0]);
+    acc[2 * q + 1] = fmaf(w, xv.y, acc[2 * q + 1]);
   }
 }
 
 // How a thread of the float32 streamed kernel sums the products of its input
 // half, 8 rows at a time: one FMA chain, row after row.
-template <int G, typename W>
+template <int G>
 struct RowSum {
   float acc[G];
-  // Unread since the bfloat16 CUDA-core kernel went (its balanced trees' partial sums and block count): they keep
-  // the object's layout, and with it the float32 streamed library's machine code (cuobjdump -sass).
-  float level[6][G];
-  int blocks = 0;
 
   __device__ __forceinline__ RowSum() {
 #pragma unroll
@@ -859,7 +842,7 @@ struct RowSum {
   // Rows u = 0..7: weight w[u], activations x + u * G.
   __device__ __forceinline__ void add8(const float (&w)[8], const float* x) {
 #pragma unroll
-    for (int u = 0; u < 8; ++u) fma_row<G, W>(acc, w[u], x + u * G);
+    for (int u = 0; u < 8; ++u) fma_row<G>(acc, w[u], x + u * G);
   }
 };
 
@@ -923,7 +906,7 @@ __device__ __forceinline__ void load_vec(const float* p, float (&v)[U]) {
 // The float32 resident kernel's dense layer (dense's contract), on the tiles
 // of its Ring: H threads, thread t owning outputs o0 and o0 + 1 of input
 // half `half`; each output sums its half's rows in order, one FMA
-// chain per search, as RowSum<G, float> does, so every output's bits are
+// chain per search, as RowSum<G> does, so every output's bits are
 // those of one thread per output. A warp reads a row's weights as one
 // float2 load per lane and the activations of 2 rows as one broadcast
 // float4 (G = 2), kRingRows rows at a time. The epilogue's global loads, and
@@ -1010,24 +993,23 @@ __device__ void dense_ring(const Args& a, Ring& st, int iv, const float* in, flo
   sync_lap<kNorm>(clk...);
 }
 
-// out (H, G) = W[layer]^T in + vec[iv] (+ rows[row_idx[g]] | + out), a
-// float32 pack. 2H threads: thread t owns output row t % H and input half
-// t / H, and sums its half's products as RowSum does, alike in both kernels.
-// The streamed kernel computes on the tiles of `st` (a Stream), the resident
-// one on those of its Ring; either must stand at this layer's first tile, so
-// `layer` is unread (kept, with tower's ihh, so that the float32 libraries
-// compile to the machine code they had).
-template <int G, typename W, bool kStream, typename Feed, typename... Clk>
-__device__ void dense(const Args& a, Feed& st, int layer, int iv, const float* in, float* out, float* part,
-                      const W* rows, const int* row_idx, bool residual, Clk&... clk) {
-  const int H = a.H;
-  const int o = threadIdx.x % H;
-  const int half = threadIdx.x / H;
-  const int len = H / 2;
-  const int i0 = half * len;
-  static_assert(G % 2 == 0, "activations are read as float2s");
-  RowSum<G, W> sum;
-  if constexpr (kStream) {
+// out (H, G) = W^T in + vec[iv] (+ rows[row_idx[g]] | + out) for the next
+// layer W of a float32 pack: `st` (the streamed kernel's Stream, the
+// resident one's Ring) stands at its first tile. The streamed kernel's 2H
+// threads: thread t owns output row t % H and input half t / H, and sums its
+// half's products as RowSum does; the ring's, dense_ring.
+template <int G, typename Feed, typename... Clk>
+__device__ void dense(const Args& a, Feed& st, int iv, const float* in, float* out, float* part, const float* rows,
+                      const int* row_idx, bool residual, Clk&... clk) {
+  if constexpr (kRing) {
+    dense_ring<G>(a, st, iv, in, out, part, rows, row_idx, residual, false, clk...);
+  } else {
+    const int H = a.H;
+    const int o = threadIdx.x % H;
+    const int half = threadIdx.x / H;
+    const int i0 = half * (H / 2);
+    static_assert(G % 2 == 0, "activations are read as float2s");
+    RowSum<G> sum;
     (clk.layer(), ...);
     for (int t = 0; t < st.tpl; ++t) {
       st.wait();  // this thread's copies of tile st.q
@@ -1036,37 +1018,34 @@ __device__ void dense(const Args& a, Feed& st, int layer, int iv, const float* i
       (clk.add_barrier(), ...);
       if (st.q + 1 < st.total) st.issue(a, st.q + 1);
       lap<kFeed>(clk...);
-      const W* w = st.buf + (size_t)(st.q & 1) * 2 * st.T * H + (size_t)half * st.T * H + o;
+      const float* w = st.buf + (size_t)(st.q & 1) * 2 * st.T * H + (size_t)half * st.T * H + o;
       const float* x = in + (i0 + t * st.T) * G;
       for (int u = 0; u < st.T; u += 8) {
         float wr[8];
 #pragma unroll
-        for (int v = 0; v < 8; ++v) wr[v] = to_f(w[(size_t)(u + v) * H]);
+        for (int v = 0; v < 8; ++v) wr[v] = w[(size_t)(u + v) * H];
         sum.add8(wr, x + u * G);
       }
       ++st.q;
       lap<kProducts>(clk...);
     }
-  } else if constexpr (kRing) {
-    dense_ring<G>(a, st, iv, in, out, part, rows, row_idx, residual, false, clk...);
-    return;
-  }
-  if (half == 1) {
+    if (half == 1) {
 #pragma unroll
-    for (int g = 0; g < G; ++g) part[o * G + g] = sum.acc[g];
-  }
-  sync_lap<kNorm>(clk...);
-  if (half == 0) {
-    const float bias = a.vecs[(size_t)iv * H + o];
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float v = (sum.acc[g] + part[o * G + g]) + bias;
-      if (rows != nullptr) v += to_f(rows[(size_t)row_idx[g] * H + o]);
-      if (residual) v += out[o * G + g];
-      out[o * G + g] = v;
+      for (int g = 0; g < G; ++g) part[o * G + g] = sum.acc[g];
     }
+    sync_lap<kNorm>(clk...);
+    if (half == 0) {
+      const float bias = a.vecs[(size_t)iv * H + o];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float v = (sum.acc[g] + part[o * G + g]) + bias;
+        if (rows != nullptr) v += rows[(size_t)row_idx[g] * H + o];
+        if (residual) v += out[o * G + g];
+        out[o * G + g] = v;
+      }
+    }
+    sync_lap<kNorm>(clk...);
   }
-  sync_lap<kNorm>(clk...);
 }
 
 // A balanced tree over v[0..N-1], N a power of two: halving, as the plain
@@ -1083,7 +1062,7 @@ __device__ __forceinline__ float tree(float (&v)[N]) {
 
 // out = relu(LayerNorm(in) * vec[iv] + vec[iv + 1]) of a float32 pack, one
 // warp per column; `out` may alias `in`.
-template <int G, typename W, typename... Clk>
+template <int G, typename... Clk>
 __device__ void layer_norm_relu(const Args& a, int iv, const float* in, float* out, Clk&... clk) {
   const int H = a.H;
   const int lane = threadIdx.x & 31;
@@ -1143,33 +1122,31 @@ __device__ void layer_norm_relu(const Args& a, int iv, const float* in, float* o
 
 // A dense layer of a tower, which a layer norm follows: the ring kernel's
 // brings that layer norm's vectors along.
-template <int G, typename W, bool kStream, typename Feed, typename... Clk>
-__device__ __forceinline__ void tower_dense(const Args& a, Feed& st, int layer, int iv, const float* in, float* out,
-                                            float* part, bool residual, Clk&... clk) {
+template <int G, typename Feed, typename... Clk>
+__device__ __forceinline__ void tower_dense(const Args& a, Feed& st, int iv, const float* in, float* out, float* part,
+                                            bool residual, Clk&... clk) {
   if constexpr (kRing) {
     dense_ring<G>(a, st, iv, in, out, part, nullptr, nullptr, residual, true, clk...);
   } else {
-    dense<G, W, kStream>(a, st, layer, iv, in, out, part, nullptr, nullptr, residual, clk...);
+    dense<G>(a, st, iv, in, out, part, nullptr, nullptr, residual, clk...);
   }
 }
 
 // TowerWithHead: dense -> NB pre-LN residual blocks -> LN -> relu; result in x.
 // `in` may alias u (it is consumed by the first layer).
-template <int G, typename W, bool kStream, typename Feed, typename... Clk>
-__device__ void tower(const Args& a, Feed& st, int ihh, int iv, const float* in, float* x, float* t, float* u,
-                      float* part, Clk&... clk) {
-  tower_dense<G, W, kStream>(a, st, ihh, iv, in, x, part, false, clk...);
-  ihh += 1;
+template <int G, typename Feed, typename... Clk>
+__device__ void tower(const Args& a, Feed& st, int iv, const float* in, float* x, float* t, float* u, float* part,
+                      Clk&... clk) {
+  tower_dense<G>(a, st, iv, in, x, part, false, clk...);
   iv += 1;
   for (int blk = 0; blk < a.NB; ++blk) {
-    layer_norm_relu<G, W>(a, iv, x, t, clk...);
-    tower_dense<G, W, kStream>(a, st, ihh, iv + 2, t, u, part, false, clk...);
-    layer_norm_relu<G, W>(a, iv + 3, u, u, clk...);
-    tower_dense<G, W, kStream>(a, st, ihh + 1, iv + 5, u, x, part, true, clk...);
-    ihh += 2;
+    layer_norm_relu<G>(a, iv, x, t, clk...);
+    tower_dense<G>(a, st, iv + 2, t, u, part, false, clk...);
+    layer_norm_relu<G>(a, iv + 3, u, u, clk...);
+    tower_dense<G>(a, st, iv + 5, u, x, part, true, clk...);
     iv += 6;
   }
-  layer_norm_relu<G, W>(a, iv, x, x, clk...);
+  layer_norm_relu<G>(a, iv, x, x, clk...);
 }
 
 // The layer norm that a tower's dense layer takes into its epilogue (dense_mma's `ln`): relu(LayerNorm(v) *
@@ -1488,10 +1465,11 @@ size_t smem_bytes(int H, int K, int value_bins, int reward_bins, int tile_floats
          (size_t)7 * G * sizeof(int);
 }
 
-// The tensor-core kernel's steps around the expansion: tree init,
-// traversal, the new node's priors, backup and root statistics. They are
-// whole_search_kernel's own, statement for statement, which keeps its copy
-// inline so that its two libraries compile to the machine code they had.
+// The tree steps both kernels take around their expansions, on the tree
+// tables in global memory: tree init, traversal, the new node's priors,
+// backup and root statistics. Only the expansion differs between the
+// kernels: how the parent embeddings are gathered, how the dense layers run,
+// and how the new node's embedding is installed.
 //
 // Where a simulation's traversal leaves each of the block's G searches, for
 // the expansion and the backup: (G,) arrays in shared memory.
@@ -1664,9 +1642,9 @@ __device__ __forceinline__ void root_stats(const Args& a, int b0, Clk&... clk) {
 
 // The streamed kernel's tile: T rows of each input half, the largest power
 // of two times 16 that divides H / 2 with both halves in kTileBytes.
-inline int stream_tile_rows(int H, int wsize) {
+inline int stream_tile_rows(int H) {
   int T = 16;
-  while ((H / 2) % (2 * T) == 0 && 2 * (2 * T) * H * wsize <= kTileBytes) T *= 2;
+  while ((H / 2) % (2 * T) == 0 && 2 * (2 * T) * H * (int)sizeof(float) <= kTileBytes) T *= 2;
   return T;
 }
 
@@ -1680,13 +1658,19 @@ inline int stream_tile_rows(int H, int wsize) {
 #define WHOLE_SEARCH_BOUNDS __launch_bounds__(1024)
 #endif
 
-template <int G, typename W, bool kStream, typename... Clk>
+// The float32 libraries' kernel, its dense layers fed by a Feed: the
+// resident library's Ring, the streamed one's Stream. Shared memory, after
+// the weight tiles: (H, G) float tiles of the parent embeddings, the
+// afterstate, the next hidden state, the tower's three activations and the
+// second input half's partial sums, then the logits and head values, the
+// categorical heads' scratch and the traversal's picks.
+template <int G, typename Feed, typename... Clk>
 __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a, Clk... clk) {
   (clk.begin(), ...);
   extern __shared__ __align__(16) float smem[];
-  const int H = a.H, K = a.K, A = a.A, N = a.S + 1, P = a.P;
+  const int H = a.H, K = a.K, N = a.S + 1;
   const int HG = H * G;
-  W* emb = static_cast<W*>(a.emb);
+  float* emb = static_cast<float*>(a.emb);
   float* pe = smem + a.tile_floats;  // parent embeddings
   float* after = pe + HG;    // phi output (afterstate)
   float* hnew = after + HG;  // g output (next hidden state)
@@ -1703,217 +1687,76 @@ __global__ void WHOLE_SEARCH_BOUNDS whole_search_kernel(Args a, Clk... clk) {
   const int cat_bins = max(a.value_bins, a.reward_bins);
   const int cat_floats = cat_bins > 1 ? (max((int)compute_threads(), cat_bins) + cat_bins) * G : 0;
   float* lgt = psum + (cat_floats - cat_bins * G);
-  int* s_parent = reinterpret_cast<int*>(s_v + G + cat_floats);
-  int* s_edge = s_parent + G;
-  int* s_exist = s_edge + G;
-  int* s_depth = s_exist + G;
-  int* s_dec = s_depth + G;
-  int* s_arow = s_dec + G;
-  int* s_crow = s_arow + G;
+  int* s_int = reinterpret_cast<int*>(s_v + G + cat_floats);
+  const Picks picks{s_int, s_int + G, s_int + 2 * G, s_int + 3 * G, s_int + 4 * G, s_int + 5 * G, s_int + 6 * G};
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = compute_threads() >> 5;
+  const int tid = threadIdx.x;
   const int b0 = blockIdx.x * G;
 
-  // Offsets into the packed weights (mirror pack_search_params).
+  // Offsets into the bias / LayerNorm vectors (mirror pack_search_params).
   const int tower_hh = 1 + 2 * a.NB, tower_vec = 3 + 6 * a.NB;
-  const int F_HH = 0, F_V = 0;
-  const int PHI_FUSE_HH = F_HH + tower_hh, PHI_FUSE_V = F_V + tower_vec;
-  const int PHI_HH = PHI_FUSE_HH + 1, PHI_V = PHI_FUSE_V + 1;
-  const int PHI_HEAD_HH = PHI_HH + tower_hh, PHI_HEAD_V = PHI_V + tower_vec;
-  const int PSI_HH = PHI_HEAD_HH + 1, PSI_V = PHI_HEAD_V + 1;
-  const int G_FUSE_HH = PSI_HH + tower_hh, G_FUSE_V = PSI_V + tower_vec;
-  const int G_HH = G_FUSE_HH + 1, G_V = G_FUSE_V + 1;
-  const int G_HEAD_HH = G_HH + tower_hh, G_HEAD_V = G_V + tower_vec;
-  const W* win = static_cast<const W*>(a.win);
+  const int F_V = 0, PHI_FUSE_V = F_V + tower_vec, PHI_V = PHI_FUSE_V + 1, PHI_HEAD_V = PHI_V + tower_vec;
+  const int PSI_V = PHI_HEAD_V + 1, G_FUSE_V = PSI_V + tower_vec, G_V = G_FUSE_V + 1, G_HEAD_V = G_V + tower_vec;
+  const float* win = static_cast<const float*>(a.win);
 
-  std::conditional_t<kRing, Ring, Stream<W>> st{};
+  Feed st{};
   if constexpr (kRing) {
     st.start(a, smem, tower_hh);
     if (tid >= (int)compute_threads()) {  // the producer warp
-      if (lane == 0) st.produce(a, clk...);
+      if ((tid & 31) == 0) st.produce(a, clk...);
       (clk.flush(), ...);
       return;
     }
   } else {
-    st = Stream<W>{reinterpret_cast<W*>(smem), a.tile_rows, 0, 0, 0};
-    if constexpr (kStream) {
-      st.tpl = H / 2 / a.tile_rows;
-      st.total = (4 * tower_hh + 4) * st.tpl;
-    }
+    st = Feed{smem, a.tile_rows, H / 2 / a.tile_rows, (4 * tower_hh + 4) * (H / 2 / a.tile_rows), 0};
   }
 
-  // ---- tree init: root = node 0, a decision node
-  for (int g = 0; g < G && b0 + g < a.B; ++g) {
-    const int b = b0 + g;
-    const size_t nk = (size_t)b * N * K, nn = (size_t)b * N;
-    for (int e = tid; e < N * K; e += compute_threads()) {
-      a.cidx[nk + e] = kUnvisited;
-      a.cvis[nk + e] = 0.f;
-      a.cval[nk + e] = 0.f;
-      a.prior[nk + e] = e < K ? a.root_p[(size_t)b * K + e] : 0.f;
-    }
-    for (int e = tid; e < N; e += compute_threads()) {
-      a.nvis[nn + e] = e == 0 ? 1.f : 0.f;
-      a.nval[nn + e] = e == 0 ? a.root_v[b] : 0.f;
-      a.nrew[nn + e] = 0.f;
-      a.ndis[nn + e] = 1.f;
-      a.ndec[nn + e] = e == 0 ? 1.f : 0.f;
-    }
-    for (int e = tid; e < H; e += compute_threads()) emb[nn * H + e] = from_f<W>(a.root_h[(size_t)b * H + e]);
-  }
-  sync_lap<kTree>(clk...);
+  tree_init<G, float>(a, b0, clk...);
 
-  for (int sim = 0; sim < a.S; ++sim) {
-    const int new_index = sim + 1;
-    if constexpr (kStream) {  // the expansion's first tile lands while the block traverses
+  for (int new_index = 1; new_index <= a.S; ++new_index) {  // a simulation: its new node takes row new_index
+    if constexpr (kStreamed) {  // the expansion's first tile lands while the block traverses
       st.q = 0;
       st.issue(a, 0);
     }
+    traverse<G>(a, b0, picks, clk...);
 
-    // ---- traversal: one warp per search
-    for (int g = warp; g < G; g += nwarps) {
-      const int b = b0 + g;
-      if (b >= a.B) {
-        if (lane == 0) {
-          s_parent[g] = 0;
-          s_edge[g] = 0;
-          s_exist[g] = 0;
-          s_depth[g] = 1;
-          s_dec[g] = 1;
-          s_arow[g] = 0;
-          s_crow[g] = 0;
-        }
-        continue;
-      }
-      int* pn = a.path_nodes + (size_t)b * P;
-      int* pe_ = a.path_edges + (size_t)b * P;
-      int node = 0, edge, next;
-      pick(a, b, node, lane, edge, next);
-      if (lane == 0) {
-        pn[0] = node;
-        pe_[0] = edge;
-      }
-      int depth = 1;
-      while (depth < P && next != kUnvisited) {
-        node = next;
-        pick(a, b, node, lane, edge, next);
-        if (lane == 0) {
-          pn[depth] = node;
-          pe_[depth] = edge;
-        }
-        ++depth;
-      }
-      if (lane == 0) {
-        s_parent[g] = node;
-        s_edge[g] = edge;
-        s_exist[g] = next;
-        s_depth[g] = depth;
-        s_dec[g] = a.ndec[(size_t)b * N + node] > 0.f ? 1 : 0;
-        s_arow[g] = min(edge, A - 1);
-        s_crow[g] = min(edge, K - 1);
-      }
-    }
-    sync_lap<kTree>(clk...);
-
-    // ---- expansion: both transition types at (parent, edge)
+    // ---- expansion: both transition types at (parent, edge), the layers in call order
     for (int e = tid; e < HG; e += compute_threads()) {
       const int i = e / G, g = e % G, b = b0 + g;
-      pe[e] = b < a.B ? to_f(emb[((size_t)b * N + s_parent[g]) * H + i]) : 0.f;
+      pe[e] = b < a.B ? emb[((size_t)b * N + picks.parent[g]) * H + i] : 0.f;
     }
     sync_lap<kTree>(clk...);
 
     // phi then psi (decision parent -> chance child)
-    // (in call order: the streamed pack holds the layers in this order)
-    dense<G, W, kStream>(a, st, PHI_FUSE_HH, PHI_FUSE_V, pe, u, part, win, s_arow, false, clk...);
-    tower<G, W, kStream>(a, st, PHI_HH, PHI_V, u, x, t, u, part, clk...);
-    dense<G, W, kStream>(a, st, PHI_HEAD_HH, PHI_HEAD_V, x, after, part, nullptr, nullptr, false, clk...);
-    tower<G, W, kStream>(a, st, PSI_HH, PSI_V, after, x, t, u, part, clk...);
-    head_value<G, W>(a, 1, x, s_q, psum, lgt, clk...);
-    head_logits<G, W>(a, 1, x, lc, clk...);
+    dense<G>(a, st, PHI_FUSE_V, pe, u, part, win, picks.arow, false, clk...);
+    tower<G>(a, st, PHI_V, u, x, t, u, part, clk...);
+    dense<G>(a, st, PHI_HEAD_V, x, after, part, nullptr, nullptr, false, clk...);
+    tower<G>(a, st, PSI_V, after, x, t, u, part, clk...);
+    head_value<G, float>(a, 1, x, s_q, psum, lgt, clk...);
+    head_logits<G, float>(a, 1, x, lc, clk...);
 
     // g then f (chance parent -> decision child)
-    dense<G, W, kStream>(a, st, G_FUSE_HH, G_FUSE_V, pe, u, part, win + (size_t)K * H, s_crow, false, clk...);
-    tower<G, W, kStream>(a, st, G_HH, G_V, u, x, t, u, part, clk...);
-    dense<G, W, kStream>(a, st, G_HEAD_HH, G_HEAD_V, x, hnew, part, nullptr, nullptr, false, clk...);
-    head_value<G, W>(a, 2, x, s_r, psum, lgt, clk...);
-    tower<G, W, kStream>(a, st, F_HH, F_V, hnew, x, t, u, part, clk...);
-    head_value<G, W>(a, 0, x, s_v, psum, lgt, clk...);
-    head_logits<G, W>(a, 0, x, la, clk...);
+    dense<G>(a, st, G_FUSE_V, pe, u, part, win + (size_t)K * H, picks.crow, false, clk...);
+    tower<G>(a, st, G_V, u, x, t, u, part, clk...);
+    dense<G>(a, st, G_HEAD_V, x, hnew, part, nullptr, nullptr, false, clk...);
+    head_value<G, float>(a, 2, x, s_r, psum, lgt, clk...);
+    tower<G>(a, st, F_V, hnew, x, t, u, part, clk...);
+    head_value<G, float>(a, 0, x, s_v, psum, lgt, clk...);
+    head_logits<G, float>(a, 0, x, la, clk...);
 
     // ---- install the new node at row new_index (unreachable when the
     // depth cap stopped on an expanded edge)
     for (int e = tid; e < HG; e += compute_threads()) {
       const int i = e / G, g = e % G, b = b0 + g;
-      if (b < a.B) emb[((size_t)b * N + new_index) * H + i] = from_f<W>(s_dec[g] ? after[e] : hnew[e]);
+      if (b < a.B) emb[((size_t)b * N + new_index) * H + i] = picks.dec[g] ? after[e] : hnew[e];
     }
     lap<kTree>(clk...);
-    for (int g = warp; g < G; g += nwarps) {
-      const int b = b0 + g;
-      if (b >= a.B) continue;
-      const bool dec = s_dec[g];
-      const int width = dec ? K : A;
-      const float* logits = dec ? lc : la;
-      const float m = lane < width ? __fdiv_rn(logits[lane * G + g], a.temperature) : kNegInf;
-      const float mx = warp_max(m);
-      const float ev = lane < width ? expf(__fsub_rn(m, mx)) : 0.f;
-      const float sum = warp_sum(ev);
-      if (lane < K) a.prior[((size_t)b * N + new_index) * K + lane] = __fdiv_rn(ev, sum);
-    }
-    lap<kNorm>(clk...);
-
-    // ---- backup, one thread per search
-    if (tid < G && b0 + tid < a.B) {
-      const int g = tid, b = b0 + g;
-      const size_t nb = (size_t)b * N;
-      const bool dec = s_dec[g];
-      a.nrew[nb + new_index] = dec ? 0.f : s_r[g];
-      a.ndis[nb + new_index] = dec ? 1.f : a.discount;
-      a.ndec[nb + new_index] = dec ? 0.f : 1.f;
-
-      const int exist = s_exist[g], parent = s_parent[g], edge = s_edge[g], depth = s_depth[g];
-      const bool needs_expand = exist == kUnvisited;
-      const int child = needs_expand ? new_index : exist;
-      if (needs_expand) a.cidx[(nb + parent) * K + edge] = child;
-      const float leaf_value = needs_expand ? (dec ? s_q[g] : s_v[g]) : a.nval[nb + max(exist, 0)];
-
-      const int* pn = a.path_nodes + (size_t)b * P;
-      const int* pe_ = a.path_edges + (size_t)b * P;
-      float* vb = a.vbuf + (size_t)b * (P + 1);
-      auto ext = [&](int j) { return j < depth ? pn[j] : (j == depth ? child : N); };
-
-      vb[depth] = leaf_value;
-      for (int j = depth - 1; j >= 0; --j) {
-        const int nd = ext(j + 1);
-        vb[j] = __fadd_rn(a.nrew[nb + nd], __fmul_rn(a.ndis[nb + nd], vb[j + 1]));
-      }
-      for (int j = 0; j <= depth; ++j) {
-        const int nd = ext(j);
-        const float vis = a.nvis[nb + nd];
-        const float val = a.nval[nb + nd];
-        a.nval[nb + nd] = __fdiv_rn(__fadd_rn(__fmul_rn(val, vis), vb[j]), __fadd_rn(vis, 1.f));
-        a.nvis[nb + nd] = vis + 1.f;
-      }
-      for (int j = 0; j < depth; ++j) {
-        const int nd = pn[j], cn = ext(j + 1);
-        const size_t ek = (nb + nd) * K + pe_[j];
-        a.cvis[ek] += 1.f;
-        a.cval[ek] = __fadd_rn(a.nrew[nb + cn], __fmul_rn(a.ndis[nb + cn], a.nval[nb + cn]));
-      }
-    }
-    sync_lap<kTree>(clk...);
+    priors<G>(a, b0, new_index, picks.dec, lc, la, clk...);
+    backup<G>(a, b0, new_index, picks, s_q, s_r, s_v, clk...);
     (clk.settle(), ...);
   }
 
-  // ---- root statistics
-  for (int e = tid; e < G * A; e += compute_threads()) {
-    const int g = e / A, act = e % A, b = b0 + g;
-    if (b < a.B) {
-      a.visits[(size_t)b * A + act] = a.cvis[(size_t)b * N * K + act];
-      a.qvals[(size_t)b * A + act] = a.cval[(size_t)b * N * K + act];
-    }
-  }
-  if (tid < G && b0 + tid < a.B) a.rootv[b0 + tid] = a.nval[(size_t)(b0 + tid) * N];
-  lap<kTree>(clk...);
+  root_stats<G>(a, b0, clk...);
   (clk.flush(), ...);
 }
 
@@ -2058,143 +1901,72 @@ inline int ring_tile_rows(int H) {
 }
 
 // How a launch of B searches runs: blocks (one per G searches; the last
-// block's searches past B are dummies that run the whole pipeline), the tile
-// geometry and the dynamic shared memory.
+// block's searches past B are dummies that run the whole pipeline), threads
+// a block, the weight stages in shared memory and a tile's rows (of each
+// input half; the tensor-core kernel: input rows of every output), the
+// floats before the activations in shared memory, and the dynamic shared
+// memory.
 struct Plan {
-  int blocks, threads, tile_rows, tile_floats;
+  int blocks, threads, stages, tile_rows, tile_floats;
   size_t smem;
 };
 
-// The tensor-core kernel's plan (whole_search_mma_kernel's shared memory).
-template <int G>
-Plan make_mma_plan(int B, int H, int K, int value_bins, int reward_bins) {
-  const int threads = 32 * kMmaWarps, tile = 8 * ((G + 7) / 8) * (H + kActPad);
-  const int split = kStreamed ? threads : kHeadSplit;
-  const int bins = value_bins > reward_bins ? value_bins : reward_bins;
-  const size_t cat = bins > 1 ? (size_t)((split > bins ? split : bins) + bins) * G * sizeof(float) : 0;
-  const int rows = G * (H + kRowPad);
-  // u, the layer norms' statistics, xa and xb
-  const size_t scratch = (size_t)(rows + H) * sizeof(float) + 2 * (size_t)tile * sizeof(__nv_bfloat16);
-  Plan p{(B + G - 1) / G, threads + 32, 16 * mma_tile_ksteps(H), mma_ring_floats(H), 0};
-  p.smem = (size_t)(p.tile_floats + rows + H * G + 2 * K * G + 3 * G) * sizeof(float) + (size_t)7 * G * sizeof(int) +
-           3 * (size_t)tile * sizeof(__nv_bfloat16) + (cat > scratch ? cat : scratch);
-  return p;
-}
-
-template <int G, typename W, bool kStream>
-Plan make_plan(int B, int H, int K, int value_bins, int reward_bins) {
-  Plan p{(B + G - 1) / G, 2 * H, 0, 0, 0};
-  if (kStream) {
-    p.tile_rows = stream_tile_rows(H, (int)sizeof(W));
-    p.tile_floats = 2 * 2 * p.tile_rows * H * (int)sizeof(W) / (int)sizeof(float);
+// This library's plan.
+inline Plan make_plan(int B, int H, int K, int value_bins, int reward_bins) {
+  constexpr int G = kSearchesPerBlock;
+  Plan p{(B + G - 1) / G, 0, 0, 0, 0, 0};
+  if constexpr (kMma) {  // whole_search_mma_kernel's shared memory
+    const int threads = 32 * kMmaWarps, tile = 8 * ((G + 7) / 8) * (H + kActPad);
+    const int split = kStreamed ? threads : kHeadSplit;
+    const int bins = value_bins > reward_bins ? value_bins : reward_bins;
+    const size_t cat = bins > 1 ? (size_t)((split > bins ? split : bins) + bins) * G * sizeof(float) : 0;
+    const int rows = G * (H + kRowPad);
+    // u, the layer norms' statistics, xa and xb
+    const size_t scratch = (size_t)(rows + H) * sizeof(float) + 2 * (size_t)tile * sizeof(__nv_bfloat16);
+    p.threads = threads + 32;  // and the producer warp
+    p.stages = kMmaStages;
+    p.tile_rows = 16 * mma_tile_ksteps(H);
+    p.tile_floats = mma_ring_floats(H);
+    p.smem = (size_t)(p.tile_floats + rows + H * G + 2 * K * G + 3 * G) * sizeof(float) + (size_t)7 * G * sizeof(int) +
+             3 * (size_t)tile * sizeof(__nv_bfloat16) + (cat > scratch ? cat : scratch);
+    return p;
   }
-  if (kRing) {
+  if constexpr (kRing) {
     p.threads = 2 * H + 32;  // and the producer warp
+    p.stages = kStages;
     p.tile_rows = ring_tile_rows(H);
     p.tile_floats = kStages * 2 * p.tile_rows * H + kBarrierFloats + 2 * H;  // and the layer norm's vectors
+  } else {
+    p.threads = 2 * H;
+    p.stages = 2;
+    p.tile_rows = stream_tile_rows(H);
+    p.tile_floats = 2 * 2 * p.tile_rows * H;
   }
   p.smem = smem_bytes<G>(H, K, value_bins, reward_bins, p.tile_floats);
   return p;
 }
 
-// A launch of `p` (kRing) on `stream` in thread-block clusters of one block;
-// `attr` must outlive the config.
-inline cudaLaunchConfig_t cluster_config(const Plan& p, cudaStream_t stream, cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg{};
-  cfg.gridDim = dim3(p.blocks);
-  cfg.blockDim = dim3(p.threads);
-  cfg.dynamicSmemBytes = p.smem;
-  cfg.stream = stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = 1;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-// The launch of the unclocked kernel, or with a Clock (clk) the clocked one.
-template <int G, typename W, bool kStream, typename... Clk>
-int launch(Args a, cudaStream_t stream, Clk... clk) {
-  const Plan p = make_plan<G, W, kStream>(a.B, a.H, a.K, a.value_bins, a.reward_bins);
-  a.tile_rows = p.tile_rows;
-  a.tile_floats = p.tile_floats;
-  auto kernel = whole_search_kernel<G, W, kStream, Clk...>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
-  if (err != cudaSuccess) return (int)err;
-  if constexpr (kRing) {
-    cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg = cluster_config(p, stream, &attr);
-    err = cudaLaunchKernelEx(&cfg, kernel, a, clk...);
-    if (err != cudaSuccess) return (int)err;
-  } else {
-    kernel<<<p.blocks, p.threads, p.smem, stream>>>(a, clk...);
-  }
-  return (int)cudaGetLastError();
-}
-
-template <int G, typename... Clk>
-int launch_mma(Args a, cudaStream_t stream, Clk... clk) {
-  const Plan p = make_mma_plan<G>(a.B, a.H, a.K, a.value_bins, a.reward_bins);
-  a.tile_floats = p.tile_floats;
-  auto kernel = whole_search_mma_kernel<G, Clk...>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<p.blocks, p.threads, p.smem, stream>>>(a, clk...);
-  return (int)cudaGetLastError();
-}
-
-// This library's launch (launch or launch_mma), clocked when given a Clock.
+// This library's kernel: unclocked, or clocked with a Clock type.
 template <typename... Clk>
-int launch_library(const Args& a, cudaStream_t stream, Clk... clk) {
+auto library_kernel() {
 #if WHOLE_SEARCH_BF16
-  return launch_mma<kSearchesPerBlock>(a, stream, clk...);
+  return whole_search_mma_kernel<kSearchesPerBlock, Clk...>;
 #else
-  return launch<kSearchesPerBlock, Weight, kStreamed>(a, stream, clk...);
+  return whole_search_kernel<kSearchesPerBlock, std::conditional_t<kRing, Ring, Stream>, Clk...>;
 #endif
 }
 
-// make_plan's numbers for this library's kernel, and how many of its blocks
-// the card keeps resident at once (kRing: clusters of one block).
-template <int G, typename W, bool kStream>
-int launch_shape(int B, int H, int K, int value_bins, int reward_bins, int* out) {
-  const Plan p = make_plan<G, W, kStream>(B, H, K, value_bins, reward_bins);
-  auto kernel = whole_search_kernel<G, W, kStream>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+// The launch of the unclocked kernel, or with a Clock (clk) the clocked one.
+template <typename... Clk>
+int launch(Args a, cudaStream_t stream, Clk... clk) {
+  const Plan p = make_plan(a.B, a.H, a.K, a.value_bins, a.reward_bins);
+  a.tile_rows = p.tile_rows;
+  a.tile_floats = p.tile_floats;
+  const auto kernel = library_kernel<Clk...>();
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (err != cudaSuccess) return (int)err;
-  int resident = 0;
-  if constexpr (kRing) {
-    cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg = cluster_config(p, nullptr, &attr);
-    err = cudaOccupancyMaxActiveClusters(&resident, (const void*)kernel, &cfg);
-  } else {
-    int per_sm = 0, sms = 0, dev = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, p.threads, p.smem);
-    if (err == cudaSuccess) err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    resident = per_sm * sms;
-  }
-  if (err != cudaSuccess) return (int)err;
-  const int values[8] = {p.blocks, p.threads, 1, G, kRing ? kStages : 2, p.tile_rows, resident, (int)p.smem};
-  for (int i = 0; i < 8; ++i) out[i] = values[i];
-  return 0;
-}
-
-// launch_shape's numbers for the tensor-core kernel (tile_rows: input rows a tile, of every output).
-template <int G>
-int launch_shape_mma(int B, int H, int K, int value_bins, int reward_bins, int* out) {
-  const Plan p = make_mma_plan<G>(B, H, K, value_bins, reward_bins);
-  auto kernel = whole_search_mma_kernel<G>;
-  int per_sm = 0, sms = 0, dev = 0;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, p.threads, p.smem);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  const int values[8] = {p.blocks, p.threads, 1, G, kMmaStages, p.tile_rows, per_sm * sms, (int)p.smem};
-  for (int i = 0; i < 8; ++i) out[i] = values[i];
-  return 0;
+  kernel<<<p.blocks, p.threads, p.smem, stream>>>(a, clk...);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -2208,18 +1980,23 @@ size_t whole_search_workspace_bytes(int B, int H, int K, int S, int P) {
 
 const char* whole_search_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-
-// How a launch of B searches at these widths runs: out[0..7] = blocks,
-// threads a block, blocks per cluster (1), searches per block (G), weight
-// stages in shared memory, rows of each input half per tile (the tensor-core
-// kernel: input rows of every output), blocks resident on the card at once,
-// dynamic shared memory bytes per block. Returns 0 or a CUDA error code.
+// How a launch of B searches at these widths runs: out[0..6] = blocks,
+// threads a block, searches per block (G), weight stages in shared memory,
+// rows of each input half per tile (the tensor-core kernel: input rows of
+// every output), blocks resident on the card at once, dynamic shared memory
+// bytes per block. Returns 0 or a CUDA error code.
 int whole_search_launch_shape(int B, int H, int K, int value_bins, int reward_bins, int* out) {
-#if WHOLE_SEARCH_BF16
-  return launch_shape_mma<kSearchesPerBlock>(B, H, K, value_bins, reward_bins, out);
-#else
-  return launch_shape<kSearchesPerBlock, Weight, kStreamed>(B, H, K, value_bins, reward_bins, out);
-#endif
+  const Plan p = make_plan(B, H, K, value_bins, reward_bins);
+  const auto kernel = library_kernel<>();
+  int per_sm = 0, sms = 0, dev = 0;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, p.threads, p.smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int values[7] = {p.blocks, p.threads, kSearchesPerBlock, p.stages, p.tile_rows, per_sm * sms, (int)p.smem};
+  for (int i = 0; i < 7; ++i) out[i] = values[i];
+  return 0;
 }
 
 // Returns cudaGetLastError() after the launch (0 = launched), or
@@ -2299,9 +2076,9 @@ int whole_search_launch(const float* root_h, const float* root_p, const float* r
   if (clocks != nullptr) {
     Clock clk{};
     clk.out = static_cast<unsigned long long*>(clocks);
-    return launch_library(a, static_cast<cudaStream_t>(stream), clk);
+    return launch(a, static_cast<cudaStream_t>(stream), clk);
   }
-  return launch_library(a, static_cast<cudaStream_t>(stream));
+  return launch(a, static_cast<cudaStream_t>(stream));
 }
 
 #if WHOLE_SEARCH_BF16

@@ -17,7 +17,8 @@ order and fragment order (:func:`mma_fragments`), which a
   package's layout, so the two packs compare element by element: bfloat16
   ``hh`` / ``win`` / ``wide`` / ``cat`` with ``weight_dtype=torch.bfloat16``,
   and ``hh`` in call order, zero-padded to a multiple of ``stream_chunk``,
-  for the streamed kernel.
+  for the streamed kernel. :func:`pack_for` packs a network for a search
+  config in :func:`search_plan`'s layout.
 - :func:`kernel_limits` says why the CUDA kernel refuses a search config
   and width, or nothing when it takes them; :func:`search_plan` picks the
   layout (resident up to H=256, streamed above), the wrapper's input check
@@ -32,8 +33,8 @@ order and fragment order (:func:`mma_fragments`), which a
   k-steps, the LayerNorms by m-tiles, :func:`epilogue_layer_norm`).
 - :func:`whole_search` is the wrapper: on CPU tensors it runs the plain
   version, on CUDA tensors it launches the kernel or raises. It counts its
-  launches in ``LAUNCHES``, each launch once, under the library that ran it
-  (``"whole_search_bf16"``, ``"whole_search_streamed"``,
+  launches in ``LAUNCHES``, each launch once, under its :func:`launch_key`:
+  the library that ran it (``"whole_search_bf16"``, ``"whole_search_streamed"``,
   ``"whole_search_bf16_streamed"``); the float32 resident library's
   launches count by head variant (``"whole_search"`` scalar heads,
   ``"whole_search_categorical"`` at least one categorical head). A
@@ -41,7 +42,7 @@ order and fragment order (:func:`mma_fragments`), which a
   evaluation. While spans record (``utils.tracing.is_recording``) it
   launches the kernel's clocked instantiation, which counts each computing
   warp's cycles by phase into the unit's ``CLOCK_COUNTERS``; otherwise the
-  unclocked one, the same machine code as before the clocks.
+  unclocked one, which has no clock reads.
 - :func:`run_search_kernel` is the drop-in for ``batched_run_mcts``: root
   h/f, priors, noise and legality masking in PyTorch, then one
   :func:`whole_search`.
@@ -385,6 +386,34 @@ def search_plan(cfg: SearchConfig, hidden: int, weight_dtype: torch.dtype = torc
     if refused is not None:
         raise ValueError(refused)
     return 0 if hidden <= RESIDENT_MAX_H else STREAM_CHUNK
+
+
+def pack_for(
+    network, cfg: SearchConfig, weight_dtype: torch.dtype = torch.float32, stream_chunk: int | None = None
+) -> PackedSearchParams:
+    """``network``'s weights packed for searches of ``cfg`` in
+    ``weight_dtype``: in :func:`search_plan`'s layout (which raises outside
+    the kernel's limits), or, given ``stream_chunk``, in that layout
+    instead (0: resident, > 0: streamed in chunks of that many layers)."""
+    chunk = search_plan(cfg, network.hidden_size, weight_dtype) if stream_chunk is None else stream_chunk
+    return pack_search_params(
+        network,
+        network.num_blocks,
+        max(cfg.num_actions, cfg.codebook_size),
+        weight_dtype,
+        chunk or None,
+        value_bins=cfg.value_bins,
+        reward_bins=cfg.reward_bins,
+    )
+
+
+def launch_key(library: str, cfg: SearchConfig) -> str:
+    """The ``LAUNCHES`` key of a launch of ``library`` for searches of
+    ``cfg``: the library, but the float32 resident one's launches with at
+    least one categorical head count as ``"whole_search_categorical"``."""
+    if library == "whole_search" and (cfg.value_bins > 1 or cfg.reward_bins > 1):
+        return "whole_search_categorical"
+    return library
 
 
 def _next_pow2(n: int) -> int:
@@ -748,9 +777,7 @@ def whole_search(
         raise RuntimeError(f"whole_search kernel launch failed: {lib.whole_search_error_string(err).decode()}")
     if clocks is not None:
         tracing.count("search.kernel.clocked_launches", 1)
-    if library == "whole_search" and (vb > 1 or rb > 1):
-        library = "whole_search_categorical"
-    LAUNCHES[library] += 1
+    LAUNCHES[launch_key(library, cfg)] += 1
     return visits, qvals, rootv
 
 
@@ -759,11 +786,10 @@ class LaunchShape(NamedTuple):
 
     blocks: int  # thread blocks: kernel_blocks(batch, library)
     threads: int  # threads a block: 2H (float32 resident: and a producer warp; tensor cores: warps and a producer)
-    cluster: int  # blocks per thread-block cluster: 1 (the float32 resident kernel launches clusters of one)
     searches_per_block: int
     stages: int  # weight tiles in shared memory
     tile_rows: int  # rows of each input half in a tile (tensor cores: input rows of every output)
-    resident: int  # blocks (clusters of one) the card keeps resident at once
+    resident: int  # blocks the card keeps resident at once
     smem_bytes: int  # dynamic shared memory per block
 
 
@@ -942,19 +968,12 @@ def run_search_kernel(
 ) -> PolicyOutput:
     """Batched search through :func:`whole_search` (drop-in for
     ``batched_run_mcts``). ``packed`` can be built once per weight version
-    with :func:`pack_search_params`, and ``workspace`` once per pack;
-    without it the float32 weights are packed in :func:`search_plan`'s layout.
+    with :func:`pack_for`, and ``workspace`` once per pack; without it the
+    float32 weights are packed in :func:`search_plan`'s layout.
     ``root_graph`` (of this network, config and batch shape) replays the
     root's h/f; without it the root runs eagerly."""
     if packed is None:
-        packed = pack_search_params(
-            network,
-            network.num_blocks,
-            max(config.num_actions, config.codebook_size),
-            stream_chunk=search_plan(config, network.hidden_size) or None,
-            value_bins=config.value_bins,
-            reward_bins=config.reward_bins,
-        )
+        packed = pack_for(network, config)
     tracing.count("search.root_calls", 1)
     with tracing.span("search.root"):
         if root_graph is not None:

@@ -120,10 +120,8 @@ def library(search_config: SearchConfig, hidden: int, weight_dtype: torch.dtype)
     refused = sk.kernel_limits(search_config, hidden, weight_dtype)
     if refused is not None:
         raise KernelRefused(refused)
-    name = sk.library_name(weight_dtype, sk.search_plan(search_config, hidden, weight_dtype) > 0)
-    if name == "whole_search" and (search_config.value_bins > 1 or search_config.reward_bins > 1):
-        return "whole_search_categorical"
-    return name
+    return sk.launch_key(sk.library_name(weight_dtype, sk.search_plan(search_config, hidden, weight_dtype) > 0),
+                         search_config)  # fmt: skip
 
 
 def search_fn(
@@ -140,24 +138,10 @@ def search_fn(
     (B, A), the same every call."""
     if not pallas:
         return lambda: batched_run_mcts(network, observations, search_config, noise=noise)
-    packed = pack(network, search_config, weight_dtype)
+    packed = sk.pack_for(network, search_config, weight_dtype)
     workspace = sk.SearchWorkspace(packed)
     return lambda: sk.run_search_kernel(network, observations, search_config, noise=noise, packed=packed,
                                         workspace=workspace)  # fmt: skip
-
-
-def pack(network, search_config: SearchConfig, weight_dtype: torch.dtype) -> sk.PackedSearchParams:
-    """The network's weights for the kernel, in ``search_plan``'s layout (raises outside the kernel's limits)."""
-    plan = sk.search_plan(search_config, network.hidden_size, weight_dtype)
-    return sk.pack_search_params(
-        network,
-        network.num_blocks,
-        max(search_config.num_actions, search_config.codebook_size),
-        weight_dtype,
-        plan or None,
-        value_bins=search_config.value_bins,
-        reward_bins=search_config.reward_bins,
-    )
 
 
 def sm_clock_mhz() -> float | None:
@@ -189,7 +173,7 @@ def kernel_phases(
     (the clocked launch's device time × the SM clock read after it), which
     reads about 1 when the phases cover the whole launch."""
     device = observations.device
-    packed = pack(network, search_config, weight_dtype)
+    packed = sk.pack_for(network, search_config, weight_dtype)
     workspace = sk.SearchWorkspace(packed)
     with torch.no_grad():
         roots = [t.contiguous() for t in root_inputs(network, observations, search_config, None, noise)]

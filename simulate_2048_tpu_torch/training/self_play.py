@@ -146,16 +146,7 @@ def _make_search(network, config: TrainConfig, cfg: SearchConfig, device: torch.
     weight_dtype = _search_weight_dtype(config)
     # The kernel's layout; on the CPU the plain version also runs shapes the kernel refuses, resident.
     fits = search_kernel.kernel_limits(cfg, config.hidden_size, weight_dtype) is None
-    chunk = search_kernel.search_plan(cfg, config.hidden_size, weight_dtype) if fits else 0
-    packed = search_kernel.pack_search_params(
-        network,
-        config.num_residual_blocks,
-        max(config.action_size, config.codebook_size),
-        weight_dtype,
-        chunk or None,
-        value_bins=config.value_bins,
-        reward_bins=config.reward_bins,
-    )
+    packed = search_kernel.pack_for(network, cfg, weight_dtype, None if fits else 0)
     workspace = search_kernel.SearchWorkspace(packed)
     roots = search_kernel.RootGraphs(network, cfg, device) if device.type == "cuda" else None
 

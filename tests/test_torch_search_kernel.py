@@ -27,6 +27,7 @@ from simulate_2048_tpu.ops import pallas_search as jps
 from simulate_2048_tpu.search.mcts import SearchConfig as JaxSearchConfig
 from simulate_2048_tpu.search.mcts import batched_run_mcts as jax_batched_run_mcts
 from simulate_2048_tpu_torch.convert import params_from_flax
+from simulate_2048_tpu_torch.models.network import MuZeroNetwork
 from simulate_2048_tpu_torch.ops import search_kernel as sk
 from simulate_2048_tpu_torch.search.mcts import SearchConfig, batched_run_mcts
 from simulate_2048_tpu_torch.training.config import TrainConfig
@@ -195,3 +196,66 @@ def test_wrapper_checks_scope(nets):
     obs, _ = make_inputs(4, seed=0)
     with pytest.raises(NotImplementedError, match="widening"):
         sk.run_search_kernel(tnet, torch.from_numpy(obs), SearchConfig(**{**CFG, "pw_c": 1.0}))
+
+
+# ---- the pack rule and the launch key that every caller of the kernel shares
+
+
+def random_network(hidden: int, codebook: int = 32, value_bins: int = 1, reward_bins: int = 1) -> MuZeroNetwork:
+    """A one-block network of normal weights (seeded), so that every packed tensor is distinct."""
+    net = MuZeroNetwork(codebook_size=codebook, hidden_size=hidden, num_blocks=1, value_bins=value_bins,
+                        reward_bins=reward_bins)  # fmt: skip
+    gen = torch.Generator().manual_seed(hidden)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen))
+    return net
+
+
+@pytest.mark.parametrize(
+    "hidden, dtype, chunk",
+    [(32, torch.float32, 0), (32, torch.bfloat16, 0), (256, torch.bfloat16, 0), (288, torch.float32, sk.STREAM_CHUNK),
+     (288, torch.bfloat16, sk.STREAM_CHUNK)],
+)  # fmt: skip
+def test_pack_for_takes_search_plans_layout(hidden, dtype, chunk):
+    """Resident up to H=256 and streamed in chunks of STREAM_CHUNK layers above, in either weight type, with the
+    search config's heads: the pack pack_search_params makes for search_plan's chunk."""
+    cfg = SearchConfig(num_simulations=4, value_bins=16, reward_bins=8)
+    net = random_network(hidden, value_bins=16, reward_bins=8)
+    assert sk.search_plan(cfg, hidden, dtype) == chunk
+    got = sk.pack_for(net, cfg, dtype)
+    want = sk.pack_search_params(net, 1, 32, dtype, chunk or None, value_bins=16, reward_bins=8)
+    assert (got.num_blocks, got.stream_chunk, got.hh.dtype, got.cat.shape[1]) == (1, chunk, dtype, 2 * 16 + 8)
+    assert got.hh.shape[0] == len(sk.call_order(1)) + (-len(sk.call_order(1)) % chunk if chunk else 0)
+    for name, g, w in zip(sk.PackedSearchParams._fields, got.tensors, want.tensors):
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("chunk", [0, 3])
+def test_pack_for_takes_a_given_layout(chunk):
+    """A given chunk replaces the plan's, where the kernel refuses the shape too (K = 64 child slots, which the
+    plain version on the CPU takes): 0 packs resident, 3 streams in chunks of 3 layers."""
+    cfg = SearchConfig(num_simulations=4, codebook_size=64)
+    net = random_network(32, codebook=64)
+    with pytest.raises(ValueError, match="K <= 32"):
+        sk.pack_for(net, cfg)
+    got = sk.pack_for(net, cfg, stream_chunk=chunk)
+    want = sk.pack_search_params(net, 1, 64, stream_chunk=chunk or None)
+    assert got.stream_chunk == chunk and got.hh.shape[0] == (16 if chunk == 0 else 18)
+    for name, g, w in zip(sk.PackedSearchParams._fields, got.tensors, want.tensors):
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize(
+    "library, bins, key",
+    [("whole_search", (1, 1), "whole_search"), ("whole_search", (16, 8), "whole_search_categorical"),
+     ("whole_search", (16, 1), "whole_search_categorical"), ("whole_search", (1, 8), "whole_search_categorical"),
+     ("whole_search_bf16", (16, 8), "whole_search_bf16"), ("whole_search_streamed", (16, 8), "whole_search_streamed"),
+     ("whole_search_bf16_streamed", (1, 1), "whole_search_bf16_streamed")],
+)  # fmt: skip
+def test_launch_key(library, bins, key):
+    """The float32 resident library's launches count by heads (at least one categorical head: its own key), every
+    other library's under its name."""
+    cfg = SearchConfig(num_simulations=4, value_bins=bins[0], reward_bins=bins[1])
+    assert sk.launch_key(library, cfg) == key
+    assert key in sk.LAUNCHES
